@@ -1,0 +1,110 @@
+"""The port stands alone: ``src/repro_torch`` imports no JAX, no
+``ml_dtypes`` and nothing of the JAX package ``repro`` (the GPU machine has
+none of them), and an entry point asked for CUDA runs on CUDA or raises,
+never quietly on the CPU.  ``chip_smoke.py`` refuses to run without a GPU
+or outside a checkout."""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PKG.rglob("*.py"))
+
+
+def test_no_forbidden_import_in_the_port_sources():
+    found = []
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{path.relative_to(ROOT)}: {n}" for n in names
+                      if _forbidden(n)]
+    assert not found, found
+
+
+def test_importing_the_port_loads_no_jax_or_reference():
+    code = ("import importlib, sys\n"
+            f"for m in {_port_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            f"bad = sorted(m for m in sys.modules if any(m == f or "
+            f"m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
+            "assert not bad, bad\n"
+            "assert 'repro_torch.launch.serve' in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_cuda_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CUDA path runs for real")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+    cfg = get_config("qwen2-1.5b").smoke()
+    with pytest.raises((RuntimeError, AssertionError)):
+        ServingEngine(cfg, ecfg=EngineConfig(max_len=64))       # device="cuda"
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises((RuntimeError, AssertionError)):
+        ServingEngine(cfg, params=params, ecfg=EngineConfig(max_len=64),
+                      device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        main(["--requests", "1"])                                # --device cuda
+
+
+def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
+    from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
+    m = lambda *s, dt=torch.float32: torch.empty(s, device="meta", dtype=dt)
+    before = (rmsnorm.launches, decode_attention.launches,
+              flash_attention.launches)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        rmsnorm.rmsnorm(m(2, 64), m(64))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        decode_attention.decode_attention(
+            m(2, 1, 4, 64), m(2, 16, 2, 64), m(2, 16, 2, 64),
+            m(2, 16, dt=torch.int32), m(2, dt=torch.int32))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        flash_attention.flash_attention(m(1, 16, 4, 64), m(1, 16, 2, 64),
+                                        m(1, 16, 2, 64))
+    x = torch.randn(3, 64)
+    rmsnorm.rmsnorm(x, torch.ones(64))                      # plain, not counted
+    assert (rmsnorm.launches, decode_attention.launches,
+            flash_attention.launches) == before
+
+
+def test_chip_smoke_refuses_without_gpu_or_checkout(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and '"ok": true' not in r.stdout
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and '"ok": true' not in r.stdout

@@ -3,34 +3,51 @@
 
     python3 chip_smoke.py                       # every phase, one GPU
     python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,kernels,serve_paged
 
 Phases (each raises on failure; nothing is caught):
 
 1. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   with nvcc (sm_90a) into ``build/kernels`` and print the build time and
-   ptxas's register / shared-memory report.
+   with nvcc (sm_90a), one process per source, into ``build/kernels`` and
+   print the build time and ptxas's register / shared-memory report.
 2. kernels: hold each kernel against its plain PyTorch version on the card,
-   at the serve path's shapes, in bfloat16 (atol/rtol 2e-2, and at most one
+   at the serve paths' shapes, in bfloat16 (atol/rtol 2e-2, and at most one
    bf16 rounding apart: atol 1e-3 + rtol 1e-2) and float32 (2e-5 for
    rmsnorm, 1e-4 for attention).  TF32 is off so that the float32
    plain versions compute in float32 (TF32 keeps ~3 significant digits).
+   paged_decode_attention must also equal decode_attention bit for bit on
+   the same context laid out densely, and the chunk route of
+   decode_attention (256 queries at position 512) is held against its
+   plain version and, in float32, the plain chunk attention.
    Times (CUDA events, median of 21 samples of 20 launches each, after a
    warm-up, inputs rotated through > 100 MB so L2 is cold as in the model)
    for the kernel, its plain version and one PyTorch call computing the
-   same function (``library_ms``, a yardstick the port never calls), and
-   the bound: max(bytes / 3.35 TB/s, FLOP / 989 TFLOP/s) for bf16 inputs.
+   same function (``library_ms``, a yardstick the port never calls; none
+   attends through a page table, so the paged kernel has none, and the
+   dense kernel's time on the same context stands beside it), and the
+   bound: max(bytes / 3.35 TB/s, FLOP / 989 TFLOP/s) for bf16 inputs.
 3. equivalence: a 4-layer, full-width qwen2-1.5b in float32 runs one
    300-token prompt and 16 greedy decode steps on the card (kernels) and on
    the CPU (plain versions) from the same params: first-token logits
-   allclose at 1e-3, the 16 tokens equal.
+   allclose at 1e-3, the 16 tokens equal.  Then the same model serves 5
+   requests through a paged engine with the prefix cache and a 15-page
+   pool (prefix hits, a preemption, the chunk route) on both: the same
+   tokens.
 4. serve: full-width, full-depth qwen2-1.5b in bfloat16 with seeded random
    weights serves 8 greedy requests (prompts of 100-1000 tokens, 64-128 new
    tokens) through ``serving.api.Server`` and the slot-native engine
-   (max_batch 8, max_len 2048, governor greenllm).  The kernels' launch
-   counts are set to 0 just before and read just after; each must grow.
-5. profile (opt-in, not in the default run): the serve burst again under
-   ``torch.profiler`` after a warm-up burst, printing the device's busy
-   share of the wall time and the kernel time by name.
+   (max_batch 8, max_len 2048, governor greenllm).
+5. serve_paged: the same model on the paged engine with the prefix cache
+   and a 219-page pool serves two waves of 8 greedy requests sharing a
+   256-token system prompt; it must preempt, hit the cache and take the
+   chunk route.  In this phase and the last one, the kernels' launch
+   counts are set to 0 just before and read just after; each kernel of
+   the path must have launched.
+6. paged_vs_dense: phase 4's burst through a dense and a paged engine on
+   the same weights gives identical tokens.
+7. profile (opt-in, not in the default run): the serve and serve_paged
+   bursts again under ``torch.profiler`` after a warm-up run, printing the
+   device's busy share of the wall time and the kernel time by name.
 
 The line before the last is one JSON object with a ``kernels`` list; the
 last line is {"ok": true, "device": {...}}.  Details go to
@@ -56,7 +73,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense tensor-core bf16
 L2_FLUSH_BYTES = 100 * 2 ** 20   # > the 50 MB L2
 BF16_ROUNDING = (1e-3, 1e-2)     # atol, rtol: one bf16 rounding apart
-PHASES = ("build", "kernels", "equivalence", "serve")
+PHASES = ("build", "kernels", "equivalence", "serve", "serve_paged",
+          "paged_vs_dense")
+SERVE_PATHS = ("serve", "serve_paged")   # the paths whose launches count
 
 
 def log(*a):
@@ -335,6 +354,128 @@ def _geometry_cases(res):
     log("[kernels] geometry checks passed")
 
 
+def _paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo=None, cover=None):
+    """q (B,1,Hq,hd), pools (P,ps,KH,hd) with P = B*n + 1 (page 0 scratch),
+    a (B,n) page table of distinct shuffled pages with scratch tails, and
+    q_pos inside each chain (``cover`` pages of row b, all n by default)."""
+    import torch
+    P = B * n + 1
+    q = torch.randn(B, 1, Hq, hd, generator=g, device="cuda").to(dt)
+    kp = torch.randn(P, ps, KH, hd, generator=g, device="cuda").to(dt)
+    vp = torch.randn(P, ps, KH, hd, generator=g, device="cuda").to(dt)
+    perm = torch.randperm(P - 1, generator=g, device="cuda")[:B * n] + 1
+    pt = perm.reshape(B, n).to(torch.int32)
+    cov = cover if cover is not None else [n] * B
+    for b in range(B):
+        pt[b, cov[b]:] = 0
+    lo = [0 if pos_lo is None else min(pos_lo, c * ps - 1) for c in cov]
+    qp = torch.tensor([int(torch.randint(lo[b], cov[b] * ps, (1,),
+                                         generator=g, device="cuda"))
+                       for b in range(B)], dtype=torch.int32, device="cuda")
+    return q, kp, vp, pt, qp
+
+
+def _paged_cases(res):
+    """paged_decode_attention against its plain version (the reference's
+    cases and the serving shape), bitwise against decode_attention on the
+    same context laid out densely, and the chunk route of decode_attention
+    against its plain version; the serving shape timed beside the dense
+    kernel on the same context."""
+    import torch
+    from repro_torch.kernels import decode_attention as D
+    from repro_torch.kernels import paged_decode_attention as K
+    from repro_torch.models.attention import attention
+    g = torch.Generator(device="cuda").manual_seed(4)
+    main = None
+    # (B, Hq, KH, ps, n_pages, hd, window, pos_lo, partial chains)
+    cases = [(2, 8, 2, 16, 8, 64, 0, None, True),
+             (3, 4, 4, 8, 6, 128, 0, None, True),
+             (1, 16, 4, 16, 4, 64, 24, None, True),
+             (8, 12, 2, 16, 12, 128, 0, 100, False),      # short context
+             (8, 12, 2, 16, 128, 128, 0, 1024, False)]    # serving shape
+    for B, Hq, KH, ps, n, hd, window, pos_lo, partial in cases:
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            cover = None
+            if partial:
+                cover = [int(torch.randint(1, n + 1, (1,), generator=g,
+                                           device="cuda")) for _ in range(B)]
+            q, kp, vp, pt, qp = _paged_inputs(g, B, Hq, KH, hd, ps, n, dt,
+                                              pos_lo, cover)
+            out = K.paged_decode_attention(q, kp, vp, pt, qp, window=window)
+            name = f"paged B={B} {Hq}:{KH} hd={hd} ps={ps} n={n} w={window} {dt}"
+            err, share = check_close(
+                name, out, K.paged_decode_attention_plain(
+                    q, kp, vp, pt, qp, window=window), tol)
+            # the same context laid out densely: bitwise equal
+            Sk = n * ps
+            kd = kp[pt.long()].reshape(B, Sk, KH, hd)
+            vd = vp[pt.long()].reshape(B, Sk, KH, hd)
+            kpos = torch.arange(Sk, device="cuda", dtype=torch.int32)[None]
+            dense = D.decode_attention(q, kd, vd, kpos.repeat(B, 1), qp,
+                                       window=window)
+            if not torch.equal(out, dense):
+                raise AssertionError(f"{name}: paged and dense kernels differ "
+                                     f"by {max_err(out, dense):.3g} on the "
+                                     "same context (must be bitwise equal)")
+            case = {"shape": [B, Sk, KH, Hq, hd], "page_size": ps,
+                    "window": window, "dtype": str(dt), "max_abs_err": err,
+                    "bf16_share": share, "bitwise_equal_dense": True}
+            if dt == torch.bfloat16 and n == 128:
+                nv = int((qp + 1).clamp(max=Sk).sum())
+                nbytes = (nv * 2 * KH * hd * 2 + B * n * 4 + B * 4
+                          + 2 * B * Hq * hd * 2)
+                flops = 4 * nv * Hq * hd
+                sets = [_paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo)
+                        for _ in range(n_sets(nbytes))]
+                sets = [(q_, kp_, vp_, pt_, qp) for q_, kp_, vp_, pt_, _ in sets]
+                case["ms"] = time_ms(K.paged_decode_attention, sets)
+                case["plain_ms"] = time_ms(K.paged_decode_attention_plain, sets)
+                dense_sets = [(q_, kp_[pt_.long()].reshape(B, Sk, KH, hd),
+                               vp_[pt_.long()].reshape(B, Sk, KH, hd),
+                               kpos.repeat(B, 1), qp_)
+                              for q_, kp_, vp_, pt_, qp_ in sets]
+                case["dense_kernel_ms"] = time_ms(D.decode_attention,
+                                                  dense_sets)
+                # no single PyTorch call attends through a page table
+                case["library_ms"] = None
+                case["bound_ms"], case["bound_by"] = bound(nbytes, flops)
+                main = case
+            res["cases"].append({"kernel": "paged_decode_attention", **case})
+            log(f"[kernels] paged_decode_attention {case}")
+    # the chunk route: 256 queries at positions 512.. against the gathered
+    # chain (1024 keys, positions >= 512 masked) and the raw chunk
+    S, start, n_ctx, KH, Hq, hd = 256, 512, 64, 2, 12, 128
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        q = torch.randn(1, S, Hq, hd, generator=g, device="cuda").to(dt)
+        k = torch.randn(1, n_ctx * 16 + S, KH, hd, generator=g,
+                        device="cuda").to(dt)
+        v = torch.randn(1, n_ctx * 16 + S, KH, hd, generator=g,
+                        device="cuda").to(dt)
+        j = torch.arange(n_ctx * 16, device="cuda", dtype=torch.int32)
+        qpos = start + torch.arange(S, device="cuda", dtype=torch.int32)[None]
+        length = 200            # the chunk's last 56 queries are pads
+        cur = torch.where(torch.arange(S, device="cuda")[None] < length,
+                          qpos, -1)
+        kpos = torch.cat([torch.where(j < start, j, -1)[None], cur], 1)
+        kpos = kpos.to(torch.int32)
+        out = D.chunk_attention(q, k, v, kpos, qpos)
+        name = f"chunk route S={S} start={start} {dt}"
+        err, share = check_close(name, out, D.chunk_attention_plain(
+            q, k, v, kpos, qpos), tol)
+        if dt == torch.float32:
+            err_ref = max_err(out, attention(q, k, v, qpos, kpos))
+            if err_ref > tol:
+                raise AssertionError(f"{name}: differs from the reference's "
+                                     f"chunk attention by {err_ref:.3g}")
+        res["cases"].append({"kernel": "decode_attention", "route": "chunk",
+                             "shape": [S, n_ctx * 16 + S, KH, Hq, hd],
+                             "dtype": str(dt), "max_abs_err": err,
+                             "bf16_share": share})
+        log(f"[kernels] decode_attention chunk route {dt}: max |err| {err:.3g}"
+            f" bf16 share {share}")
+    return main
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -343,6 +484,9 @@ KERNELS = {
                          "src/repro/kernels/decode_attention.py:68"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:91"),
+    "paged_decode_attention": (
+        "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/paged_decode_attention.py:86"),
 }
 
 
@@ -350,7 +494,8 @@ def phase_kernels(res):
     res["cases"] = []
     res["main_case"] = {"rmsnorm": _rmsnorm_cases(res),
                         "decode_attention": _decode_cases(res),
-                        "flash_attention": _flash_cases(res)}
+                        "flash_attention": _flash_cases(res),
+                        "paged_decode_attention": _paged_cases(res)}
     _geometry_cases(res)
 
 
@@ -401,6 +546,50 @@ def phase_equivalence(res):
     if gpu_toks != cpu_toks:
         raise AssertionError("greedy tokens differ between CUDA and CPU")
     res["equivalence"] = {"logits_max_abs_err": err, "tokens": gpu_toks}
+    cpu = _paged_engine_run(params, cfg, "cpu")
+    _reset_counts()
+    gpu = _paged_engine_run(_to(params, "cuda"), cfg, "cuda")
+    counts = _launch_counts()
+    log(f"[equivalence] paged engine, 4-layer f32: preempted "
+        f"{gpu['preempted']}, prefix hits {gpu['hits']}, chunks "
+        f"{counts['decode_attention/chunk']} (chunk-route launches); "
+        f"tokens equal: {gpu['tokens'] == cpu['tokens']}")
+    if gpu["tokens"] != cpu["tokens"]:
+        raise AssertionError("paged engine: greedy tokens differ between "
+                             "CUDA and CPU")
+    if not (gpu["preempted"] and gpu["hits"]
+            and counts["decode_attention/chunk"]
+            and counts["paged_decode_attention"]):
+        raise AssertionError(f"paged equivalence run missed a route: {gpu} "
+                             f"{counts}")
+    res["equivalence"]["paged"] = {**gpu, "launches": counts}
+
+
+def _paged_engine_run(params, cfg, device):
+    """5 greedy requests sharing a 48-token head through a paged engine with
+    the prefix cache and a 15-page pool: prefix hits and recompute after
+    preemption take the chunk route."""
+    import numpy as np
+    from repro_torch.core import SamplingParams
+    from repro_torch.serving import EngineConfig, Server, ServingEngine
+    eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
+        max_batch=4, max_len=256, paged=True, page_size=16, num_pages=16,
+        prefix_cache=True, cache_dtype="float32", governor="defaultnv"),
+        device=device)
+    server = Server(eng)
+    rng = np.random.default_rng(1)
+    head = rng.integers(0, cfg.vocab_size, size=48)
+    hs = [server.submit(np.concatenate(
+        [head, rng.integers(0, cfg.vocab_size, size=n)]),
+        SamplingParams(max_tokens=m))
+        for n, m in ((20, 24), (35, 30), (10, 20), (50, 26), (28, 22))]
+    rep = server.run()
+    if rep.completed != len(hs):
+        raise AssertionError(f"paged run on {device}: {rep.completed}/"
+                             f"{len(hs)} completed")
+    return {"tokens": [list(h.request.tokens) for h in hs],
+            "preempted": eng._preempted,
+            "hits": eng.prefix_cache.stats()["hits"]}
 
 
 # -- phase 4: serve ------------------------------------------------------------------------
@@ -428,20 +617,20 @@ def _burst(server, vocab):
     return lens, handles, server.run()
 
 
-def phase_profile(res):
-    """Opt-in (``--phases ...,profile``): the serve burst once more under
-    ``torch.profiler`` (CUDA activity only), after a warm-up burst: the
-    device's busy share of the wall time and its kernel time by name."""
+def _profiled(path, make_engine, burst):
+    """``burst`` once to warm up, then once more under ``torch.profiler``
+    (CUDA activity only): the device's busy share of the wall time and its
+    kernel time by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.api import Server
-    cfg, eng = _serve_engine()
+    cfg, eng = make_engine()
     server = Server(eng)
-    _burst(server, cfg.vocab_size)
+    burst(server, cfg.vocab_size)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _burst(server, cfg.vocab_size)
+        burst(server, cfg.vocab_size)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -453,56 +642,195 @@ def phase_profile(res):
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    log(f"[profile] wall {wall:.3f}s, device busy {busy:.3f}s = "
+    log(f"[profile] {path}: wall {wall:.3f}s, device busy {busy:.3f}s = "
         f"{100 * busy / wall:.1f}% (idle {100 * (1 - busy / wall):.1f}%)")
     for name, us in top:
         log(f"[profile]   {us / 1e3:9.1f} ms  {100 * us / 1e6 / wall:5.1f}%  "
             f"{name[:90]}")
-    res["profile"] = {"wall_s": wall, "device_busy_s": busy,
-                      "top_ms": {n: us / 1e3 for n, us in top}}
+    return {"wall_s": wall, "device_busy_s": busy,
+            "top_ms": {n: us / 1e3 for n, us in top}}
+
+
+def phase_profile(res):
+    """Opt-in (``--phases ...,profile``): the serve and serve_paged bursts
+    under ``torch.profiler``, each after a warm-up run of itself (the paged
+    one then starts with a warm prefix cache)."""
+    res["profile"] = {
+        "serve": _profiled("serve", _serve_engine, _burst),
+        "serve_paged": _profiled("serve_paged", _paged_serve_engine,
+                                 _paged_waves)}
+
+
+def _counters():
+    """(module, attribute) of every kernel launch count, by route name."""
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     paged_decode_attention, rmsnorm)
+    return {"rmsnorm": (rmsnorm, "launches"),
+            "decode_attention": (decode_attention, "launches"),
+            "decode_attention/chunk": (decode_attention, "chunk_launches"),
+            "flash_attention": (flash_attention, "launches"),
+            "paged_decode_attention": (paged_decode_attention, "launches")}
+
+
+def _reset_counts():
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def _launch_counts():
+    return {n: getattr(mod, attr) for n, (mod, attr) in _counters().items()}
+
+
+def _check_launched(path, counts, names):
+    for n in names:
+        if counts[n] <= 0:
+            raise AssertionError(f"kernel {n} was not launched by the "
+                                 f"{path} path")
+
+
+def _check_outputs(handles, vocab):
+    import numpy as np
+    for h in handles:
+        toks = np.asarray(h.request.tokens)
+        if h.request.state.name != "FINISHED" \
+                or len(toks) != h.request.output_len or toks.min() < 0 \
+                or toks.max() >= vocab:
+            raise AssertionError(f"request {h.rid}: {h.request.state.name}, "
+                                 f"bad output {toks}")
 
 
 def phase_serve(res):
-    import numpy as np
     import torch
-    from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
     from repro_torch.serving.api import Server
-    mods = {"rmsnorm": rmsnorm, "decode_attention": decode_attention,
-            "flash_attention": flash_attention}
     t0 = time.perf_counter()
     cfg, eng = _serve_engine()
     torch.cuda.synchronize()
     log(f"[serve] engine with random bf16 weights built in "
         f"{time.perf_counter() - t0:.1f}s")
     server = Server(eng)
-    for m in mods.values():
-        m.launches = 0
+    _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lens, handles, rep = _burst(server, cfg.vocab_size)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {n: m.launches for n, m in mods.items()}
+    counts = _launch_counts()
     out_toks = sum(len(h.request.tokens) for h in handles)
     log(rep.summary())
     log(f"[serve] {len(handles)} requests, prompts {sorted(lens.tolist())}, "
         f"{out_toks} tokens out in {wall:.2f}s wall = {out_toks / wall:.1f} "
         f"tokens/s; host drains {eng._host_drains}; launches {counts}")
-    if rep.completed != len(handles) or not all(
-            h.request.state.name == "FINISHED" for h in handles):
+    if rep.completed != len(handles):
         raise AssertionError(f"only {rep.completed}/{len(handles)} completed")
-    for h in handles:
-        toks = np.asarray(h.request.tokens)
-        if len(toks) != h.request.output_len or toks.min() < 0 \
-                or toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"request {h.rid}: bad output {toks}")
-    for n, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"kernel {n} was not launched by the serve path")
+    _check_outputs(handles, cfg.vocab_size)
+    _check_launched("serve", counts,
+                    ("rmsnorm", "decode_attention", "flash_attention"))
     res["serve"] = {"wall_s": wall, "tokens_out": out_toks,
                     "tokens_per_s": out_toks / wall, "launches": counts,
                     "completed": rep.completed, "energy_j": rep.total_energy_j,
                     "host_drains": eng._host_drains}
+
+
+def _paged_serve_engine():
+    """Full-width, full-depth qwen2-1.5b in bf16 on the paged engine with
+    the prefix cache and a 219-page pool (3504 tokens, against 16384 for
+    the dense cache)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import EngineConfig, ServingEngine
+    cfg = get_config("qwen2-1.5b")
+    return cfg, ServingEngine(cfg, ecfg=EngineConfig(
+        max_batch=8, max_len=2048, paged=True, page_size=16, num_pages=220,
+        prefix_cache=True, governor="greenllm"), seed=0, device="cuda")
+
+
+def _paged_waves(server, vocab):
+    """Two waves of 8 greedy requests served to completion, each prompt a
+    shared 256-token system prompt (16 pages) and a 100-700-token tail,
+    64-128 new tokens.  Prefix hits and recompute after preemption run the
+    chunk route."""
+    import numpy as np
+    from repro_torch.core import SamplingParams
+    rng = np.random.default_rng(2)
+    sys_prompt = rng.integers(0, vocab, size=256)
+    handles = []
+    for _ in range(2):
+        tails = np.linspace(100, 700, 8).astype(int)
+        rng.shuffle(tails)
+        handles += [server.submit(
+            np.concatenate([sys_prompt, rng.integers(0, vocab, size=int(n))]),
+            SamplingParams(max_tokens=int(rng.integers(64, 129))))
+            for n in tails]
+        rep = server.run()
+    return handles, rep
+
+
+def phase_serve_paged(res):
+    import torch
+    from repro_torch.serving import Server
+    cfg, eng = _paged_serve_engine()
+    server = Server(eng)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles, rep = _paged_waves(server, cfg.vocab_size)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    pc = eng.prefix_cache.stats()
+    out_toks = sum(len(h.request.tokens) for h in handles)
+    log(rep.summary())
+    log(f"[serve_paged] {len(handles)} requests in two waves, {out_toks} "
+        f"tokens out in {wall:.2f}s wall = {out_toks / wall:.1f} tokens/s; "
+        f"host drains {eng._host_drains}; preempted {eng._preempted}; "
+        f"prefix cache {pc}; peak pages {eng.pager.peak_used}/"
+        f"{eng.pager.num_pages - 1}; launches {counts}")
+    if rep.completed != len(handles):
+        raise AssertionError(f"only {rep.completed}/{len(handles)} completed")
+    _check_outputs(handles, cfg.vocab_size)
+    if not (pc["hits"] >= 1 and eng._preempted >= 1):
+        raise AssertionError(f"no prefix hit or no preemption: {pc}, "
+                             f"preempted {eng._preempted}")
+    _check_launched("serve_paged", counts,
+                    ("rmsnorm", "paged_decode_attention", "flash_attention",
+                     "decode_attention/chunk"))
+    if counts["decode_attention"]:
+        raise AssertionError("the paged path ran the dense decode kernel")
+    res["serve_paged"] = {
+        "wall_s": wall, "tokens_out": out_toks,
+        "tokens_per_s": out_toks / wall, "launches": counts,
+        "completed": rep.completed, "energy_j": rep.total_energy_j,
+        "host_drains": eng._host_drains, "preempted": eng._preempted,
+        "prefix_cache": pc, "peak_pages": eng.pager.peak_used}
+
+
+def phase_paged_vs_dense(res):
+    """The serve phase's burst through a dense and a paged engine (no
+    prefix cache, a pool that never preempts) on the same weights: the
+    tokens must be identical."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, Server, ServingEngine
+    cfg = get_config("qwen2-1.5b")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    toks = {}
+    for paged in (False, True):
+        eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
+            max_batch=8, max_len=2048, paged=paged), device="cuda")
+        _, handles, rep = _burst(Server(eng), cfg.vocab_size)
+        _check_outputs(handles, cfg.vocab_size)
+        toks[paged] = [list(h.request.tokens) for h in handles]
+        del eng
+    same = toks[True] == toks[False]
+    log(f"[paged_vs_dense] {sum(map(len, toks[True]))} tokens; identical: "
+        f"{same}")
+    if not same:
+        diff = [i for i, (a, b) in enumerate(zip(toks[True], toks[False]))
+                if a != b]
+        raise AssertionError(f"paged and dense engines differ on requests "
+                             f"{diff}")
+    res["paged_vs_dense"] = {"identical": True,
+                             "tokens": sum(map(len, toks[True]))}
 
 
 # -- main ---------------------------------------------------------------------------------
@@ -543,7 +871,8 @@ def main(argv=None):
     res = {"card": card}
     fns = {"build": phase_build, "kernels": phase_kernels,
            "equivalence": phase_equivalence, "serve": phase_serve,
-           "profile": phase_profile}
+           "serve_paged": phase_serve_paged,
+           "paged_vs_dense": phase_paged_vs_dense, "profile": phase_profile}
     for p in phases:
         t0 = time.perf_counter()
         fns[p](res)
@@ -551,20 +880,25 @@ def main(argv=None):
 
     kernels = []
     main_case = res.get("main_case", {})
-    launches = res.get("serve", {}).get("launches", {})
+    by_path = {p: res[p]["launches"] for p in SERVE_PATHS if p in res}
     for name, (source, replaces) in KERNELS.items():
+        routes = [r for r in _counters() if r.split("/")[0] == name]
+        counts = {p: {r: c[r] for r in routes} for p, c in by_path.items()}
         c = main_case.get(name) or {}
         cases = [x for x in res.get("cases", []) if x["kernel"] == name]
         errs = [x["max_abs_err"] for x in cases]
         shares = [x["bf16_share"] for x in cases if x["bf16_share"] is not None]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches.get(name),
+            "replaces": replaces,
+            "launches": sum(sum(c.values()) for c in counts.values())
+            if counts else None, "launches_by_path": counts,
             "max_abs_err": max(errs) if errs else None,
             "bf16_share": max(shares) if shares else None,
             "ms": c.get("ms"), "plain_ms": c.get("plain_ms"),
             "bound_ms": c.get("bound_ms"), "bound_by": c.get("bound_by"),
-            "library_ms": c.get("library_ms"), "shape": c.get("shape")})
+            "library_ms": c.get("library_ms"), "shape": c.get("shape"),
+            "dense_kernel_ms": c.get("dense_kernel_ms")})
     out_dir = ROOT / args.out
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

@@ -2,7 +2,9 @@
 kernel wrapper and the version each kernel is held against on the card.
 
 Counterparts of ``src/repro/kernels/ref.py`` (attention, in the Pallas
-layout (B, H, S, hd)) and ``src/repro/models/layers.py::rmsnorm``.
+layout (B, H, S, hd)), of
+``src/repro/kernels/paged_decode_attention.py::paged_decode_attention_ref``
+and of ``src/repro/models/layers.py::rmsnorm``.
 """
 from __future__ import annotations
 
@@ -55,6 +57,34 @@ def reference_decode_attention(q, k, v, k_pos, q_pos, *, window=0,
     p = torch.softmax(s, dim=-1)
     p = torch.where(valid.any(-1)[:, None, None], p, 0.0)
     return torch.einsum("bhk,bhkd->bhd", p, v.float()).to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, page_table, q_pos, *,
+                               window=0, scale=None):
+    """q (B,Hq,hd); k_pool/v_pool (P,ps,KH,hd); page_table (B,n_pages) int32
+    physical page ids; q_pos (B,) int32 -> (B,Hq,hd).  Gathers each chain
+    dense; key j has position j (pages are linear), valid when <= q_pos and
+    inside the window, so scratch-page tails are masked by position alone.
+    A row with no valid key gives zeros."""
+    B, Hq, hd = q.shape
+    ps, KH = k_pool.shape[1], k_pool.shape[2]
+    n = page_table.shape[1]
+    scale = hd ** -0.5 if scale is None else scale
+    k = k_pool[page_table.long()].reshape(B, n * ps, KH, hd).float()
+    v = v_pool[page_table.long()].reshape(B, n * ps, KH, hd).float()
+    if Hq != KH:
+        rep = Hq // KH
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    kpos = torch.arange(n * ps, device=q.device)
+    valid = kpos[None, :] <= q_pos[:, None]
+    if window:
+        valid &= kpos[None, :] > (q_pos[:, None] - window)
+    s = torch.einsum("bhd,bshd->bhs", q.float(), k) * scale
+    s = torch.where(valid[:, None, :], s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(valid.any(-1)[:, None, None], p, 0.0)
+    return torch.einsum("bhs,bshd->bhd", p, v).to(q.dtype)
 
 
 def rmsnorm_ref(x, w, eps=1e-6):

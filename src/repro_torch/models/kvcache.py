@@ -1,6 +1,6 @@
-"""Decode-time state, dense subset: full and ring-buffer KV caches (port of
-``src/repro/models/kvcache.py``; paged pools, int8 caches and recurrent
-states come with later slices).
+"""Decode-time state: full and ring-buffer KV caches and paged K/V pools
+(port of ``src/repro/models/kvcache.py``; int8 caches and recurrent states
+come with later slices).
 
 A dense cache leaf is (B, buf_len, KH, hd).  Ring buffers store entries at
 ``slot = position % buf_len`` and reconstruct absolute positions
@@ -100,3 +100,107 @@ def cache_key_positions(cache: Dict, pos, batch: int):
     if p.ndim == 2:
         return p
     return p[None, :].expand(batch, buf_len)
+
+
+# -- paged pools ---------------------------------------------------------------------
+# Full-length attention buffers as a shared pool of fixed-size pages
+# (P, ps, KH, hd), addressed through an int32 page table (B, n_pages) kept by
+# ``serving.pager.PageAllocator``: position p of a stream lives at
+# pool[page_table[b, p // ps], p % ps].  Pages are linear (no ring wrap), so
+# position == logical index.  Writes go in place into the pool.
+
+
+def is_paged(cache: Dict) -> bool:
+    return "kp" in cache
+
+
+def init_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                          dtype=torch.bfloat16, device="cuda",
+                          lead=()) -> Dict:
+    """Zeroed {"kp", "vp"} of shape lead + (num_pages, page_size, KH, hd)."""
+    if cfg.kv_quant:
+        raise NotImplementedError(
+            "int8 KV pools (kv_quant) are not ported yet: ROADMAP A9 / B5")
+    shape = tuple(lead) + (num_pages, page_size, cfg.num_kv_heads,
+                           cfg.head_dim)
+    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
+            "vp": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_key_positions(n_tokens: int, next_pos, device=None):
+    """Positions (B, n_tokens) of a paged context when the *next* token to be
+    written has position ``next_pos`` ((B,) tensor, or a host int giving
+    one row on ``device``): slot j holds position j when j < next_pos, else
+    -1 (masked), so unallocated table entries, which point at the scratch
+    page, are masked by position alone."""
+    if isinstance(next_pos, torch.Tensor):
+        device = next_pos.device
+        next_pos = torch.atleast_1d(next_pos)[:, None]
+    j = torch.arange(n_tokens, dtype=torch.int32, device=device)[None, :]
+    return torch.where(j < next_pos, j, -1)
+
+
+def _paged_scatter(pool, values, flat_idx):
+    """Write values (N, KH, hd) at token-flat indices (N,) of the pool
+    (P, ps, KH, hd), in place.  Every index must lie in the pool: the
+    reference drops out-of-bounds writes (``mode="drop"``), and its only
+    out-of-bounds indices are a chunk's pads, which the callers here never
+    compute (the chunk length is a host int)."""
+    P, ps = pool.shape[:2]
+    flat = pool.view((P * ps,) + tuple(pool.shape[2:]))
+    flat.index_copy_(0, flat_idx.long(), values.to(pool.dtype))
+
+
+def paged_cache_write_decode(cache: Dict, k_new, v_new, pos, page_table):
+    """Write one token (B,1,KH,hd) per stream at position ``pos`` (B,) through
+    the page table (B, n_pages), in place.  Rows whose table points at the
+    scratch page (freed slots held in the batch) scribble on scratch.  A
+    position past the table's width (a retired row held at its last position
+    while the table is sliced to a smaller ctx bucket) also lands on the
+    scratch page: the reference's out-of-range gather gives INT32_MIN, and
+    INT32_MIN * ps wraps to 0 for the even page sizes the engine uses."""
+    ps = cache["kp"].shape[1]
+    n = page_table.shape[1]
+    page = torch.div(pos, ps, rounding_mode="floor").long()
+    inside = page < n
+    phys = page_table.gather(1, torch.where(inside, page, 0)[:, None])[:, 0]
+    phys = torch.where(inside, phys, 0)
+    flat_idx = phys.long() * ps + torch.remainder(pos, ps)
+    _paged_scatter(cache["kp"], k_new[:, 0], flat_idx)
+    _paged_scatter(cache["vp"], v_new[:, 0], flat_idx)
+    return cache
+
+
+def paged_cache_write_chunk(cache: Dict, k_seq, v_seq, page_table_row,
+                            start: int, length: int):
+    """Write the first ``length`` tokens of a prompt chunk (1, S_pad, KH, hd)
+    at positions ``start..start+length-1`` of the stream whose table row
+    (n_pages,) is given, in place; pads (>= length) are not written."""
+    ps = cache["kp"].shape[1]
+    posi = start + torch.arange(length, device=k_seq.device)
+    phys = page_table_row.long()[torch.div(posi, ps, rounding_mode="floor")]
+    flat_idx = phys * ps + torch.remainder(posi, ps)
+    _paged_scatter(cache["kp"], k_seq[0, :length], flat_idx)
+    _paged_scatter(cache["vp"], v_seq[0, :length], flat_idx)
+    return cache
+
+
+def paged_cache_kv_arrays(cache: Dict, page_table, dtype=torch.bfloat16):
+    """Gather the pages of ``page_table`` (B, n_pages) into dense (k, v) of
+    shape (B, n_pages*ps, KH, hd) in ``dtype``; position == index."""
+    B, n = page_table.shape
+    idx = page_table.long()
+
+    def gather(pool):
+        return pool[idx].reshape((B, n * pool.shape[1]) + tuple(pool.shape[2:]))
+
+    return gather(cache["kp"]).to(dtype), gather(cache["vp"]).to(dtype)
+
+
+def paged_page_copy(cache: Dict, src: int, dst: int) -> Dict:
+    """Copy physical page ``src`` onto ``dst`` in every leaf of a stacked
+    paged pool dict (leaves (n_rep, num_pages, page_size, ...)), in place:
+    the device half of copy-on-write."""
+    for leaf in cache.values():
+        leaf[:, dst] = leaf[:, src]
+    return cache

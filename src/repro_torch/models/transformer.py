@@ -1,4 +1,4 @@
-"""Decoder model, dense attention-only path (port of
+"""Decoder model, attention-only path (port of
 ``src/repro/models/transformer.py`` for the architectures whose every layer
 is full attention with RMSNorm, RoPE, a SwiGLU MLP and tied embeddings, such
 as qwen2).
@@ -7,13 +7,16 @@ Layers are grouped into *stages* as in the reference: the config's block
 pattern stacked over its repeat count, every parameter and cache leaf with a
 leading ``n_rep`` axis.  The reference's ``lax.scan`` over that axis is a
 loop over the stacked slices here.  Entry points: ``prefill_into_slot``
-(one bucket-padded prompt written into one row of the batch cache) and
-``decode_step`` (one token per row at per-row positions).  Caches are
-updated in place and returned for parity with the reference.
+(one bucket-padded prompt written into one row of the batch cache, or into
+its page chain), ``prefill_chunk_into_slot`` (one chunk of a chunked
+prefill into a page chain) and ``decode_step`` (one token per row at
+per-row positions, dense or through a page table).  Caches are updated in
+place and returned for parity with the reference.
 
 On CUDA tensors the model runs the port's kernels (rmsnorm for every norm,
-flash_attention for prefill, decode_attention for decode); on CPU tensors
-the same calls take the kernels' plain versions.
+flash_attention for prefill, decode_attention for dense decode and, as
+``chunk_attention``, for the chunk route, paged_decode_attention for paged
+decode); on CPU tensors the same calls take the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -22,8 +25,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (chunk_attention,
+                                                  decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from . import kvcache as KV
 from . import layers as L
 from .config import ModelConfig, FULL_ATTN
@@ -128,19 +133,33 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                long_context: bool = False, dtype=torch.bfloat16,
-               device="cuda") -> List:
+               device="cuda", paged_pool=None) -> List:
     """Stacked cache parallel to params['stages']: per stage, a tuple (one
-    per block kind) of {"k", "v"} of shape (n_rep, batch, buf_len, KH, hd)."""
-    return [tuple(KV.init_attn_cache(cfg, k, batch, max_len, long_context,
-                                     dtype, device, lead=(n_rep,))
-                  for k in kinds)
-            for kinds, n_rep in stages_of(cfg)]
+    per block kind) of {"k", "v"} of shape (n_rep, batch, buf_len, KH, hd).
+
+    ``paged_pool=(num_pages, page_size)`` makes every full-length attention
+    buffer a shared page pool {"kp", "vp"} of shape (n_rep, num_pages,
+    page_size, KH, hd), addressed through a page table."""
+    caches = []
+    for kinds, n_rep in stages_of(cfg):
+        group = []
+        for k in kinds:
+            if paged_pool is not None and KV.attn_buffer_len(
+                    cfg, k, max_len, long_context) == max_len:
+                group.append(KV.init_paged_attn_cache(
+                    cfg, *paged_pool, dtype, device, lead=(n_rep,)))
+            else:
+                group.append(KV.init_attn_cache(cfg, k, batch, max_len,
+                                                long_context, dtype, device,
+                                                lead=(n_rep,)))
+        caches.append(tuple(group))
+    return caches
 
 
 # -- blocks --------------------------------------------------------------------------
 
 def _apply_attn(cfg: ModelConfig, p, x, *, mode, positions, rope, cache, pos,
-                slot=None, k_pos_memo=None):
+                slot=None, k_pos_memo=None, length=None, page_table=None):
     B, S, _ = x.shape
     a = p["attn"]
     q = x @ a["q"]
@@ -156,8 +175,13 @@ def _apply_attn(cfg: ModelConfig, p, x, *, mode, positions, rope, cache, pos,
     k = L.apply_rope(k, positions, inv, rot)
 
     # full attention only (see check_supported): no sliding window, except
-    # that a buffer shorter than the sequence bounds the lookback as a ring
-    if mode == "decode":
+    # that a dense buffer shorter than the sequence bounds the lookback as a
+    # ring
+    if mode == "decode" and KV.is_paged(cache):
+        KV.paged_cache_write_decode(cache, k, v, pos, page_table)
+        out = paged_decode_attention(q, cache["kp"], cache["vp"], page_table,
+                                     pos, scale=cfg.attn_scale)
+    elif mode == "decode":
         KV.cache_write_decode(cache, k, v, pos)
         k_full, v_full = KV.cache_kv_arrays(cache, q.dtype)
         buf_len = k_full.shape[1]
@@ -168,17 +192,38 @@ def _apply_attn(cfg: ModelConfig, p, x, *, mode, positions, rope, cache, pos,
         window = buf_len if buf_len < cfg.max_seq else 0
         out = decode_attention(q, k_full, v_full, k_pos, pos, window=window,
                                scale=cfg.attn_scale)
+    elif mode == "chunk":
+        # [past chain gathered from the pool | raw current chunk], the past
+        # read before the chunk is written (transformer.py mode "chunk")
+        if not KV.is_paged(cache):
+            raise NotImplementedError(
+                "chunked prefill into a dense cache (reached by the "
+                "long-context rings) is not ported yet (ROADMAP A9)")
+        pk, pv = KV.paged_cache_kv_arrays(cache, page_table, q.dtype)
+        past_pos = KV.paged_key_positions(pk.shape[1], pos, x.device)
+        KV.paged_cache_write_chunk(cache, k, v, page_table[0], pos, length)
+        cur_pos = torch.where(
+            torch.arange(S, device=x.device)[None, :] < length, positions, -1)
+        out = chunk_attention(q, torch.cat([pk, k.to(pk.dtype)], dim=1),
+                              torch.cat([pv, v.to(pv.dtype)], dim=1),
+                              torch.cat([past_pos, cur_pos], dim=1),
+                              positions, scale=cfg.attn_scale)
     elif mode == "prefill":
-        # slot-native: this prompt's K/V go into one row of the batch cache;
-        # attention reads the fresh K/V, not the cache
-        KV.cache_write_prefill_slot(cache, k, v, slot)
-        buf_len = cache["k"].shape[1]
-        window = buf_len if buf_len < S else 0
+        # slot-native: this prompt's K/V go into one row of the batch cache
+        # (pads included, hidden by the position mask) or into its page
+        # chain (pads dropped: their pages may not be allocated); attention
+        # reads the fresh K/V, not the cache
+        window = 0
+        if KV.is_paged(cache):
+            KV.paged_cache_write_chunk(cache, k, v, page_table[0], 0, length)
+        else:
+            KV.cache_write_prefill_slot(cache, k, v, slot)
+            buf_len = cache["k"].shape[1]
+            window = buf_len if buf_len < S else 0
         out = flash_attention(q, k, v, causal=True, window=window,
                               softcap=cfg.attn_softcap, scale=cfg.attn_scale)
     else:
-        raise NotImplementedError(
-            f"attention mode {mode!r} is not ported yet (ROADMAP A7)")
+        raise ValueError(mode)
     return out.reshape(B, S, cfg.q_dim) @ a["o"]
 
 
@@ -209,7 +254,7 @@ def _run_stages(cfg: ModelConfig, params, x, *, caches, **kw):
 # -- public API ------------------------------------------------------------------------
 
 def prefill_into_slot(params, cfg: ModelConfig, tokens, length: int, caches,
-                      slot: int):
+                      slot: int, page_table=None):
     """Bucket-padded prefill of ONE prompt written into row ``slot`` of the
     shared batch caches.
 
@@ -217,7 +262,10 @@ def prefill_into_slot(params, cfg: ModelConfig, tokens, length: int, caches,
     ``length`` the true prompt length (a host int); ``slot`` the batch row.
     K/V are written in place into the cache row; pad positions >= length
     hold garbage K/V that the position mask hides until the decode loop
-    overwrites them.  Requires S_pad <= every attention buffer length.
+    overwrites them.  Requires S_pad <= every dense attention buffer length.
+    ``page_table`` ((1, n_pages) row) addresses the paged pools when the
+    caches were built with ``init_cache(..., paged_pool=...)``; pads are not
+    written there.
 
     Returns (last_logits (1, vocab), caches, next_pos == length).
     """
@@ -228,18 +276,49 @@ def prefill_into_slot(params, cfg: ModelConfig, tokens, length: int, caches,
                              device=x.device)[None].expand(B, S)
     x = _run_stages(cfg, params, x, caches=caches, mode="prefill",
                     positions=positions, rope=L.rope_freqs(cfg, x.device),
-                    pos=None, slot=slot)
+                    pos=None, slot=slot, length=length, page_table=page_table)
     last = L.apply_norm(cfg, params["final_norm"], x[:, length - 1:length])
     logits = L.unembed(cfg, params["embed"], last)[:, 0]
     return logits, caches, length
 
 
-def decode_step(params, cfg: ModelConfig, tokens, caches, pos):
+def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens, start: int,
+                            length: int, caches, slot: int, page_table=None):
+    """One chunk of a chunked prefill: ``tokens`` (1, S_pad) at positions
+    ``start..start+S_pad-1`` (``length`` of them real; host ints) for the
+    stream whose page-table row (1, n_pages) is ``page_table``, attending to
+    everything the stream has already written (earlier chunks, or a shared
+    prefix) and then writing the chunk's K/V into its chain.  Chunks go in
+    position order.
+
+    Returns (last_logits (1, vocab), caches): logits at position
+    ``start+length-1``; only the final chunk's seed decoding.
+    """
+    start, length = int(start), int(length)
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    B, S = tokens.shape
+    positions = start + torch.arange(S, dtype=torch.int32,
+                                     device=x.device)[None].expand(B, S)
+    x = _run_stages(cfg, params, x, caches=caches, mode="chunk",
+                    positions=positions, rope=L.rope_freqs(cfg, x.device),
+                    pos=start, slot=slot, length=length, page_table=page_table)
+    last = L.apply_norm(cfg, params["final_norm"], x[:, length - 1:length])
+    logits = L.unembed(cfg, params["embed"], last)[:, 0]
+    return logits, caches
+
+
+def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
+                page_table=None, active=None):
     """tokens (B,1) -> (logits (B,vocab), caches).
 
     ``pos`` is a (B,) int32 vector of per-slot positions (each row attends
     to its own context; RoPE, masks and cache writes are per row) or a
-    scalar shared by every row.
+    scalar shared by every row.  ``page_table`` ((B, n_pages) int32, a
+    ctx-bucket slice of the engine's table) must be given when the caches
+    hold paged pools.  ``active`` is accepted for parity with the
+    reference, which freezes inactive rows' recurrent states with it; an
+    attention-only model has none (inactive rows' K/V writes are hidden by
+    position masking).
     """
     B = tokens.shape[0]
     x = L.embed_tokens(cfg, params["embed"], tokens)
@@ -248,7 +327,7 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, pos):
     positions = pos.reshape(B, 1)
     x = _run_stages(cfg, params, x, caches=caches, mode="decode",
                     positions=positions, rope=L.rope_freqs(cfg, x.device),
-                    pos=pos, k_pos_memo={})
+                    pos=pos, k_pos_memo={}, page_table=page_table)
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.unembed(cfg, params["embed"], x)[:, 0]
     return logits, caches

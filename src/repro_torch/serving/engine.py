@@ -1,6 +1,6 @@
-"""Slot-native serving engine, dense subset (port of
-``src/repro/serving/engine.py``): continuous batching over a shared slotted
-KV cache, driven by the same GreenLLM control plane (router, plant, decode
+"""Slot-native serving engine (port of ``src/repro/serving/engine.py``):
+continuous batching over a shared slotted KV cache or a shared page pool,
+driven by the same GreenLLM control plane (router, plant, decode
 controller, accounting) as the reference.
 
 Data plane:
@@ -8,24 +8,37 @@ Data plane:
 * **Bucketed slot prefill** — prompts are right-padded to power-of-two
   buckets (capped at ``max_len // 2``, the prompt truncation length) and run
   through ``models.prefill_into_slot``, which writes K/V in place into one
-  row of the batch cache.  The first token is the argmax of the last
-  logits.
+  row of the batch cache (or into the stream's page chain).  The first
+  token is the argmax of the last logits.
 * **k-step decode blocks** — ``kb`` steps run back to back over the cache
   viewed as ``[:, :ctx]`` (the smallest context bucket covering every
-  position in the block), with per-slot positions and an active mask:
+  position in the block), or, when paged, over the page table sliced to the
+  pages of that bucket, with per-slot positions and an active mask:
   inactive rows hold their token and position.  Nothing inside a block
   reads a device value on the host; the block's tokens are drained once at
   its end (``_host_drains`` counts the drains, as in the reference).
+* **Paged KV** (``EngineConfig.paged``) — full-length attention buffers are
+  a shared pool of pages (``serving.pager``); chains grow at block
+  boundaries, and a dry pool shrinks the block, reclaims cached prefixes,
+  then preempts the youngest stream (recompute-on-resume).  The page table
+  has a device mirror, uploaded only after the host table changed.
+* **Chunked prefill** — a prefix hit, a resume after preemption or a prompt
+  longer than the largest bucket is prefilled in bucket-sized chunks
+  (``models.prefill_chunk_into_slot``), one per stream per scheduling
+  round, interleaved with decode blocks.
+* **Prefix cache** (``EngineConfig.prefix_cache``) — admission matches the
+  longest cached page-aligned prompt prefix and shares those pages
+  (refcounted, copy-on-write) instead of prefilling them again.
 
 Virtual time and energy come from the numpy plant model, so a run's
 report depends only on the tokens, and identical tokens give a report
 identical to the reference engine's.
 
 Not ported yet, and rejected with ``NotImplementedError`` naming the
-ROADMAP item: paged KV, the prefix cache and chunked prefill (A7), the
-legacy ``slot_native=False`` plane (A7), int8 KV (A9 / B5), sampling with
-``temperature > 0`` (A6), serving meshes (A14) and observability sinks
-(A7).
+ROADMAP item: the legacy ``slot_native=False`` plane and its eager
+fallback for prompts longer than a ring buffer (A7 / A9), int8 KV (A9 /
+B5), sampling with ``temperature > 0`` (A6), serving meshes (A14),
+observability sinks (A7) and stream migration (A10).
 """
 from __future__ import annotations
 
@@ -42,11 +55,14 @@ from repro_torch.core import (DualLoopController, MaxFreqController, Request,
                               make_router)
 from repro_torch.core.hardware import HardwareProfile, A100_SXM4_40G
 from repro_torch.models import ModelConfig, decode_step, init_cache, \
-    init_params, prefill_into_slot
+    init_params, prefill_chunk_into_slot, prefill_into_slot
 from repro_torch.models.config import FULL_ATTN, LOCAL_ATTN
-from repro_torch.models.kvcache import attn_buffer_len
+from repro_torch.models.kvcache import (attn_buffer_len, is_paged,
+                                        paged_page_copy)
 from repro_torch.sim import PlantModel
 from repro_torch.sim.profiling import profile_decode_table
+from .pager import PageAllocator
+from .prefix_cache import PrefixCache
 
 
 def _slice_caches(caches, ctx: int, max_len: int):
@@ -200,15 +216,37 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class _Stream:
-    def __init__(self, req: Request, slot: int, pos: int):
+    def __init__(self, req: Request, slot: int, pos: int, order: int = 0):
         self.req = req
         self.slot = slot
         self.pos = pos
+        self.order = order          # admission sequence; preemption victims
+        #                             are chosen youngest-first
+
+
+class _ChunkState:
+    """A stream mid-chunked-prefill: it owns a slot (the key it is filed
+    under) and that slot's page chain, and does not decode yet.  ``tokens``
+    is the full context to prefill and ``start`` the next chunk's position;
+    ``resume_tok`` carries the already-emitted next token of a preempted
+    stream being recomputed."""
+
+    def __init__(self, req: Request, tokens: np.ndarray,
+                 resume_tok: Optional[int] = None, order: int = 0):
+        self.req = req
+        self.tokens = tokens
+        self.start = 0
+        self.resume_tok = resume_tok
+        self.order = order
+        self.billed = False         # the first *computed* chunk sets
+        #                             prefill_start (a prefix hit starts at
+        #                             start > 0)
 
 
 class ServingEngine:
-    """Batched decode over a shared slotted KV cache (continuous batching)
-    on ``device`` ("cuda" unless the caller asks for the CPU)."""
+    """Batched decode over a shared slotted KV cache or page pool
+    (continuous batching) on ``device`` ("cuda" unless the caller asks for
+    the CPU)."""
 
     def __init__(self, cfg: ModelConfig, params=None, *,
                  ecfg: Optional[EngineConfig] = None,
@@ -219,8 +257,6 @@ class ServingEngine:
         self.cfg = cfg
         self.ecfg = ecfg = ecfg if ecfg is not None else EngineConfig()
         for flag, what, item in (
-                (ecfg.paged, "paged KV (EngineConfig.paged)", "A7 / B3"),
-                (ecfg.prefix_cache, "the prefix cache", "A7"),
                 (ecfg.mesh is not None, "mesh serving", "A14"),
                 (not ecfg.slot_native, "the legacy slot_native=False plane",
                  "A7"),
@@ -240,10 +276,29 @@ class ServingEngine:
             self.controller = MaxFreqController(hw)
 
         B = ecfg.max_batch
+        # paged mode needs chunking (a resume replays an arbitrary-length
+        # context); tracked here, the caller's config is never mutated
+        self._chunked = bool(ecfg.chunked_prefill or ecfg.paged)
+        if ecfg.paged:
+            ps = ecfg.page_size
+            self._max_pages = -(-ecfg.max_len // ps)
+            n_pages = ecfg.num_pages or (B * self._max_pages + 1)
+            self.pager = PageAllocator(n_pages, ps, B, self._max_pages)
+            pool = (n_pages, ps)
+        else:
+            self.pager = None
+            pool = None
         self.caches = init_cache(cfg, B, ecfg.max_len,
                                  dtype=getattr(torch, ecfg.cache_dtype),
-                                 device=self.device)
+                                 device=self.device, paged_pool=pool)
+        # prefix sharing is sound only when every cache leaf is a page pool
+        self._cacheable = ecfg.prefix_cache and all(
+            is_paged(d) for stage in self.caches for d in stage)
+        self.prefix_cache = PrefixCache(
+            self.pager, ecfg.prefix_cache_pages) \
+            if ecfg.prefix_cache else None
         self.active: Dict[int, _Stream] = {}
+        self.prefilling: Dict[int, _ChunkState] = {}
         self.free_slots = list(range(B))
         self.pending: List[Request] = []
         self.vtime = 0.0
@@ -253,6 +308,8 @@ class ServingEngine:
         self.idle_energy_j = 0.0    # billed when waiting on future arrivals
         self.prefill_tokens = 0
         self.decode_tokens = 0
+        self._order = 0
+        self._preempted = 0
         self._tbt: Dict[int, List[float]] = {}
         self.requests: List[Request] = []  # everything this engine has seen
         self._events: List = []     # buffered stream events (drain_events)
@@ -291,13 +348,20 @@ class ServingEngine:
 
         # context buckets for decode: attention cost is O(cache buffer), so
         # a block runs over the cache cut to the smallest bucket covering
-        # every position in the block
+        # every position in the block.  Paged mode slices the page table
+        # instead, so its buckets are rounded up to page multiples.
         self.ctx_buckets: List[int] = []
         b = max(ecfg.min_bucket, 32)
         while b < ecfg.max_len:
             self.ctx_buckets.append(b)
             b *= 2
         self.ctx_buckets.append(ecfg.max_len)
+        if ecfg.paged:
+            ps = ecfg.page_size
+            self.ctx_buckets = sorted({-(-c // ps) * ps
+                                       for c in self.ctx_buckets})
+        # chunked prefill: chunk length = the largest admission bucket
+        self.chunk_len = self.buckets[-1]
         self._k_blocks = tuple(sorted({1, 4, 16, ecfg.decode_block},
                                       reverse=True))
         # (ctx, kb) shapes already dispatched: wall-clock accounting bills a
@@ -310,11 +374,31 @@ class ServingEngine:
         raise _not_ported("observability sinks (metrics, tracer, ledger)",
                           "A7")
 
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device; on a GPU through pinned
+        memory, without blocking the host on the work already queued."""
+        t = torch.from_numpy(arr.copy())
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
     def _sync_active(self) -> None:
         """Re-upload the host active mask (one small transfer per stream
         join/leave)."""
-        self._active = torch.from_numpy(self._active_host.copy()).to(
-            self.device)
+        self._active = self._upload(self._active_host)
+
+    def evict(self, rid: int) -> bool:
+        """Drop a *terminal* request's bookkeeping (its report row and TBT
+        records) so a long-lived server does not grow with the traffic it
+        served.  False for unknown or non-terminal requests."""
+        for i, req in enumerate(self.requests):
+            if req.rid == rid:
+                if not req.state.terminal:
+                    return False
+                self.requests.pop(i)
+                self._tbt.pop(rid, None)
+                return True
+        return self._tbt.pop(rid, None) is not None
 
     # -- request intake --------------------------------------------------------
     def submit(self, req: Request, prompt_tokens: Optional[np.ndarray] = None):
@@ -338,38 +422,64 @@ class ServingEngine:
         if self.events_on:
             self._events.append(ev)
 
-    def _account_prefill(self, req: Request):
-        n_tokens = req.prompt_len
+    def _account_prefill_tokens(self, n_tokens: int, first: bool,
+                                req: Request):
+        """Bill ``n_tokens`` of prefill work (one prompt or one chunk)."""
         t_pf = self.plant.prefill_latency(n_tokens, self.controller.freq)
         p_pf = self.plant.prefill_power(n_tokens, self.controller.freq, t_pf)
         self.prefill_energy_j += t_pf * p_pf
         self.prefill_tokens += n_tokens
         self.vtime += t_pf
-        req.prefill_start = self.vtime - t_pf
+        if first:
+            req.prefill_start = self.vtime - t_pf
+
+    def _account_prefill(self, req: Request):
+        self._account_prefill_tokens(req.prompt_len, True, req)
         req.first_token = self.vtime
 
-    def _start_stream(self, req: Request, slot: int, tok: int, pos: int):
-        self.active[slot] = _Stream(req, slot, pos)
-        req.tokens.append(tok)
-        req.tokens_emitted = 1
-        self._emit(TokenEvent(req.rid, self.vtime, (tok,), 1))
+    def _start_stream(self, req: Request, slot: int, tok: int, pos: int,
+                      resumed: bool = False):
+        self._order += 1
+        self.active[slot] = _Stream(req, slot, pos, self._order)
+        if not resumed:
+            req.tokens.append(tok)
+            req.tokens_emitted = 1
+            self._emit(TokenEvent(req.rid, self.vtime, (tok,), 1))
         req.state = RequestState.DECODING
         self._emit(StateEvent(req.rid, self.vtime, RequestState.DECODING))
         self._active_host[slot] = True
         self._sync_active()
 
-    def _admit_slot(self, req: Request, slot: int):
-        prompt = req.prompt
-        L = len(prompt)
-        bucket = next(b for b in self.buckets if b >= L)
+    def _pt_rows(self, slot: int, upto: int) -> torch.Tensor:
+        """(1, n_ctx) page-table row covering the positions below the
+        smallest ctx bucket >= ``upto``."""
+        ctx = next((c for c in self.ctx_buckets if c >= upto),
+                   self.ctx_buckets[-1])
+        n_ctx = min(-(-ctx // self.ecfg.page_size), self._max_pages)
+        return self.pager.table_device(self.device)[slot:slot + 1, :n_ctx]
+
+    def _padded(self, toks: np.ndarray) -> torch.Tensor:
+        """(1, bucket) tokens right-padded to the smallest bucket."""
+        bucket = next(b for b in self.buckets if b >= len(toks))
         padded = np.zeros((1, bucket), np.int64)
-        padded[0, :L] = prompt
+        padded[0, :len(toks)] = toks
+        return self._upload(padded)
+
+    def _admit_slot(self, req: Request, slot: int):
+        L = len(req.prompt)
+        padded = self._padded(req.prompt)
+        pt_row = None
+        if self.pager is not None:
+            ok = self.pager.ensure(slot, L)      # gated by _admit
+            assert ok, "admission gate let an unallocatable prompt through"
+            pt_row = self._pt_rows(slot, padded.shape[1])
         logits, self.caches, _ = prefill_into_slot(
-            self.params, self.cfg, torch.from_numpy(padded).to(self.device),
-            L, self.caches, slot)
+            self.params, self.cfg, padded, L, self.caches, slot,
+            page_table=pt_row)
         self._tok[slot] = logits[0].argmax().to(torch.int32)
         self._pos[slot] = L
         self._account_prefill(req)
+        self._register_prefix(req, slot, L)
         # one tiny host read per admission (the first token id)
         self._start_stream(req, slot, int(self._tok[slot]), L)
 
@@ -384,17 +494,172 @@ class ServingEngine:
                 self.pending.pop(0)
                 self._mark_shed(req)
                 continue
-            if req.tokens or len(req.prompt) > self.buckets[-1]:
+            resume = bool(req.tokens)        # preempted stream: recompute
+            ctx_toks = req.prompt if not resume else np.concatenate(
+                [req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+            need = min(len(ctx_toks), self.chunk_len)
+            if self.pager is not None and not self.pager.can_admit(need):
+                # cached prefixes go before the FIFO head stalls
+                if not (self._reclaim_cached()
+                        and self.pager.can_admit(need)):
+                    break                    # head-of-line: wait for pages
+            if (resume or len(ctx_toks) > self.buckets[-1]) \
+                    and not self._chunked:
                 raise _not_ported(
-                    "a prompt longer than the largest prefill bucket "
-                    "(the chunked-prefill route)", "A7")
+                    "the eager prefill fallback for a prompt longer than "
+                    "the largest bucket (chunked_prefill=False)", "A9")
             self.pending.pop(0)
-            self._admit_slot(req, self.free_slots.pop(0))
+            slot = self.free_slots.pop(0)
+            # longest cached prefix (after the admission gates: a lookup
+            # that cannot admit must not skew the hit/miss counters)
+            hit_pages: List[int] = []
+            hit_tok = 0
+            if self._cacheable:
+                hit_pages, hit_tok = self.prefix_cache.lookup(ctx_toks)
+            if hit_tok or resume or len(ctx_toks) > self.buckets[-1]:
+                self._start_chunked(req, slot, ctx_toks, resume, hit_pages,
+                                    hit_tok)
+            else:
+                self._admit_slot(req, slot)
+
+    # -- chunked prefill, prefix sharing, preemption ---------------------------
+    def _start_chunked(self, req: Request, slot: int, ctx_toks: np.ndarray,
+                       resume: bool, hit_pages: List[int], hit_tok: int):
+        """Admit via chunked prefill: the stream owns ``slot`` now and joins
+        the decode batch after its last chunk (``_advance_chunks``).  A
+        prefix hit seeds the chain with the shared pages and starts at
+        ``hit_tok``."""
+        if hit_tok:
+            hit_tok = self._share_prefix(slot, hit_pages, hit_tok)
+        self._order += 1
+        cs = _ChunkState(
+            req, np.asarray(ctx_toks, np.int32),
+            resume_tok=req.tokens[-1] if resume else None, order=self._order)
+        cs.start = hit_tok
+        self.prefilling[slot] = cs
+        req.state = RequestState.PREFILLING
+        self._emit(StateEvent(req.rid, self.vtime, RequestState.PREFILLING))
+
+    def _share_prefix(self, slot: int, pages: List[int], hit_tok: int) -> int:
+        """Adopt cached pages into ``slot``'s chain, copy the last one on
+        write if the hit ends mid-page, and seed the device position so the
+        held-position write of the still-inactive row lands at ``hit_tok``
+        (a private or unallocated page, never a shared one).  Returns the
+        hit length: 0 when the copy cannot get a page even after reclaiming
+        (the share is rolled back and admission proceeds as a miss)."""
+        ps = self.ecfg.page_size
+        self.pager.share_chain(slot, pages)
+        if hit_tok % ps:
+            old = pages[-1]
+            new = self.pager.cow_page(slot, len(pages) - 1)
+            if new is None and self._reclaim_cached():
+                new = self.pager.cow_page(slot, len(pages) - 1)
+            if new is None:
+                self.pager.free_chain(slot)     # roll back: admit as a miss
+                return 0
+            if new != old:
+                for stage in self.caches:
+                    for d in stage:
+                        paged_page_copy(d, old, new)
+        self._pos[slot] = hit_tok
+        return hit_tok
+
+    def _reclaim_cached(self) -> bool:
+        """Evict up to a chunk's worth of LRU cache-only pages; False when
+        caching is off or nothing is evictable."""
+        if self.prefix_cache is None:
+            return False
+        return self.prefix_cache.reclaim(
+            -(-self.chunk_len // self.ecfg.page_size)) > 0
+
+    def _register_prefix(self, req: Request, slot: int, upto: int) -> None:
+        """Publish the fully written prompt pages of ``slot``'s chain."""
+        if not self._cacheable or req.prompt is None:
+            return
+        chain = self.pager.chains.get(slot)
+        if chain:
+            self.prefix_cache.register(req.prompt, chain,
+                                       min(upto, len(req.prompt)))
+
+    def _advance_chunks(self) -> bool:
+        """Process one chunk for every mid-prefill stream (once per
+        scheduling round, interleaved with decode blocks).  Returns True if
+        any advanced."""
+        progressed = False
+        finished: List[int] = []
+        for slot, cs in list(self.prefilling.items()):
+            if slot not in self.prefilling:
+                continue        # preempted by a later stream's growth
+            chunk = cs.tokens[cs.start: cs.start + self.chunk_len]
+            if self.pager is not None:
+                ok = self.pager.ensure(slot, cs.start + len(chunk))
+                while not ok and (self._reclaim_cached()
+                                  or self._preempt_for_pages(exclude=slot)):
+                    ok = self.pager.ensure(slot, cs.start + len(chunk))
+                if not ok:
+                    continue             # stall this chunk; retry next round
+            padded = self._padded(chunk)
+            pt_row = None
+            if self.pager is not None:
+                pt_row = self._pt_rows(slot, cs.start + padded.shape[1])
+            logits, self.caches = prefill_chunk_into_slot(
+                self.params, self.cfg, padded, cs.start, len(chunk),
+                self.caches, slot, page_table=pt_row)
+            # only the final chunk's token survives to seed decoding
+            self._tok[slot] = logits[0].argmax().to(torch.int32)
+            self._pos[slot] = cs.start + len(chunk)
+            # resumed streams keep their original prefill_start/first_token
+            self._account_prefill_tokens(
+                len(chunk), not cs.billed and cs.resume_tok is None, cs.req)
+            cs.billed = True
+            cs.start += len(chunk)
+            self._register_prefix(cs.req, slot, cs.start)
+            progressed = True
+            if cs.start >= len(cs.tokens):
+                finished.append(slot)
+        for slot in finished:
+            cs = self.prefilling.pop(slot, None)
+            if cs is None:
+                continue        # preempted after its last chunk this round
+            if cs.resume_tok is not None:
+                # recomputed stream: its next token was emitted before the
+                # preemption; restore it instead of the chunk's
+                self._tok[slot] = cs.resume_tok
+                self._start_stream(cs.req, slot, cs.resume_tok,
+                                   len(cs.tokens), resumed=True)
+            else:
+                cs.req.first_token = self.vtime
+                self._start_stream(cs.req, slot, int(self._tok[slot]),
+                                   len(cs.tokens))
+        return progressed
+
+    def _preempt_for_pages(self, exclude: Optional[int] = None) -> bool:
+        """Free the youngest stream's pages (decoding or mid-prefill, by
+        admission order) and requeue it at the head for recompute-on-resume.
+        ``exclude`` keeps a chunk from preempting itself.  False when there
+        is nothing (else) to preempt."""
+        order = {s: st.order for s, st in self.active.items()}
+        order.update({s: cs.order for s, cs in self.prefilling.items()
+                      if s != exclude})
+        if not order:
+            return False
+        slot = max(order, key=order.get)
+        if slot in self.active:
+            req = self.active.pop(slot).req
+        else:
+            req = self.prefilling.pop(slot).req
+        self._release_slot(slot)
+        self.pending.insert(0, req)
+        self._preempted += 1
+        req.state = RequestState.QUEUED
+        self._emit(StateEvent(req.rid, self.vtime, RequestState.QUEUED))
+        return True
 
     # -- cancellation / failure ------------------------------------------------
     def cancel(self, rid: int) -> bool:
-        """Cancel a queued or decoding request, freeing its slot at once.
-        False for unknown or already-terminal requests."""
+        """Cancel a queued, prefilling or decoding request, freeing its slot
+        and page chain at once.  False for unknown or already-terminal
+        requests."""
         return self._terminate(rid, RequestState.CANCELLED)
 
     def fail(self, rid: int) -> bool:
@@ -407,6 +672,11 @@ class ServingEngine:
             if req.rid == rid:
                 self.pending.pop(i)
                 return self._mark_terminal(req, state)
+        for slot, cs in list(self.prefilling.items()):
+            if cs.req.rid == rid:
+                del self.prefilling[slot]
+                self._release_slot(slot)
+                return self._mark_terminal(cs.req, state)
         for slot, st in list(self.active.items()):
             if st.req.rid == rid:
                 del self.active[slot]
@@ -415,6 +685,10 @@ class ServingEngine:
         return False
 
     def _release_slot(self, slot: int) -> None:
+        """Return a slot and its page chain; its batch row turns inactive
+        (its held-position writes then land in the scratch page)."""
+        if self.pager is not None:
+            self.pager.free_chain(slot)
         self._active_host[slot] = False
         self._sync_active()
         self.free_slots.append(slot)
@@ -465,18 +739,50 @@ class ServingEngine:
             self.free_slots.append(slot)
             del self.active[slot]
             self._active_host[slot] = False
+            if self.pager is not None:
+                self.pager.free_chain(slot)
         if slots:
             self._sync_active()
 
+    def _grow_for_block(self, k: int) -> int:
+        """Grow every active chain to cover ``pos + k`` before the block
+        (the in-block writes must stay inside allocated pages).  A dry pool
+        reclaims cached prefixes, then shrinks ``k``, then preempts the
+        youngest stream."""
+        while True:
+            ordered = sorted(self.active.items(),
+                             key=lambda kv: kv[1].order)   # oldest first
+            if all(self.pager.ensure(s, st.pos + k) for s, st in ordered):
+                return k
+            if self._reclaim_cached():
+                continue
+            if k > 1:
+                k = max(k // 2, 1)
+                continue
+            if len(self.active) + len(self.prefilling) > 1:
+                self._preempt_for_pages()
+                continue
+            raise RuntimeError(
+                "page pool exhausted: a lone stream cannot grow by one page "
+                f"({self.pager.pages_used}/{self.pager.num_pages - 1} used)")
+
     def _run_block(self, ctx: int, kb: int) -> torch.Tensor:
-        """``kb`` decode steps over the caches cut to ``ctx`` positions;
-        returns the (kb, B) tokens, still on the device."""
-        sliced = _slice_caches(self.caches, ctx, self.ecfg.max_len)
+        """``kb`` decode steps over the caches cut to ``ctx`` positions (the
+        page table cut to its pages when paged); returns the (kb, B) tokens,
+        still on the device."""
+        pt = None
+        if self.pager is not None:
+            n_ctx = min(ctx // self.ecfg.page_size, self._max_pages)
+            pt = self.pager.table_device(self.device)[:, :n_ctx]
+            caches = self.caches
+        else:
+            caches = _slice_caches(self.caches, ctx, self.ecfg.max_len)
         tok, pos, active = self._tok, self._pos, self._active
         out = []
         for _ in range(kb):
             logits, _ = decode_step(self.params, self.cfg, tok[:, None],
-                                    sliced, pos)
+                                    caches, pos, page_table=pt,
+                                    active=active)
             nxt = logits.argmax(dim=-1).to(torch.int32)
             tok = torch.where(active, nxt, tok)
             pos = pos + active.to(torch.int32)
@@ -485,15 +791,23 @@ class ServingEngine:
         return torch.stack(out)
 
     def _decode_block(self, k: int) -> int:
-        """Run ``k`` decode steps with a single host drain at the end.  The
+        """Run ``k`` decode steps with a single host drain at the end;
+        returns the steps executed (pool pressure may shrink ``k``).  The
         batch composition is fixed for the block (the caller sizes ``k`` to
         the next leave event), so the virtual-time accounting needs no
         device data."""
+        if self.pager is not None and self.active:
+            k = self._grow_for_block(k)
         snapshot = list(self.active.items())
         batch = len(snapshot)
         if batch == 0:
             return 0
         max_pos = max(st.pos for st in self.active.values())
+        if self.prefilling:
+            # mid-prefill rows are inactive but still receive the held-pos
+            # write each step: the ctx bucket must cover their positions
+            max_pos = max(max_pos,
+                          max(cs.start for cs in self.prefilling.values()))
         wall = self.ecfg.use_wall_clock
         toks_dev = []
         durs: List[Optional[float]] = []   # per-step; None -> plant model
@@ -549,12 +863,18 @@ class ServingEngine:
             self._emit(StateEvent(by_slot[slot].req.rid, self.vtime,
                                   RequestState.FINISHED))
         self._retire(done)
+        if self.pager is not None:
+            # live occupancy (cache-only pages excluded) biases the
+            # controller toward higher clocks before the pool forces
+            # preemption
+            self.controller.record_occupancy(
+                self.vtime, self.pager.occupancy()["occupancy_live"])
         return k
 
     # -- Backend protocol --------------------------------------------------------
     def has_work(self) -> bool:
-        """Anything queued or decoding."""
-        return bool(self.pending or self.active)
+        """Anything queued, mid-prefill or decoding."""
+        return bool(self.pending or self.prefilling or self.active)
 
     def drain_events(self) -> List:
         """Hand out (and clear) the buffered stream events."""
@@ -576,18 +896,20 @@ class ServingEngine:
         return True
 
     def step(self, k: Optional[int] = None) -> int:
-        """One scheduling round: admit arrived requests, then decode a block
-        of ``k`` steps (default: the horizon to the next guaranteed leave).
-        Returns the number of decode steps executed."""
+        """One scheduling round: admit arrived requests, advance chunked
+        prefills, then decode a block of ``k`` steps (default: the horizon
+        to the next guaranteed leave).  Returns the number of decode steps
+        executed."""
         self._evict_lapsed()
         self._admit()
+        progressed = self._advance_chunks()
         if not self.active:
-            if self._advance_idle():
+            if progressed or self._advance_idle():
                 return 0
-            if self.pending:
+            if self.prefilling or self.pending:
                 raise RuntimeError(
-                    "serving stalled: pending streams cannot obtain slots "
-                    "and nothing is decoding")
+                    "serving stalled: pending/prefilling streams cannot "
+                    "obtain pages or slots and nothing is decoding")
             return 0
         horizon = self._horizon()
         return self._decode_block(max(min(k, horizon) if k is not None
@@ -607,6 +929,21 @@ class ServingEngine:
         """The engine's virtual time."""
         return self.vtime
 
+    def effective_prefill_tokens(self, req: Request) -> int:
+        """Prefill tokens this engine would compute for ``req``: the prompt
+        length minus the currently cached prefix (a pure probe)."""
+        if not self._cacheable or req.prompt is None:
+            return req.prompt_len
+        return max(req.prompt_len - self.prefix_cache.probe(req.prompt), 1)
+
+    def page_occupancy_peak(self) -> float:
+        """Peak page-pool occupancy over the run (0 when unpaged)."""
+        if self.pager is None:
+            return 0.0
+        live = {sl: st.pos for sl, st in self.active.items()}
+        live.update({sl: cs.start for sl, cs in self.prefilling.items()})
+        return self.pager.occupancy(live)["peak_occupancy"]
+
     def report(self) -> ServingReport:
         """The typed serving report (the scoring shared with the
         reference's backends)."""
@@ -618,5 +955,5 @@ class ServingEngine:
             idle_energy_j=self.idle_energy_j,
             prefill_tokens=self.prefill_tokens,
             decode_tokens=self.decode_tokens,
-            duration_s=self.vtime, preempted=0, migrated=0,
-            page_occupancy_peak=0.0)
+            duration_s=self.vtime, preempted=self._preempted, migrated=0,
+            page_occupancy_peak=self.page_occupancy_peak())

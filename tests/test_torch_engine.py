@@ -151,10 +151,12 @@ def test_requests_are_refused_outside_the_slice(runs):
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         Server(port).submit([1, 2, 3], SamplingParams(max_tokens=4,
                                                       temperature=0.7))
-    for bad, item in ((dict(paged=True), "A7"), (dict(mesh=(1, 1)), "A14"),
-                      (dict(slot_native=False), "A7")):
+    for cfg, bad, item in (
+            (port.cfg.replace(kv_quant=True), dict(paged=True), "A9"),
+            (port.cfg, dict(mesh=(1, 1)), "A14"),
+            (port.cfg, dict(slot_native=False), "A7")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            ServingEngine(port.cfg, params=port.params,
+            ServingEngine(cfg, params=port.params,
                           ecfg=EngineConfig(max_len=MAXLEN, **bad),
                           device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):

@@ -75,14 +75,21 @@ def test_cuda_entry_points_raise_without_a_gpu():
         ServingEngine(cfg, params=params, ecfg=EngineConfig(max_len=64),
                       device="cuda")
     with pytest.raises((RuntimeError, AssertionError)):
+        ServingEngine(cfg, params=params, ecfg=EngineConfig(
+            max_len=64, paged=True, prefix_cache=True))         # device="cuda"
+    with pytest.raises((RuntimeError, AssertionError)):
         main(["--requests", "1"])                                # --device cuda
+    with pytest.raises((RuntimeError, AssertionError)):
+        main(["--requests", "1", "--prefix-cache"])
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
-    from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     paged_decode_attention, rmsnorm)
     m = lambda *s, dt=torch.float32: torch.empty(s, device="meta", dtype=dt)
     before = (rmsnorm.launches, decode_attention.launches,
-              flash_attention.launches)
+              decode_attention.chunk_launches, flash_attention.launches,
+              paged_decode_attention.launches)
     with pytest.raises(ValueError, match="needs CUDA"):
         rmsnorm.rmsnorm(m(2, 64), m(64))
     with pytest.raises(ValueError, match="needs CUDA"):
@@ -92,10 +99,23 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     with pytest.raises(ValueError, match="needs CUDA"):
         flash_attention.flash_attention(m(1, 16, 4, 64), m(1, 16, 2, 64),
                                         m(1, 16, 2, 64))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        decode_attention.chunk_attention(
+            m(1, 8, 4, 64), m(1, 24, 2, 64), m(1, 24, 2, 64),
+            m(1, 24, dt=torch.int32), m(1, 8, dt=torch.int32))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        paged_decode_attention.paged_decode_attention(
+            m(2, 1, 4, 64), m(5, 16, 2, 64), m(5, 16, 2, 64),
+            m(2, 3, dt=torch.int32), m(2, dt=torch.int32))
     x = torch.randn(3, 64)
     rmsnorm.rmsnorm(x, torch.ones(64))                      # plain, not counted
+    paged_decode_attention.paged_decode_attention(          # plain, not counted
+        torch.randn(2, 1, 4, 64), torch.randn(5, 16, 2, 64),
+        torch.randn(5, 16, 2, 64), torch.ones(2, 3, dtype=torch.int32),
+        torch.tensor([3, 40], dtype=torch.int32))
     assert (rmsnorm.launches, decode_attention.launches,
-            flash_attention.launches) == before
+            decode_attention.chunk_launches, flash_attention.launches,
+            paged_decode_attention.launches) == before
 
 
 def test_chip_smoke_refuses_without_gpu_or_checkout(tmp_path):

@@ -4,6 +4,7 @@
     python3 chip_smoke.py                       # every phase, one GPU
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,serve_paged
+    python3 chip_smoke.py --phases build,kernels,serve_q8
 
 Phases (each raises on failure; nothing is caught):
 
@@ -26,13 +27,21 @@ Phases (each raises on failure; nothing is caught):
    attends through a page table, so the paged kernel has none, and the
    dense kernel's time on the same context stands beside it), and the
    bound: max(bytes / 3.35 TB/s, FLOP / 989 TFLOP/s) for bf16 inputs.
+   decode_attention_q8 (int8 K/V with float32 scales, q bf16 or f32) is
+   held against its plain version on the reference's two cases, the
+   serving shape (timed beside the bf16 kernel on the same context,
+   dequantized) and every head dim and group size, and its paged int8
+   route (``paged_decode_attention`` with scales) against its plain
+   version and, bit for bit, against the dense int8 kernel on the same
+   context; no PyTorch call attends over int8 K/V, so it has no library
+   time.
 3. equivalence: a 4-layer, full-width qwen2-1.5b in float32 runs one
    300-token prompt and 16 greedy decode steps on the card (kernels) and on
    the CPU (plain versions) from the same params: first-token logits
    allclose at 1e-3, the 16 tokens equal.  Then the same model serves 5
    requests through a paged engine with the prefix cache and a 15-page
    pool (prefix hits, a preemption, the chunk route) on both: the same
-   tokens.
+   tokens.  Both checks run again with ``kv_quant`` (int8 caches).
 4. serve: full-width, full-depth qwen2-1.5b in bfloat16 with seeded random
    weights serves 8 greedy requests (prompts of 100-1000 tokens, 64-128 new
    tokens) through ``serving.api.Server`` and the slot-native engine
@@ -43,11 +52,18 @@ Phases (each raises on failure; nothing is caught):
    chunk route.  In this phase and the last one, the kernels' launch
    counts are set to 0 just before and read just after; each kernel of
    the path must have launched.
-6. paged_vs_dense: phase 4's burst through a dense and a paged engine on
-   the same weights gives identical tokens.
-7. profile (opt-in, not in the default run): the serve and serve_paged
-   bursts again under ``torch.profiler`` after a warm-up run, printing the
-   device's busy share of the wall time and the kernel time by name.
+6. serve_q8: phases 4 and 5 again with ``kv_quant`` (int8 K/V caches and
+   pools with float32 scales): decode_attention_q8, the paged int8 route,
+   the chunk route, flash_attention and rmsnorm must each have launched.
+   Prints tokens/s and the KV bytes per token against bf16's.
+7. paged_vs_dense: phase 4's burst through a dense and a paged engine on
+   the same weights gives identical tokens, with bf16 caches and with
+   ``kv_quant``.
+8. profile (opt-in, not in the default run): the serve, serve_paged and
+   both serve_q8 bursts again under ``torch.profiler`` after a warm-up
+   run, printing the device's busy share of the wall time and the kernel
+   time by name, then the PyTorch operators the host dispatches per
+   forward pass.
 
 The line before the last is one JSON object with a ``kernels`` list; the
 last line is {"ok": true, "device": {...}}.  Details go to
@@ -74,8 +90,9 @@ BF16_FLOP_PER_S = 989e12         # dense tensor-core bf16
 L2_FLUSH_BYTES = 100 * 2 ** 20   # > the 50 MB L2
 BF16_ROUNDING = (1e-3, 1e-2)     # atol, rtol: one bf16 rounding apart
 PHASES = ("build", "kernels", "equivalence", "serve", "serve_paged",
-          "paged_vs_dense")
-SERVE_PATHS = ("serve", "serve_paged")   # the paths whose launches count
+          "serve_q8", "paged_vs_dense")
+# the paths whose launches count
+SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged")
 
 
 def log(*a):
@@ -210,12 +227,16 @@ def _decode_inputs(g, B, Sk, KH, Hq, hd, dt, buf):
     return q, kc[:, :Sk], vc[:, :Sk], k_pos, q_pos
 
 
-def _decode_work(k_pos, q_pos, window, Hq, KH, hd, esize, B):
+def _decode_work(k_pos, q_pos, window, Hq, KH, hd, esize, B, key_bytes=None):
+    """Bytes and FLOP of one decode call: each valid key's K and V rows
+    (``key_bytes`` per key and kv head, 2*hd*esize by default) read once,
+    k_pos, q_pos and q read, the output written."""
     valid = (k_pos >= 0) & (k_pos <= q_pos[:, None])
     if window:
         valid &= k_pos > q_pos[:, None] - window
     nv = int(valid.sum())
-    nbytes = (nv * 2 * KH * hd * esize + k_pos.numel() * 4 + B * 4
+    key_bytes = 2 * hd * esize if key_bytes is None else key_bytes
+    nbytes = (nv * KH * key_bytes + k_pos.numel() * 4 + B * 4
               + 2 * B * Hq * hd * esize)
     return nbytes, 4 * nv * (Hq // KH) * hd * KH
 
@@ -375,6 +396,15 @@ def _paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo=None, cover=None):
     return q, kp, vp, pt, qp
 
 
+# paged decode cases: (B, Hq, KH, ps, n_pages, hd, window, pos_lo, partial
+# chains): the reference's three, a short context, the serving shape
+PAGED_CASES = [(2, 8, 2, 16, 8, 64, 0, None, True),
+               (3, 4, 4, 8, 6, 128, 0, None, True),
+               (1, 16, 4, 16, 4, 64, 24, None, True),
+               (8, 12, 2, 16, 12, 128, 0, 100, False),
+               (8, 12, 2, 16, 128, 128, 0, 1024, False)]
+
+
 def _paged_cases(res):
     """paged_decode_attention against its plain version (the reference's
     cases and the serving shape), bitwise against decode_attention on the
@@ -387,13 +417,7 @@ def _paged_cases(res):
     from repro_torch.models.attention import attention
     g = torch.Generator(device="cuda").manual_seed(4)
     main = None
-    # (B, Hq, KH, ps, n_pages, hd, window, pos_lo, partial chains)
-    cases = [(2, 8, 2, 16, 8, 64, 0, None, True),
-             (3, 4, 4, 8, 6, 128, 0, None, True),
-             (1, 16, 4, 16, 4, 64, 24, None, True),
-             (8, 12, 2, 16, 12, 128, 0, 100, False),      # short context
-             (8, 12, 2, 16, 128, 128, 0, 1024, False)]    # serving shape
-    for B, Hq, KH, ps, n, hd, window, pos_lo, partial in cases:
+    for B, Hq, KH, ps, n, hd, window, pos_lo, partial in PAGED_CASES:
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             cover = None
             if partial:
@@ -476,6 +500,150 @@ def _paged_cases(res):
     return main
 
 
+def _q8_inputs(g, B, Sk, KH, Hq, hd, dt, buf, pos=None):
+    """q and int8 K/V with their scales, quantized from normal values, as
+    [:, :Sk] views of (B, buf, KH, hd) caches; k_pos with -1 holes and
+    per-row q_pos (the serve path), or, given ``pos``, the ring positions
+    of a buffer whose next write is pos + 1 and q_pos = pos for every row
+    (the reference's cases)."""
+    import torch
+    from repro_torch.models.kvcache import quantize_kv
+    q = torch.randn(B, 1, Hq, hd, generator=g, device="cuda").to(dt)
+    kq, ks = quantize_kv(torch.randn(B, buf, KH, hd, generator=g, device="cuda"))
+    vq, vs = quantize_kv(torch.randn(B, buf, KH, hd, generator=g, device="cuda"))
+    j = torch.arange(Sk, device="cuda", dtype=torch.int32)
+    if pos is None:
+        q_pos = torch.randint(Sk // 2, Sk, (B,), generator=g, device="cuda",
+                              dtype=torch.int32)
+        holes = torch.rand(B, Sk, generator=g, device="cuda") < 0.05
+        k_pos = torch.where(holes, -1, j[None].repeat(B, 1))
+    else:
+        q_pos = torch.full((B,), pos, device="cuda", dtype=torch.int32)
+        kp = pos - torch.remainder(pos - j, Sk)
+        k_pos = torch.where(kp < 0, -1, kp)[None].repeat(B, 1)
+    return (q, kq[:, :Sk], ks[:, :Sk], vq[:, :Sk], vs[:, :Sk],
+            k_pos.to(torch.int32), q_pos)
+
+
+def _q8_cases(res):
+    """decode_attention_q8 against its plain version (the reference's two
+    cases, every head dim and group size with windows and ring wraps, the
+    serving shape with holes, timed beside the bf16 kernel on the same
+    context dequantized), and the paged int8 route against its plain
+    version and, bitwise, against the dense int8 kernel on the same
+    context.  Returns the main cases (dense, paged)."""
+    import torch
+    from repro_torch.kernels import decode_attention as D
+    from repro_torch.kernels import decode_attention_q8 as Q
+    from repro_torch.kernels import paged_decode_attention as K
+    from repro_torch.models.kvcache import dequantize_kv, quantize_kv
+    g = torch.Generator(device="cuda").manual_seed(5)
+    main = None
+    # (B, Hq, KH, Sk, hd, window, pos): the reference's two cases first,
+    # then the geometry sweep, then the serving shape (pos None: holes)
+    cases = [(2, 8, 2, 512, 64, 0, 300), (1, 16, 8, 256, 128, 128, 700),
+             (1, 16, 8, 256, 128, 0, 255), (2, 4, 4, 512, 64, 128, 700),
+             (3, 8, 1, 256, 128, 0, 60), (1, 16, 16, 256, 256, 0, 100),
+             (2, 16, 1, 300, 256, 0, 299), (8, 12, 2, 192, 128, 0, None),
+             (8, 12, 2, 2048, 128, 700, None), (8, 12, 2, 2048, 128, 0, None)]
+    for B, Hq, KH, Sk, hd, window, pos in cases:
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            args = _q8_inputs(g, B, Sk, KH, Hq, hd, dt,
+                              2048 if pos is None else Sk, pos)
+            err, share = check_close(
+                f"decode_q8 {(B, Hq, KH, Sk, hd, window, pos)} {dt}",
+                Q.decode_attention_q8(*args, window=window),
+                Q.decode_attention_q8_plain(*args, window=window), tol)
+            case = {"shape": [B, Sk, KH, Hq, hd], "window": window,
+                    "pos": pos, "dtype": str(dt), "max_abs_err": err,
+                    "bf16_share": share}
+            if dt == torch.bfloat16 and Sk == 2048 and window == 0:
+                _, _, _, _, _, kp, qp = args
+                # int8 K and V rows plus two float32 scales per key, kv head
+                nbytes, flops = _decode_work(kp, qp, 0, Hq, KH, hd, 2, B,
+                                             key_bytes=2 * hd + 8)
+                sets = [_q8_inputs(g, B, Sk, KH, Hq, hd, dt, 2048)[:5]
+                        + (kp, qp) for _ in range(n_sets(nbytes))]
+                case["ms"] = time_ms(Q.decode_attention_q8, sets)
+                case["plain_ms"] = time_ms(Q.decode_attention_q8_plain, sets)
+                # the bf16 kernel on the same context, dequantized
+                bf_sets = [(q_, dequantize_kv(k_, ks_, dt),
+                            dequantize_kv(v_, vs_, dt), kp_, qp_)
+                           for q_, k_, ks_, v_, vs_, kp_, qp_ in sets]
+                case["bf16_kernel_ms"] = time_ms(D.decode_attention, bf_sets)
+                # no PyTorch call attends over int8 K/V
+                case["library_ms"] = None
+                case["bound_ms"], case["bound_by"] = bound(nbytes, flops)
+                main = case
+            res["cases"].append({"kernel": "decode_attention_q8", **case})
+            log(f"[kernels] decode_attention_q8 {case}")
+
+    # the paged int8 route
+    paged_main = None
+    for B, Hq, KH, ps, n, hd, window, pos_lo, partial in PAGED_CASES:
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            cover = None
+            if partial:
+                cover = [int(torch.randint(1, n + 1, (1,), generator=g,
+                                           device="cuda")) for _ in range(B)]
+
+            def mk():
+                q, kf, vf, pt, qp = _paged_inputs(g, B, Hq, KH, hd, ps, n,
+                                                  torch.float32, pos_lo, cover)
+                return (q.to(dt), *quantize_kv(kf), *quantize_kv(vf), pt, qp)
+            q, kq, ks, vq, vs, pt, qp = mk()
+            kw = dict(window=window, k_scale=ks, v_scale=vs)
+            out = K.paged_decode_attention(q, kq, vq, pt, qp, **kw)
+            name = (f"paged q8 B={B} {Hq}:{KH} hd={hd} ps={ps} n={n} "
+                    f"w={window} {dt}")
+            err, share = check_close(name, out, K.paged_decode_attention_plain(
+                q, kq, vq, pt, qp, **kw), tol)
+            Sk = n * ps
+            dense = [x[pt.long()].reshape(B, Sk, KH, x.shape[-1])
+                     for x in (kq, ks, vq, vs)]
+            kpos = torch.arange(Sk, device="cuda", dtype=torch.int32)[None]
+            want = Q.decode_attention_q8(q, *dense, kpos.repeat(B, 1), qp,
+                                         window=window)
+            if not torch.equal(out, want):
+                raise AssertionError(f"{name}: paged and dense int8 kernels "
+                                     f"differ by {max_err(out, want):.3g} on "
+                                     "the same context (must be bitwise "
+                                     "equal)")
+            case = {"route": "q8", "shape": [B, Sk, KH, Hq, hd],
+                    "page_size": ps, "window": window, "dtype": str(dt),
+                    "max_abs_err": err, "bf16_share": share,
+                    "bitwise_equal_dense": True}
+            if dt == torch.bfloat16 and n == 128:
+                nv = int((qp + 1).clamp(max=Sk).sum())
+                nbytes = (nv * KH * (2 * hd + 8) + B * n * 4 + B * 4
+                          + 2 * B * Hq * hd * 2)
+                sets = [mk() for _ in range(n_sets(nbytes))]
+                sets = [s_[:6] + (qp,) for s_ in sets]
+
+                def paged(q_, kq_, ks_, vq_, vs_, pt_, qp_):
+                    return K.paged_decode_attention(
+                        q_, kq_, vq_, pt_, qp_, k_scale=ks_, v_scale=vs_)
+
+                def plain(q_, kq_, ks_, vq_, vs_, pt_, qp_):
+                    return K.paged_decode_attention_plain(
+                        q_, kq_, vq_, pt_, qp_, k_scale=ks_, v_scale=vs_)
+                case["ms"] = time_ms(paged, sets)
+                case["plain_ms"] = time_ms(plain, sets)
+                dense_sets = [(q_, *[x[pt_.long()].reshape(B, Sk, KH, x.shape[-1])
+                                     for x in (kq_, ks_, vq_, vs_)],
+                               kpos.repeat(B, 1), qp_)
+                              for q_, kq_, ks_, vq_, vs_, pt_, qp_ in sets]
+                case["dense_kernel_ms"] = time_ms(Q.decode_attention_q8,
+                                                  dense_sets)
+                case["library_ms"] = None
+                case["bound_ms"], case["bound_by"] = bound(nbytes,
+                                                           4 * nv * Hq * hd)
+                paged_main = case
+            res["cases"].append({"kernel": "paged_decode_attention", **case})
+            log(f"[kernels] paged_decode_attention q8 route {case}")
+    return main, paged_main
+
+
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -487,6 +655,9 @@ KERNELS = {
     "paged_decode_attention": (
         "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
         "src/repro/kernels/paged_decode_attention.py:86"),
+    "decode_attention_q8": (
+        "src/repro_torch/kernels/csrc/decode_attention_q8.cu",
+        "src/repro/kernels/decode_attention_q8.py:63"),
 }
 
 
@@ -496,6 +667,9 @@ def phase_kernels(res):
                         "decode_attention": _decode_cases(res),
                         "flash_attention": _flash_cases(res),
                         "paged_decode_attention": _paged_cases(res)}
+    q8, paged_q8 = _q8_cases(res)
+    res["main_case"]["decode_attention_q8"] = q8
+    res["main_case"]["paged_decode_attention"]["q8_route"] = paged_q8
     _geometry_cases(res)
 
 
@@ -532,37 +706,52 @@ def phase_equivalence(res):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    cfg = get_config("qwen2-1.5b").replace(num_layers=4, dtype="float32")
-    params = init_params(torch.Generator().manual_seed(0), cfg)
-    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, size=300)
-    cpu_first, cpu_toks = _greedy_run(params, cfg, prompt, 16, "cpu")
-    gpu_first, gpu_toks = _greedy_run(_to(params, "cuda"), cfg, prompt, 16,
-                                      "cuda")
-    err = max_err(gpu_first, cpu_first)
-    log(f"[equivalence] 4-layer full-width qwen2 f32: first-token logits "
-        f"max |err| {err:.3g}; tokens cuda {gpu_toks} cpu {cpu_toks}")
-    if not torch.allclose(gpu_first, cpu_first, atol=1e-3, rtol=1e-3):
-        raise AssertionError(f"first-token logits differ by {err:.3g} > 1e-3")
-    if gpu_toks != cpu_toks:
-        raise AssertionError("greedy tokens differ between CUDA and CPU")
-    res["equivalence"] = {"logits_max_abs_err": err, "tokens": gpu_toks}
-    cpu = _paged_engine_run(params, cfg, "cpu")
-    _reset_counts()
-    gpu = _paged_engine_run(_to(params, "cuda"), cfg, "cuda")
-    counts = _launch_counts()
-    log(f"[equivalence] paged engine, 4-layer f32: preempted "
-        f"{gpu['preempted']}, prefix hits {gpu['hits']}, chunks "
-        f"{counts['decode_attention/chunk']} (chunk-route launches); "
-        f"tokens equal: {gpu['tokens'] == cpu['tokens']}")
-    if gpu["tokens"] != cpu["tokens"]:
-        raise AssertionError("paged engine: greedy tokens differ between "
-                             "CUDA and CPU")
-    if not (gpu["preempted"] and gpu["hits"]
-            and counts["decode_attention/chunk"]
-            and counts["paged_decode_attention"]):
-        raise AssertionError(f"paged equivalence run missed a route: {gpu} "
-                             f"{counts}")
-    res["equivalence"]["paged"] = {**gpu, "launches": counts}
+    base = get_config("qwen2-1.5b").replace(num_layers=4, dtype="float32")
+    params = init_params(torch.Generator().manual_seed(0), base)
+    gparams = _to(params, "cuda")
+    prompt = np.random.default_rng(0).integers(0, base.vocab_size, size=300)
+    res["equivalence"] = {}
+    for kv_quant in (False, True):
+        cfg = base.replace(kv_quant=kv_quant)
+        tag = "kv_quant" if kv_quant else "fp"
+        dense_route, paged_route = (
+            ("decode_attention_q8", "paged_decode_attention/q8") if kv_quant
+            else ("decode_attention", "paged_decode_attention"))
+        cpu_first, cpu_toks = _greedy_run(params, cfg, prompt, 16, "cpu")
+        _reset_counts()
+        gpu_first, gpu_toks = _greedy_run(gparams, cfg, prompt, 16, "cuda")
+        greedy_counts = _launch_counts()
+        err = max_err(gpu_first, cpu_first)
+        log(f"[equivalence] 4-layer full-width qwen2 f32 {tag}: first-token "
+            f"logits max |err| {err:.3g}; tokens cuda {gpu_toks} cpu "
+            f"{cpu_toks}")
+        if not torch.allclose(gpu_first, cpu_first, atol=1e-3, rtol=1e-3):
+            raise AssertionError(f"{tag}: first-token logits differ by "
+                                 f"{err:.3g} > 1e-3")
+        if gpu_toks != cpu_toks:
+            raise AssertionError(f"{tag}: greedy tokens differ between CUDA "
+                                 "and CPU")
+        if not greedy_counts[dense_route]:
+            raise AssertionError(f"{tag}: decode did not run {dense_route}: "
+                                 f"{greedy_counts}")
+        res["equivalence"][tag] = {"logits_max_abs_err": err,
+                                   "tokens": gpu_toks}
+        cpu = _paged_engine_run(params, cfg, "cpu")
+        _reset_counts()
+        gpu = _paged_engine_run(gparams, cfg, "cuda")
+        counts = _launch_counts()
+        log(f"[equivalence] paged engine, 4-layer f32 {tag}: preempted "
+            f"{gpu['preempted']}, prefix hits {gpu['hits']}, chunks "
+            f"{counts['decode_attention/chunk']} (chunk-route launches); "
+            f"tokens equal: {gpu['tokens'] == cpu['tokens']}")
+        if gpu["tokens"] != cpu["tokens"]:
+            raise AssertionError(f"paged engine {tag}: greedy tokens differ "
+                                 "between CUDA and CPU")
+        if not (gpu["preempted"] and gpu["hits"]
+                and counts["decode_attention/chunk"] and counts[paged_route]):
+            raise AssertionError(f"paged equivalence run {tag} missed a "
+                                 f"route: {gpu} {counts}")
+        res["equivalence"][tag]["paged"] = {**gpu, "launches": counts}
 
 
 def _paged_engine_run(params, cfg, device):
@@ -594,10 +783,10 @@ def _paged_engine_run(params, cfg, device):
 
 # -- phase 4: serve ------------------------------------------------------------------------
 
-def _serve_engine():
+def _serve_engine(kv_quant=False):
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import EngineConfig, ServingEngine
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config("qwen2-1.5b").replace(kv_quant=kv_quant)
     return cfg, ServingEngine(cfg, ecfg=EngineConfig(max_batch=8, max_len=2048,
                                                      governor="greenllm"),
                               seed=0, device="cuda")
@@ -617,10 +806,29 @@ def _burst(server, vocab):
     return lens, handles, server.run()
 
 
+def _op_count(fn):
+    """Run ``fn()`` counting the PyTorch operators it dispatches (each call
+    that reaches the dispatcher below autograd, on any device; the port's
+    ctypes kernel launches are not operators).  Returns the count."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return Count.n
+
+
 def _profiled(path, make_engine, burst):
     """``burst`` once to warm up, then once more under ``torch.profiler``
     (CUDA activity only): the device's busy share of the wall time and its
-    kernel time by name."""
+    kernel time by name; then once more counting the PyTorch operators the
+    host dispatches per forward pass (``_op_count``; forward passes from
+    the rmsnorm launches, 2 per layer + 1 per pass)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.api import Server
@@ -647,29 +855,44 @@ def _profiled(path, make_engine, burst):
     for name, us in top:
         log(f"[profile]   {us / 1e3:9.1f} ms  {100 * us / 1e6 / wall:5.1f}%  "
             f"{name[:90]}")
+    _reset_counts()
+    ops = _op_count(lambda: burst(server, cfg.vocab_size))
+    passes = _launch_counts()["rmsnorm"] // (2 * cfg.num_layers + 1)
+    log(f"[profile] {path}: {ops} PyTorch operators dispatched for {passes} "
+        f"forward passes = {ops / passes:.0f} per pass")
     return {"wall_s": wall, "device_busy_s": busy,
-            "top_ms": {n: us / 1e3 for n, us in top}}
+            "top_ms": {n: us / 1e3 for n, us in top},
+            "ops_per_pass": ops / passes, "passes": passes}
 
 
 def phase_profile(res):
-    """Opt-in (``--phases ...,profile``): the serve and serve_paged bursts
-    under ``torch.profiler``, each after a warm-up run of itself (the paged
-    one then starts with a warm prefix cache)."""
+    """Opt-in (``--phases ...,profile``): the serve, serve_paged and
+    serve_q8 bursts under ``torch.profiler``, each after a warm-up run of
+    itself (a paged one then starts with a warm prefix cache)."""
     res["profile"] = {
         "serve": _profiled("serve", _serve_engine, _burst),
         "serve_paged": _profiled("serve_paged", _paged_serve_engine,
-                                 _paged_waves)}
+                                 _paged_waves),
+        "serve_q8": _profiled("serve_q8", lambda: _serve_engine(True),
+                              _burst),
+        "serve_q8_paged": _profiled("serve_q8_paged",
+                                    lambda: _paged_serve_engine(True),
+                                    _paged_waves)}
 
 
 def _counters():
     """(module, attribute) of every kernel launch count, by route name."""
-    from repro_torch.kernels import (decode_attention, flash_attention,
-                                     paged_decode_attention, rmsnorm)
+    from repro_torch.kernels import (decode_attention, decode_attention_q8,
+                                     flash_attention, paged_decode_attention,
+                                     rmsnorm)
     return {"rmsnorm": (rmsnorm, "launches"),
             "decode_attention": (decode_attention, "launches"),
             "decode_attention/chunk": (decode_attention, "chunk_launches"),
             "flash_attention": (flash_attention, "launches"),
-            "paged_decode_attention": (paged_decode_attention, "launches")}
+            "paged_decode_attention": (paged_decode_attention, "launches"),
+            "paged_decode_attention/q8": (paged_decode_attention,
+                                          "q8_launches"),
+            "decode_attention_q8": (decode_attention_q8, "launches")}
 
 
 def _reset_counts():
@@ -699,13 +922,23 @@ def _check_outputs(handles, vocab):
                                  f"bad output {toks}")
 
 
-def phase_serve(res):
+def _kv_bytes_per_token(eng):
+    """Bytes of K/V state (values and scales, every layer) per token the
+    engine's caches or pools hold."""
+    n = sum(t.numel() * t.element_size() for stage in eng.caches
+            for d in stage for t in d.values())
+    tokens = (eng.pager.num_pages * eng.ecfg.page_size if eng.pager
+              else eng.ecfg.max_batch * eng.ecfg.max_len)
+    return n / tokens
+
+
+def phase_serve(res, kv_quant=False, path="serve"):
     import torch
     from repro_torch.serving.api import Server
     t0 = time.perf_counter()
-    cfg, eng = _serve_engine()
+    cfg, eng = _serve_engine(kv_quant)
     torch.cuda.synchronize()
-    log(f"[serve] engine with random bf16 weights built in "
+    log(f"[{path}] engine with random bf16 weights built in "
         f"{time.perf_counter() - t0:.1f}s")
     server = Server(eng)
     _reset_counts()
@@ -717,27 +950,30 @@ def phase_serve(res):
     counts = _launch_counts()
     out_toks = sum(len(h.request.tokens) for h in handles)
     log(rep.summary())
-    log(f"[serve] {len(handles)} requests, prompts {sorted(lens.tolist())}, "
+    log(f"[{path}] {len(handles)} requests, prompts {sorted(lens.tolist())}, "
         f"{out_toks} tokens out in {wall:.2f}s wall = {out_toks / wall:.1f} "
         f"tokens/s; host drains {eng._host_drains}; launches {counts}")
     if rep.completed != len(handles):
         raise AssertionError(f"only {rep.completed}/{len(handles)} completed")
     _check_outputs(handles, cfg.vocab_size)
-    _check_launched("serve", counts,
-                    ("rmsnorm", "decode_attention", "flash_attention"))
-    res["serve"] = {"wall_s": wall, "tokens_out": out_toks,
-                    "tokens_per_s": out_toks / wall, "launches": counts,
-                    "completed": rep.completed, "energy_j": rep.total_energy_j,
-                    "host_drains": eng._host_drains}
+    decode = "decode_attention_q8" if kv_quant else "decode_attention"
+    _check_launched(path, counts, ("rmsnorm", decode, "flash_attention"))
+    if kv_quant and counts["decode_attention"]:
+        raise AssertionError("the int8 path ran the bf16 decode kernel")
+    res[path] = {"wall_s": wall, "tokens_out": out_toks,
+                 "tokens_per_s": out_toks / wall, "launches": counts,
+                 "completed": rep.completed, "energy_j": rep.total_energy_j,
+                 "host_drains": eng._host_drains,
+                 "kv_bytes_per_token": _kv_bytes_per_token(eng)}
 
 
-def _paged_serve_engine():
+def _paged_serve_engine(kv_quant=False):
     """Full-width, full-depth qwen2-1.5b in bf16 on the paged engine with
     the prefix cache and a 219-page pool (3504 tokens, against 16384 for
     the dense cache)."""
     from repro_torch.configs import get_config
     from repro_torch.serving import EngineConfig, ServingEngine
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config("qwen2-1.5b").replace(kv_quant=kv_quant)
     return cfg, ServingEngine(cfg, ecfg=EngineConfig(
         max_batch=8, max_len=2048, paged=True, page_size=16, num_pages=220,
         prefix_cache=True, governor="greenllm"), seed=0, device="cuda")
@@ -764,10 +1000,10 @@ def _paged_waves(server, vocab):
     return handles, rep
 
 
-def phase_serve_paged(res):
+def phase_serve_paged(res, kv_quant=False, path="serve_paged"):
     import torch
     from repro_torch.serving import Server
-    cfg, eng = _paged_serve_engine()
+    cfg, eng = _paged_serve_engine(kv_quant)
     server = Server(eng)
     _reset_counts()
     torch.cuda.synchronize()
@@ -779,7 +1015,7 @@ def phase_serve_paged(res):
     pc = eng.prefix_cache.stats()
     out_toks = sum(len(h.request.tokens) for h in handles)
     log(rep.summary())
-    log(f"[serve_paged] {len(handles)} requests in two waves, {out_toks} "
+    log(f"[{path}] {len(handles)} requests in two waves, {out_toks} "
         f"tokens out in {wall:.2f}s wall = {out_toks / wall:.1f} tokens/s; "
         f"host drains {eng._host_drains}; preempted {eng._preempted}; "
         f"prefix cache {pc}; peak pages {eng.pager.peak_used}/"
@@ -790,47 +1026,71 @@ def phase_serve_paged(res):
     if not (pc["hits"] >= 1 and eng._preempted >= 1):
         raise AssertionError(f"no prefix hit or no preemption: {pc}, "
                              f"preempted {eng._preempted}")
-    _check_launched("serve_paged", counts,
-                    ("rmsnorm", "paged_decode_attention", "flash_attention",
-                     "decode_attention/chunk"))
-    if counts["decode_attention"]:
-        raise AssertionError("the paged path ran the dense decode kernel")
-    res["serve_paged"] = {
+    paged, other = ("paged_decode_attention/q8", "paged_decode_attention")
+    if not kv_quant:
+        paged, other = other, paged
+    _check_launched(path, counts, ("rmsnorm", paged, "flash_attention",
+                                   "decode_attention/chunk"))
+    if counts["decode_attention"] or counts["decode_attention_q8"] \
+            or counts[other]:
+        raise AssertionError(f"the {path} path ran another decode kernel: "
+                             f"{counts}")
+    res[path] = {
         "wall_s": wall, "tokens_out": out_toks,
         "tokens_per_s": out_toks / wall, "launches": counts,
         "completed": rep.completed, "energy_j": rep.total_energy_j,
         "host_drains": eng._host_drains, "preempted": eng._preempted,
-        "prefix_cache": pc, "peak_pages": eng.pager.peak_used}
+        "prefix_cache": pc, "peak_pages": eng.pager.peak_used,
+        "kv_bytes_per_token": _kv_bytes_per_token(eng)}
+
+
+def phase_serve_q8(res):
+    """The serve and serve_paged bursts with kv_quant: int8 K/V caches and
+    pools with float32 scales, full width and depth, bf16 weights."""
+    from repro_torch.configs import get_config
+    phase_serve(res, kv_quant=True, path="serve_q8")
+    phase_serve_paged(res, kv_quant=True, path="serve_q8_paged")
+    cfg = get_config("qwen2-1.5b")
+    bf16 = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+    for path in ("serve_q8", "serve_q8_paged"):
+        b = res[path]["kv_bytes_per_token"]
+        log(f"[serve_q8] {path}: {res[path]['tokens_per_s']:.1f} tokens/s; "
+            f"KV bytes per token {b:.0f} against bf16's {bf16} "
+            f"({b / bf16:.3f}x)")
 
 
 def phase_paged_vs_dense(res):
     """The serve phase's burst through a dense and a paged engine (no
-    prefix cache, a pool that never preempts) on the same weights: the
-    tokens must be identical."""
+    prefix cache, a pool that never preempts) on the same weights, with
+    bf16 caches and with kv_quant: the tokens must be identical."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.serving import EngineConfig, Server, ServingEngine
-    cfg = get_config("qwen2-1.5b")
-    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    toks = {}
-    for paged in (False, True):
-        eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
-            max_batch=8, max_len=2048, paged=paged), device="cuda")
-        _, handles, rep = _burst(Server(eng), cfg.vocab_size)
-        _check_outputs(handles, cfg.vocab_size)
-        toks[paged] = [list(h.request.tokens) for h in handles]
-        del eng
-    same = toks[True] == toks[False]
-    log(f"[paged_vs_dense] {sum(map(len, toks[True]))} tokens; identical: "
-        f"{same}")
-    if not same:
-        diff = [i for i, (a, b) in enumerate(zip(toks[True], toks[False]))
-                if a != b]
-        raise AssertionError(f"paged and dense engines differ on requests "
-                             f"{diff}")
-    res["paged_vs_dense"] = {"identical": True,
-                             "tokens": sum(map(len, toks[True]))}
+    base = get_config("qwen2-1.5b")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), base)
+    res["paged_vs_dense"] = {}
+    for kv_quant in (False, True):
+        cfg = base.replace(kv_quant=kv_quant)
+        tag = "kv_quant" if kv_quant else "bf16"
+        toks = {}
+        for paged in (False, True):
+            eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
+                max_batch=8, max_len=2048, paged=paged), device="cuda")
+            _, handles, rep = _burst(Server(eng), cfg.vocab_size)
+            _check_outputs(handles, cfg.vocab_size)
+            toks[paged] = [list(h.request.tokens) for h in handles]
+            del eng
+        same = toks[True] == toks[False]
+        log(f"[paged_vs_dense] {tag}: {sum(map(len, toks[True]))} tokens; "
+            f"identical: {same}")
+        if not same:
+            diff = [i for i, (a, b) in enumerate(zip(toks[True], toks[False]))
+                    if a != b]
+            raise AssertionError(f"{tag}: paged and dense engines differ on "
+                                 f"requests {diff}")
+        res["paged_vs_dense"][tag] = {"identical": True,
+                                      "tokens": sum(map(len, toks[True]))}
 
 
 # -- main ---------------------------------------------------------------------------------
@@ -871,7 +1131,7 @@ def main(argv=None):
     res = {"card": card}
     fns = {"build": phase_build, "kernels": phase_kernels,
            "equivalence": phase_equivalence, "serve": phase_serve,
-           "serve_paged": phase_serve_paged,
+           "serve_paged": phase_serve_paged, "serve_q8": phase_serve_q8,
            "paged_vs_dense": phase_paged_vs_dense, "profile": phase_profile}
     for p in phases:
         t0 = time.perf_counter()
@@ -898,7 +1158,9 @@ def main(argv=None):
             "ms": c.get("ms"), "plain_ms": c.get("plain_ms"),
             "bound_ms": c.get("bound_ms"), "bound_by": c.get("bound_by"),
             "library_ms": c.get("library_ms"), "shape": c.get("shape"),
-            "dense_kernel_ms": c.get("dense_kernel_ms")})
+            "dense_kernel_ms": c.get("dense_kernel_ms"),
+            "bf16_kernel_ms": c.get("bf16_kernel_ms"),
+            "q8_route": c.get("q8_route")})
     out_dir = ROOT / args.out
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

@@ -1,8 +1,9 @@
 // Helpers shared by the port's hand-written Hopper kernels.
 //
 // Every kernel computes in float32 and reads/writes its tensors either as
-// float32 or as bfloat16; the element type is a template parameter and the
-// Python wrapper picks the instantiation through an integer dtype code.
+// float32 or as bfloat16 (the int8 KV caches of decode are read here too);
+// the element type is a template parameter and the Python wrapper picks the
+// instantiation through an integer dtype code.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +44,26 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
     out[2 * i] = __uint_as_float(w[i] << 16);
     out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
+}
+
+// int8 values widened to float32 (exact): 16 from a 16-byte vector, 8 from
+// an 8-byte one (p aligned to its size); little endian, so byte i of word w
+// is element 4w + i.
+__device__ __forceinline__ void widen_i8(int w, float* out) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out[i] = static_cast<float>(static_cast<signed char>(w >> (8 * i)));
+}
+
+__device__ __forceinline__ void load_vec(const int8_t* p, float* out) {
+  const int4 r = *reinterpret_cast<const int4*>(p);
+  widen_i8(r.x, out); widen_i8(r.y, out + 4);
+  widen_i8(r.z, out + 8); widen_i8(r.w, out + 12);
+}
+
+__device__ __forceinline__ void load_vec8(const int8_t* p, float* out) {
+  const int2 r = *reinterpret_cast<const int2*>(p);
+  widen_i8(r.x, out); widen_i8(r.y, out + 4);
 }
 
 __device__ __forceinline__ float warp_sum(float x) {

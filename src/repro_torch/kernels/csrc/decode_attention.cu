@@ -16,41 +16,14 @@ using namespace rt;
 
 namespace {
 
-constexpr int kThreads = decode::kThreads;
-
-template <typename T>
-struct DenseKeys {
-  const T* k;
-  const T* v;
-  const int* k_pos;
-  int Sk, window;
-  long long k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, kp_sb;
-
-  __device__ __forceinline__ bool valid(int b, int qp, int j) const {
-    const int kp = k_pos[b * kp_sb + j];
-    return kp >= 0 && kp <= qp && (window == 0 || kp > qp - window);
-  }
-  __device__ __forceinline__ int last(int b, int qp, int t) const {
-    int l = -1;
-    for (int j = t; j < Sk; j += kThreads)
-      if (valid(b, qp, j)) l = j;
-    return l;
-  }
-  __device__ __forceinline__ const T* k_row(int b, int kh, int j) const {
-    return k + b * k_sb + kh * k_sh + (long long)j * k_ss;
-  }
-  __device__ __forceinline__ const T* v_row(int b, int kh, int j) const {
-    return v + b * v_sb + kh * v_sh + (long long)j * v_ss;
-  }
-};
-
 template <typename T>
 int run(const void* q, const void* k, const void* v, const void* k_pos,
         const void* q_pos, void* out, int B, int Sk, int KH, int G, int hd,
         const long long* st, int window, float scale, cudaStream_t s) {
-  const DenseKeys<T> keys{static_cast<const T*>(k), static_cast<const T*>(v),
-                          static_cast<const int*>(k_pos), Sk, window,
-                          st[2], st[3], st[4], st[5], st[6], st[7], st[8]};
+  const decode::Cache<T, decode::DenseRows> keys{
+      {static_cast<const int*>(k_pos), Sk, window, st[8]},
+      static_cast<const T*>(k), static_cast<const T*>(v),
+      {st[2], st[3], st[4]}, {st[5], st[6], st[7]}};
   return decode::dispatch_hd<T>(hd, q, q_pos, out, B, KH, G, st[0], st[1],
                                 scale, keys, s);
 }

@@ -19,40 +19,14 @@
 // the dense kernel, so a context laid out as a page chain gives outputs
 // bitwise equal to the same context in a dense cache.  The pool must have
 // q's dtype (the wrapper raises otherwise): no per-step cast of the pool.
+// An int8 pool with its scales (kv_quant) takes the int8 route below, the
+// body of decode_attention_q8.cu; the reference has no paged int8 kernel
+// (XLA gathers and dequantizes, models/kvcache.py::paged_cache_kv_arrays).
+// The paged rows policy (decode::PagedRows) is in decode_attention.cuh.
 #include "decode_attention.cuh"
 
 using namespace rt;
 
-namespace {
-
-template <typename T>
-struct PagedKeys {
-  const T* kp;
-  const T* vp;
-  const int* table;
-  int n_pages, ps, window;
-  long long pt_sb;                 // page-table row stride
-  long long p_sp, p_ss, p_sh;      // pool strides: page, slot, kv head
-
-  __device__ __forceinline__ bool valid(int b, int qp, int j) const {
-    return j <= qp && (window == 0 || j > qp - window);
-  }
-  __device__ __forceinline__ int last(int b, int qp, int t) const {
-    return max(min(qp, n_pages * ps - 1), -1);
-  }
-  __device__ __forceinline__ long long row(int b, int kh, int j) const {
-    const int page = table[b * pt_sb + j / ps];
-    return page * p_sp + (j % ps) * p_ss + kh * p_sh;
-  }
-  __device__ __forceinline__ const T* k_row(int b, int kh, int j) const {
-    return kp + row(b, kh, j);
-  }
-  __device__ __forceinline__ const T* v_row(int b, int kh, int j) const {
-    return vp + row(b, kh, j);
-  }
-};
-
-}  // namespace
 
 // q: (B, Hq, hd) with strides (q_sb, q_sh, 1); k_pool, v_pool: (P, ps, KH,
 // hd), both with strides (p_sp, p_ss, p_sh, 1); page_table: (B, n_pages)
@@ -69,21 +43,55 @@ extern "C" int paged_decode_attention_launch(
   if (G < 1 || G > decode::kMaxG || ps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* pt = static_cast<const int*>(page_table);
+  const decode::PagedRows rows{static_cast<const int*>(page_table), n_pages,
+                               ps, window, pt_sb};
+  const decode::Strides st{p_sp, p_ss, p_sh};
   if (dtype == kBF16) {
     using T = __nv_bfloat16;
-    const PagedKeys<T> keys{static_cast<const T*>(k_pool),
-                            static_cast<const T*>(v_pool), pt, n_pages, ps,
-                            window, pt_sb, p_sp, p_ss, p_sh};
+    const decode::Cache<T, decode::PagedRows> keys{
+        rows, static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+        st, st};
     return decode::dispatch_hd<T>(hd, q, q_pos, out, B, KH, G, q_sb, q_sh,
                                   scale, keys, s);
   }
   if (dtype == kF32) {
-    const PagedKeys<float> keys{static_cast<const float*>(k_pool),
-                                static_cast<const float*>(v_pool), pt,
-                                n_pages, ps, window, pt_sb, p_sp, p_ss, p_sh};
+    const decode::Cache<float, decode::PagedRows> keys{
+        rows, static_cast<const float*>(k_pool),
+        static_cast<const float*>(v_pool), st, st};
     return decode::dispatch_hd<float>(hd, q, q_pos, out, B, KH, G, q_sb, q_sh,
                                       scale, keys, s);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The int8 route (kv_quant): k_pool, v_pool int8 (P, ps, KH, hd) with
+// strides (p_sp, p_ss, p_sh, 1); k_scale, v_scale float32 (P, ps, KH, 1)
+// with strides (s_sp, s_ss, s_sh, 1); q and out float32 or bfloat16
+// (dtype), otherwise as above.  The body is decode_attention_q8's, with
+// page-table addressing, so a chain gives that kernel's bits.
+extern "C" int paged_decode_attention_q8_launch(
+    const void* q, const void* k_pool, const void* k_scale,
+    const void* v_pool, const void* v_scale, const void* page_table,
+    const void* q_pos, void* out, int B, int n_pages, int ps, int KH, int G,
+    int hd, long long q_sb, long long q_sh, long long pt_sb, long long p_sp,
+    long long p_ss, long long p_sh, long long s_sp, long long s_ss,
+    long long s_sh, int window, float scale, int dtype, void* stream) {
+  if (G < 1 || G > decode::kMaxG || ps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const decode::PagedRows rows{static_cast<const int*>(page_table), n_pages,
+                               ps, window, pt_sb};
+  const decode::Strides st{p_sp, p_ss, p_sh}, sst{s_sp, s_ss, s_sh};
+  const decode::Cache<int8_t, decode::PagedRows, true> keys{
+      rows, static_cast<const int8_t*>(k_pool),
+      static_cast<const int8_t*>(v_pool), st, st,
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      sst, sst};
+  if (dtype == kBF16)
+    return decode::dispatch_hd<__nv_bfloat16>(hd, q, q_pos, out, B, KH, G,
+                                              q_sb, q_sh, scale, keys, s);
+  if (dtype == kF32)
+    return decode::dispatch_hd<float>(hd, q, q_pos, out, B, KH, G, q_sb, q_sh,
+                                      scale, keys, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

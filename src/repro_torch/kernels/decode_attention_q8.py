@@ -1,0 +1,92 @@
+"""Flash-decode over an int8 KV cache: the wrapper of the CUDA kernel
+``csrc/decode_attention_q8.cu``, its plain version, and a launch count.
+
+Replaces ``src/repro/kernels/decode_attention_q8.py::decode_attention_q8``
+(Pallas), in the serving layout of the bshd wrappers: q (B, 1, Hq, hd)
+float32 or bfloat16; k, v int8 (B, Sk, KH, hd) and their float32 scales
+k_s, v_s (B, Sk, KH, 1), one per (token, kv head), which may be strided
+views ``cache[:, :ctx]`` of longer buffers; k_pos (B, Sk) and q_pos (B,)
+int32, as in ``decode_attention``.  The plain version is the Pallas
+test's oracle: dequantize to float32, attend in float32, cast to q's
+dtype.  On CPU tensors the wrapper computes the plain version; on CUDA
+tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .ref import reference_decode_attention
+
+# kernel launches by ``decode_attention_q8`` (plain-version calls not
+# counted)
+launches = 0
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ARGTYPES = ((_P,) * 8 + (_I,) * 5 + (_L,) * 15 + (_I, _F, _I, _P))
+MAX_GROUP = 16      # query heads per kv head the kernel holds
+HEAD_DIMS = (64, 128, 256)
+
+
+def decode_attention_q8_plain(q, k, k_s, v, v_s, k_pos, q_pos, *,
+                              window: int = 0, scale=None):
+    kf = (k.float() * k_s).transpose(1, 2)
+    vf = (v.float() * v_s).transpose(1, 2)
+    out = reference_decode_attention(q[:, 0].float(), kf, vf, k_pos, q_pos,
+                                     window=window, scale=scale)
+    return out.to(q.dtype)[:, None]
+
+
+def decode_attention_q8(q, k, k_s, v, v_s, k_pos, q_pos, *, window: int = 0,
+                        scale=None):
+    """q (B,1,Hq,hd); k,v (B,Sk,KH,hd) int8; k_s,v_s (B,Sk,KH,1) float32;
+    k_pos (B,Sk) int32 slot positions (-1 = unfilled); q_pos (B,) int32
+    -> (B,1,Hq,hd) in q's dtype."""
+    global launches
+    if q.device.type == "cpu":
+        return decode_attention_q8_plain(q, k, k_s, v, v_s, k_pos, q_pos,
+                                         window=window, scale=scale)
+    _build.check_cuda("decode_attention_q8", q, k, k_s, v, v_s, k_pos, q_pos)
+    B, one, Hq, hd = q.shape
+    Bk, Sk, KH, hdk = k.shape
+    if one != 1 or Bk != B or hdk != hd or v.shape != k.shape \
+            or k_s.shape != (B, Sk, KH, 1) or v_s.shape != k_s.shape:
+        raise ValueError(f"decode_attention_q8: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} k_s "
+                         f"{tuple(k_s.shape)} v_s {tuple(v_s.shape)}")
+    if k.dtype != torch.int8 or v.dtype != torch.int8 \
+            or k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
+        raise TypeError(f"decode_attention_q8: k/v must be int8 and k_s/v_s "
+                        f"float32, got {k.dtype} {v.dtype} {k_s.dtype} "
+                        f"{v_s.dtype}")
+    code = _build.dtype_code(q)
+    if Hq % KH or Hq // KH > MAX_GROUP or hd not in HEAD_DIMS:
+        raise ValueError(f"decode_attention_q8: Hq={Hq}, KH={KH}, hd={hd} "
+                         f"not supported (Hq/KH <= {MAX_GROUP}, hd in "
+                         f"{HEAD_DIMS})")
+    if k_pos.dtype != torch.int32 or q_pos.dtype != torch.int32 \
+            or k_pos.shape != (B, Sk) or q_pos.shape != (B,) \
+            or k_pos.stride(-1) != 1 or not q_pos.is_contiguous():
+        raise ValueError("decode_attention_q8: k_pos (B,Sk) and q_pos (B,) "
+                         "must be int32 with a contiguous last dim")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_vec_aligned(f"decode_attention_q8 {name}", t)
+    out = torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device)
+    if B == 0 or Hq == 0:
+        return out[:, None]
+    fn = _build.function("decode_attention_q8", "decode_attention_q8_launch",
+                         _ARGTYPES)
+    scale = hd ** -0.5 if scale is None else scale
+    err = fn(q.data_ptr(), k.data_ptr(), k_s.data_ptr(), v.data_ptr(),
+             v_s.data_ptr(), k_pos.data_ptr(), q_pos.data_ptr(),
+             out.data_ptr(), B, Sk, KH, Hq // KH, hd, q.stride(0),
+             q.stride(2), k.stride(0), k.stride(1), k.stride(2), v.stride(0),
+             v.stride(1), v.stride(2), k_s.stride(0), k_s.stride(1),
+             k_s.stride(2), v_s.stride(0), v_s.stride(1), v_s.stride(2),
+             k_pos.stride(0), int(window), float(scale), code,
+             _build.stream_handle())
+    _build.raise_on_error("decode_attention_q8", err)
+    launches += 1
+    return out[:, None]

@@ -9,6 +9,14 @@ row stride) and q_pos (B,) int32.  Key j of a row has position j; it is
 valid when j <= q_pos and inside the window.  On CPU tensors the wrapper
 computes the plain version; on CUDA tensors it launches the kernel or
 raises.
+
+Int8 pools (``kv_quant``) come with their float32 scales k_scale, v_scale
+(P, ps, KH, 1); the kernel then runs its int8 route, the body of
+``decode_attention_q8`` with page-table addressing, so a context laid out
+as a chain gives the dense int8 kernel's bits.  The reference has no paged
+int8 kernel: XLA gathers and dequantizes (``paged_cache_kv_arrays``), and
+so does the plain version, in float32.  Those launches are counted apart
+(``q8_launches``).
 """
 from __future__ import annotations
 
@@ -19,18 +27,28 @@ import torch
 from . import _build
 from .ref import paged_decode_attention_ref
 
-# kernel launches by ``paged_decode_attention`` (plain-version calls not
-# counted)
+# kernel launches by ``paged_decode_attention`` over float pools and over
+# int8 pools (plain-version calls not counted)
 launches = 0
+q8_launches = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = ((_P,) * 6 + (_I,) * 6 + (_L,) * 6 + (_I, _F, _I, _P))
+_Q8_ARGTYPES = ((_P,) * 8 + (_I,) * 6 + (_L,) * 9 + (_I, _F, _I, _P))
 MAX_GROUP = 16      # query heads per kv head the kernel holds
 HEAD_DIMS = (64, 128, 256)
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, page_table, q_pos, *,
-                                 window: int = 0, scale=None):
+                                 window: int = 0, scale=None, k_scale=None,
+                                 v_scale=None):
+    if k_scale is not None:
+        # int8 pools: the gathered chain dequantized in float32
+        out = paged_decode_attention_ref(q[:, 0].float(), k_pool, v_pool,
+                                         page_table, q_pos, window=window,
+                                         scale=scale, k_scale=k_scale,
+                                         v_scale=v_scale)
+        return out.to(q.dtype)[:, None]
     # the reference reads the gathered pool in q's dtype
     # (models/kvcache.py::paged_cache_kv_arrays)
     out = paged_decode_attention_ref(q[:, 0], k_pool.to(q.dtype),
@@ -40,15 +58,20 @@ def paged_decode_attention_plain(q, k_pool, v_pool, page_table, q_pos, *,
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, q_pos, *,
-                           window: int = 0, scale=None):
-    """q (B,1,Hq,hd); k_pool, v_pool (P,ps,KH,hd) contiguous; page_table
-    (B,n_pages) int32; q_pos (B,) int32 -> (B,1,Hq,hd)."""
-    global launches
+                           window: int = 0, scale=None, k_scale=None,
+                           v_scale=None):
+    """q (B,1,Hq,hd); k_pool, v_pool (P,ps,KH,hd) contiguous, in q's dtype,
+    or int8 with k_scale, v_scale (P,ps,KH,1) float32 contiguous;
+    page_table (B,n_pages) int32; q_pos (B,) int32 -> (B,1,Hq,hd)."""
+    global launches, q8_launches
     if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
-                                            q_pos, window=window, scale=scale)
+        return paged_decode_attention_plain(
+            q, k_pool, v_pool, page_table, q_pos, window=window, scale=scale,
+            k_scale=k_scale, v_scale=v_scale)
+    q8 = k_scale is not None or v_scale is not None
+    scales = (k_scale, v_scale) if q8 else ()
     _build.check_cuda("paged_decode_attention", q, k_pool, v_pool,
-                      page_table, q_pos)
+                      page_table, q_pos, *(s for s in scales if s is not None))
     B, one, Hq, hd = q.shape
     P, ps, KH, hdk = k_pool.shape
     if one != 1 or hdk != hd or v_pool.shape != k_pool.shape \
@@ -57,10 +80,21 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, q_pos, *,
                          f"pools {tuple(k_pool.shape)} {tuple(v_pool.shape)} "
                          f"page_table {tuple(page_table.shape)}")
     # the kernel reads the pool as it is: a pool of another dtype would need
-    # a cast of the whole pool on every step, so it is refused
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+    # a cast of the whole pool on every step, so it is refused; int8 pools
+    # only with both their float32 scales
+    if q8:
+        if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8 \
+                or any(s is None or s.dtype != torch.float32
+                       or s.shape != (P, ps, KH, 1) or not s.is_contiguous()
+                       for s in scales):
+            raise TypeError("paged_decode_attention: the int8 route needs "
+                            "int8 pools and both scales, float32 (P, ps, KH, "
+                            f"1) contiguous; got pools {k_pool.dtype} "
+                            f"{v_pool.dtype}")
+    elif k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError(f"paged_decode_attention: q {q.dtype} and pools "
-                        f"{k_pool.dtype} {v_pool.dtype} differ")
+                        f"{k_pool.dtype} {v_pool.dtype} differ (int8 pools "
+                        "need k_scale and v_scale)")
     code = _build.dtype_code(q)
     if Hq % KH or Hq // KH > MAX_GROUP or hd not in HEAD_DIMS:
         raise ValueError(f"paged_decode_attention: Hq={Hq}, KH={KH}, hd={hd} "
@@ -79,15 +113,27 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, q_pos, *,
     out = torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device)
     if B == 0 or Hq == 0:
         return out[:, None]
-    fn = _build.function("paged_decode_attention",
-                         "paged_decode_attention_launch", _ARGTYPES)
     scale = hd ** -0.5 if scale is None else scale
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             page_table.data_ptr(), q_pos.data_ptr(), out.data_ptr(), B,
-             page_table.shape[1], ps, KH, Hq // KH, hd, q.stride(0),
-             q.stride(2), page_table.stride(0), k_pool.stride(0),
-             k_pool.stride(1), k_pool.stride(2), int(window), float(scale),
-             code, _build.stream_handle())
+    geom = (B, page_table.shape[1], ps, KH, Hq // KH, hd, q.stride(0),
+            q.stride(2), page_table.stride(0), k_pool.stride(0),
+            k_pool.stride(1), k_pool.stride(2))
+    tail = (int(window), float(scale), code, _build.stream_handle())
+    if q8:
+        fn = _build.function("paged_decode_attention",
+                             "paged_decode_attention_q8_launch", _Q8_ARGTYPES)
+        err = fn(q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(),
+                 v_pool.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
+                 q_pos.data_ptr(), out.data_ptr(), *geom, k_scale.stride(0),
+                 k_scale.stride(1), k_scale.stride(2), *tail)
+    else:
+        fn = _build.function("paged_decode_attention",
+                             "paged_decode_attention_launch", _ARGTYPES)
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 page_table.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+                 *geom, *tail)
     _build.raise_on_error("paged_decode_attention", err)
-    launches += 1
+    if q8:
+        q8_launches += 1
+    else:
+        launches += 1
     return out[:, None]

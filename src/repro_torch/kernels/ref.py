@@ -60,18 +60,27 @@ def reference_decode_attention(q, k, v, k_pos, q_pos, *, window=0,
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, page_table, q_pos, *,
-                               window=0, scale=None):
+                               window=0, scale=None, k_scale=None,
+                               v_scale=None):
     """q (B,Hq,hd); k_pool/v_pool (P,ps,KH,hd); page_table (B,n_pages) int32
     physical page ids; q_pos (B,) int32 -> (B,Hq,hd).  Gathers each chain
     dense; key j has position j (pages are linear), valid when <= q_pos and
     inside the window, so scratch-page tails are masked by position alone.
-    A row with no valid key gives zeros."""
+    A row with no valid key gives zeros.  With ``k_scale``/``v_scale``
+    (P,ps,KH,1) float32 the pools are int8, and the gathered chain is
+    dequantized in float32 (``models/kvcache.py::dequantize_kv``)."""
     B, Hq, hd = q.shape
     ps, KH = k_pool.shape[1], k_pool.shape[2]
     n = page_table.shape[1]
     scale = hd ** -0.5 if scale is None else scale
-    k = k_pool[page_table.long()].reshape(B, n * ps, KH, hd).float()
-    v = v_pool[page_table.long()].reshape(B, n * ps, KH, hd).float()
+
+    def gather(pool):
+        return pool[page_table.long()].reshape(
+            (B, n * ps, KH) + tuple(pool.shape[3:])).float()
+
+    k, v = gather(k_pool), gather(v_pool)
+    if k_scale is not None:
+        k, v = k * gather(k_scale), v * gather(v_scale)
     if Hq != KH:
         rep = Hq // KH
         k = k.repeat_interleave(rep, dim=2)

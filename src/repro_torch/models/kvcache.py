@@ -1,9 +1,12 @@
-"""Decode-time state: full and ring-buffer KV caches and paged K/V pools
-(port of ``src/repro/models/kvcache.py``; int8 caches and recurrent states
-come with later slices).
+"""Decode-time state: full and ring-buffer KV caches and paged K/V pools,
+in the model's float type or as int8 with per-(token, kv head) float32
+scales (``cfg.kv_quant``) (port of ``src/repro/models/kvcache.py``;
+recurrent states come with a later slice).
 
-A dense cache leaf is (B, buf_len, KH, hd).  Ring buffers store entries at
-``slot = position % buf_len`` and reconstruct absolute positions
+A dense cache leaf is (B, buf_len, KH, hd); an int8 cache adds "k_s" /
+"v_s" leaves (B, buf_len, KH, 1) (a pool: "kp_s" / "vp_s"), written by the
+same writes as the int8 values, which quantize first.  Ring buffers store
+entries at ``slot = position % buf_len`` and reconstruct absolute positions
 arithmetically for masking.  Where the JAX reference returns updated
 buffers (and the serving engine donates the old ones so XLA updates them in
 place), the port writes into the given buffers in place: ``index_put_`` for
@@ -29,17 +32,29 @@ def attn_buffer_len(cfg: ModelConfig, kind: str, max_len: int, long_context: boo
     return max_len
 
 
+def _zeros(cfg: ModelConfig, shape, dtype, device, names) -> Dict:
+    """{names[0], names[1]} zeroed in ``dtype``, or, under kv_quant, int8
+    with float32 scale leaves ``<name>_s`` of shape (..., KH, 1) (``dtype``
+    is ignored, as in the reference)."""
+    if not cfg.kv_quant:
+        return {n: torch.zeros(shape, dtype=dtype, device=device)
+                for n in names}
+    sshape = tuple(shape[:-1]) + (1,)
+    out = {n: torch.zeros(shape, dtype=torch.int8, device=device)
+           for n in names}
+    out.update({f"{n}_s": torch.zeros(sshape, dtype=torch.float32,
+                                      device=device) for n in names})
+    return out
+
+
 def init_attn_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                     long_context: bool = False, dtype=torch.bfloat16,
                     device="cuda", lead=()) -> Dict:
-    """Zeroed {"k", "v"} of shape lead + (batch, buf_len, KH, hd)."""
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            "int8 KV caches (kv_quant) are not ported yet: ROADMAP A9 / B5")
+    """Zeroed {"k", "v"} of shape lead + (batch, buf_len, KH, hd) (and
+    "k_s", "v_s" under kv_quant)."""
     S = attn_buffer_len(cfg, kind, max_len, long_context)
     shape = tuple(lead) + (batch, S, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return _zeros(cfg, shape, dtype, device, ("k", "v"))
 
 
 def ring_slot_positions(buf_len: int, pos):
@@ -57,22 +72,51 @@ def ring_slot_positions(buf_len: int, pos):
     return torch.where(p < 0, -1, p).to(torch.int32)
 
 
+def quantize_kv(x):
+    """(..., hd) -> int8 values and the float32 scale (..., 1): amax / 127
+    over hd, floored at 1e-8; values rounded half to even (as jnp.round)
+    and clipped to +-127."""
+    x = x.float()
+    scale = torch.clamp_min(x.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(x / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype=torch.bfloat16):
+    return (q.float() * scale).to(dtype)
+
+
+def _writes(cache: Dict, k, v, names=("k", "v")):
+    """(leaf name, values) pairs to write for new K/V: the values as they
+    are, or, in an int8 cache, quantized with their scales."""
+    if f"{names[0]}_s" not in cache:
+        return ((names[0], k), (names[1], v))
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    return ((names[0], kq), (names[1], vq), (f"{names[0]}_s", ks),
+            (f"{names[1]}_s", vs))
+
+
 def cache_write_decode(cache: Dict, k_new, v_new, pos) -> Dict:
     """Write one token (B,1,KH,hd) per row at ring slot ``pos % buf_len``,
-    in place.  ``pos`` is a (B,) int32 vector of per-slot positions or a
-    scalar shared by every row."""
+    in place (quantized first in an int8 cache).  ``pos`` is a (B,) int32
+    vector of per-slot positions or a scalar shared by every row."""
     B = k_new.shape[0]
     buf_len = cache["k"].shape[1]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=k_new.device)
     slots = torch.remainder(pos.expand(B), buf_len).long()
     rows = torch.arange(B, device=k_new.device)
-    cache["k"][rows, slots] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slots] = v_new[:, 0].to(cache["v"].dtype)
+    for name, val in _writes(cache, k_new, v_new):
+        cache[name][rows, slots] = val[:, 0].to(cache[name].dtype)
     return cache
 
 
 def cache_kv_arrays(cache: Dict, dtype=torch.bfloat16):
-    """(k, v) ready for attention (no copy when the dtype already matches)."""
+    """(k, v) ready for attention, dequantized from an int8 cache (no copy
+    when a float cache already has ``dtype``)."""
+    if "k_s" in cache:
+        return (dequantize_kv(cache["k"], cache["k_s"], dtype),
+                dequantize_kv(cache["v"], cache["v_s"], dtype))
     return cache["k"].to(dtype), cache["v"].to(dtype)
 
 
@@ -86,8 +130,8 @@ def cache_write_prefill_slot(cache: Dict, k_seq, v_seq, slot: int) -> Dict:
     buf_len = cache["k"].shape[1]
     assert S <= buf_len, (
         f"slot prefill bucket {S} exceeds cache buffer {buf_len}")
-    cache["k"][slot, :S] = k_seq[0].to(cache["k"].dtype)
-    cache["v"][slot, :S] = v_seq[0].to(cache["v"].dtype)
+    for name, val in _writes(cache, k_seq, v_seq):
+        cache[name][slot, :S] = val[0].to(cache[name].dtype)
     return cache
 
 
@@ -117,14 +161,11 @@ def is_paged(cache: Dict) -> bool:
 def init_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                           dtype=torch.bfloat16, device="cuda",
                           lead=()) -> Dict:
-    """Zeroed {"kp", "vp"} of shape lead + (num_pages, page_size, KH, hd)."""
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            "int8 KV pools (kv_quant) are not ported yet: ROADMAP A9 / B5")
+    """Zeroed {"kp", "vp"} of shape lead + (num_pages, page_size, KH, hd)
+    (and "kp_s", "vp_s" under kv_quant)."""
     shape = tuple(lead) + (num_pages, page_size, cfg.num_kv_heads,
                            cfg.head_dim)
-    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
-            "vp": torch.zeros(shape, dtype=dtype, device=device)}
+    return _zeros(cfg, shape, dtype, device, ("kp", "vp"))
 
 
 def paged_key_positions(n_tokens: int, next_pos, device=None):
@@ -142,7 +183,7 @@ def paged_key_positions(n_tokens: int, next_pos, device=None):
 
 def _paged_scatter(pool, values, flat_idx):
     """Write values (N, KH, hd) at token-flat indices (N,) of the pool
-    (P, ps, KH, hd), in place.  Every index must lie in the pool: the
+    (P, ps, KH, hd) (or scales (N, KH, 1) into (P, ps, KH, 1)), in place.  Every index must lie in the pool: the
     reference drops out-of-bounds writes (``mode="drop"``), and its only
     out-of-bounds indices are a chunk's pads, which the callers here never
     compute (the chunk length is a host int)."""
@@ -166,8 +207,8 @@ def paged_cache_write_decode(cache: Dict, k_new, v_new, pos, page_table):
     phys = page_table.gather(1, torch.where(inside, page, 0)[:, None])[:, 0]
     phys = torch.where(inside, phys, 0)
     flat_idx = phys.long() * ps + torch.remainder(pos, ps)
-    _paged_scatter(cache["kp"], k_new[:, 0], flat_idx)
-    _paged_scatter(cache["vp"], v_new[:, 0], flat_idx)
+    for name, val in _writes(cache, k_new[:, 0], v_new[:, 0], ("kp", "vp")):
+        _paged_scatter(cache[name], val, flat_idx)
     return cache
 
 
@@ -180,27 +221,33 @@ def paged_cache_write_chunk(cache: Dict, k_seq, v_seq, page_table_row,
     posi = start + torch.arange(length, device=k_seq.device)
     phys = page_table_row.long()[torch.div(posi, ps, rounding_mode="floor")]
     flat_idx = phys * ps + torch.remainder(posi, ps)
-    _paged_scatter(cache["kp"], k_seq[0, :length], flat_idx)
-    _paged_scatter(cache["vp"], v_seq[0, :length], flat_idx)
+    for name, val in _writes(cache, k_seq[0, :length], v_seq[0, :length],
+                             ("kp", "vp")):
+        _paged_scatter(cache[name], val, flat_idx)
     return cache
 
 
 def paged_cache_kv_arrays(cache: Dict, page_table, dtype=torch.bfloat16):
     """Gather the pages of ``page_table`` (B, n_pages) into dense (k, v) of
-    shape (B, n_pages*ps, KH, hd) in ``dtype``; position == index."""
+    shape (B, n_pages*ps, KH, hd) in ``dtype`` (an int8 pool gathered, then
+    dequantized); position == index."""
     B, n = page_table.shape
     idx = page_table.long()
 
     def gather(pool):
         return pool[idx].reshape((B, n * pool.shape[1]) + tuple(pool.shape[2:]))
 
+    if "kp_s" in cache:
+        return (dequantize_kv(gather(cache["kp"]), gather(cache["kp_s"]), dtype),
+                dequantize_kv(gather(cache["vp"]), gather(cache["vp_s"]), dtype))
     return gather(cache["kp"]).to(dtype), gather(cache["vp"]).to(dtype)
 
 
 def paged_page_copy(cache: Dict, src: int, dst: int) -> Dict:
     """Copy physical page ``src`` onto ``dst`` in every leaf of a stacked
-    paged pool dict (leaves (n_rep, num_pages, page_size, ...)), in place:
-    the device half of copy-on-write."""
+    paged pool dict (leaves (n_rep, num_pages, page_size, ...)), int8
+    values and their scales alike, in place: the device half of
+    copy-on-write."""
     for leaf in cache.values():
         leaf[:, dst] = leaf[:, src]
     return cache

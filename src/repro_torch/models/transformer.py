@@ -17,6 +17,10 @@ On CUDA tensors the model runs the port's kernels (rmsnorm for every norm,
 flash_attention for prefill, decode_attention for dense decode and, as
 ``chunk_attention``, for the chunk route, paged_decode_attention for paged
 decode); on CPU tensors the same calls take the kernels' plain versions.
+Under ``cfg.kv_quant`` the caches hold int8 K/V with float32 scales: writes
+quantize, dense decode runs decode_attention_q8 on the int8 views, paged
+decode the int8 route of paged_decode_attention, and the chunk route reads
+the past dequantized to q's dtype, as the reference does.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import (chunk_attention,
                                                   decode_attention)
+from repro_torch.kernels.decode_attention_q8 import decode_attention_q8
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from . import kvcache as KV
@@ -60,8 +65,7 @@ def check_supported(cfg: ModelConfig) -> None:
         ("layer norm", cfg.norm == "rms"),
         ("non-SwiGLU MLP", cfg.glu and cfg.act == "silu" and cfg.d_ff > 0),
         ("untied embeddings", cfg.tie_embeddings),
-        ("prefix embeddings", not cfg.num_prefix_embeds),
-        ("kv_quant", not cfg.kv_quant)) if not off]
+        ("prefix embeddings", not cfg.num_prefix_embeds)) if not off]
     if bad:
         raise NotImplementedError(
             f"model '{cfg.name}' needs {', '.join(bad)}, not ported yet "
@@ -180,18 +184,27 @@ def _apply_attn(cfg: ModelConfig, p, x, *, mode, positions, rope, cache, pos,
     if mode == "decode" and KV.is_paged(cache):
         KV.paged_cache_write_decode(cache, k, v, pos, page_table)
         out = paged_decode_attention(q, cache["kp"], cache["vp"], page_table,
-                                     pos, scale=cfg.attn_scale)
+                                     pos, scale=cfg.attn_scale,
+                                     k_scale=cache.get("kp_s"),
+                                     v_scale=cache.get("vp_s"))
     elif mode == "decode":
         KV.cache_write_decode(cache, k, v, pos)
-        k_full, v_full = KV.cache_kv_arrays(cache, q.dtype)
-        buf_len = k_full.shape[1]
+        buf_len = cache["k"].shape[1]
         k_pos = k_pos_memo.get(buf_len)
         if k_pos is None:
             k_pos = k_pos_memo[buf_len] = KV.cache_key_positions(cache, pos, B)
         # as in the reference, also when the buffer is a ctx-bucket slice
         window = buf_len if buf_len < cfg.max_seq else 0
-        out = decode_attention(q, k_full, v_full, k_pos, pos, window=window,
-                               scale=cfg.attn_scale)
+        if "k_s" in cache:
+            # int8 cache: the kernel dequantizes after its loads, so the
+            # buffer is never dequantized as a whole
+            out = decode_attention_q8(q, cache["k"], cache["k_s"], cache["v"],
+                                      cache["v_s"], k_pos, pos, window=window,
+                                      scale=cfg.attn_scale)
+        else:
+            k_full, v_full = KV.cache_kv_arrays(cache, q.dtype)
+            out = decode_attention(q, k_full, v_full, k_pos, pos,
+                                   window=window, scale=cfg.attn_scale)
     elif mode == "chunk":
         # [past chain gathered from the pool | raw current chunk], the past
         # read before the chunk is written (transformer.py mode "chunk")

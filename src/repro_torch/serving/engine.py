@@ -34,11 +34,16 @@ Virtual time and energy come from the numpy plant model, so a run's
 report depends only on the tokens, and identical tokens give a report
 identical to the reference engine's.
 
+Int8 KV (``cfg.kv_quant``): the caches or pools hold int8 K/V with
+float32 scales, whatever ``cache_dtype`` says (as in the reference);
+quantizing happens inside the writes and adds no host sync.
+
 Not ported yet, and rejected with ``NotImplementedError`` naming the
 ROADMAP item: the legacy ``slot_native=False`` plane and its eager
-fallback for prompts longer than a ring buffer (A7 / A9), int8 KV (A9 /
-B5), sampling with ``temperature > 0`` (A6), serving meshes (A14),
-observability sinks (A7) and stream migration (A10).
+fallback for prompts longer than a ring buffer (A7 / A9), models outside
+the ported architectures (A9), sampling with ``temperature > 0`` (A6),
+serving meshes (A14), observability sinks (A7) and stream migration
+(A10).
 """
 from __future__ import annotations
 
@@ -57,6 +62,7 @@ from repro_torch.core.hardware import HardwareProfile, A100_SXM4_40G
 from repro_torch.models import ModelConfig, decode_step, init_cache, \
     init_params, prefill_chunk_into_slot, prefill_into_slot
 from repro_torch.models.config import FULL_ATTN, LOCAL_ATTN
+from repro_torch.models.transformer import check_supported
 from repro_torch.models.kvcache import (attn_buffer_len, is_paged,
                                         paged_page_copy)
 from repro_torch.sim import PlantModel
@@ -259,10 +265,10 @@ class ServingEngine:
         for flag, what, item in (
                 (ecfg.mesh is not None, "mesh serving", "A14"),
                 (not ecfg.slot_native, "the legacy slot_native=False plane",
-                 "A7"),
-                (cfg.kv_quant, "int8 KV (kv_quant)", "A9 / B5")):
+                 "A7")):
             if flag:
                 raise _not_ported(what, item)
+        check_supported(cfg)
         self.device = torch.device(device)
         self.params = params if params is not None else init_params(
             torch.Generator(device=self.device).manual_seed(seed), cfg)

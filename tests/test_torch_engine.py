@@ -152,7 +152,7 @@ def test_requests_are_refused_outside_the_slice(runs):
         Server(port).submit([1, 2, 3], SamplingParams(max_tokens=4,
                                                       temperature=0.7))
     for cfg, bad, item in (
-            (port.cfg.replace(kv_quant=True), dict(paged=True), "A9"),
+            (port.cfg.replace(attn_softcap=50.0), dict(paged=True), "A9"),
             (port.cfg, dict(mesh=(1, 1)), "A14"),
             (port.cfg, dict(slot_native=False), "A7")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

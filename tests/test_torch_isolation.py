@@ -77,19 +77,34 @@ def test_cuda_entry_points_raise_without_a_gpu():
     with pytest.raises((RuntimeError, AssertionError)):
         ServingEngine(cfg, params=params, ecfg=EngineConfig(
             max_len=64, paged=True, prefix_cache=True))         # device="cuda"
+    qcfg = cfg.replace(kv_quant=True)
+    for paged in (False, True):                                 # int8 caches
+        with pytest.raises((RuntimeError, AssertionError)):
+            ServingEngine(qcfg, params=params, ecfg=EngineConfig(
+                max_len=64, paged=paged, prefix_cache=paged), device="cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         main(["--requests", "1"])                                # --device cuda
     with pytest.raises((RuntimeError, AssertionError)):
         main(["--requests", "1", "--prefix-cache"])
 
 
+def _counts():
+    from repro_torch.kernels import (decode_attention, decode_attention_q8,
+                                     flash_attention, paged_decode_attention,
+                                     rmsnorm)
+    return (rmsnorm.launches, decode_attention.launches,
+            decode_attention.chunk_launches, flash_attention.launches,
+            paged_decode_attention.launches,
+            paged_decode_attention.q8_launches, decode_attention_q8.launches)
+
+
 def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
-    from repro_torch.kernels import (decode_attention, flash_attention,
-                                     paged_decode_attention, rmsnorm)
+    from repro_torch.kernels import (decode_attention, decode_attention_q8,
+                                     flash_attention, paged_decode_attention,
+                                     rmsnorm)
     m = lambda *s, dt=torch.float32: torch.empty(s, device="meta", dtype=dt)
-    before = (rmsnorm.launches, decode_attention.launches,
-              decode_attention.chunk_launches, flash_attention.launches,
-              paged_decode_attention.launches)
+    i8, i32 = torch.int8, torch.int32
+    before = _counts()
     with pytest.raises(ValueError, match="needs CUDA"):
         rmsnorm.rmsnorm(m(2, 64), m(64))
     with pytest.raises(ValueError, match="needs CUDA"):
@@ -107,15 +122,34 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
         paged_decode_attention.paged_decode_attention(
             m(2, 1, 4, 64), m(5, 16, 2, 64), m(5, 16, 2, 64),
             m(2, 3, dt=torch.int32), m(2, dt=torch.int32))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        decode_attention_q8.decode_attention_q8(
+            m(2, 1, 4, 64), m(2, 16, 2, 64, dt=i8), m(2, 16, 2, 1),
+            m(2, 16, 2, 64, dt=i8), m(2, 16, 2, 1), m(2, 16, dt=i32),
+            m(2, dt=i32))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        paged_decode_attention.paged_decode_attention(      # the int8 route
+            m(2, 1, 4, 64), m(5, 16, 2, 64, dt=i8), m(5, 16, 2, 64, dt=i8),
+            m(2, 3, dt=i32), m(2, dt=i32), k_scale=m(5, 16, 2, 1),
+            v_scale=m(5, 16, 2, 1))
     x = torch.randn(3, 64)
     rmsnorm.rmsnorm(x, torch.ones(64))                      # plain, not counted
     paged_decode_attention.paged_decode_attention(          # plain, not counted
         torch.randn(2, 1, 4, 64), torch.randn(5, 16, 2, 64),
-        torch.randn(5, 16, 2, 64), torch.ones(2, 3, dtype=torch.int32),
-        torch.tensor([3, 40], dtype=torch.int32))
-    assert (rmsnorm.launches, decode_attention.launches,
-            decode_attention.chunk_launches, flash_attention.launches,
-            paged_decode_attention.launches) == before
+        torch.randn(5, 16, 2, 64), torch.ones(2, 3, dtype=i32),
+        torch.tensor([3, 40], dtype=i32))
+    kq = torch.randint(-127, 128, (5, 16, 2, 64), dtype=i8)
+    sc = torch.rand(5, 16, 2, 1) + 0.01
+    out = paged_decode_attention.paged_decode_attention(    # plain, not counted
+        torch.randn(2, 1, 4, 64), kq, kq, torch.ones(2, 3, dtype=i32),
+        torch.tensor([3, 40], dtype=i32), k_scale=sc, v_scale=sc)
+    assert out.shape == (2, 1, 4, 64) and out.dtype == torch.float32
+    out = decode_attention_q8.decode_attention_q8(          # plain, not counted
+        torch.randn(2, 1, 4, 64).bfloat16(), kq[:2], sc[:2], kq[:2], sc[:2],
+        torch.arange(16, dtype=i32).repeat(2, 1), torch.tensor([3, 15],
+                                                               dtype=i32))
+    assert out.shape == (2, 1, 4, 64) and out.dtype == torch.bfloat16
+    assert _counts() == before
 
 
 def test_chip_smoke_refuses_without_gpu_or_checkout(tmp_path):

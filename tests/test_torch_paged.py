@@ -221,9 +221,29 @@ def test_paged_gather_and_page_copy_match_reference():
 
 
 def test_paged_int8_pools_are_refused():
+    """No longer refused (kv_quant is ported): int8 pools are created with
+    their float32 scales, as the reference's, and copy-on-write copies the
+    scales with the values."""
+    jcfg = jget_config("qwen2-1.5b").smoke().replace(kv_quant=True)
     cfg = get_config("qwen2-1.5b").smoke().replace(kv_quant=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        TKV.init_paged_attn_cache(cfg, 4, 16, device="cpu")
+    jc = jinit_cache(jcfg, 2, 64, paged_pool=(6, 16))[0][0]
+    tc = init_cache(cfg, 2, 64, device="cpu", paged_pool=(6, 16))[0][0]
+    assert sorted(tc) == sorted(jc) == ["kp", "kp_s", "vp", "vp_s"]
+    for kk in jc:
+        assert tuple(tc[kk].shape) == jc[kk].shape
+        assert str(tc[kk].dtype).split(".")[-1] == str(jc[kk].dtype)
+    rng = np.random.default_rng(6)
+    vals = {kk: rng.standard_normal(jc[kk].shape).astype(np.float32)
+            for kk in jc}
+    vals = {kk: (v * 50).astype(np.int8) if kk in ("kp", "vp") else v
+            for kk, v in vals.items()}
+    jst = {kk: jnp.asarray(v) for kk, v in vals.items()}
+    tst = {kk: torch.from_numpy(v.copy()) for kk, v in vals.items()}
+    jst = JKV.paged_page_copy(jst, 3, 5)
+    TKV.paged_page_copy(tst, 3, 5)
+    for kk in jst:
+        np.testing.assert_array_equal(tst[kk].numpy(), np.asarray(jst[kk]))
+        np.testing.assert_array_equal(tst[kk][:, 5].numpy(), vals[kk][:, 3])
 
 
 # -- model through a page table --------------------------------------------------

@@ -19,7 +19,11 @@ Phases (each raises on failure; nothing is caught):
    paged_decode_attention must also equal decode_attention bit for bit on
    the same context laid out densely, and the chunk route of
    decode_attention (256 queries at position 512) is held against its
-   plain version and, in float32, the plain chunk attention.
+   plain version and, in float32, the plain chunk attention, and timed
+   alone beside SDPA with the same mask.  The decode body splits keys over
+   CTAs in fixed spans, so its determinism is checked bit for bit: two
+   launches on the same inputs, and the same context in a 1024-slot view
+   and in the whole 2048-slot buffer (bf16, float32 and int8 kernels).
    Times (CUDA events, median of 21 samples of 20 launches each, after a
    warm-up, inputs rotated through > 100 MB so L2 is cold as in the model)
    for the kernel, its plain version and one PyTorch call computing the
@@ -27,6 +31,10 @@ Phases (each raises on failure; nothing is caught):
    attends through a page table, so the paged kernel has none, and the
    dense kernel's time on the same context stands beside it), and the
    bound: max(bytes / 3.35 TB/s, FLOP / 989 TFLOP/s) for bf16 inputs.
+   A "[summary]" line per main case gives ms, library_ms and bound_ms.
+   ``--src DIR`` imports repro_torch from another source tree (e.g. an
+   earlier commit unpacked under build/) to time its kernels with these
+   cases in the same call.
    decode_attention_q8 (int8 K/V with float32 scales, q bf16 or f32) is
    held against its plain version on the reference's two cases, the
    serving shape (timed beside the bf16 kernel on the same context,
@@ -61,9 +69,10 @@ Phases (each raises on failure; nothing is caught):
    ``kv_quant``.
 8. profile (opt-in, not in the default run): the serve, serve_paged and
    both serve_q8 bursts again under ``torch.profiler`` after a warm-up
-   run, printing the device's busy share of the wall time and the kernel
-   time by name, then the PyTorch operators the host dispatches per
-   forward pass.
+   run, printing the device's busy share of the wall time, the kernel
+   time by name and the port's kernels' time by family with that run's
+   launches, then the PyTorch operators the host dispatches per forward
+   pass.
 
 The line before the last is one JSON object with a ``kernels`` list; the
 last line is {"ok": true, "device": {...}}.  Details go to
@@ -171,11 +180,31 @@ def phase_build(res):
     libs = _build.build_all()
     dt = time.perf_counter() - t0
     log(f"[build] {sorted(libs)} in {dt:.1f}s -> {_build.BUILD_DIR}")
+    res["ptxas"] = {}
     for name, text in _build.build_logs().items():
+        fn = spill = None
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            elif "spill" in line:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line and fn:
+                regs = line.split("Used")[-1].strip()
+                res["ptxas"][f"{name}:{fn}"] = f"{regs}; {spill}"
+                log(f"[build] {name}: {_demangle(fn)}: {regs}; {spill}")
     res["build_s"] = dt
+
+
+def _demangle(sym):
+    """A kernel's C++ name without its argument list (c++filt where the
+    machine has it, else the mangled name)."""
+    try:
+        out = subprocess.run(["c++filt", sym], capture_output=True, text=True,
+                             timeout=10).stdout.strip()
+    except OSError:
+        return sym
+    return out.replace("(anonymous namespace)", "{anon}").split("(")[0] \
+        if out else sym
 
 
 # -- phase 2: kernels ----------------------------------------------------------------
@@ -416,7 +445,7 @@ def _paged_cases(res):
     from repro_torch.kernels import paged_decode_attention as K
     from repro_torch.models.attention import attention
     g = torch.Generator(device="cuda").manual_seed(4)
-    main = None
+    main = chunk_main = None
     for B, Hq, KH, ps, n, hd, window, pos_lo, partial in PAGED_CASES:
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             cover = None
@@ -491,13 +520,94 @@ def _paged_cases(res):
             if err_ref > tol:
                 raise AssertionError(f"{name}: differs from the reference's "
                                      f"chunk attention by {err_ref:.3g}")
-        res["cases"].append({"kernel": "decode_attention", "route": "chunk",
-                             "shape": [S, n_ctx * 16 + S, KH, Hq, hd],
-                             "dtype": str(dt), "max_abs_err": err,
-                             "bf16_share": share})
-        log(f"[kernels] decode_attention chunk route {dt}: max |err| {err:.3g}"
-            f" bf16 share {share}")
-    return main
+        case = {"route": "chunk", "shape": [S, n_ctx * 16 + S, KH, Hq, hd],
+                "dtype": str(dt), "max_abs_err": err, "bf16_share": share}
+        if dt == torch.bfloat16:
+            case.update(_time_chunk(g, q.shape, k.shape, kpos, qpos))
+            chunk_main = case
+        res["cases"].append({"kernel": "decode_attention", **case})
+        log(f"[kernels] decode_attention chunk route {case}")
+    return main, chunk_main
+
+
+def _time_chunk(g, q_shape, k_shape, kpos, qpos):
+    """The chunk route alone at the paged burst's shape: kernel, plain
+    version and SDPA with the same mask; the bound counts each key that some
+    query sees read once, and the visible (query, key) pairs' FLOP."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as D
+    _, S, Hq, hd = q_shape
+    KH = k_shape[2]
+    valid = (kpos[0] >= 0) & (kpos[0] <= qpos[0][:, None])     # (S, Sk)
+    keys = int(valid.any(0).sum())
+    nbytes = (keys * KH * hd * 2 * 2 + 2 * S * Hq * hd * 2 + kpos.numel() * 4
+              + qpos.numel() * 4)
+    flops = 4 * int(valid.sum()) * Hq * hd
+
+    def mk():
+        return (torch.randn(*q_shape, generator=g, device="cuda").bfloat16(),
+                torch.randn(*k_shape, generator=g, device="cuda").bfloat16(),
+                torch.randn(*k_shape, generator=g, device="cuda").bfloat16())
+    sets = [mk() + (kpos, qpos) for _ in range(n_sets(nbytes))]
+    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s_[:3])
+                for s_ in sets]
+    ms, by = bound(nbytes, flops)
+    return {"ms": time_ms(D.chunk_attention, sets),
+            "plain_ms": time_ms(D.chunk_attention_plain, sets),
+            "library_ms": time_ms(
+                lambda q_, k_, v_: F.scaled_dot_product_attention(
+                    q_, k_, v_, attn_mask=valid, enable_gqa=True), lib_sets),
+            "bound_ms": ms, "bound_by": by}
+
+
+def _decode_bitwise(res):
+    """The split decode body's determinism on the card: two launches on the
+    same inputs give the same bits, and the same context (1024 slots, -1
+    holes) gives the same bits in a 1024-slot view and in the whole
+    2048-slot buffer with k_pos -1 past the context, for the bf16, float32
+    and int8 kernels; the paged kernels repeat bit for bit too."""
+    import torch
+    from repro_torch.kernels import decode_attention as D
+    from repro_torch.kernels import decode_attention_q8 as Q
+    from repro_torch.kernels import paged_decode_attention as K
+    from repro_torch.models.kvcache import quantize_kv
+    g = torch.Generator(device="cuda").manual_seed(6)
+    B, KH, Hq, hd, ctx, buf = 8, 2, 12, 128, 1024, 2048
+    pad = torch.full((B, buf - ctx), -1, dtype=torch.int32, device="cuda")
+    checks = []
+
+    def same(name, a, b):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: outputs differ by "
+                                 f"{max_err(a, b):.3g} (must be bitwise "
+                                 "equal)")
+        checks.append(name)
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, kp, qp = _decode_inputs(g, B, ctx, KH, Hq, hd, dt, ctx)
+        kb = torch.randn(B, buf, KH, hd, generator=g, device="cuda").to(dt)
+        vb = torch.randn(B, buf, KH, hd, generator=g, device="cuda").to(dt)
+        kb[:, :ctx], vb[:, :ctx] = k, v
+        kp_b = torch.cat([kp, pad], 1)
+        out = D.decode_attention(q, kb[:, :ctx], vb[:, :ctx], kp, qp)
+        same(f"decode {dt} repeated",
+             out, D.decode_attention(q, kb[:, :ctx], vb[:, :ctx], kp, qp))
+        same(f"decode {dt} Sk {ctx} == Sk {buf}",
+             out, D.decode_attention(q, kb, vb, kp_b, qp))
+        kq, ks = quantize_kv(kb.float())
+        vq, vs = quantize_kv(vb.float())
+        args = (kq[:, :ctx], ks[:, :ctx], vq[:, :ctx], vs[:, :ctx], kp, qp)
+        out = Q.decode_attention_q8(q, *args)
+        same(f"decode_q8 q {dt} repeated", out, Q.decode_attention_q8(q, *args))
+        same(f"decode_q8 q {dt} Sk {ctx} == Sk {buf}",
+             out, Q.decode_attention_q8(q, kq, ks, vq, vs, kp_b, qp))
+        q, kp_, vp_, pt, qp = _paged_inputs(g, B, Hq, KH, hd, 16, 128, dt,
+                                            1024)
+        same(f"paged {dt} repeated",
+             K.paged_decode_attention(q, kp_, vp_, pt, qp),
+             K.paged_decode_attention(q, kp_, vp_, pt, qp))
+    res["bitwise"] = checks
+    log(f"[kernels] bitwise: {len(checks)} checks passed: {checks}")
 
 
 def _q8_inputs(g, B, Sk, KH, Hq, hd, dt, buf, pos=None):
@@ -665,12 +775,29 @@ def phase_kernels(res):
     res["cases"] = []
     res["main_case"] = {"rmsnorm": _rmsnorm_cases(res),
                         "decode_attention": _decode_cases(res),
-                        "flash_attention": _flash_cases(res),
-                        "paged_decode_attention": _paged_cases(res)}
+                        "flash_attention": _flash_cases(res)}
+    paged, chunk = _paged_cases(res)
+    res["main_case"]["paged_decode_attention"] = paged
+    res["main_case"]["decode_attention"]["chunk_route"] = chunk
     q8, paged_q8 = _q8_cases(res)
     res["main_case"]["decode_attention_q8"] = q8
     res["main_case"]["paged_decode_attention"]["q8_route"] = paged_q8
     _geometry_cases(res)
+    _decode_bitwise(res)
+    mc = res["main_case"]
+    for name, c in (("flash_attention Sq=Sk=1024", mc["flash_attention"]),
+                    ("decode_attention B=8 Sk=2048", mc["decode_attention"]),
+                    ("decode_attention chunk route", chunk),
+                    ("paged_decode_attention 128 pages", paged),
+                    ("paged_decode_attention int8 route", paged_q8),
+                    ("decode_attention_q8 B=8 Sk=2048", q8)):
+        lib = c.get("library_ms")
+        other = c.get("dense_kernel_ms") or c.get("bf16_kernel_ms")
+        ref = (f"library_ms {lib:.5f} ({c['ms'] / lib:.2f}x)" if lib else
+               f"dense kernel {other:.5f}")
+        log(f"[summary] {name} bf16: ms {c['ms']:.5f}, {ref}, bound_ms "
+            f"{c['bound_ms']:.5f} ({c['bound_by']}, "
+            f"{c['ms'] / c['bound_ms']:.0f}x)")
 
 
 # -- phase 3: equivalence ---------------------------------------------------------------
@@ -823,10 +950,20 @@ def _op_count(fn):
     return Count.n
 
 
+# the port's kernels in a profile, by a substring of their (demangled) name;
+# the decode body's main kernel by row policy, its combine kernel apart
+KERNEL_FAMILIES = (("flash_attention", "flash_kernel"),
+                   ("decode body, dense rows", "DenseRows"),
+                   ("decode body, paged rows", "PagedRows"),
+                   ("decode combine", "combine_kernel"),
+                   ("rmsnorm", "rmsnorm_kernel"))
+
+
 def _profiled(path, make_engine, burst):
     """``burst`` once to warm up, then once more under ``torch.profiler``
-    (CUDA activity only): the device's busy share of the wall time and its
-    kernel time by name; then once more counting the PyTorch operators the
+    (CUDA activity only): the device's busy share of the wall time, its
+    kernel time by name and the port's kernels' time by family with the
+    launches of that run; then once more counting the PyTorch operators the
     host dispatches per forward pass (``_op_count``; forward passes from
     the rmsnorm launches, 2 per layer + 1 per pass)."""
     import torch
@@ -836,6 +973,7 @@ def _profiled(path, make_engine, burst):
     server = Server(eng)
     burst(server, cfg.vocab_size)
     torch.cuda.synchronize()
+    _reset_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         burst(server, cfg.vocab_size)
@@ -849,12 +987,19 @@ def _profiled(path, make_engine, burst):
     busy = sum(by_name.values()) / 1e6
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
+    launched = _launch_counts()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     log(f"[profile] {path}: wall {wall:.3f}s, device busy {busy:.3f}s = "
         f"{100 * busy / wall:.1f}% (idle {100 * (1 - busy / wall):.1f}%)")
     for name, us in top:
         log(f"[profile]   {us / 1e3:9.1f} ms  {100 * us / 1e6 / wall:5.1f}%  "
             f"{name[:90]}")
+    families = {f: sum(us for n, us in by_name.items() if key in n) / 1e3
+                for f, key in KERNEL_FAMILIES}
+    for f, ms in families.items():
+        log(f"[profile]   {path} {f}: {ms:.1f} ms = "
+            f"{100 * ms / 1e3 / busy:.1f}% of busy")
+    log(f"[profile]   {path} launches {launched}")
     _reset_counts()
     ops = _op_count(lambda: burst(server, cfg.vocab_size))
     passes = _launch_counts()["rmsnorm"] // (2 * cfg.num_layers + 1)
@@ -862,6 +1007,7 @@ def _profiled(path, make_engine, burst):
         f"forward passes = {ops / passes:.0f} per pass")
     return {"wall_s": wall, "device_busy_s": busy,
             "top_ms": {n: us / 1e3 for n, us in top},
+            "family_ms": families, "launches": launched,
             "ops_per_pass": ops / passes, "passes": passes}
 
 
@@ -1110,10 +1256,16 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}, or "
                          "'profile' (a traced serve burst)")
+    ap.add_argument("--src", default=str(SRC),
+                    help="the source tree to import repro_torch from (default "
+                         "the checkout's src/; another tree's, e.g. an earlier "
+                         "commit unpacked under build/, runs this script's "
+                         "cases against that version's kernels)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: no {SRC / 'repro_torch'}; run from a checkout "
+    src = Path(args.src).resolve()
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: no {src / 'repro_torch'}; run from a checkout "
               "of the repository", file=sys.stderr)
         return 2
     import torch
@@ -1121,14 +1273,14 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_name_and_limit()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
         f"{torch.version.cuda} device {torch.cuda.get_device_name(0)} "
-        f"({card})")
-    res = {"card": card}
+        f"({card}); repro_torch from {src}")
+    res = {"card": card, "src": str(src)}
     fns = {"build": phase_build, "kernels": phase_kernels,
            "equivalence": phase_equivalence, "serve": phase_serve,
            "serve_paged": phase_serve_paged, "serve_q8": phase_serve_q8,
@@ -1160,7 +1312,8 @@ def main(argv=None):
             "library_ms": c.get("library_ms"), "shape": c.get("shape"),
             "dense_kernel_ms": c.get("dense_kernel_ms"),
             "bf16_kernel_ms": c.get("bf16_kernel_ms"),
-            "q8_route": c.get("q8_route")})
+            "q8_route": c.get("q8_route"),
+            "chunk_route": c.get("chunk_route")})
     out_dir = ROOT / args.out
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

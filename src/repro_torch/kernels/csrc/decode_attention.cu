@@ -18,37 +18,41 @@ namespace {
 
 template <typename T>
 int run(const void* q, const void* k, const void* v, const void* k_pos,
-        const void* q_pos, void* out, int B, int Sk, int KH, int G, int hd,
-        const long long* st, int window, float scale, cudaStream_t s) {
+        const void* q_pos, void* out, void* part, int spans, int B, int Sk,
+        int KH, int G, int hd, const long long* st, int window, float scale,
+        cudaStream_t s) {
   const decode::Cache<T, decode::DenseRows> keys{
       {static_cast<const int*>(k_pos), Sk, window, st[8]},
       static_cast<const T*>(k), static_cast<const T*>(v),
       {st[2], st[3], st[4]}, {st[5], st[6], st[7]}};
-  return decode::dispatch_hd<T>(hd, q, q_pos, out, B, KH, G, st[0], st[1],
-                                scale, keys, s);
+  return decode::dispatch_hd<T>(hd, q, q_pos, out, part, spans, B, KH, G,
+                                st[0], st[1], scale, keys, s);
 }
 
 }  // namespace
 
 // q: (B, Hq, hd) with strides (q_sb, q_sh, 1); k, v: (B, Sk, KH, hd) with
 // strides (*_sb, *_ss, *_sh, 1); k_pos: (B, Sk) int32 with strides (kp_sb, 1);
-// q_pos: (B,) int32 contiguous; out: (B, Hq, hd) contiguous.  Strides are in
-// elements.  Requires G = Hq/KH <= 16, hd in {64, 128, 256} and 16-byte
-// aligned K/V rows.  Returns the CUDA error code.
+// q_pos: (B,) int32 contiguous; out: (B, Hq, hd) contiguous; part: float32
+// scratch of B*KH*spans*G*(hd+2) elements, spans = decode::n_spans(Sk).
+// Strides are in elements.  Requires G = Hq/KH <= 16, hd in {64, 128, 256}
+// and 16-byte aligned K/V rows.  Returns the CUDA error code.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* k_pos,
-    const void* q_pos, void* out, int B, int Sk, int KH, int G, int hd,
+    const void* q_pos, void* out, void* part, int spans, int B, int Sk,
+    int KH, int G, int hd,
     long long q_sb, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long kp_sb, int window, float scale, int dtype, void* stream) {
-  if (G < 1 || G > decode::kMaxG) return static_cast<int>(cudaErrorInvalidValue);
+  if (G < 1 || G > decode::kMaxG || spans != decode::n_spans(Sk))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long st[9] = {q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, kp_sb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return run<__nv_bfloat16>(q, k, v, k_pos, q_pos, out, B, Sk, KH, G, hd,
-                              st, window, scale, s);
+    return run<__nv_bfloat16>(q, k, v, k_pos, q_pos, out, part, spans, B,
+                              Sk, KH, G, hd, st, window, scale, s);
   if (dtype == kF32)
-    return run<float>(q, k, v, k_pos, q_pos, out, B, Sk, KH, G, hd, st,
-                      window, scale, s);
+    return run<float>(q, k, v, k_pos, q_pos, out, part, spans, B, Sk, KH, G,
+                      hd, st, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

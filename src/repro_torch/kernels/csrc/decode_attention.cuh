@@ -10,18 +10,42 @@
 // Bound on the H100: bytes.  Every valid key's K and V row is read once and
 // each is used for 2*G FLOP per element (G = Hq/KH query heads share it), so
 // the arithmetic intensity is ~G/2 FLOP/byte in bf16 (~G in int8), far below
-// the card's ~295.  Design: one CTA per (batch row, kv head) holding all G
-// query heads, so K/V are read once for the whole group.  Keys are walked in
-// chunks of CK rows; each chunk's K and V rows are copied into shared memory
-// with 16-byte cp.async copies, double buffered so the next chunk's copies
-// are in flight while this chunk is computed (with only B*KH CTAs, 16 at
-// batch 8 on qwen2, each SM must keep many bytes in flight).  Keys past the
-// last valid one (the unfilled tail of a ctx bucket, the scratch pages of a
-// page chain) are never loaded.  Scores take CK/256 of a key per thread and
-// a shuffle sum; P.V gives each thread one column of at most 8 elements of
-// V (one 16-byte vector of bf16, 4 floats, or 8 bytes of int8).  There is
-// no split over keys across CTAs: every sum has a fixed order and results
-// are the same on every run.
+// the card's ~295.  The card reaches its memory rate only with many bytes in
+// flight on every SM, so the keys of a row are split over CTAs:
+//
+// - Fixed spans.  The grid is (spans, KH, B): CTA (s, kh, b) takes key
+//   indices [s*kSpan, (s+1)*kSpan) of row b for kv head kh, with all G query
+//   heads, so K/V are read once for the whole group.  kSpan (128) is a
+//   constant, counted from key 0, and never derived from Sk, the ctx
+//   bucket, the page count, B or the SM count; the launch has
+//   ceil(walk / kSpan) spans for the longest walk the caller allows (Sk
+//   dense, n_pages*ps paged): 256 CTAs at B 8, Sk 2048, 2 kv heads.  A CTA
+//   first finds its span's first and last valid key; it loads nothing
+//   outside them, and a span with no valid key writes an empty partial
+//   (m = -1e30, l = 0) and exits.
+// - Inside a span, chunks of CK keys (aligned to the span's start; 64 bf16
+//   or int8 keys at hd 128, so two a span) are copied into shared memory
+//   with 16-byte cp.async copies, kStages deep, so two chunks are in flight
+//   while one is computed; three block syncs a chunk.  A key's score is
+//   summed by 256/CK threads, each holding its slots of the key in
+//   registers, with shuffles; P.V
+//   gives each thread one column of at most 8 elements of V (one 16-byte
+//   vector of bf16, 4 floats, or 8 bytes of int8) for one query head (or a
+//   few, when G exceeds the head slots), the keys of the chunk split over
+//   KG key groups when G leaves slots free; the key groups are summed in
+//   order at the end.
+// - Partials.  Each CTA writes its unnormalised float32 acc[G][hd] and
+//   m[G], l[G] to a scratch buffer the wrapper allocates; the kernel
+//   allocates nothing.
+// - Combine.  A second kernel folds a row's partials in span order 0, 1,
+//   2, ..., skipping empty ones, normalises and casts to T.  No sum uses
+//   atomics, every sum has a fixed order, and results are the same on
+//   every run.
+//
+// Because spans are fixed key indices, a row's result depends only on its
+// own keys and q_pos: the same context gives the same bits in a ctx bucket
+// of 1024 or 2048 slots (the extra spans are empty and skipped), and in a
+// dense cache or a page chain (both walk key index = position).
 //
 // Stored keys (Keys::Elem) are float32, bfloat16 or int8; q and the output
 // are float32 or bfloat16 (T).  Int8 keys (Keys::kScaled) carry one float32
@@ -34,14 +58,11 @@
 // float32 rounding steps.
 //
 // The policies differ only in where key j's row lives and how its validity
-// is decided; chunking, staging and arithmetic are this one body.  So the
-// same keys at the same positions give bitwise equal outputs whether they
-// sit in a dense cache or in a page chain.
+// is decided; spans, chunking, staging and arithmetic are this one body.
 //
 // A policy provides, for batch row b with query position qp:
 //   Elem, kScaled         the stored element type; int8 with scales or not
-//   int  last(b, qp, t)   the last valid key this thread can see (-1: none);
-//                         the block takes the max over its threads
+//   int  len()            the walk: key indices 0 .. len() - 1
 //   bool valid(b, qp, j)  key j is attended
 //   const Elem* k_row(b, kh, j), v_row(b, kh, j)   16-byte aligned rows
 //   const float* k_scale(b, kh, j), v_scale(b, kh, j)   (kScaled only)
@@ -55,21 +76,13 @@ namespace decode {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 16;       // query heads per kv head
+constexpr int kSpan = 128;      // key indices per CTA (decode_attention.py SPAN)
+constexpr int kStages = 3;      // chunks staged in shared memory
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+// Spans of a launch over a walk of `walk` key indices (at least one, so a
+// row with no keys still gets its zeros from the combine).
+inline int n_spans(long long walk) {
+  return walk > kSpan ? static_cast<int>((walk + kSpan - 1) / kSpan) : 1;
 }
 
 // Geometry of the stored element type S (float, bf16 or int8) at head dim HD.
@@ -81,13 +94,16 @@ struct Geom {
   static constexpr int TPK = kThreads / CK;      // threads per key (scores)
   static constexpr int NPV = N < 8 ? N : 8;      // elements of a P.V column
   static constexpr int VPV = HD / NPV;           // P.V columns of a V row
-  static constexpr int KG = kThreads / VPV;      // key groups (P.V)
+  static constexpr int HS = kThreads / VPV;      // head slots (P.V)
+  static constexpr int HPT = (kMaxG + HS - 1) / HS;   // heads a thread holds
   static constexpr int TILE = CK * HD;           // elements of one K or V tile
-  // shared memory: 2 K tiles, 2 V tiles, then q (G x HD), p (G x CK) and,
-  // for int8 keys, the scales [2 buffers][K, V][CK]
-  static constexpr int tile_bytes() { return 4 * TILE * static_cast<int>(sizeof(S)); }
+  // shared memory: kStages K tiles, kStages V tiles, then q (G x HD), p
+  // (G x CK) and, for int8 keys, the scales [kStages][K, V][CK]
+  static constexpr int tile_bytes() {
+    return 2 * kStages * TILE * static_cast<int>(sizeof(S));
+  }
   static int smem_bytes(int G, bool scaled) {
-    return tile_bytes() + (G * (HD + CK) + (scaled ? 4 * CK : 0)) *
+    return tile_bytes() + (G * (HD + CK) + (scaled ? 2 * kStages * CK : 0)) *
                               static_cast<int>(sizeof(float));
   }
   // K rows are stored with their 16-byte slots XOR-swizzled so that the
@@ -96,6 +112,10 @@ struct Geom {
   // read 64 contiguous bytes)
   static constexpr int SWZ = (VPR < 8 ? VPR : 8) - 1;
   static __device__ __forceinline__ int swz(int j) { return (j * TPK) & SWZ; }
+  static_assert(kSpan % CK == 0, "chunks tile a span");
+  // the key-group sums ([KG][G][HD] floats, at most HS x HD) reuse the K tiles
+  static_assert(HS * HD * 4 <= kStages * TILE * static_cast<int>(sizeof(S)),
+                "key-group sums fit in the K tiles");
 };
 
 // Where key rows live, in elements: a batch row (or a page), a key slot and
@@ -112,15 +132,10 @@ struct DenseRows {
   int Sk, window;
   long long kp_sb;
 
+  __device__ __forceinline__ int len() const { return Sk; }
   __device__ __forceinline__ bool valid(int b, int qp, int j) const {
     const int kp = k_pos[b * kp_sb + j];
     return kp >= 0 && kp <= qp && (window == 0 || kp > qp - window);
-  }
-  __device__ __forceinline__ int last(int b, int qp, int t) const {
-    int l = -1;
-    for (int j = t; j < Sk; j += kThreads)
-      if (valid(b, qp, j)) l = j;
-    return l;
   }
   __device__ __forceinline__ long long at(int b, int kh, int j,
                                           const Strides& s) const {
@@ -130,18 +145,16 @@ struct DenseRows {
 
 // Key rows of a page pool (P, ps, KH, hd): key j of row b lives in page
 // table[b, j / ps] at slot j % ps.  Pages are linear, so key j has position
-// j: valid when j <= qp and, with a window, j > qp - window.  The walk
-// stops at min(qp, n_pages*ps - 1).
+// j: valid when j <= qp and, with a window, j > qp - window.  The walk is
+// n_pages*ps keys, so keys past min(qp, n_pages*ps - 1) are never loaded.
 struct PagedRows {
   const int* table;
   int n_pages, ps, window;
   long long pt_sb;                 // page-table row stride
 
+  __device__ __forceinline__ int len() const { return n_pages * ps; }
   __device__ __forceinline__ bool valid(int b, int qp, int j) const {
     return j <= qp && (window == 0 || j > qp - window);
-  }
-  __device__ __forceinline__ int last(int b, int qp, int t) const {
-    return max(min(qp, n_pages * ps - 1), -1);
   }
   __device__ __forceinline__ long long at(int b, int kh, int j,
                                           const Strides& s) const {
@@ -165,11 +178,9 @@ struct Cache {
   const float* v_s = nullptr;
   Strides k_s_st{}, v_s_st{};
 
+  __device__ __forceinline__ int len() const { return rows.len(); }
   __device__ __forceinline__ bool valid(int b, int qp, int j) const {
     return rows.valid(b, qp, j);
-  }
-  __device__ __forceinline__ int last(int b, int qp, int t) const {
-    return rows.last(b, qp, t);
   }
   __device__ __forceinline__ const S* k_row(int b, int kh, int j) const {
     return k + rows.at(b, kh, j, k_st);
@@ -185,122 +196,161 @@ struct Cache {
   }
 };
 
-// q: (B, Hq, hd) with strides (q_sb, q_sh, 1); out: (B, Hq, hd) contiguous.
+// Scratch of one launch, float32: acc [B][KH][spans][G][HD], then (m, l)
+// [B][KH][spans][G][2].
+__device__ __forceinline__ float* partial_ml(float* part, int B, int KH,
+                                            int spans, int G, int HD) {
+  return part + (long long)B * KH * spans * G * HD;
+}
+
+// q: (B, Hq, hd) with strides (q_sb, q_sh, 1); writes this CTA's partial.
 template <typename T, int HD, class Keys>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const int* __restrict__ q_pos,
-              T* __restrict__ out, int KH, int G, long long q_sb,
+              float* __restrict__ part, int KH, int G, long long q_sb,
               long long q_sh, float scale, const Keys keys) {
   using S = typename Keys::Elem;
   constexpr bool kScaled = Keys::kScaled;
   using C = Geom<S, HD>;
   constexpr int N = C::N, VPR = C::VPR, CK = C::CK, TPK = C::TPK;
-  constexpr int NPV = C::NPV, VPV = C::VPV, KG = C::KG;
+  constexpr int NPV = C::NPV, VPV = C::VPV, HS = C::HS, HPT = C::HPT;
   extern __shared__ float4 smem4[];
-  S* Ks = reinterpret_cast<S*>(smem4);                       // [2][CK][HD]
-  S* Vs = Ks + 2 * C::TILE;                                  // [2][CK][HD]
-  float* q_s = reinterpret_cast<float*>(Vs + 2 * C::TILE);   // [G][HD]
+  S* Ks = reinterpret_cast<S*>(smem4);                       // [kStages][CK][HD]
+  S* Vs = Ks + kStages * C::TILE;                            // [kStages][CK][HD]
+  float* q_s = reinterpret_cast<float*>(Vs + kStages * C::TILE);   // [G][HD]
   float* p_s = q_s + G * HD;                                 // [G][CK]
-  float* sc_s = p_s + G * CK;                                // [2][2][CK]
+  float* sc_s = p_s + G * CK;                                // [kStages][2][CK]
   __shared__ float m_s[kMaxG], l_s[kMaxG], corr_s[kMaxG];
-  __shared__ int valid_s[CK];
-  __shared__ int last_s[kWarps];
+  __shared__ int valid_s[2][CK];
+  __shared__ int lo_s[kWarps], hi_s[kWarps];
 
-  const int kh = blockIdx.x, b = blockIdx.y;
+  const int span = blockIdx.x, spans = gridDim.x;
+  const int kh = blockIdx.y, b = blockIdx.z;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int qp = q_pos[b];
+  const long long rec = ((long long)b * KH + kh) * spans + span;
+  float* ml = partial_ml(part, gridDim.z, KH, spans, G, HD) + rec * G * 2;
 
-  // keys past the last valid one are never loaded
-  int last = keys.last(b, qp, t);
-  last = __reduce_max_sync(0xffffffffu, last);
-  if (lane == 0) last_s[warp] = last;
+  // the span's first and last valid key
+  const int j0 = span * kSpan, j1 = min(j0 + kSpan, keys.len());
+  int lo = 0x7fffffff, hi = -1;
+  for (int j = j0 + t; j < j1; j += kThreads) {
+    if (keys.valid(b, qp, j)) {
+      lo = min(lo, j);
+      hi = j;
+    }
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (lane == 0) { lo_s[warp] = lo; hi_s[warp] = hi; }
+  if (t < G) { m_s[t] = kNegInf; l_s[t] = 0.f; }
+  __syncthreads();
+  int first = 0x7fffffff, last = -1;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    first = min(first, lo_s[w]);
+    last = max(last, hi_s[w]);
+  }
+  if (last < 0) {   // an empty partial
+    if (t < G) { ml[2 * t] = kNegInf; ml[2 * t + 1] = 0.f; }
+    return;
+  }
+
   for (int i = t; i < G * HD; i += kThreads) {
     const int g = i / HD, d = i % HD;
     q_s[i] = to_f32(q[b * q_sb + (long long)(kh * G + g) * q_sh + d]);
   }
-  if (t < G) { m_s[t] = kNegInf; l_s[t] = 0.f; }
-  __syncthreads();
-  int n_keys = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) n_keys = max(n_keys, last_s[w] + 1);
-  const int n_chunks = (n_keys + CK - 1) / CK;
+  const int c_lo = (first - j0) / CK;
+  const int n_chunks = (last - j0) / CK + 1 - c_lo;
 
-  auto load_chunk = [&](int c, int buf) {
-    const int c0 = c * CK;
-    S* kd = Ks + buf * C::TILE;
-    S* vd = Vs + buf * C::TILE;
+  // the i-th chunk of this CTA into stage i % kStages: keys first..last only
+  auto load_chunk = [&](int i) {
+    const int c0 = j0 + (c_lo + i) * CK, st = i % kStages;
+    S* kd = Ks + st * C::TILE;
+    S* vd = Vs + st * C::TILE;
     for (int idx = t; idx < CK * VPR; idx += kThreads) {
       const int j = idx / VPR, s = idx % VPR;
-      if (c0 + j < n_keys) {
+      if (c0 + j >= first && c0 + j <= last) {
         cp_async16(kd + j * HD + (s ^ C::swz(j)) * N, keys.k_row(b, kh, c0 + j) + s * N);
         cp_async16(vd + j * HD + s * N, keys.v_row(b, kh, c0 + j) + s * N);
       }
     }
     if constexpr (kScaled) {
-      if (t < CK && c0 + t < n_keys) {
-        cp_async4(sc_s + buf * 2 * CK + t, keys.k_scale(b, kh, c0 + t));
-        cp_async4(sc_s + buf * 2 * CK + CK + t, keys.v_scale(b, kh, c0 + t));
+      if (t < CK && c0 + t >= first && c0 + t <= last) {
+        cp_async4(sc_s + st * 2 * CK + t, keys.k_scale(b, kh, c0 + t));
+        cp_async4(sc_s + st * 2 * CK + CK + t, keys.v_scale(b, kh, c0 + t));
       }
     }
-    cp_async_commit();
   };
+  // one commit group per chunk, empty ones included, so that waiting for
+  // all but the newest kStages - 2 groups always means "chunk i is in"
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_chunks) load_chunk(i);
+    cp_async_commit();
+  }
 
-  float acc[kMaxG][NPV];
+  // P.V thread map: head slot hs = t / VPV, column pv = t % VPV.  With
+  // G <= HS the slots hold KG = HS / G key groups of G heads each (keys
+  // kgi, kgi + KG, ... of a chunk); with G > HS one key group, and slot hs
+  // holds heads hs, hs + HS, ...
+  const int GS = min(G, HS), KG = HS / GS;
+  const int hs = t / VPV, pv = t % VPV, kgi = hs / GS, g0 = hs % GS;
+  const bool pv_on = kgi < KG;
+  float acc[HPT][NPV];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g)
+  for (int h = 0; h < HPT; ++h)
 #pragma unroll
-    for (int n = 0; n < NPV; ++n) acc[g][n] = 0.f;
+    for (int n = 0; n < NPV; ++n) acc[h][n] = 0.f;
   const int sj = t / TPK, sp = t % TPK;   // scores: key in chunk, part
-  const int kg = t / VPV, pv = t % VPV;   // P.V: key group, column
 
-  if (n_chunks > 0) load_chunk(0, 0);
-  for (int c = 0; c < n_chunks; ++c) {
-    const int buf = c & 1, c0 = c * CK;
-    if (c + 1 < n_chunks) {
-      load_chunk(c + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  for (int i = 0; i < n_chunks; ++i) {
+    const int c0 = j0 + (c_lo + i) * CK, st = i % kStages, vb = i & 1;
+    if (t < CK) {
+      const int j = c0 + t;
+      valid_s[vb][t] = j >= first && j <= last && keys.valid(b, qp, j);
     }
-    if (t < CK) valid_s[t] = c0 + t < n_keys && keys.valid(b, qp, c0 + t);
+    cp_async_wait<kStages - 2>();
+    // chunk i is in, and every thread is done with chunk i - 1, whose
+    // stage the next copies fill
     __syncthreads();
+    if (i + kStages - 1 < n_chunks) load_chunk(i + kStages - 1);
+    cp_async_commit();
 
-    // scores: TPK threads per key, each over slots sp, sp + TPK, ...
-    const S* kr = Ks + buf * C::TILE + sj * HD;
-    float dot[kMaxG];
+    // scores: TPK threads per key, each over slots sp, sp + TPK, ... of its
+    // key (held in registers), one query head at a time
+    constexpr int SPT = VPR / TPK;   // slots per thread
+    const S* kr = Ks + st * C::TILE + sj * HD;
+    float e[SPT][N];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) dot[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < VPR / TPK; ++i) {
-      const int s = sp + i * TPK;
-      float e[N];
-      load_vec(kr + (s ^ C::swz(sj)) * N, e);
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const float* qg = q_s + g * HD + s * N;
-#pragma unroll
-          for (int n = 0; n < N; ++n) dot[g] += qg[n] * e[n];
-        }
-      }
-    }
+    for (int u = 0; u < SPT; ++u)
+      load_vec(kr + ((sp + u * TPK) ^ C::swz(sj)) * N, e[u]);
+    float ksc = 1.f;
+    if constexpr (kScaled) ksc = sc_s[st * 2 * CK + sj];
+    const bool key_ok = valid_s[vb][sj];
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
       if (g < G) {
+        float dot = 0.f;
+#pragma unroll
+        for (int u = 0; u < SPT; ++u) {
+          const float* qg = q_s + g * HD + (sp + u * TPK) * N;
+#pragma unroll
+          for (int n = 0; n < N; ++n) dot += qg[n] * e[u][n];
+        }
 #pragma unroll
         for (int o = 1; o < TPK; o <<= 1)
-          dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], o);
-        float sc = dot[g];
-        if constexpr (kScaled) sc *= sc_s[buf * 2 * CK + sj];
-        if (sp == 0) p_s[g * CK + sj] = valid_s[sj] ? sc * scale : kNegInf;
+          dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        if constexpr (kScaled) dot *= ksc;
+        if (sp == 0) p_s[g * CK + sj] = key_ok ? dot * scale : kNegInf;
       }
     }
     __syncthreads();
 
     // online softmax over the chunk: warp w takes heads w, w + 8
     for (int g = warp; g < G; g += kWarps) {
-      const bool ok0 = lane < CK && valid_s[lane];
-      const bool ok1 = lane + 32 < CK && valid_s[lane + 32];
+      const bool ok0 = lane < CK && valid_s[vb][lane];
+      const bool ok1 = lane + 32 < CK && valid_s[vb][lane + 32];
       const float s0 = ok0 ? p_s[g * CK + lane] : kNegInf;
       const float s1 = ok1 ? p_s[g * CK + lane + 32] : kNegInf;
       const float m_old = m_s[g];
@@ -319,87 +369,130 @@ decode_kernel(const T* __restrict__ q, const int* __restrict__ q_pos,
     }
     __syncthreads();
 
-    // P.V: thread (kg, pv) sums keys kg, kg + KG, ... on its column
+    // P.V: thread (kgi, g0, pv) sums keys kgi, kgi + KG, ... on its column
+    if (pv_on) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        const float corr = corr_s[g];
-#pragma unroll
-        for (int n = 0; n < NPV; ++n) acc[g][n] *= corr;
-      }
-    }
-    const S* vr = Vs + buf * C::TILE;
-    for (int j = kg; j < CK; j += KG) {
-      if (!valid_s[j]) continue;
-      float e[NPV];
-      if constexpr (NPV < N) load_vec8(vr + j * HD + pv * NPV, e);
-      else load_vec(vr + j * HD + pv * NPV, e);
-      float vsc = 1.f;
-      if constexpr (kScaled) vsc = sc_s[buf * 2 * CK + CK + j];
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
+      for (int h = 0; h < HPT; ++h) {
+        const int g = g0 + h * GS;
         if (g < G) {
-          float p = p_s[g * CK + j];
-          if constexpr (kScaled) p *= vsc;
+          const float corr = corr_s[g];
 #pragma unroll
-          for (int n = 0; n < NPV; ++n) acc[g][n] += p * e[n];
+          for (int n = 0; n < NPV; ++n) acc[h][n] *= corr;
+        }
+      }
+      const S* vr = Vs + st * C::TILE;
+      for (int j = kgi; j < CK; j += KG) {
+        if (!valid_s[vb][j]) continue;
+        float e[NPV];
+        if constexpr (NPV < N) load_vec8(vr + j * HD + pv * NPV, e);
+        else load_vec(vr + j * HD + pv * NPV, e);
+        float vsc = 1.f;
+        if constexpr (kScaled) vsc = sc_s[st * 2 * CK + CK + j];
+#pragma unroll
+        for (int h = 0; h < HPT; ++h) {
+          const int g = g0 + h * GS;
+          if (g < G) {
+            float p = p_s[g * CK + j];
+            if constexpr (kScaled) p *= vsc;
+#pragma unroll
+            for (int n = 0; n < NPV; ++n) acc[h][n] += p * e[n];
+          }
         }
       }
     }
-    __syncthreads();   // this buffer is refilled by the next iteration
   }
 
-  // combine the key groups of each head in a fixed order, normalise, store
-  float* red = reinterpret_cast<float*>(Ks);   // [KG][HD], the K tiles are free
-  const int Hq = KH * G;
+  // the partial: key groups summed in order 0 .. KG-1 (in the K tiles,
+  // which nothing reads after the last chunk's scores), then m and l
+  float* pacc = part + rec * G * HD;
+  if (KG == 1) {
+    if (pv_on) {
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < G) {
+      for (int h = 0; h < HPT; ++h) {
+        const int g = g0 + h * GS;
+        if (g < G) {
 #pragma unroll
-      for (int n = 0; n < NPV; ++n) red[kg * HD + pv * NPV + n] = acc[g][n];
-      __syncthreads();
-      const float l = l_s[g];
-      for (int d = t; d < HD; d += kThreads) {
-        float o = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < KG; ++kk) o += red[kk * HD + d];
-        o = l > 0.f ? o / l : 0.f;
-        out[((long long)b * Hq + kh * G + g) * HD + d] = from_f32<T>(o);
+          for (int n = 0; n < NPV; n += 4)
+            *reinterpret_cast<float4*>(pacc + g * HD + pv * NPV + n) =
+                make_float4(acc[h][n], acc[h][n + 1], acc[h][n + 2], acc[h][n + 3]);
+        }
       }
-      __syncthreads();
+    }
+  } else {
+    float* red = reinterpret_cast<float*>(smem4);   // [KG][G][HD]
+    if (pv_on) {
+#pragma unroll
+      for (int n = 0; n < NPV; ++n)
+        red[(kgi * G + g0) * HD + pv * NPV + n] = acc[0][n];
+    }
+    __syncthreads();
+    for (int idx = t; idx < G * HD; idx += kThreads) {
+      float o = 0.f;
+      for (int kk = 0; kk < KG; ++kk) o += red[kk * G * HD + idx];
+      pacc[idx] = o;
     }
   }
+  if (t < G) { ml[2 * t] = m_s[t]; ml[2 * t + 1] = l_s[t]; }
+}
+
+// One thread per (row, query head, dim): the row's partials folded in span
+// order, normalised, cast to T.  out: (B, Hq, hd) contiguous.
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD)
+combine_kernel(const float* __restrict__ part, T* __restrict__ out, int KH,
+               int G, int spans) {
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int kh = h / G, g = h % G;
+  const float* ml = partial_ml(const_cast<float*>(part), gridDim.y, KH, spans, G, HD);
+  float m = kNegInf, l = 0.f, acc = 0.f;
+  for (int s = 0; s < spans; ++s) {
+    const long long r = (((long long)b * KH + kh) * spans + s) * G + g;
+    const float ls = ml[2 * r + 1];
+    if (ls == 0.f) continue;   // no valid key in this span
+    const float ms = ml[2 * r];
+    const float mn = fmaxf(m, ms);
+    const float ca = expf(m - mn), cb = expf(ms - mn);
+    l = l * ca + ls * cb;
+    acc = acc * ca + part[r * HD + d] * cb;
+    m = mn;
+  }
+  out[((long long)b * KH * G + h) * HD + d] = from_f32<T>(l > 0.f ? acc / l : 0.f);
 }
 
 template <typename T, int HD, class Keys>
-int launch(const void* q, const void* q_pos, void* out, int B, int KH, int G,
-           long long q_sb, long long q_sh, float scale, const Keys& keys,
-           cudaStream_t s) {
+int launch(const void* q, const void* q_pos, void* out, float* part,
+           int spans, int B, int KH, int G, long long q_sb, long long q_sh,
+           float scale, const Keys& keys, cudaStream_t s) {
   using C = Geom<typename Keys::Elem, HD>;
   const int bytes = C::smem_bytes(G, Keys::kScaled);
   auto kern = decode_kernel<T, HD, Keys>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(KH, B);
-  kern<<<grid, kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const int*>(q_pos),
-      static_cast<T*>(out), KH, G, q_sb, q_sh, scale, keys);
+  kern<<<dim3(spans, KH, B), kThreads, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const int*>(q_pos), part, KH, G,
+      q_sb, q_sh, scale, keys);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  combine_kernel<T, HD><<<dim3(KH * G, B), HD, 0, s>>>(
+      part, static_cast<T*>(out), KH, G, spans);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Instantiate `launch` for the head dim.
+// Instantiate `launch` for the head dim.  `part` holds the scratch of
+// `spans` = n_spans(walk) spans (the caller checks the count).
 template <typename T, class Keys>
-int dispatch_hd(int hd, const void* q, const void* q_pos, void* out, int B,
-                int KH, int G, long long q_sb, long long q_sh, float scale,
-                const Keys& keys, cudaStream_t s) {
+int dispatch_hd(int hd, const void* q, const void* q_pos, void* out,
+                void* part, int spans, int B, int KH, int G, long long q_sb,
+                long long q_sh, float scale, const Keys& keys, cudaStream_t s) {
+  float* p = static_cast<float*>(part);
   switch (hd) {
     case 64:
-      return launch<T, 64>(q, q_pos, out, B, KH, G, q_sb, q_sh, scale, keys, s);
+      return launch<T, 64>(q, q_pos, out, p, spans, B, KH, G, q_sb, q_sh, scale, keys, s);
     case 128:
-      return launch<T, 128>(q, q_pos, out, B, KH, G, q_sb, q_sh, scale, keys, s);
+      return launch<T, 128>(q, q_pos, out, p, spans, B, KH, G, q_sb, q_sh, scale, keys, s);
     case 256:
-      return launch<T, 256>(q, q_pos, out, B, KH, G, q_sb, q_sh, scale, keys, s);
+      return launch<T, 256>(q, q_pos, out, p, spans, B, KH, G, q_sb, q_sh, scale, keys, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

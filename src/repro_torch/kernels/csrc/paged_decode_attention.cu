@@ -9,10 +9,10 @@
 // counterpart here.  Key j of row b lives in physical page
 // page_table[b, j / ps] at offset j % ps; pages are linear, so its position
 // is j itself and there is no k_pos array: key j is valid when j <= q_pos[b]
-// and, with a window, j > q_pos[b] - window.  The walk stops at
-// min(q_pos[b], n_pages*ps - 1), so scratch-page tails (unallocated chain
-// entries, which point at page 0) and keys past the last valid one are never
-// loaded.  The table is read with its row stride: the engine passes the
+// and, with a window, j > q_pos[b] - window.  The walk is n_pages*ps keys,
+// of which only those from the first to the last valid one are loaded, so
+// scratch-page tails (unallocated chain entries, which point at page 0) are
+// never read.  The table is read with its row stride: the engine passes the
 // ctx-bucket slice table[:, :n_ctx] without a copy.
 //
 // Bound, design and arithmetic: decode_attention.cuh, the body shared with
@@ -31,16 +31,19 @@ using namespace rt;
 // q: (B, Hq, hd) with strides (q_sb, q_sh, 1); k_pool, v_pool: (P, ps, KH,
 // hd), both with strides (p_sp, p_ss, p_sh, 1); page_table: (B, n_pages)
 // int32 with strides (pt_sb, 1); q_pos: (B,) int32 contiguous; out:
-// (B, Hq, hd) contiguous.  Strides are in elements.  Requires G = Hq/KH <=
-// 16, hd in {64, 128, 256} and 16-byte aligned pool rows.  Returns the CUDA
-// error code.
+// (B, Hq, hd) contiguous; part: float32 scratch of B*KH*spans*G*(hd+2)
+// elements, spans = decode::n_spans(n_pages*ps).  Strides are in elements.
+// Requires G = Hq/KH <= 16, hd in {64, 128, 256} and 16-byte aligned pool
+// rows.  Returns the CUDA error code.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* page_table, const void* q_pos, void* out, int B, int n_pages,
-    int ps, int KH, int G, int hd, long long q_sb, long long q_sh,
+    const void* page_table, const void* q_pos, void* out, void* part,
+    int spans, int B, int n_pages, int ps, int KH, int G, int hd,
+    long long q_sb, long long q_sh,
     long long pt_sb, long long p_sp, long long p_ss, long long p_sh,
     int window, float scale, int dtype, void* stream) {
-  if (G < 1 || G > decode::kMaxG || ps < 1)
+  if (G < 1 || G > decode::kMaxG || ps < 1 ||
+      spans != decode::n_spans((long long)n_pages * ps))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const decode::PagedRows rows{static_cast<const int*>(page_table), n_pages,
@@ -51,15 +54,15 @@ extern "C" int paged_decode_attention_launch(
     const decode::Cache<T, decode::PagedRows> keys{
         rows, static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
         st, st};
-    return decode::dispatch_hd<T>(hd, q, q_pos, out, B, KH, G, q_sb, q_sh,
-                                  scale, keys, s);
+    return decode::dispatch_hd<T>(hd, q, q_pos, out, part, spans, B, KH, G,
+                                  q_sb, q_sh, scale, keys, s);
   }
   if (dtype == kF32) {
     const decode::Cache<float, decode::PagedRows> keys{
         rows, static_cast<const float*>(k_pool),
         static_cast<const float*>(v_pool), st, st};
-    return decode::dispatch_hd<float>(hd, q, q_pos, out, B, KH, G, q_sb, q_sh,
-                                      scale, keys, s);
+    return decode::dispatch_hd<float>(hd, q, q_pos, out, part, spans, B, KH,
+                                      G, q_sb, q_sh, scale, keys, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -72,11 +75,13 @@ extern "C" int paged_decode_attention_launch(
 extern "C" int paged_decode_attention_q8_launch(
     const void* q, const void* k_pool, const void* k_scale,
     const void* v_pool, const void* v_scale, const void* page_table,
-    const void* q_pos, void* out, int B, int n_pages, int ps, int KH, int G,
-    int hd, long long q_sb, long long q_sh, long long pt_sb, long long p_sp,
-    long long p_ss, long long p_sh, long long s_sp, long long s_ss,
-    long long s_sh, int window, float scale, int dtype, void* stream) {
-  if (G < 1 || G > decode::kMaxG || ps < 1)
+    const void* q_pos, void* out, void* part, int spans, int B, int n_pages,
+    int ps, int KH, int G, int hd, long long q_sb, long long q_sh,
+    long long pt_sb, long long p_sp, long long p_ss, long long p_sh,
+    long long s_sp, long long s_ss, long long s_sh, int window, float scale,
+    int dtype, void* stream) {
+  if (G < 1 || G > decode::kMaxG || ps < 1 ||
+      spans != decode::n_spans((long long)n_pages * ps))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const decode::PagedRows rows{static_cast<const int*>(page_table), n_pages,
@@ -88,10 +93,11 @@ extern "C" int paged_decode_attention_q8_launch(
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       sst, sst};
   if (dtype == kBF16)
-    return decode::dispatch_hd<__nv_bfloat16>(hd, q, q_pos, out, B, KH, G,
-                                              q_sb, q_sh, scale, keys, s);
+    return decode::dispatch_hd<__nv_bfloat16>(hd, q, q_pos, out, part, spans,
+                                              B, KH, G, q_sb, q_sh, scale,
+                                              keys, s);
   if (dtype == kF32)
-    return decode::dispatch_hd<float>(hd, q, q_pos, out, B, KH, G, q_sb, q_sh,
-                                      scale, keys, s);
+    return decode::dispatch_hd<float>(hd, q, q_pos, out, part, spans, B, KH,
+                                      G, q_sb, q_sh, scale, keys, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

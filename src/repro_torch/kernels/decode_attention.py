@@ -29,9 +29,25 @@ launches = 0
 chunk_launches = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = ((_P,) * 6 + (_I,) * 5 + (_L,) * 9 + (_I, _F, _I, _P))
+_ARGTYPES = ((_P,) * 7 + (_I,) * 6 + (_L,) * 9 + (_I, _F, _I, _P))
 MAX_GROUP = 16      # query heads per kv head the kernel holds
 HEAD_DIMS = (64, 128, 256)
+SPAN = 128          # key indices per CTA (decode::kSpan)
+
+
+def split_geometry(walk: int, B: int, KH: int, G: int, hd: int):
+    """(spans, scratch elements) of one decode launch whose rows walk key
+    indices 0 .. walk-1 (Sk dense, n_pages*ps paged): ceil(walk / SPAN)
+    spans, at least one, counted from key 0, and per (row, kv head, span,
+    query head) an unnormalised float32 acc[hd] and its (m, l)."""
+    spans = max(1, -(-walk // SPAN))
+    return spans, B * KH * spans * G * (hd + 2)
+
+
+def scratch(walk: int, B: int, KH: int, G: int, hd: int, device):
+    """The span count and the float32 scratch of one launch."""
+    spans, n = split_geometry(walk, B, KH, G, hd)
+    return spans, torch.empty(n, dtype=torch.float32, device=device)
 
 
 def decode_attention_plain(q, k, v, k_pos, q_pos, *, window: int = 0,
@@ -110,10 +126,12 @@ def _launch(q, k, v, k_pos, q_pos, window, scale):
     fn = _build.function("decode_attention", "decode_attention_launch",
                          _ARGTYPES)
     scale = hd ** -0.5 if scale is None else scale
+    spans, part = scratch(Sk, B, KH, Hq // KH, hd, q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pos.data_ptr(),
-             q_pos.data_ptr(), out.data_ptr(), B, Sk, KH, Hq // KH, hd,
-             q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-             v.stride(0), v.stride(1), v.stride(2), k_pos.stride(0),
-             int(window), float(scale), code, _build.stream_handle())
+             q_pos.data_ptr(), out.data_ptr(), part.data_ptr(), spans, B, Sk,
+             KH, Hq // KH, hd, q.stride(0), q.stride(2), k.stride(0),
+             k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
+             k_pos.stride(0), int(window), float(scale), code,
+             _build.stream_handle())
     _build.raise_on_error("decode_attention", err)
     return out[:, None]

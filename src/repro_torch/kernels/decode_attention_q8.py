@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from . import _build
+from .decode_attention import scratch
 from .ref import reference_decode_attention
 
 # kernel launches by ``decode_attention_q8`` (plain-version calls not
@@ -25,7 +26,7 @@ from .ref import reference_decode_attention
 launches = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = ((_P,) * 8 + (_I,) * 5 + (_L,) * 15 + (_I, _F, _I, _P))
+_ARGTYPES = ((_P,) * 9 + (_I,) * 6 + (_L,) * 15 + (_I, _F, _I, _P))
 MAX_GROUP = 16      # query heads per kv head the kernel holds
 HEAD_DIMS = (64, 128, 256)
 
@@ -79,13 +80,14 @@ def decode_attention_q8(q, k, k_s, v, v_s, k_pos, q_pos, *, window: int = 0,
     fn = _build.function("decode_attention_q8", "decode_attention_q8_launch",
                          _ARGTYPES)
     scale = hd ** -0.5 if scale is None else scale
+    spans, part = scratch(Sk, B, KH, Hq // KH, hd, q.device)
     err = fn(q.data_ptr(), k.data_ptr(), k_s.data_ptr(), v.data_ptr(),
              v_s.data_ptr(), k_pos.data_ptr(), q_pos.data_ptr(),
-             out.data_ptr(), B, Sk, KH, Hq // KH, hd, q.stride(0),
-             q.stride(2), k.stride(0), k.stride(1), k.stride(2), v.stride(0),
-             v.stride(1), v.stride(2), k_s.stride(0), k_s.stride(1),
-             k_s.stride(2), v_s.stride(0), v_s.stride(1), v_s.stride(2),
-             k_pos.stride(0), int(window), float(scale), code,
+             out.data_ptr(), part.data_ptr(), spans, B, Sk, KH, Hq // KH, hd,
+             q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+             v.stride(0), v.stride(1), v.stride(2), k_s.stride(0),
+             k_s.stride(1), k_s.stride(2), v_s.stride(0), v_s.stride(1),
+             v_s.stride(2), k_pos.stride(0), int(window), float(scale), code,
              _build.stream_handle())
     _build.raise_on_error("decode_attention_q8", err)
     launches += 1

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from . import _build
+from .decode_attention import scratch
 from .ref import paged_decode_attention_ref
 
 # kernel launches by ``paged_decode_attention`` over float pools and over
@@ -33,8 +34,8 @@ launches = 0
 q8_launches = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = ((_P,) * 6 + (_I,) * 6 + (_L,) * 6 + (_I, _F, _I, _P))
-_Q8_ARGTYPES = ((_P,) * 8 + (_I,) * 6 + (_L,) * 9 + (_I, _F, _I, _P))
+_ARGTYPES = ((_P,) * 7 + (_I,) * 7 + (_L,) * 6 + (_I, _F, _I, _P))
+_Q8_ARGTYPES = ((_P,) * 9 + (_I,) * 7 + (_L,) * 9 + (_I, _F, _I, _P))
 MAX_GROUP = 16      # query heads per kv head the kernel holds
 HEAD_DIMS = (64, 128, 256)
 
@@ -114,8 +115,10 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, q_pos, *,
     if B == 0 or Hq == 0:
         return out[:, None]
     scale = hd ** -0.5 if scale is None else scale
-    geom = (B, page_table.shape[1], ps, KH, Hq // KH, hd, q.stride(0),
-            q.stride(2), page_table.stride(0), k_pool.stride(0),
+    n_pages = page_table.shape[1]
+    spans, part = scratch(n_pages * ps, B, KH, Hq // KH, hd, q.device)
+    geom = (part.data_ptr(), spans, B, n_pages, ps, KH, Hq // KH, hd,
+            q.stride(0), q.stride(2), page_table.stride(0), k_pool.stride(0),
             k_pool.stride(1), k_pool.stride(2))
     tail = (int(window), float(scale), code, _build.stream_handle())
     if q8:

@@ -17,10 +17,18 @@ Phases (each raises on failure; nothing is caught):
    rmsnorm, 1e-4 for attention).  TF32 is off so that the float32
    plain versions compute in float32 (TF32 keeps ~3 significant digits).
    paged_decode_attention must also equal decode_attention bit for bit on
-   the same context laid out densely, and the chunk route of
-   decode_attention (256 queries at position 512) is held against its
-   plain version and, in float32, the plain chunk attention, and timed
-   alone beside SDPA with the same mask.  The decode body splits keys over
+   the same context laid out densely.  rmsnorm and add_rmsnorm run at 8,
+   256 and 1024 rows of 1536 and at 4 rows of 10008 (wider than one pass
+   of the kernel's registers); add_rmsnorm must equal PyTorch's add
+   followed by the unfused kernel bit for bit.  chunk_attention (a prompt
+   chunk against its past, read through the page table, and its raw K/V)
+   is held against its plain version on every route (bf16 pool, int8 pool
+   under bf16 and float32 q, float32 pool) and head dim, the float32
+   routes also against the port's attention oracle, bit for bit across
+   repeated launches and across two page chains holding the same context,
+   and timed at the paged burst's shape (256 queries at position 512)
+   beside SDPA with the same mask and at other key spans.  The decode body
+   splits keys over
    CTAs in fixed spans, so its determinism is checked bit for bit: two
    launches on the same inputs, and the same context in a 1024-slot view
    and in the whole 2048-slot buffer (bf16, float32 and int8 kernels).
@@ -48,7 +56,7 @@ Phases (each raises on failure; nothing is caught):
    the CPU (plain versions) from the same params: first-token logits
    allclose at 1e-3, the 16 tokens equal.  Then the same model serves 5
    requests through a paged engine with the prefix cache and a 15-page
-   pool (prefix hits, a preemption, the chunk route) on both: the same
+   pool (prefix hits, a preemption, chunk_attention) on both: the same
    tokens.  Both checks run again with ``kv_quant`` (int8 caches).
 4. serve: full-width, full-depth qwen2-1.5b in bfloat16 with seeded random
    weights serves 8 greedy requests (prompts of 100-1000 tokens, 64-128 new
@@ -56,13 +64,14 @@ Phases (each raises on failure; nothing is caught):
    (max_batch 8, max_len 2048, governor greenllm).
 5. serve_paged: the same model on the paged engine with the prefix cache
    and a 219-page pool serves two waves of 8 greedy requests sharing a
-   256-token system prompt; it must preempt, hit the cache and take the
-   chunk route.  In this phase and the last one, the kernels' launch
-   counts are set to 0 just before and read just after; each kernel of
-   the path must have launched.
+   256-token system prompt; it must preempt, hit the cache and run
+   chunk_attention, and no decode kernel but the paged one.  In this phase
+   and the last one, the kernels' launch counts are set to 0 just before
+   and read just after; each kernel of the path must have launched.
 6. serve_q8: phases 4 and 5 again with ``kv_quant`` (int8 K/V caches and
    pools with float32 scales): decode_attention_q8, the paged int8 route,
-   the chunk route, flash_attention and rmsnorm must each have launched.
+   chunk_attention's int8 route, flash_attention, rmsnorm and add_rmsnorm
+   must each have launched.
    Prints tokens/s and the KV bytes per token against bf16's.
 7. paged_vs_dense: phase 4's burst through a dense and a paged engine on
    the same weights gives identical tokens, with bf16 caches and with
@@ -72,7 +81,8 @@ Phases (each raises on failure; nothing is caught):
    run, printing the device's busy share of the wall time, the kernel
    time by name and the port's kernels' time by family with that run's
    launches, then the PyTorch operators the host dispatches per forward
-   pass.
+   pass (in all, and the residual adds among them) and the norm launches
+   per pass, fused and unfused.
 
 The line before the last is one JSON object with a ``kernels`` list; the
 last line is {"ok": true, "device": {...}}.  Details go to
@@ -210,35 +220,73 @@ def _demangle(sym):
 # -- phase 2: kernels ----------------------------------------------------------------
 
 def _rmsnorm_cases(res):
+    """rmsnorm and add_rmsnorm against their plain versions at the serve
+    paths' row counts (8 decode rows, a 256-token chunk, the 1024-token
+    prefill bucket) of 1536, bf16 and float32; add_rmsnorm also bitwise
+    against PyTorch's add followed by the unfused kernel; 4 rows of 10008
+    (wider than one pass of the kernel's registers, the last pass partial)
+    are checked the same way.  The 1536-wide shapes are timed in bf16
+    beside the library (``F.rms_norm``; for the fused kernel ``x + delta``
+    then ``F.rms_norm``); the timed fused calls add into their inputs in
+    place, as the model does.  Returns the 8-row cases (rmsnorm,
+    add_rmsnorm)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as K
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows_main = None
-    for rows in (8, 1024):
-        d = 1536
+    mains = {}
+    for rows, d in ((8, 1536), (256, 1536), (1024, 1536), (4, 10008)):
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
-            x = torch.randn(rows, d, generator=g, device="cuda").to(dt)
+            def mk():
+                return (torch.randn(rows, d, generator=g, device="cuda").to(dt),
+                        torch.randn(rows, d, generator=g, device="cuda").to(dt))
+            x, delta = mk()
             w = torch.randn(d, generator=g, device="cuda") + 1.0
             err, share = check_close(f"rmsnorm {rows}x{d} {dt}",
                                      K.rmsnorm(x, w), K.rmsnorm_plain(x, w), tol)
+            # the sum goes into x in place: each call gets its own copy
+            s_, h = K.add_rmsnorm(x.clone(), delta, w)
+            _, h_plain = K.add_rmsnorm_plain(x.clone(), delta, w)
+            a_err, a_share = check_close(f"add_rmsnorm {rows}x{d} {dt}", h,
+                                         h_plain, tol)
+            if not (torch.equal(s_, x + delta)
+                    and torch.equal(h, K.rmsnorm(s_, w))):
+                raise AssertionError(f"add_rmsnorm {rows}x{d} {dt}: not "
+                                     "bitwise x + delta and rmsnorm of it")
             case = {"shape": [rows, d], "dtype": str(dt), "max_abs_err": err,
                     "bf16_share": share}
-            if dt == torch.bfloat16:
-                nbytes = 2 * rows * d * x.element_size() + d * 4
-                sets = [(torch.randn(rows, d, generator=g, device="cuda").to(dt), w)
-                        for _ in range(n_sets(nbytes))]
+            acase = {"shape": [rows, d], "dtype": str(dt),
+                     "max_abs_err": a_err, "bf16_share": a_share,
+                     "bitwise_add_then_rmsnorm": True}
+            if dt == torch.bfloat16 and d == 1536:
+                es = x.element_size()
+                nbytes = 2 * rows * d * es + d * 4
+                abytes = 4 * rows * d * es + d * 4
+                sets = [mk() + (w,) for _ in range(n_sets(abytes))]
                 wl = w.to(dt)
-                case["ms"] = time_ms(K.rmsnorm, sets)
-                case["plain_ms"] = time_ms(K.rmsnorm_plain, sets)
+                case["ms"] = time_ms(lambda a, _d, w_: K.rmsnorm(a, w_), sets)
+                case["plain_ms"] = time_ms(
+                    lambda a, _d, w_: K.rmsnorm_plain(a, w_), sets)
                 case["library_ms"] = time_ms(
-                    lambda a, _w: F.rms_norm(a, (d,), wl, 1e-6), sets)
+                    lambda a, _d, _w: F.rms_norm(a, (d,), wl, 1e-6), sets)
                 case["bound_ms"], case["bound_by"] = bound(nbytes, 4 * rows * d)
+                acase["ms"] = time_ms(K.add_rmsnorm, sets)
+                acase["plain_ms"] = time_ms(K.add_rmsnorm_plain, sets)
+                acase["library_ms"] = time_ms(
+                    lambda a, b, _w: F.rms_norm(a + b, (d,), wl, 1e-6), sets)
+                acase["library"] = "x + delta, then F.rms_norm"
+                acase["bound_ms"], acase["bound_by"] = bound(abytes,
+                                                             5 * rows * d)
                 if rows == 8:
-                    rows_main = case
+                    mains = {"rmsnorm": case, "add_rmsnorm": acase}
+                res.setdefault("norm_shapes", []).extend(
+                    [{"kernel": "rmsnorm", **case},
+                     {"kernel": "add_rmsnorm", **acase}])
             res["cases"].append({"kernel": "rmsnorm", **case})
+            res["cases"].append({"kernel": "add_rmsnorm", **acase})
             log(f"[kernels] rmsnorm {case}")
-    return rows_main
+            log(f"[kernels] add_rmsnorm {acase}")
+    return mains["rmsnorm"], mains["add_rmsnorm"]
 
 
 def _decode_inputs(g, B, Sk, KH, Hq, hd, dt, buf):
@@ -436,16 +484,14 @@ PAGED_CASES = [(2, 8, 2, 16, 8, 64, 0, None, True),
 
 def _paged_cases(res):
     """paged_decode_attention against its plain version (the reference's
-    cases and the serving shape), bitwise against decode_attention on the
-    same context laid out densely, and the chunk route of decode_attention
-    against its plain version; the serving shape timed beside the dense
+    cases and the serving shape) and bitwise against decode_attention on the
+    same context laid out densely; the serving shape timed beside the dense
     kernel on the same context."""
     import torch
     from repro_torch.kernels import decode_attention as D
     from repro_torch.kernels import paged_decode_attention as K
-    from repro_torch.models.attention import attention
     g = torch.Generator(device="cuda").manual_seed(4)
-    main = chunk_main = None
+    main = None
     for B, Hq, KH, ps, n, hd, window, pos_lo, partial in PAGED_CASES:
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             cover = None
@@ -495,70 +541,205 @@ def _paged_cases(res):
                 main = case
             res["cases"].append({"kernel": "paged_decode_attention", **case})
             log(f"[kernels] paged_decode_attention {case}")
-    # the chunk route: 256 queries at positions 512.. against the gathered
-    # chain (1024 keys, positions >= 512 masked) and the raw chunk
-    S, start, n_ctx, KH, Hq, hd = 256, 512, 64, 2, 12, 128
-    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        q = torch.randn(1, S, Hq, hd, generator=g, device="cuda").to(dt)
-        k = torch.randn(1, n_ctx * 16 + S, KH, hd, generator=g,
-                        device="cuda").to(dt)
-        v = torch.randn(1, n_ctx * 16 + S, KH, hd, generator=g,
-                        device="cuda").to(dt)
-        j = torch.arange(n_ctx * 16, device="cuda", dtype=torch.int32)
-        qpos = start + torch.arange(S, device="cuda", dtype=torch.int32)[None]
-        length = 200            # the chunk's last 56 queries are pads
-        cur = torch.where(torch.arange(S, device="cuda")[None] < length,
-                          qpos, -1)
-        kpos = torch.cat([torch.where(j < start, j, -1)[None], cur], 1)
-        kpos = kpos.to(torch.int32)
-        out = D.chunk_attention(q, k, v, kpos, qpos)
-        name = f"chunk route S={S} start={start} {dt}"
-        err, share = check_close(name, out, D.chunk_attention_plain(
-            q, k, v, kpos, qpos), tol)
-        if dt == torch.float32:
-            err_ref = max_err(out, attention(q, k, v, qpos, kpos))
-            if err_ref > tol:
-                raise AssertionError(f"{name}: differs from the reference's "
-                                     f"chunk attention by {err_ref:.3g}")
-        case = {"route": "chunk", "shape": [S, n_ctx * 16 + S, KH, Hq, hd],
-                "dtype": str(dt), "max_abs_err": err, "bf16_share": share}
-        if dt == torch.bfloat16:
-            case.update(_time_chunk(g, q.shape, k.shape, kpos, qpos))
-            chunk_main = case
-        res["cases"].append({"kernel": "decode_attention", **case})
-        log(f"[kernels] decode_attention chunk route {case}")
-    return main, chunk_main
+    return main
 
 
-def _time_chunk(g, q_shape, k_shape, kpos, qpos):
-    """The chunk route alone at the paged burst's shape: kernel, plain
-    version and SDPA with the same mask; the bound counts each key that some
-    query sees read once, and the visible (query, key) pairs' FLOP."""
+def _chunk_inputs(g, S, start, length, Hq, KH, hd, ps, n_pages, dt, i8,
+                  perm_seed=None, pool=None):
+    """One stream's chunk (q, raw k/v in ``dt``), pools (P, ps, KH, hd) in
+    ``dt`` or int8 with float32 scales (``i8``), and its (1, n_pages) page
+    table: distinct shuffled pages for the chain up to start + S, scratch
+    page 0 past it.  ``pool``, given as (kp, vp, ks, vs, page_table), is
+    copied into a new pool whose other pages hold other values, under
+    another shuffle of the page ids (``perm_seed``): the same context in
+    another chain.  There, the chain's positions >= start (the rest of the
+    last past page and the chunk's pages, which the kernel must not read)
+    hold NaN: in K and V, or in the scales of an int8 pool."""
+    import torch
+    from repro_torch.models.kvcache import quantize_kv
+    used = -(-(start + S) // ps)
+    P = n_pages + used + 1
+    q = torch.randn(1, S, Hq, hd, generator=g, device="cuda").to(dt)
+    k = torch.randn(1, S, KH, hd, generator=g, device="cuda").to(dt)
+    v = torch.randn(1, S, KH, hd, generator=g, device="cuda").to(dt)
+    kf = torch.randn(P, ps, KH, hd, generator=g, device="cuda")
+    vf = torch.randn(P, ps, KH, hd, generator=g, device="cuda")
+    if i8:
+        (kp, ks), (vp, vs) = quantize_kv(kf), quantize_kv(vf)
+    else:
+        kp, vp, ks, vs = kf.to(dt), vf.to(dt), None, None
+    pg = g if perm_seed is None else torch.Generator(
+        device="cuda").manual_seed(perm_seed)
+    pt = torch.zeros(1, n_pages, dtype=torch.int32, device="cuda")
+    pt[0, :used] = (torch.randperm(P - 1, generator=pg, device="cuda")[:used]
+                    + 1).to(torch.int32)
+    if pool is not None:          # the same context, other pages
+        old_pt = pool[4]
+        new = pt[0, :used].long()
+        future = (torch.arange(used * ps, device="cuda") >= start).reshape(
+            used, ps)
+        for dst, src in zip((kp, vp, ks, vs), pool[:4]):
+            if dst is not None:
+                pages = src[old_pt[0, :used].long()]
+                if pages.is_floating_point():
+                    pages[future] = float("nan")
+                dst[new] = pages
+    return (q, k, v, kp, vp, pt, start, length), {"k_scale": ks,
+                                                  "v_scale": vs}
+
+
+# (S, start, length, Hq, KH, hd, ps, n_pages): the paged burst's shape
+# first (timed), a full page-aligned chunk, start inside a page with a
+# partial last page and pads, no past, 16:1 over pages of 8 (rows over many
+# tiles), MHA and 12:2 at hd 256, hd 64
+CHUNK_CASES = [(256, 512, 200, 12, 2, 128, 16, 64),
+               (256, 512, 256, 12, 2, 128, 16, 48),
+               (96, 37, 90, 12, 2, 128, 16, 10),
+               (64, 0, 64, 8, 8, 64, 16, 4),
+               (130, 300, 130, 16, 1, 128, 8, 64),
+               (48, 200, 40, 4, 4, 256, 16, 20),
+               (40, 1000, 33, 12, 2, 256, 16, 70),
+               (200, 77, 150, 8, 2, 64, 16, 24)]
+# (q dtype, int8 pool, tolerance): the bf16 pool, kv_quant's int8 pool under
+# bf16 and float32 models, the float32 pool
+CHUNK_ROUTES = (("bfloat16", False, 2e-2), ("bfloat16", True, 2e-2),
+                ("float32", False, 1e-4), ("float32", True, 1e-4))
+
+
+def _chunk_work(S, start, length, Hq, KH, hd, ps, past_key_bytes):
+    """Bytes and FLOP of one bf16 chunk launch: q read and the output
+    written, each visible key's K and V read once (``past_key_bytes`` per
+    past key and kv head, 4 hd for a raw bf16 chunk key), the page ids of
+    the past; 4 hd FLOP per head and visible (query, key) pair."""
+    pairs = sum(start + min(i, length - 1) + 1 for i in range(S))
+    nbytes = (2 * S * Hq * hd * 2 + start * KH * past_key_bytes
+              + length * KH * 4 * hd + -(-start // ps) * 4)
+    return nbytes, 4 * hd * Hq * pairs
+
+
+def _chunk_cases(res):
+    """chunk_attention against its plain version on every route and head
+    dim (CHUNK_CASES x CHUNK_ROUTES), the float32 routes also against the
+    port's attention oracle on [past | chunk]; bitwise across repeated
+    launches and across two page chains holding the same context; the
+    burst's shape timed (bf16 and int8 pools) beside its plain version,
+    SDPA with the same mask, and the kernel at other key spans."""
+    import torch
+    from repro_torch.kernels import chunk_attention as C
+    from repro_torch.models.attention import attention
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    main = q8_main = None
+    bitwise = []
+    for ci, (S, start, length, Hq, KH, hd, ps, n) in enumerate(CHUNK_CASES):
+        for dname, i8, tol in CHUNK_ROUTES:
+            dt = dts[dname]
+            args, kw = _chunk_inputs(g, S, start, length, Hq, KH, hd, ps, n,
+                                     dt, i8)
+            name = (f"chunk S={S} start={start} len={length} {Hq}:{KH} "
+                    f"hd={hd} ps={ps} {dname}{' int8 pool' if i8 else ''}")
+            out = C.chunk_attention(*args, **kw)
+            plain = C.chunk_attention_plain(*args, **kw)
+            err, share = check_close(name, out, plain, tol)
+            if dt == torch.float32 and not i8:
+                q, k, v, kp, vp, pt, _, _ = args
+                Sk = n * ps
+                past = [x[pt.long()].reshape(1, Sk, KH, hd) for x in (kp, vp)]
+                j = torch.arange(Sk, device="cuda", dtype=torch.int32)[None]
+                qpos = start + torch.arange(S, device="cuda",
+                                            dtype=torch.int32)[None]
+                cur = torch.where(torch.arange(S, device="cuda")[None]
+                                  < length, qpos, -1)
+                want = attention(q, torch.cat([past[0], k], 1),
+                                 torch.cat([past[1], v], 1), qpos,
+                                 torch.cat([torch.where(j < start, j, -1),
+                                            cur], 1).to(torch.int32))
+                if max_err(out, want) > tol:
+                    raise AssertionError(f"{name}: differs from the port's "
+                                         "attention oracle by "
+                                         f"{max_err(out, want):.3g}")
+            if ci in (0, 2):
+                # bitwise: a second launch, and the same context in another
+                # chain (other page ids, other values on every other page)
+                again = C.chunk_attention(*args, **kw)
+                q, k, v, kp, vp, pt, _, _ = args
+                args2, kw2 = _chunk_inputs(
+                    g, S, start, length, Hq, KH, hd, ps, n, dt, i8,
+                    perm_seed=100 + ci,
+                    pool=(kp, vp, kw["k_scale"], kw["v_scale"], pt))
+                args2 = (q, k, v) + args2[3:]
+                other = C.chunk_attention(*args2, **kw2)
+                for what, b in (("repeated", again), ("another chain", other)):
+                    if not torch.equal(out, b):
+                        raise AssertionError(f"{name}: {what} differs by "
+                                             f"{max_err(out, b):.3g} (must be "
+                                             "bitwise equal)")
+                    bitwise.append(f"{name} {what}")
+            case = {"shape": [S, start, length, KH, Hq, hd, ps, n],
+                    "dtype": dname, "int8_pool": i8, "max_abs_err": err,
+                    "bf16_share": share}
+            if ci == 0 and dt == torch.bfloat16:
+                case.update(_time_chunk(g, S, start, length, Hq, KH, hd, ps,
+                                        n, i8))
+                if i8:
+                    q8_main = case
+                else:
+                    main = case
+            res["cases"].append({"kernel": "chunk_attention", **case})
+            log(f"[kernels] chunk_attention {case}")
+    res["chunk_bitwise"] = bitwise
+    log(f"[kernels] chunk bitwise: {len(bitwise)} checks passed")
+    main["q8_route"] = q8_main
+    return main
+
+
+def _time_chunk(g, S, start, length, Hq, KH, hd, ps, n, i8):
+    """The kernel at the paged burst's shape, its plain version, SDPA with
+    the same mask on [gathered past | chunk] (bf16 pool), and the kernel
+    at other key spans (``C.SPAN`` set for the call)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as D
-    _, S, Hq, hd = q_shape
-    KH = k_shape[2]
-    valid = (kpos[0] >= 0) & (kpos[0] <= qpos[0][:, None])     # (S, Sk)
-    keys = int(valid.any(0).sum())
-    nbytes = (keys * KH * hd * 2 * 2 + 2 * S * Hq * hd * 2 + kpos.numel() * 4
-              + qpos.numel() * 4)
-    flops = 4 * int(valid.sum()) * Hq * hd
+    from repro_torch.kernels import chunk_attention as C
+    nbytes, flops = _chunk_work(S, start, length, Hq, KH, hd, ps,
+                                2 * hd + 8 if i8 else 4 * hd)
+    made = [_chunk_inputs(g, S, start, length, Hq, KH, hd, ps, n,
+                          torch.bfloat16, i8) for _ in range(n_sets(nbytes))]
+    sets = [a + (kw["k_scale"], kw["v_scale"]) for a, kw in made]
 
-    def mk():
-        return (torch.randn(*q_shape, generator=g, device="cuda").bfloat16(),
-                torch.randn(*k_shape, generator=g, device="cuda").bfloat16(),
-                torch.randn(*k_shape, generator=g, device="cuda").bfloat16())
-    sets = [mk() + (kpos, qpos) for _ in range(n_sets(nbytes))]
-    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s_[:3])
-                for s_ in sets]
-    ms, by = bound(nbytes, flops)
-    return {"ms": time_ms(D.chunk_attention, sets),
-            "plain_ms": time_ms(D.chunk_attention_plain, sets),
-            "library_ms": time_ms(
-                lambda q_, k_, v_: F.scaled_dot_product_attention(
-                    q_, k_, v_, attn_mask=valid, enable_gqa=True), lib_sets),
-            "bound_ms": ms, "bound_by": by}
+    def kern(*a):
+        return C.chunk_attention(*a[:8], k_scale=a[8], v_scale=a[9])
+
+    def plain(*a):
+        return C.chunk_attention_plain(*a[:8], k_scale=a[8], v_scale=a[9])
+    out = {"ms": time_ms(kern, sets), "plain_ms": time_ms(plain, sets)}
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
+    if i8:
+        out["library_ms"] = None    # no PyTorch call reads int8 K/V
+        return out
+    out["span"], out["span_ms"] = C.SPAN, {}
+    try:
+        for sp in (128, 256, 512, 1024):   # 1024: one span at the burst
+            C.SPAN = sp
+            out["span_ms"][sp] = time_ms(kern, sets)
+    finally:
+        C.SPAN = out["span"]
+    j = torch.arange(n * ps, device="cuda")
+    qpos = start + torch.arange(S, device="cuda")
+    kpos = torch.cat([torch.where(j < start, j, -1),
+                      torch.where(torch.arange(S, device="cuda") < length,
+                                  qpos, -1)])
+    valid = (kpos[None] >= 0) & (kpos[None] <= qpos[:, None])   # (S, Sk)
+    lib_sets = []
+    for q, k, v, kp, vp, pt, *_ in sets:
+        full = [torch.cat([x[pt.long()].reshape(1, n * ps, KH, hd), c], 1)
+                for x, c in ((kp, k), (vp, v))]
+        lib_sets.append((q.transpose(1, 2).contiguous(),
+                         full[0].transpose(1, 2).contiguous(),
+                         full[1].transpose(1, 2).contiguous()))
+    out["library_ms"] = time_ms(
+        lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=valid, enable_gqa=True), lib_sets)
+    return out
 
 
 def _decode_bitwise(res):
@@ -755,9 +936,11 @@ def _q8_cases(res):
 
 
 KERNELS = {
-    # name: (source, TPU kernel it replaces)
+    # name: (source, TPU kernel (or reference code) it replaces)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
+    "add_rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:24"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:68"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -768,36 +951,46 @@ KERNELS = {
     "decode_attention_q8": (
         "src/repro_torch/kernels/csrc/decode_attention_q8.cu",
         "src/repro/kernels/decode_attention_q8.py:63"),
+    "chunk_attention": ("src/repro_torch/kernels/csrc/chunk_attention.cu",
+                        "src/repro/models/transformer.py:311"),
 }
 
 
 def phase_kernels(res):
     res["cases"] = []
-    res["main_case"] = {"rmsnorm": _rmsnorm_cases(res),
+    norm, add_norm = _rmsnorm_cases(res)
+    res["main_case"] = {"rmsnorm": norm, "add_rmsnorm": add_norm,
                         "decode_attention": _decode_cases(res),
                         "flash_attention": _flash_cases(res)}
-    paged, chunk = _paged_cases(res)
+    paged = _paged_cases(res)
     res["main_case"]["paged_decode_attention"] = paged
-    res["main_case"]["decode_attention"]["chunk_route"] = chunk
+    chunk = _chunk_cases(res)
+    res["main_case"]["chunk_attention"] = chunk
     q8, paged_q8 = _q8_cases(res)
     res["main_case"]["decode_attention_q8"] = q8
     res["main_case"]["paged_decode_attention"]["q8_route"] = paged_q8
     _geometry_cases(res)
     _decode_bitwise(res)
     mc = res["main_case"]
-    for name, c in (("flash_attention Sq=Sk=1024", mc["flash_attention"]),
-                    ("decode_attention B=8 Sk=2048", mc["decode_attention"]),
-                    ("decode_attention chunk route", chunk),
-                    ("paged_decode_attention 128 pages", paged),
-                    ("paged_decode_attention int8 route", paged_q8),
-                    ("decode_attention_q8 B=8 Sk=2048", q8)):
+    rows = [(f"{x['kernel']} {x['shape'][0]}x{x['shape'][1]}", x)
+            for x in res["norm_shapes"]]
+    for name, c in rows + [
+            ("flash_attention Sq=Sk=1024", mc["flash_attention"]),
+            ("decode_attention B=8 Sk=2048", mc["decode_attention"]),
+            ("chunk_attention S=256 at 512", chunk),
+            ("chunk_attention int8 pool", chunk["q8_route"]),
+            ("paged_decode_attention 128 pages", paged),
+            ("paged_decode_attention int8 route", paged_q8),
+            ("decode_attention_q8 B=8 Sk=2048", q8)]:
         lib = c.get("library_ms")
         other = c.get("dense_kernel_ms") or c.get("bf16_kernel_ms")
         ref = (f"library_ms {lib:.5f} ({c['ms'] / lib:.2f}x)" if lib else
-               f"dense kernel {other:.5f}")
-        log(f"[summary] {name} bf16: ms {c['ms']:.5f}, {ref}, bound_ms "
-            f"{c['bound_ms']:.5f} ({c['bound_by']}, "
-            f"{c['ms'] / c['bound_ms']:.0f}x)")
+               f"dense kernel {other:.5f}" if other else "no library call")
+        log(f"[summary] {name} bf16: ms {c['ms']:.5f}, {ref}, plain_ms "
+            f"{c['plain_ms']:.5f}, bound_ms {c['bound_ms']:.5f} "
+            f"({c['bound_by']}, {c['ms'] / c['bound_ms']:.0f}x)")
+    log(f"[summary] chunk_attention key spans (ms): {chunk['span_ms']}; "
+        f"SPAN {chunk['span']}")
 
 
 # -- phase 3: equivalence ---------------------------------------------------------------
@@ -868,14 +1061,14 @@ def phase_equivalence(res):
         gpu = _paged_engine_run(gparams, cfg, "cuda")
         counts = _launch_counts()
         log(f"[equivalence] paged engine, 4-layer f32 {tag}: preempted "
-            f"{gpu['preempted']}, prefix hits {gpu['hits']}, chunks "
-            f"{counts['decode_attention/chunk']} (chunk-route launches); "
+            f"{gpu['preempted']}, prefix hits {gpu['hits']}, chunk "
+            f"launches {counts['chunk_attention']}; "
             f"tokens equal: {gpu['tokens'] == cpu['tokens']}")
         if gpu["tokens"] != cpu["tokens"]:
             raise AssertionError(f"paged engine {tag}: greedy tokens differ "
                                  "between CUDA and CPU")
         if not (gpu["preempted"] and gpu["hits"]
-                and counts["decode_attention/chunk"] and counts[paged_route]):
+                and counts["chunk_attention"] and counts[paged_route]):
             raise AssertionError(f"paged equivalence run {tag} missed a "
                                  f"route: {gpu} {counts}")
         res["equivalence"][tag]["paged"] = {**gpu, "launches": counts}
@@ -884,7 +1077,7 @@ def phase_equivalence(res):
 def _paged_engine_run(params, cfg, device):
     """5 greedy requests sharing a 48-token head through a paged engine with
     the prefix cache and a 15-page pool: prefix hits and recompute after
-    preemption take the chunk route."""
+    preemption run chunk_attention."""
     import numpy as np
     from repro_torch.core import SamplingParams
     from repro_torch.serving import EngineConfig, Server, ServingEngine
@@ -936,27 +1129,31 @@ def _burst(server, vocab):
 def _op_count(fn):
     """Run ``fn()`` counting the PyTorch operators it dispatches (each call
     that reaches the dispatcher below autograd, on any device; the port's
-    ctypes kernel launches are not operators).  Returns the count."""
+    ctypes kernel launches are not operators).  Returns the count and the
+    counts by operator name."""
+    from collections import Counter
     from torch.utils._python_dispatch import TorchDispatchMode
+    by_op = Counter()
 
     class Count(TorchDispatchMode):
-        n = 0
-
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            Count.n += 1
+            by_op[str(func)] += 1
             return func(*args, **(kwargs or {}))
     with Count():
         fn()
-    return Count.n
+    return sum(by_op.values()), by_op
 
 
 # the port's kernels in a profile, by a substring of their (demangled) name;
 # the decode body's main kernel by row policy, its combine kernel apart
 KERNEL_FAMILIES = (("flash_attention", "flash_kernel"),
+                   ("chunk_attention", "chunk_kernel"),
+                   ("chunk_attention merge", "chunk_merge_kernel"),
                    ("decode body, dense rows", "DenseRows"),
                    ("decode body, paged rows", "PagedRows"),
                    ("decode combine", "combine_kernel"),
-                   ("rmsnorm", "rmsnorm_kernel"))
+                   ("rmsnorm", "rmsnorm_kernel"),
+                   ("add_rmsnorm", "add_norm_kernel"))
 
 
 def _profiled(path, make_engine, burst):
@@ -1001,14 +1198,22 @@ def _profiled(path, make_engine, burst):
             f"{100 * ms / 1e3 / busy:.1f}% of busy")
     log(f"[profile]   {path} launches {launched}")
     _reset_counts()
-    ops = _op_count(lambda: burst(server, cfg.vocab_size))
-    passes = _launch_counts()["rmsnorm"] // (2 * cfg.num_layers + 1)
+    ops, by_op = _op_count(lambda: burst(server, cfg.vocab_size))
+    counted = _launch_counts()
+    norms = counted["rmsnorm"] + counted["add_rmsnorm"]
+    passes = norms // (2 * cfg.num_layers + 1)
+    adds = sum(n for op, n in by_op.items() if op.startswith("aten.add"))
     log(f"[profile] {path}: {ops} PyTorch operators dispatched for {passes} "
-        f"forward passes = {ops / passes:.0f} per pass")
+        f"forward passes = {ops / passes:.1f} per pass; aten.add "
+        f"{adds / passes:.1f} per pass; norms per pass {norms / passes:.1f} "
+        f"(rmsnorm {counted['rmsnorm'] / passes:.2f}, add_rmsnorm "
+        f"{counted['add_rmsnorm'] / passes:.2f})")
     return {"wall_s": wall, "device_busy_s": busy,
             "top_ms": {n: us / 1e3 for n, us in top},
             "family_ms": families, "launches": launched,
-            "ops_per_pass": ops / passes, "passes": passes}
+            "ops_per_pass": ops / passes, "passes": passes,
+            "adds_per_pass": adds / passes,
+            "ops_by_name": dict(by_op.most_common(30))}
 
 
 def phase_profile(res):
@@ -1028,12 +1233,13 @@ def phase_profile(res):
 
 def _counters():
     """(module, attribute) of every kernel launch count, by route name."""
-    from repro_torch.kernels import (decode_attention, decode_attention_q8,
-                                     flash_attention, paged_decode_attention,
-                                     rmsnorm)
+    from repro_torch.kernels import (chunk_attention, decode_attention,
+                                     decode_attention_q8, flash_attention,
+                                     paged_decode_attention, rmsnorm)
     return {"rmsnorm": (rmsnorm, "launches"),
+            "add_rmsnorm": (rmsnorm, "add_launches"),
             "decode_attention": (decode_attention, "launches"),
-            "decode_attention/chunk": (decode_attention, "chunk_launches"),
+            "chunk_attention": (chunk_attention, "launches"),
             "flash_attention": (flash_attention, "launches"),
             "paged_decode_attention": (paged_decode_attention, "launches"),
             "paged_decode_attention/q8": (paged_decode_attention,
@@ -1103,7 +1309,8 @@ def phase_serve(res, kv_quant=False, path="serve"):
         raise AssertionError(f"only {rep.completed}/{len(handles)} completed")
     _check_outputs(handles, cfg.vocab_size)
     decode = "decode_attention_q8" if kv_quant else "decode_attention"
-    _check_launched(path, counts, ("rmsnorm", decode, "flash_attention"))
+    _check_launched(path, counts, ("rmsnorm", "add_rmsnorm", decode,
+                                   "flash_attention"))
     if kv_quant and counts["decode_attention"]:
         raise AssertionError("the int8 path ran the bf16 decode kernel")
     res[path] = {"wall_s": wall, "tokens_out": out_toks,
@@ -1128,8 +1335,8 @@ def _paged_serve_engine(kv_quant=False):
 def _paged_waves(server, vocab):
     """Two waves of 8 greedy requests served to completion, each prompt a
     shared 256-token system prompt (16 pages) and a 100-700-token tail,
-    64-128 new tokens.  Prefix hits and recompute after preemption run the
-    chunk route."""
+    64-128 new tokens.  Prefix hits and recompute after preemption run
+    chunk_attention."""
     import numpy as np
     from repro_torch.core import SamplingParams
     rng = np.random.default_rng(2)
@@ -1175,8 +1382,8 @@ def phase_serve_paged(res, kv_quant=False, path="serve_paged"):
     paged, other = ("paged_decode_attention/q8", "paged_decode_attention")
     if not kv_quant:
         paged, other = other, paged
-    _check_launched(path, counts, ("rmsnorm", paged, "flash_attention",
-                                   "decode_attention/chunk"))
+    _check_launched(path, counts, ("rmsnorm", "add_rmsnorm", paged,
+                                   "flash_attention", "chunk_attention"))
     if counts["decode_attention"] or counts["decode_attention_q8"] \
             or counts[other]:
         raise AssertionError(f"the {path} path ran another decode kernel: "
@@ -1312,8 +1519,8 @@ def main(argv=None):
             "library_ms": c.get("library_ms"), "shape": c.get("shape"),
             "dense_kernel_ms": c.get("dense_kernel_ms"),
             "bf16_kernel_ms": c.get("bf16_kernel_ms"),
-            "q8_route": c.get("q8_route"),
-            "chunk_route": c.get("chunk_route")})
+            "q8_route": c.get("q8_route"), "span_ms": c.get("span_ms"),
+            "library": c.get("library")})
     out_dir = ROOT / args.out
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

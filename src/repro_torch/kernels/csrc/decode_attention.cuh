@@ -124,8 +124,8 @@ struct Strides {
   long long b, k, h;
 };
 
-// Key rows of a dense cache (B, Sk, KH, hd), a strided view of a longer
-// buffer or of a shared context (batch stride 0).  Key j is valid when
+// Key rows of a dense cache (B, Sk, KH, hd), possibly a strided view of a
+// longer buffer.  Key j is valid when
 // 0 <= k_pos[b, j] <= qp and, with a window, k_pos[b, j] > qp - window.
 struct DenseRows {
   const int* k_pos;

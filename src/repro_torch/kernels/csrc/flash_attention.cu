@@ -18,87 +18,33 @@
 // ragged: rows past Sq are not stored, keys past Sk are zero-filled and
 // masked.  A q tile is 64 rows of one query head.
 //
-// bfloat16 (`tc` below): FlashAttention-2 on the tensor cores with
-// mma.sync m16n8k16 (bf16 operands, float32 accumulation).
+// bfloat16 (`tc` below): FlashAttention-2 on the tensor cores, the tile
+// step of flash_tile.cuh (mma.sync, swizzled cp.async stages, two warp
+// groups splitting the k tiles, P as bf16 hi + lo; see there).
 // - Work: one CTA per (pair of q tiles i and nq-1-i, query head, batch
 //   row), so every CTA has the same causal work (192 tiles, 96 CTAs at the
-//   serve shape).  Its two warp groups of 4 warps split each q tile's k
-//   tiles (group g takes tiles g, g+2, ...), each walking its own in order
-//   with an online softmax, and merge their (m, l, O) at the end in a
-//   fixed order, through shared memory, thread by thread (the two groups'
-//   threads hold the same fragments).  Each warp owns 16 query rows, so
-//   the row max and row sum take two quad shuffles.  Masks are applied
-//   only on the tiles that need them (the diagonal, the window's edge, the
-//   ragged last tile), from per-row bounds.
-// - Staging: Q, K and V as bf16, copied by 16-byte cp.async into rows
-//   whose 16-byte chunks are XOR-swizzled by the row's low 3 bits, read
-//   with ldmatrix (.trans for V) without bank conflicts.  Each group has
-//   its own ring of three K/V stages (208 KB of shared memory in all at hd
-//   128) and one named barrier a tile, so two tiles' copies are in flight
+//   serve shape).  Each group has its own ring of three K/V stages (208 KB
+//   of shared memory in all at hd 128), so two tiles' copies are in flight
 //   while one is computed, and one group's copies overlap the other's
-//   math.
-// - Products: S = Q K^T stays in registers, and so do the probabilities,
-//   which are the A operand of P V directly: each p is split into two bf16
-//   terms, hi = bf16(p) and lo = bf16(p - hi), and P V is two products, hi
-//   V + lo V, so p keeps ~16 significant bits (~2^-17 relative) where the
-//   Pallas kernel keeps p in float32.  A single bf16 rounding of p (~2^-9
-//   relative) stays inside the bf16 tolerance of 2e-2 but not inside the
-//   check that the output is at most one bf16 rounding from the plain
-//   version (atol 1e-3 + rtol 1e-2 in chip_smoke.py): rows with few
-//   visible keys and an output near 0 miss it by up to 2x
-//   (tests/test_torch_split_decode.py mirrors both).  The second product
-//   costs half again the tensor-core work.  exp2 is ex2.approx on logits
-//   prescaled by log2(e).
-// - hd 256: one group of eight warps, two per 16 query rows, both
-//   computing the rows' scores and each keeping the output for half of
-//   the dims (the float32 accumulators of a whole row would spill); k
-//   tiles of 32 keys, two stages, Q fragments re-read from shared memory
-//   (held in registers at hd <= 128).
+//   math.  Masks are applied only on the tiles that need them (the
+//   diagonal, the window's edge, the ragged last tile), from per-row
+//   bounds.
 //
-// float32 (`fma` below): one CTA per (q tile, query head, batch row) with
-// plain float32 FMAs, since tensor cores on float32 mean TF32 (~3 decimal
-// digits) and the float32 route is the one held to 1e-4 and to the CPU run
-// token for token.  Each thread holds a 4x8 block of the score tile and a
-// 4 x hd/8 block of the output; tiles are staged in shared memory as
-// float32 (Q and K transposed).  bfloat16 never takes this body.
+// float32 (`fma` below): one CTA per (q tile, query head, batch row), the
+// FMA step of flash_tile.cuh.  bfloat16 never takes this body.
 #include <type_traits>
 
-#include "common.cuh"
+#include "flash_tile.cuh"
 
 using namespace rt;
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per CTA, in both bodies
+using namespace rt::flash;
 
 namespace tc {
 
-constexpr float kLog2e = 1.4426950408889634f;
-using bf16 = __nv_bfloat16;
-
-template <int HD>
-struct Tiles {
-  // KG warp groups split a q tile's k tiles (group g takes tiles g, g + KG,
-  // ...) and merge at the end; at hd 256 one group of eight warps, two per
-  // 16 query rows, each keeping the output for half of the dims
-  static constexpr int KG = HD == 256 ? 1 : 2;
-  static constexpr int DS = HD == 256 ? 2 : 1;
-  static constexpr int GT = 128 * DS;              // threads per group
-  static constexpr int kThreads = GT * KG;
-  static constexpr int DW = HD / DS;               // output dims per warp
-  static constexpr int BK = HD == 256 ? 32 : 64;   // keys per k tile
-  static constexpr int NS = HD == 256 ? 2 : 3;     // K/V stages per group
-  static constexpr int CPR = HD / 8;               // 16-byte chunks per row
-  static constexpr bool kQRegs = HD <= 128;        // Q fragments in registers
-  static constexpr int bytes = (BQ + 2 * KG * NS * BK) * HD * 2;   // Q, K, V
-  // element offset of 16-byte chunk ch of row r
-  static __device__ __forceinline__ int at(int r, int ch) {
-    return r * HD + ((ch ^ (r & 7)) << 3);
-  }
-  // the merge's per-thread state (o, m, l) fits in the K/V stages
-  static_assert(KG == 1 || (DW / 2 + 4) * GT * 4 <= 2 * KG * NS * BK * HD * 2,
-                "merge state fits");
-};
+using namespace rt::flash::tc;
 
 // Copy rows r0 .. r0 + R - 1 of a (rows, HD) bf16 matrix with row stride
 // ss into a swizzled tile, thread t of n; rows at or past `limit` are
@@ -116,12 +62,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-// The GT threads of warp group g meet (named barrier 1 + g).
-template <int GT>
-__device__ __forceinline__ void group_sync(int g) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "n"(GT));
-}
-
 template <int HD>
 __global__ void __launch_bounds__(Tiles<HD>::kThreads)
 flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -132,12 +72,8 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              long long o_sh, int causal, int window, float softcap,
              float scale) {
   using L = Tiles<HD>;
-  constexpr int BK = L::BK, NS = L::NS, NT = BK / 8, KS = HD / 16;
+  constexpr int BK = L::BK, NS = L::NS, NT = L::NT, DT = L::DT;
   constexpr int KG = L::KG, GT = L::GT;
-  constexpr int DT = L::DW / 8;   // output n-tiles of 8 dims per warp
-  // Q fragments held in registers need the k-step loop unrolled; re-read
-  // ones are loaded two k-steps ahead at most
-  constexpr int kUnrollS = L::kQRegs ? KS : 2;
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);   // [BQ][HD]
   const int tid = threadIdx.x, grp = tid / GT, gt = tid % GT;
@@ -145,9 +81,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Vs = Ks + NS * BK * HD;                       // the group's [NS][BK][HD]
 
   const int h = blockIdx.y, b = blockIdx.z, kh = h / G;
-  const int lane = tid & 31, wg = gt >> 5;       // warp in the group
-  const int rw = wg % 4, d0 = (wg / 4) * L::DW;  // the warp's rows and dims
-  const int gq = lane >> 2, tq = lane & 3;       // fragment row, column pair
+  const Lane<HD> w(gt);
   const bf16* qb = q + b * q_sb + h * q_sh;
   const bf16* kb = k + b * k_sb + kh * k_sh;
   const bf16* vb = v + b * v_sb + kh * v_sh;
@@ -189,22 +123,8 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<NS - 2>();
     __syncthreads();   // Q and each group's first tile are in
 
-    // ldmatrix row addresses: lane l gives row l % 8 of tile l / 8
-    const int a_row = rw * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int a_ch = lane >> 4;
-    auto load_q = [&](uint32_t (&a)[4], int ks) {
-      ldmatrix_x4(a, Qs + L::at(a_row, 2 * ks + a_ch));
-    };
-    uint32_t qf[L::kQRegs ? KS : 1][4];
-    if constexpr (L::kQRegs) {
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) load_q(qf[ks], ks);
-    }
-    float o[DT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-#pragma unroll
-    for (int d = 0; d < DT; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+    const QFrags<HD> qf(Qs, w);
+    State<HD> st;
 
     for (int n = 0; n < ng; ++n) {
       const int c0 = (t0 + grp + n * KG) * BK;
@@ -215,170 +135,58 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         group_sync<GT>(grp);
       }
       load_kv(n + NS - 1);
-      const bf16* Kt = Ks + (n % NS) * BK * HD;
-      const bf16* Vt = Vs + (n % NS) * BK * HD;
-
-      // S = Q K^T: the warp's 16 rows x BK keys, n-tile j holds keys
-      // 8j..8j+7
-      float s[NT][4];
+      const bool mask = (causal && c0 + BK - 1 > q0) ||
+                        (window > 0 && c0 <= q0 + BQ - 1 - window) ||
+                        c0 + BK > Sk;
+      // scale (log2 domain), softcap, masks
+      step<HD>(st, qf, Ks + (n % NS) * BK * HD, Vs + (n % NS) * BK * HD, w,
+               [&](float (&s)[NT][4]) {
+        if (softcap > 0.f) {
+          const float pre = scale / softcap, post = softcap * kLog2e;
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+          for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll kUnrollS
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t a[4];
-        if constexpr (L::kQRegs) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) a[e] = qf[ks][e];
+            for (int e = 0; e < 4; ++e) s[j][e] = tanhf(s[j][e] * pre) * post;
         } else {
-          load_q(a, ks);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] *= sl2;
         }
+        if (mask) {
+          // the visible keys of each of the thread's two rows: [lo, hi]
+          int lo[2], hi[2];
 #pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t kf[4];
-          ldmatrix_x4(kf, Kt + L::at(np * 16 + (lane & 7) + (lane >> 4) * 8,
-                                     2 * ks + ((lane >> 3) & 1)));
-          mma_bf16(s[2 * np], a, kf[0], kf[1]);
-          mma_bf16(s[2 * np + 1], a, kf[2], kf[3]);
-        }
-      }
-
-      // scale (log2 domain), softcap, masks, online softmax; element e of
-      // n-tile j is row gq + 8 * (e / 2), key 8j + 2 tq + e % 2
-      if (softcap > 0.f) {
-        const float pre = scale / softcap, post = softcap * kLog2e;
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] = tanhf(s[j][e] * pre) * post;
-      } else {
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] *= sl2;
-      }
-      if ((causal && c0 + BK - 1 > q0) ||
-          (window > 0 && c0 <= q0 + BQ - 1 - window) || c0 + BK > Sk) {
-        // the visible keys of each of the thread's two rows: [lo, hi]
-        int lo[2], hi[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = q0 + rw * 16 + gq + 8 * i;
-          hi[i] = causal ? min(r, Sk - 1) : Sk - 1;
-          lo[i] = window > 0 ? r - window + 1 : 0;
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = c0 + j * 8 + 2 * tq + (e & 1);
-            if (c < lo[e >> 1] || c > hi[e >> 1]) s[j][e] = kNegInf;
+          for (int i = 0; i < 2; ++i) {
+            const int r = q0 + w.rw * 16 + w.gq + 8 * i;
+            hi[i] = causal ? min(r, Sk - 1) : Sk - 1;
+            lo[i] = window > 0 ? r - window + 1 : 0;
           }
-      }
-      float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-      }
-      float base[2];
+          for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m[i], mx[i]);
-        // a row with no visible key yet subtracts 0, so its masked logits
-        // give 2^-1e30 = 0
-        base[i] = m_new == kNegInf ? 0.f : m_new;
-        const float corr = fast_exp2(m[i] - base[i]);
-        m[i] = m_new;
-        l[i] *= corr;
-#pragma unroll
-        for (int d = 0; d < DT; ++d) {
-          o[d][2 * i] *= corr;
-          o[d][2 * i + 1] *= corr;
+            for (int e = 0; e < 4; ++e) {
+              const int c = c0 + j * 8 + 2 * w.tq + (e & 1);
+              if (c < lo[e >> 1] || c > hi[e >> 1]) s[j][e] = kNegInf;
+            }
         }
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = fast_exp2(s[j][e] - base[e >> 1]);
-
-      // O += P V with P = hi + lo in bf16 (the S fragments of n-tiles 2kk
-      // and 2kk+1 are the A fragments of k-step kk), over the warp's dims
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t hi[4], lo[4];
-        split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-        split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
-        l[0] += (s[2 * kk][0] + s[2 * kk][1]) + (s[2 * kk + 1][0] + s[2 * kk + 1][1]);
-        l[1] += (s[2 * kk][2] + s[2 * kk][3]) + (s[2 * kk + 1][2] + s[2 * kk + 1][3]);
-#pragma unroll
-        for (int dp = 0; dp < DT / 2; ++dp) {
-          uint32_t vf[4];
-          ldmatrix_x4_trans(
-              vf, Vt + L::at(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                             (d0 >> 3) + 2 * dp + (lane >> 4)));
-          mma_bf16(o[2 * dp], hi, vf[0], vf[1]);
-          mma_bf16(o[2 * dp + 1], hi, vf[2], vf[3]);
-          mma_bf16(o[2 * dp], lo, vf[0], vf[1]);
-          mma_bf16(o[2 * dp + 1], lo, vf[2], vf[3]);
-        }
-      }
+      });
     }
     cp_async_wait<0>();   // no copy outlives this tile
 
-    if constexpr (KG == 2) {
-      // merge: group 1's state, thread by thread (the two groups' threads
-      // hold the same fragments), into group 0 in the K/V stages
-      float* red = reinterpret_cast<float*>(Qs + BQ * HD);   // [value][GT]
-      __syncthreads();   // both groups are done with their stages
-      if (grp == 1) {
-#pragma unroll
-        for (int d = 0; d < DT; ++d)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) red[(d * 4 + e) * GT + gt] = o[d][e];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          red[(DT * 4 + i) * GT + gt] = m[i];
-          red[(DT * 4 + 2 + i) * GT + gt] = l[i];
-        }
-      }
-      __syncthreads();
-      if (grp == 1) continue;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float m1 = red[(DT * 4 + i) * GT + gt];
-        const float l1 = red[(DT * 4 + 2 + i) * GT + gt];
-        const float mn = fmaxf(m[i], m1);
-        const float bs = mn == kNegInf ? 0.f : mn;
-        const float c0 = fast_exp2(m[i] - bs), c1 = fast_exp2(m1 - bs);
-        l[i] = l[i] * c0 + l1 * c1;
-#pragma unroll
-        for (int d = 0; d < DT; ++d) {
-          o[d][2 * i] = o[d][2 * i] * c0 + red[(d * 4 + 2 * i) * GT + gt] * c1;
-          o[d][2 * i + 1] =
-              o[d][2 * i + 1] * c0 + red[(d * 4 + 2 * i + 1) * GT + gt] * c1;
-        }
-      }
-    }
-
-    bf16* ob = out + b * o_sb + h * o_sh + d0;
+    if (!merge_groups<HD>(st, reinterpret_cast<float*>(Qs + BQ * HD), grp, gt))
+      continue;
+    bf16* ob = out + b * o_sb + h * o_sh + w.d0;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-      const int r = q0 + rw * 16 + gq + 8 * i;
+      const int r = q0 + w.rw * 16 + w.gq + 8 * i;
       if (r >= Sq) continue;
 #pragma unroll
       for (int d = 0; d < DT; ++d) {
-        const float lo = l[i] > 0.f ? o[d][2 * i] / l[i] : 0.f;
-        const float hi = l[i] > 0.f ? o[d][2 * i + 1] / l[i] : 0.f;
-        *reinterpret_cast<__nv_bfloat162*>(ob + r * o_ss + d * 8 + 2 * tq) =
-            __floats2bfloat162_rn(lo, hi);
+        const float x = st.l[i] > 0.f ? st.o[d][2 * i] / st.l[i] : 0.f;
+        const float y = st.l[i] > 0.f ? st.o[d][2 * i + 1] / st.l[i] : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(ob + r * o_ss + d * 8 + 2 * w.tq) =
+            __floats2bfloat162_rn(x, y);
       }
     }
   }
@@ -388,13 +196,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 namespace fma {
 
-constexpr int BK = 64, kThreads = 128;
-constexpr int PSTR = BK + 1;   // padded row stride of the probability tile
-
-template <int HD>
-constexpr int smem_bytes() {
-  return (HD * BQ + HD * BK + BK * HD + BQ * PSTR) * static_cast<int>(sizeof(float));
-}
+using namespace rt::flash::fma;
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -407,43 +209,24 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              long long o_sb, long long o_ss, long long o_sh,
              int causal, int window, float softcap, float scale) {
   extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // [HD][BQ]
-  float* Kt = Qt + HD * BQ;                      // [HD][BK]
-  float* Vs = Kt + HD * BK;                      // [BK][HD]
-  float* Ps = Vs + BK * HD;                      // [BQ][PSTR]
-
+  const Smem<HD> sm(reinterpret_cast<float*>(smem4));
   constexpr int N = Vec<float>::N;
-  constexpr int DV = HD / N;     // 16-byte vectors per row
-  constexpr int DPT = HD / 8;    // output dims per thread
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / G;
-  const int t = threadIdx.x, rg = t / 8, cg = t % 8;
 
   const float* qb = q + b * q_sb + h * q_sh;
   const float* kb = k + b * k_sb + kh * k_sh;
   const float* vb = v + b * v_sb + kh * v_sh;
 
-  for (int idx = t; idx < BQ * DV; idx += kThreads) {
-    const int r = idx % BQ, dv = idx / BQ;
-    float e[N];
+  stage_q<HD>(sm, [&](int r, int dv, float* e) {
     if (q0 + r < Sq) {
       load_vec(qb + (long long)(q0 + r) * q_ss + dv * N, e);
     } else {
 #pragma unroll
       for (int i = 0; i < N; ++i) e[i] = 0.f;
     }
-#pragma unroll
-    for (int i = 0; i < N; ++i) Qt[(dv * N + i) * BQ + r] = e[i];
-  }
-
-  float m[4], l[4], acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int d = 0; d < DPT; ++d) acc[i][d] = 0.f;
-  }
+  });
+  State<HD> st;
 
   // k tiles that can hold a visible key for some row of this q tile
   const int k_hi = causal ? min(Sk, q0 + BQ) : Sk;        // exclusive
@@ -451,110 +234,31 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int c0 = (k_lo / BK) * BK; c0 < k_hi; c0 += BK) {
     __syncthreads();   // previous tile fully consumed (and Qt written)
-    for (int idx = t; idx < BK * DV; idx += kThreads) {
-      const int c = idx % BK, dv = idx / BK;
-      float e[N];
+    stage_kv<HD>(sm, [&](float* e, bool is_v, int c, int dv) {
       if (c0 + c < Sk) {
-        load_vec(kb + (long long)(c0 + c) * k_ss + dv * N, e);
+        load_vec((is_v ? vb + (long long)(c0 + c) * v_ss
+                       : kb + (long long)(c0 + c) * k_ss) + dv * N, e);
       } else {
 #pragma unroll
         for (int i = 0; i < N; ++i) e[i] = 0.f;
       }
-#pragma unroll
-      for (int i = 0; i < N; ++i) Kt[(dv * N + i) * BK + c] = e[i];
-    }
-    for (int idx = t; idx < BK * DV; idx += kThreads) {
-      const int dv = idx % DV, c = idx / DV;
-      float e[N];
-      if (c0 + c < Sk) {
-        load_vec(vb + (long long)(c0 + c) * v_ss + dv * N, e);
-      } else {
-#pragma unroll
-        for (int i = 0; i < N; ++i) e[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < N; ++i) Vs[c * HD + dv * N + i] = e[i];
-    }
+    });
     __syncthreads();
-
-    // S = Q K^T on this thread's 4x8 block
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(&Qt[d * BQ + rg * 4]);
-      const float4 ka = *reinterpret_cast<const float4*>(&Kt[d * BK + cg * 8]);
-      const float4 kc = *reinterpret_cast<const float4*>(&Kt[d * BK + cg * 8 + 4]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[8] = {ka.x, ka.y, ka.z, ka.w, kc.x, kc.y, kc.z, kc.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] += qv[i] * kv[j];
-    }
-
-    // mask, online softmax (the 8 threads of a row group are lanes
-    // differing in their low 3 bits), probabilities to shared memory
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + rg * 4 + i;
-      bool ok[8];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + cg * 8 + j;
-        float x = s[i][j] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        ok[j] = c < Sk && (!causal || c <= r) && (window == 0 || c > r - window);
-        s[i][j] = ok[j] ? x : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int o = 1; o < 8; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(rg * 4 + i) * PSTR + cg * 8 + j] = p;
-        ps += p;
-      }
-#pragma unroll
-      for (int o = 1; o < 8; o <<= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
-      l[i] = l[i] * corr + ps;
-      m[i] = m_new;
-#pragma unroll
-      for (int d = 0; d < DPT; ++d) acc[i][d] *= corr;
-    }
-    __syncthreads();
-
-    // O += P V: this thread's 4 rows x dims cg, cg + 8, ...
-    for (int c = 0; c < BK; ++c) {
-      float pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = Ps[(rg * 4 + i) * PSTR + c];
-#pragma unroll
-      for (int d = 0; d < DPT; ++d) {
-        const float vv = Vs[c * HD + cg + 8 * d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][d] += pr[i] * vv;
-      }
-    }
+    step<HD>(st, sm, c0, scale, softcap, [&](int i, int c) {
+      const int r = q0 + st.rg * 4 + i;
+      return c < Sk && (!causal || c <= r) && (window == 0 || c > r - window);
+    });
   }
 
   float* ob = out + b * o_sb + h * o_sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = q0 + rg * 4 + i;
+    const int r = q0 + st.rg * 4 + i;
     if (r >= Sq) continue;
 #pragma unroll
-    for (int d = 0; d < DPT; ++d) {
-      const float o = l[i] > 0.f ? acc[i][d] / l[i] : 0.f;
-      ob[(long long)r * o_ss + cg + 8 * d] = o;
+    for (int d = 0; d < State<HD>::DPT; ++d) {
+      const float o = st.l[i] > 0.f ? st.acc[i][d] / st.l[i] : 0.f;
+      ob[(long long)r * o_ss + st.cg + 8 * d] = o;
     }
   }
 }

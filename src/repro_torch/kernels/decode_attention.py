@@ -7,12 +7,6 @@ Replaces ``src/repro/kernels/decode_attention.py::decode_attention``
 the cache in the serving layout (B, Sk, KH, hd), which may be a strided view
 ``cache[:, :ctx]`` of a longer buffer.  On CPU tensors the wrapper computes
 the plain version; on CUDA tensors it launches the kernel or raises.
-
-``chunk_attention`` runs the same kernel for the chunked-prefill route,
-which the reference computes in XLA (``models/transformer.py::_apply_attn``
-mode ``"chunk"``): each of the S queries of one stream's chunk is one row,
-all rows reading one context through a batch stride of 0.  Its launches
-are counted apart (``chunk_launches``).
 """
 from __future__ import annotations
 
@@ -23,10 +17,8 @@ import torch
 from . import _build
 from .ref import reference_decode_attention
 
-# kernel launches by ``decode_attention`` and by ``chunk_attention``
-# (plain-version calls not counted)
+# kernel launches by ``decode_attention`` (plain-version calls not counted)
 launches = 0
-chunk_launches = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = ((_P,) * 7 + (_I,) * 6 + (_L,) * 9 + (_I, _F, _I, _P))
@@ -65,41 +57,6 @@ def decode_attention(q, k, v, k_pos, q_pos, *, window: int = 0, scale=None):
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, k_pos, q_pos, window=window,
                                       scale=scale)
-    out = _launch(q, k, v, k_pos, q_pos, window, scale)
-    launches += 1
-    return out
-
-
-def _chunk_rows(q, k, v, k_pos, q_pos):
-    """The chunk's S queries as S decode rows sharing one context (batch
-    stride 0: nothing is copied)."""
-    S = q.shape[1]
-    return (q[0].unsqueeze(1), k.expand(S, *k.shape[1:]),
-            v.expand(S, *v.shape[1:]), k_pos.expand(S, k_pos.shape[1]),
-            q_pos[0].contiguous())
-
-
-def chunk_attention_plain(q, k, v, k_pos, q_pos, *, window: int = 0,
-                          scale=None):
-    out = decode_attention_plain(*_chunk_rows(q, k, v, k_pos, q_pos),
-                                 window=window, scale=scale)
-    return out.reshape(q.shape)
-
-
-def chunk_attention(q, k, v, k_pos, q_pos, *, window: int = 0, scale=None):
-    """One stream's prompt chunk: q (1,S,Hq,hd) at positions q_pos (1,S)
-    int32 against k,v (1,Sk,KH,hd) with positions k_pos (1,Sk) int32 (-1 =
-    masked) -> (1,S,Hq,hd)."""
-    global chunk_launches
-    if q.device.type == "cpu":
-        return chunk_attention_plain(q, k, v, k_pos, q_pos, window=window,
-                                     scale=scale)
-    out = _launch(*_chunk_rows(q, k, v, k_pos, q_pos), window, scale)
-    chunk_launches += 1
-    return out.reshape(q.shape)
-
-
-def _launch(q, k, v, k_pos, q_pos, window, scale):
     _build.check_cuda("decode_attention", q, k, v, k_pos, q_pos)
     B, one, Hq, hd = q.shape
     Bk, Sk, KH, hdk = k.shape
@@ -134,4 +91,5 @@ def _launch(q, k, v, k_pos, q_pos, window, scale):
              k_pos.stride(0), int(window), float(scale), code,
              _build.stream_handle())
     _build.raise_on_error("decode_attention", err)
+    launches += 1
     return out[:, None]

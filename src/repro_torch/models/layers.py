@@ -39,6 +39,13 @@ def apply_norm(cfg: ModelConfig, p, x):
     return rmsnorm(x, p["scale"], cfg.norm_eps)
 
 
+def apply_add_norm(cfg: ModelConfig, p, x, delta):
+    """The residual add and the norm of its sum, in one launch on CUDA
+    tensors (``add_rmsnorm``): x becomes x + delta in place; returns (x,
+    norm(x))."""
+    return _rmsnorm_kernel.add_rmsnorm(x, delta, p["scale"], cfg.norm_eps)
+
+
 # -- RoPE -------------------------------------------------------------------------
 
 def rope_freqs(cfg: ModelConfig, device):

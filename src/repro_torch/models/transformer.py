@@ -13,13 +13,14 @@ prefill into a page chain) and ``decode_step`` (one token per row at
 per-row positions, dense or through a page table).  Caches are updated in
 place and returned for parity with the reference.
 
-On CUDA tensors the model runs the port's kernels (rmsnorm for every norm,
-flash_attention for prefill, decode_attention for dense decode and, as
-``chunk_attention``, for the chunk route, paged_decode_attention for paged
+On CUDA tensors the model runs the port's kernels (add_rmsnorm for every
+residual add whose sum feeds a norm, rmsnorm for the other norms,
+flash_attention for prefill, chunk_attention for chunked prefill over a page
+chain, decode_attention for dense decode, paged_decode_attention for paged
 decode); on CPU tensors the same calls take the kernels' plain versions.
 Under ``cfg.kv_quant`` the caches hold int8 K/V with float32 scales: writes
 quantize, dense decode runs decode_attention_q8 on the int8 views, paged
-decode the int8 route of paged_decode_attention, and the chunk route reads
+decode the int8 route of paged_decode_attention, and chunk_attention reads
 the past dequantized to q's dtype, as the reference does.
 """
 from __future__ import annotations
@@ -29,8 +30,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.decode_attention import (chunk_attention,
-                                                  decode_attention)
+from repro_torch.kernels.chunk_attention import chunk_attention
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention_q8 import decode_attention_q8
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
@@ -206,21 +207,18 @@ def _apply_attn(cfg: ModelConfig, p, x, *, mode, positions, rope, cache, pos,
             out = decode_attention(q, k_full, v_full, k_pos, pos,
                                    window=window, scale=cfg.attn_scale)
     elif mode == "chunk":
-        # [past chain gathered from the pool | raw current chunk], the past
-        # read before the chunk is written (transformer.py mode "chunk")
+        # [past read from the chain through the page table | raw current
+        # chunk], the past read before the chunk is written (the reference's
+        # mode "chunk"); the kernel never reads positions >= pos
         if not KV.is_paged(cache):
             raise NotImplementedError(
                 "chunked prefill into a dense cache (reached by the "
                 "long-context rings) is not ported yet (ROADMAP A9)")
-        pk, pv = KV.paged_cache_kv_arrays(cache, page_table, q.dtype)
-        past_pos = KV.paged_key_positions(pk.shape[1], pos, x.device)
+        out = chunk_attention(q, k, v, cache["kp"], cache["vp"], page_table,
+                              pos, length, scale=cfg.attn_scale,
+                              k_scale=cache.get("kp_s"),
+                              v_scale=cache.get("vp_s"))
         KV.paged_cache_write_chunk(cache, k, v, page_table[0], pos, length)
-        cur_pos = torch.where(
-            torch.arange(S, device=x.device)[None, :] < length, positions, -1)
-        out = chunk_attention(q, torch.cat([pk, k.to(pk.dtype)], dim=1),
-                              torch.cat([pv, v.to(pv.dtype)], dim=1),
-                              torch.cat([past_pos, cur_pos], dim=1),
-                              positions, scale=cfg.attn_scale)
     elif mode == "prefill":
         # slot-native: this prompt's K/V go into one row of the batch cache
         # (pads included, hidden by the position mask) or into its page
@@ -240,11 +238,18 @@ def _apply_attn(cfg: ModelConfig, p, x, *, mode, positions, rope, cache, pos,
     return out.reshape(B, S, cfg.q_dim) @ a["o"]
 
 
-def _apply_block(cfg: ModelConfig, p, x, **kw):
-    h = L.apply_norm(cfg, p["norm"], x)
-    x = x + _apply_attn(cfg, p, h, **kw)
-    h = L.apply_norm(cfg, p["mlp_norm"], x)
-    return x + L.apply_mlp(cfg, p["mlp"], h)
+def _apply_block(cfg: ModelConfig, p, x, delta, **kw):
+    """One pre-norm block on the residual stream ``x + delta`` (``delta``
+    the previous block's MLP output, not yet added; None before the first
+    block).  Returns (stream, this block's MLP output): the caller adds it
+    where the sum feeds the next norm, so every such add shares its launch
+    with that norm (``add_rmsnorm``)."""
+    if delta is None:
+        h = L.apply_norm(cfg, p["norm"], x)
+    else:
+        x, h = L.apply_add_norm(cfg, p["norm"], x, delta)
+    x, h = L.apply_add_norm(cfg, p["mlp_norm"], x, _apply_attn(cfg, p, h, **kw))
+    return x, L.apply_mlp(cfg, p["mlp"], h)
 
 
 def _layer(tree, r: int):
@@ -255,13 +260,24 @@ def _layer(tree, r: int):
 
 
 def _run_stages(cfg: ModelConfig, params, x, *, caches, **kw):
+    """(stream, last MLP output): the last block's residual add is left to
+    the caller, which fuses it with the final norm when that norm takes the
+    whole stream (decode)."""
+    delta = None
     for (kinds, n_rep), sp, sc in zip(stages_of(cfg), params["stages"],
                                       caches):
         for r in range(n_rep):
             for j in range(len(kinds)):
-                x = _apply_block(cfg, _layer(sp["blocks"][j], r), x,
-                                 cache=_layer(sc[j], r), **kw)
-    return x
+                x, delta = _apply_block(cfg, _layer(sp["blocks"][j], r), x,
+                                        delta, cache=_layer(sc[j], r), **kw)
+    return x, delta
+
+
+def _last_row_norm(cfg: ModelConfig, params, x, delta, length: int):
+    """The final norm of row ``length - 1`` only: the last residual add
+    stays a plain add (the fused kernel would normalise every row)."""
+    return L.apply_norm(cfg, params["final_norm"],
+                        (x + delta)[:, length - 1:length])
 
 
 # -- public API ------------------------------------------------------------------------
@@ -287,10 +303,11 @@ def prefill_into_slot(params, cfg: ModelConfig, tokens, length: int, caches,
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
-    x = _run_stages(cfg, params, x, caches=caches, mode="prefill",
-                    positions=positions, rope=L.rope_freqs(cfg, x.device),
-                    pos=None, slot=slot, length=length, page_table=page_table)
-    last = L.apply_norm(cfg, params["final_norm"], x[:, length - 1:length])
+    x, delta = _run_stages(cfg, params, x, caches=caches, mode="prefill",
+                           positions=positions,
+                           rope=L.rope_freqs(cfg, x.device), pos=None,
+                           slot=slot, length=length, page_table=page_table)
+    last = _last_row_norm(cfg, params, x, delta, length)
     logits = L.unembed(cfg, params["embed"], last)[:, 0]
     return logits, caches, length
 
@@ -312,10 +329,11 @@ def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens, start: int,
     B, S = tokens.shape
     positions = start + torch.arange(S, dtype=torch.int32,
                                      device=x.device)[None].expand(B, S)
-    x = _run_stages(cfg, params, x, caches=caches, mode="chunk",
-                    positions=positions, rope=L.rope_freqs(cfg, x.device),
-                    pos=start, slot=slot, length=length, page_table=page_table)
-    last = L.apply_norm(cfg, params["final_norm"], x[:, length - 1:length])
+    x, delta = _run_stages(cfg, params, x, caches=caches, mode="chunk",
+                           positions=positions,
+                           rope=L.rope_freqs(cfg, x.device), pos=start,
+                           slot=slot, length=length, page_table=page_table)
+    last = _last_row_norm(cfg, params, x, delta, length)
     logits = L.unembed(cfg, params["embed"], last)[:, 0]
     return logits, caches
 
@@ -338,9 +356,10 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
     pos = torch.as_tensor(pos, dtype=torch.int32,
                           device=x.device).expand(B).contiguous()
     positions = pos.reshape(B, 1)
-    x = _run_stages(cfg, params, x, caches=caches, mode="decode",
-                    positions=positions, rope=L.rope_freqs(cfg, x.device),
-                    pos=pos, k_pos_memo={}, page_table=page_table)
-    x = L.apply_norm(cfg, params["final_norm"], x)
+    x, delta = _run_stages(cfg, params, x, caches=caches, mode="decode",
+                           positions=positions,
+                           rope=L.rope_freqs(cfg, x.device), pos=pos,
+                           k_pos_memo={}, page_table=page_table)
+    _, x = L.apply_add_norm(cfg, params["final_norm"], x, delta)
     logits = L.unembed(cfg, params["embed"], x)[:, 0]
     return logits, caches

@@ -89,24 +89,26 @@ def test_cuda_entry_points_raise_without_a_gpu():
 
 
 def _counts():
-    from repro_torch.kernels import (decode_attention, decode_attention_q8,
-                                     flash_attention, paged_decode_attention,
-                                     rmsnorm)
-    return (rmsnorm.launches, decode_attention.launches,
-            decode_attention.chunk_launches, flash_attention.launches,
+    from repro_torch.kernels import (chunk_attention, decode_attention,
+                                     decode_attention_q8, flash_attention,
+                                     paged_decode_attention, rmsnorm)
+    return (rmsnorm.launches, rmsnorm.add_launches, decode_attention.launches,
+            chunk_attention.launches, flash_attention.launches,
             paged_decode_attention.launches,
             paged_decode_attention.q8_launches, decode_attention_q8.launches)
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
-    from repro_torch.kernels import (decode_attention, decode_attention_q8,
-                                     flash_attention, paged_decode_attention,
-                                     rmsnorm)
+    from repro_torch.kernels import (chunk_attention, decode_attention,
+                                     decode_attention_q8, flash_attention,
+                                     paged_decode_attention, rmsnorm)
     m = lambda *s, dt=torch.float32: torch.empty(s, device="meta", dtype=dt)
     i8, i32 = torch.int8, torch.int32
     before = _counts()
     with pytest.raises(ValueError, match="needs CUDA"):
         rmsnorm.rmsnorm(m(2, 64), m(64))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        rmsnorm.add_rmsnorm(m(2, 64), m(2, 64), m(64))
     with pytest.raises(ValueError, match="needs CUDA"):
         decode_attention.decode_attention(
             m(2, 1, 4, 64), m(2, 16, 2, 64), m(2, 16, 2, 64),
@@ -115,9 +117,15 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
         flash_attention.flash_attention(m(1, 16, 4, 64), m(1, 16, 2, 64),
                                         m(1, 16, 2, 64))
     with pytest.raises(ValueError, match="needs CUDA"):
-        decode_attention.chunk_attention(
-            m(1, 8, 4, 64), m(1, 24, 2, 64), m(1, 24, 2, 64),
-            m(1, 24, dt=torch.int32), m(1, 8, dt=torch.int32))
+        chunk_attention.chunk_attention(
+            m(1, 8, 4, 64), m(1, 8, 2, 64), m(1, 8, 2, 64), m(5, 16, 2, 64),
+            m(5, 16, 2, 64), m(1, 3, dt=torch.int32), 20, 8)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        chunk_attention.chunk_attention(                 # the int8 route
+            m(1, 8, 4, 64), m(1, 8, 2, 64), m(1, 8, 2, 64),
+            m(5, 16, 2, 64, dt=i8), m(5, 16, 2, 64, dt=i8),
+            m(1, 3, dt=i32), 20, 8, k_scale=m(5, 16, 2, 1),
+            v_scale=m(5, 16, 2, 1))
     with pytest.raises(ValueError, match="needs CUDA"):
         paged_decode_attention.paged_decode_attention(
             m(2, 1, 4, 64), m(5, 16, 2, 64), m(5, 16, 2, 64),
@@ -134,6 +142,12 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
             v_scale=m(5, 16, 2, 1))
     x = torch.randn(3, 64)
     rmsnorm.rmsnorm(x, torch.ones(64))                      # plain, not counted
+    rmsnorm.add_rmsnorm(x, x, torch.ones(64))               # plain, not counted
+    out = chunk_attention.chunk_attention(                  # plain, not counted
+        torch.randn(1, 8, 4, 64), torch.randn(1, 8, 2, 64),
+        torch.randn(1, 8, 2, 64), torch.randn(5, 16, 2, 64),
+        torch.randn(5, 16, 2, 64), torch.ones(1, 3, dtype=i32), 20, 5)
+    assert out.shape == (1, 8, 4, 64)
     paged_decode_attention.paged_decode_attention(          # plain, not counted
         torch.randn(2, 1, 4, 64), torch.randn(5, 16, 2, 64),
         torch.randn(5, 16, 2, 64), torch.ones(2, 3, dtype=i32),

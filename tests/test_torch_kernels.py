@@ -30,7 +30,7 @@ from repro.models.layers import rmsnorm as jrmsnorm
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm
 from repro_torch.models import attention as tattn
 from repro_torch.models.kvcache import ring_slot_positions as tring
 
@@ -202,6 +202,32 @@ def test_rmsnorm_plain_matches_pallas_and_layers(shape, dtype):
     _close(_np(out), pallas_rmsnorm(xj, jnp.asarray(wn), interpret=True,
                                     block_rows=64), tol)
     _close(_np(out), jrmsnorm(xj, jnp.asarray(wn)), tol)
+
+
+@pytest.mark.parametrize("shape", [(8, 1536), (5, 64)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_add_rmsnorm_plain_matches_add_then_layers_rmsnorm(shape, dtype):
+    """add_rmsnorm's plain version against the reference's residual add and
+    ``layers.rmsnorm``: the sum, written into x, bit for bit (both
+    frameworks add in float32
+    and round once to the type), the norm within the kernel tolerance
+    (XLA and PyTorch take the mean of squares and the rsqrt in another
+    order and differ in the last bits), and bitwise the port's own rmsnorm
+    of that sum, which the CUDA kernel is held to on the card."""
+    rng = np.random.default_rng(shape[-1] + 3)
+    xn = rng.standard_normal(shape, np.float32)
+    dn = (rng.standard_normal(shape, np.float32)
+          * rng.choice([1e-3, 1.0, 30.0], size=(shape[0], 1))).astype(np.float32)
+    wn = rng.standard_normal((shape[-1],), np.float32) + 1.0
+    (xj, xt), (dj, dt) = _both(xn, dtype), _both(dn, dtype)
+    xt = xt.clone()              # float32 from_numpy shares xn's memory
+    s, h = add_rmsnorm(xt, dt, torch.from_numpy(wn))
+    assert s is xt                                   # the sum, in place
+    assert h.dtype == xt.dtype and h.shape == xt.shape
+    sj = xj + dj
+    np.testing.assert_array_equal(_np(s), np.asarray(sj, np.float32))
+    _close(_np(h), jrmsnorm(sj, jnp.asarray(wn)), DTYPES[dtype][2])
+    assert torch.equal(h, rmsnorm(s, torch.from_numpy(wn)))
 
 
 @pytest.mark.parametrize("pos", [0, 1, 63, 64, 65, 200])

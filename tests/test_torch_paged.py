@@ -5,9 +5,9 @@ CPU, on the same numpy-seeded inputs:
   interpret mode and its jnp oracle, on ``tests/test_paging.py``'s cases
   (partial chains pointing at the scratch page, GQA + window 24, hd 64 and
   128), and against the plain dense decode on the gathered chain;
-* the chunk route (``decode_attention.chunk_attention``: the S queries of a
-  chunk as S decode rows sharing one context through a batch stride of 0)
-  against the reference's chunk attention;
+* ``chunk_attention`` (a chunk's queries against its past, read from the
+  pool through the page table, and its own raw K/V) against the
+  reference's chunk attention;
 * the paged ``kvcache`` functions against the reference's, with dropped
   pads, scratch-page rows and a held position past the table's width;
 * ``prefill_into_slot`` / ``prefill_chunk_into_slot`` / ``decode_step``
@@ -40,8 +40,8 @@ from repro.serving import prefix_cache as jprefix
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.decode_attention import (chunk_attention,
-                                                  decode_attention)
+from repro_torch.kernels.chunk_attention import chunk_attention
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.models import (decode_step, init_cache, params_from_numpy,
                                 prefill_chunk_into_slot, prefill_into_slot)
@@ -128,7 +128,8 @@ def test_paged_decode_plain_equals_dense_decode_on_gathered_chain(case):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_chunk_route_matches_reference_chunk_attention(dtype):
     """[past chain | raw chunk] with past positions >= start and the
-    chunk's pads masked (transformer.py mode "chunk"), 12:2 heads."""
+    chunk's pads masked (transformer.py mode "chunk"), 12:2 heads: the past
+    laid out as a chain of 3 shuffled pages of 16 in a pool."""
     S, n_past, start, length, KH, Hq, hd = 16, 48, 20, 11, 2, 12, 128
     rng = np.random.default_rng(7)
     q = rng.standard_normal((1, S, Hq, hd), np.float32)
@@ -140,8 +141,15 @@ def test_chunk_route_matches_reference_chunk_attention(dtype):
     kpos = np.concatenate([np.where(j < start, j, -1), cur])[None]
     kpos = kpos.astype(np.int32)
     (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
-    out = chunk_attention(qt, kt, vt, torch.from_numpy(kpos),
-                          torch.from_numpy(qpos))
+    table = np.array([[5, 2, 7]], np.int32)
+    pools = []
+    for full in (kt, vt):
+        pool = torch.zeros((8, 16, KH, hd), dtype=full.dtype)
+        pool[torch.from_numpy(table[0]).long()] = full[0, :n_past].reshape(
+            3, 16, KH, hd)
+        pools.append(pool)
+    out = chunk_attention(qt, kt[:, n_past:], vt[:, n_past:], *pools,
+                          torch.from_numpy(table), start, length)
     assert out.shape == qt.shape and out.dtype == qt.dtype
     want = jattn.attention(qj, kj, vj, jnp.asarray(qpos), jnp.asarray(kpos))
     _close(out.float(), want, DTYPES[dtype][2])

@@ -4,8 +4,8 @@ The decode body (``csrc/decode_attention.cuh``) splits each row's keys over
 CTAs in fixed spans of ``SPAN`` key indices counted from key 0, writes an
 unnormalised partial (m, l, acc) per span, an empty one (m = -1e30, l = 0)
 for a span with no valid key, and folds the partials in span order.  The
-bf16 flash body (``csrc/flash_attention.cu``) rounds the probabilities to
-bf16 before P.V.  Neither kernel runs here, so plain torch mirrors of that
+bf16 flash tile step (``csrc/flash_tile.cuh``, run by
+``csrc/flash_attention.cu``) rounds the probabilities to bf16 before P.V.  Neither kernel runs here, so plain torch mirrors of that
 arithmetic are held against the reference (the Pallas kernels in interpret
 mode and their jnp oracles) on ``tests/test_torch_kernels.py``'s cases, and
 the determinism the split promises is shown on the mirror: a row's bits do
@@ -254,7 +254,7 @@ def test_span_count_and_scratch_follow_the_walk_length_only(record_launches):
         # the C entry point gets the scratch, that span count and B
         i = SCRATCH_ARG[call["entry"]]
         assert call["args"][i + 1:i + 3] == (spans, size["B"])
-    # the chunk route of the paged burst: 1024 gathered + 256 raw keys
+    # a walk of 1280 keys over 256 rows
     assert D.split_geometry(1024 + 256, 256, 2, 6, 128) == (
         10, 256 * 2 * 10 * 6 * 130)
 

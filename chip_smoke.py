@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,serve_paged
     python3 chip_smoke.py --phases build,kernels,serve_q8
+    python3 chip_smoke.py --phases build,sampling,observability
 
 Phases (each raises on failure; nothing is caught):
 
@@ -66,8 +67,9 @@ Phases (each raises on failure; nothing is caught):
    and a 219-page pool serves two waves of 8 greedy requests sharing a
    256-token system prompt; it must preempt, hit the cache and run
    chunk_attention, and no decode kernel but the paged one.  In this phase
-   and the last one, the kernels' launch counts are set to 0 just before
-   and read just after; each kernel of the path must have launched.
+   and in phases 4, 6, 8 and 9, the kernels' launch counts are set to 0
+   just before a path's burst and read just after; each kernel of the path
+   must have launched.
 6. serve_q8: phases 4 and 5 again with ``kv_quant`` (int8 K/V caches and
    pools with float32 scales): decode_attention_q8, the paged int8 route,
    chunk_attention's int8 route, flash_attention, rmsnorm and add_rmsnorm
@@ -76,7 +78,27 @@ Phases (each raises on failure; nothing is caught):
 7. paged_vs_dense: phase 4's burst through a dense and a paged engine on
    the same weights gives identical tokens, with bf16 caches and with
    ``kv_quant``.
-8. profile (opt-in, not in the default run): the serve, serve_paged and
+8. sampling: the threefry generator on the card (keys folded over 4096
+   rows, raw bits and uniform draws over 8 x 151936) bitwise equal to the
+   CPU's, and the sampler's tokens on one bf16 8 x 151936 logits tensor
+   (greedy, temperature, top-k, top-p and both filters) equal to the
+   CPU's; its wall time per decode step beside the argmax's.  Then phase
+   4's burst with every odd request seeded nucleus sampling (temperature
+   0.8, top-k 50, top-p 0.95) on a dense engine (greedy, mixed, mixed,
+   greedy: tokens/s of the mixed burst beside the all-greedy one) and on
+   the serve_paged pool, which preempts (mixed twice, greedy, and mixed on
+   a roomy pool).  Each burst repeats its tokens run to run, greedy rows
+   equal the all-greedy burst's on the same path, and sampled rows equal
+   the dense engine's: in full on the roomy pool and for every request
+   the small pool never preempted, up to the first preemption for the
+   others (their recomputed bf16 context need not be the same bits).
+   The first mixed burst of each path counts launches (paths
+   ``sampling`` and ``sampling_paged``).
+9. observability: phase 4's burst bare and with metrics, tracer and energy
+   ledger installed, on the same weights: the same tokens, host drains,
+   virtual time and energy, and the ledger conserves bitwise (path
+   ``observability``, its launches counted).
+10. profile (opt-in, not in the default run): the serve, serve_paged and
    both serve_q8 bursts again under ``torch.profiler`` after a warm-up
    run, printing the device's busy share of the wall time, the kernel
    time by name and the port's kernels' time by family with that run's
@@ -109,9 +131,10 @@ BF16_FLOP_PER_S = 989e12         # dense tensor-core bf16
 L2_FLUSH_BYTES = 100 * 2 ** 20   # > the 50 MB L2
 BF16_ROUNDING = (1e-3, 1e-2)     # atol, rtol: one bf16 rounding apart
 PHASES = ("build", "kernels", "equivalence", "serve", "serve_paged",
-          "serve_q8", "paged_vs_dense")
+          "serve_q8", "paged_vs_dense", "sampling", "observability")
 # the paths whose launches count
-SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged")
+SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
+               "sampling", "sampling_paged", "observability")
 
 
 def log(*a):
@@ -1112,17 +1135,22 @@ def _serve_engine(kv_quant=False):
                               seed=0, device="cuda")
 
 
-def _burst(server, vocab):
-    """Submit the 8 greedy requests (prompts 100-1000 tokens, 64-128 new
-    tokens) and serve them to completion."""
+def _burst(server, vocab, sampling=None):
+    """Submit the 8 requests (prompts 100-1000 tokens, 64-128 new tokens)
+    and serve them to completion; greedy, or request i with
+    ``sampling(i, max_tokens)``."""
     import numpy as np
     from repro_torch.core import SamplingParams
     rng = np.random.default_rng(0)
     lens = np.linspace(100, 1000, 8).astype(int)
     rng.shuffle(lens)
-    handles = [server.submit(rng.integers(0, vocab, size=int(n)),
-                             SamplingParams(max_tokens=int(rng.integers(64, 129))))
-               for n in lens]
+    handles = []
+    for i, n in enumerate(lens):
+        prompt = rng.integers(0, vocab, size=int(n))
+        m = int(rng.integers(64, 129))
+        handles.append(server.submit(
+            prompt, SamplingParams(max_tokens=m) if sampling is None
+            else sampling(i, m)))
     return lens, handles, server.run()
 
 
@@ -1446,6 +1474,267 @@ def phase_paged_vs_dense(res):
                                       "tokens": sum(map(len, toks[True]))}
 
 
+# -- phase 8: sampling ------------------------------------------------------------------
+
+def _seeded(i, m):
+    """The mixed burst: even requests greedy, odd ones seeded nucleus
+    sampling (temperature 0.8, top-k 50, top-p 0.95)."""
+    from repro_torch.core import SamplingParams
+    if i % 2 == 0:
+        return SamplingParams(max_tokens=m)
+    return SamplingParams(max_tokens=m, temperature=0.8, top_k=50,
+                          top_p=0.95, seed=100 + i)
+
+
+def _wall_ms(fn, n=50):
+    """Mean wall time of one call, host dispatch included (what an eager
+    decode step pays), over ``n`` calls after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _sampler_checks(res):
+    """CUDA against CPU on the same inputs: threefry keys, fold_in and raw
+    bits bitwise, uniform bitwise, Gumbel noise close; the sampler's tokens
+    on one bf16 (8 x 151936) logits tensor equal; its time per call beside
+    the argmax it replaces in all-greedy blocks."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.models import sample_tokens_batched
+    from repro_torch.serving.engine import _sample_rows
+    V = 151936
+    keys = torch.stack([prng.prng_key(s) for s in (0, 1, 2 ** 31 - 1, -5)])
+    rows = prng.fold_in(keys.repeat(1024, 1), torch.arange(4096))
+    bits = prng.random_bits32(rows[:8], V)
+    cuda = {"fold_in": prng.fold_in(keys.cuda().repeat(1024, 1),
+                                    torch.arange(4096, device="cuda")),
+            "bits": prng.random_bits32(rows[:8].cuda(), V),
+            "uniform": prng.uniform(rows[:8].cuda(), V)}
+    for name, want in (("fold_in", rows), ("bits", bits),
+                       ("uniform", prng.uniform(rows[:8], V))):
+        if not torch.equal(cuda[name].cpu(), want):
+            raise AssertionError(f"threefry {name}: CUDA differs from CPU")
+    g_err = max_err(prng.gumbel(rows[:8].cuda(), V).cpu(),
+                    prng.gumbel(rows[:8], V))
+    g = torch.Generator().manual_seed(0)
+    logits = (torch.randn(8, V, generator=g) * 3).bfloat16()
+    temps = torch.tensor([0.0, 0.8, 0.7, 1.1, 0.9, 1.3, 0.0, 0.8])
+    topk = torch.tensor([0, 50, 40, 0, 50, V, 5, 0], dtype=torch.int32)
+    topp = torch.tensor([1.0, 0.95, 1.0, 0.9, 0.95, 1.0, 0.5, 1.0])
+    sub = prng.fold_in(rows[:8], torch.arange(8) + 300)
+    cpu_tok = sample_tokens_batched(logits, temps, topk, topp, sub)
+    dev = [t.cuda() for t in (logits, temps, topk, topp, sub)]
+    cuda_tok = sample_tokens_batched(*dev).cpu()
+    log(f"[sampling] threefry on CUDA: fold_in (4096 rows), raw bits and "
+        f"uniform (8 x {V}) bitwise equal to the CPU's; Gumbel max |err| "
+        f"{g_err:.3g}; sampler tokens cuda {cuda_tok.tolist()} cpu "
+        f"{cpu_tok.tolist()}")
+    if not torch.equal(cuda_tok, cpu_tok):
+        raise AssertionError("sampler: CUDA tokens differ from CPU tokens")
+    pos = torch.arange(8, dtype=torch.int32, device="cuda") + 300
+    keys8, (lg, t8, k8, p8) = dev[4], dev[:4]
+    ms = _wall_ms(lambda: _sample_rows(True, lg, pos + 1, keys8, t8, k8, p8))
+    argmax_ms = _wall_ms(lambda: _sample_rows(False, lg, pos + 1, keys8, t8,
+                                              k8, p8))
+    log(f"[sampling] sampler per decode step (8 x {V} bf16 logits, subkeys "
+        f"included): {ms:.3f} ms wall against the argmax's {argmax_ms:.3f} "
+        f"ms ({res['card']})")
+    return {"gumbel_max_abs_err": g_err, "tokens": cuda_tok.tolist(),
+            "sampler_ms": ms, "argmax_ms": argmax_ms}
+
+
+def _timed_burst(make, params, sampling, path=None):
+    """One burst on a fresh engine from ``make(params)``: (tokens per
+    request, requests preempted with their token count at the first
+    preemption, wall s, output tokens, engine).  With ``path`` the launch
+    counts are set to 0 before it and kept under that name after."""
+    import torch
+    from repro_torch.core import RequestState, StateEvent, TokenEvent
+    from repro_torch.serving import Server
+    cfg, eng = make(params)
+    seen, cut = {}, {}
+
+    def on_event(ev):
+        if isinstance(ev, TokenEvent):
+            seen[ev.rid] = seen.get(ev.rid, 0) + ev.n
+        elif isinstance(ev, StateEvent) and ev.state is RequestState.QUEUED:
+            cut.setdefault(ev.rid, seen.get(ev.rid, 0))
+    server = Server(eng, on_event=on_event)
+    if path:
+        _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, handles, rep = _burst(server, cfg.vocab_size, sampling)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rep.completed != len(handles):
+        raise AssertionError(f"only {rep.completed}/{len(handles)} completed")
+    _check_outputs(handles, cfg.vocab_size)
+    toks = [list(h.request.tokens) for h in handles]
+    cut = {i: cut[h.rid] for i, h in enumerate(handles) if h.rid in cut}
+    return toks, cut, wall, sum(map(len, toks)), eng
+
+
+def phase_sampling(res):
+    """Per-request sampling at full width: CUDA threefry and sampler against
+    the CPU's, then the mixed burst (even requests greedy, odd ones seeded
+    nucleus sampling) through a dense engine and through the serve_paged
+    pool (it preempts), each twice: reproducible run to run, greedy rows
+    equal to the all-greedy burst's on the same path, and sampled rows
+    equal between paged and dense -- in full for every request the pool
+    never preempted and on a roomy pool, and up to the first preemption
+    for the others (a recomputed context is chunked prefill, not the dense
+    engine's one-shot prefill and decode writes, so its bf16 K/V need not
+    be the same bits).  Tokens/s of the mixed burst against the all-greedy
+    one in the same call."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+    out = {"checks": _sampler_checks(res)}
+    cfg = get_config("qwen2-1.5b")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+
+    def dense(p):
+        return cfg, ServingEngine(cfg, params=p, ecfg=EngineConfig(
+            max_batch=8, max_len=2048, governor="greenllm"), device="cuda")
+
+    def paged(p, num_pages=220):
+        return cfg, ServingEngine(cfg, params=p, ecfg=EngineConfig(
+            max_batch=8, max_len=2048, paged=True, page_size=16,
+            num_pages=num_pages, prefix_cache=True, governor="greenllm"),
+            device="cuda")
+
+    greedy1 = _timed_burst(dense, params, None)
+    mixed1 = _timed_burst(dense, params, _seeded, "sampling")
+    res["sampling"] = {"launches": _launch_counts()}
+    mixed2 = _timed_burst(dense, params, _seeded)
+    greedy2 = _timed_burst(dense, params, None)
+    _check_launched("sampling", res["sampling"]["launches"],
+                    ("rmsnorm", "add_rmsnorm", "decode_attention",
+                     "flash_attention"))
+    tps = {"greedy": [b[3] / b[2] for b in (greedy1, greedy2)],
+           "mixed": [b[3] / b[2] for b in (mixed1, mixed2)]}
+    log(f"[sampling] dense: greedy {greedy1[3]} tokens at "
+        f"{tps['greedy'][0]:.1f} / {tps['greedy'][1]:.1f} tokens/s, mixed "
+        f"{mixed1[3]} tokens at {tps['mixed'][0]:.1f} / "
+        f"{tps['mixed'][1]:.1f} tokens/s (order greedy, mixed, mixed, "
+        f"greedy; {res['card']})")
+    if mixed1[0] != mixed2[0] or greedy1[0] != greedy2[0]:
+        raise AssertionError("dense bursts differ run to run")
+    sampled = [i for i in range(8) if i % 2]
+    for i in range(8):
+        same = mixed1[0][i] == greedy1[0][i]
+        if same != (i not in sampled):
+            raise AssertionError(f"dense request {i}: a greedy row moved "
+                                 "with its sampled neighbours, or a sampled "
+                                 "row did not sample")
+    pmixed1 = _timed_burst(paged, params, _seeded, "sampling_paged")
+    res["sampling_paged"] = {"launches": _launch_counts()}
+    pmixed2 = _timed_burst(paged, params, _seeded)
+    pgreedy = _timed_burst(paged, params, None)
+    roomy = _timed_burst(lambda p: paged(p, num_pages=0), params, _seeded)
+    _check_launched("sampling_paged", res["sampling_paged"]["launches"],
+                    ("rmsnorm", "add_rmsnorm", "paged_decode_attention",
+                     "flash_attention", "chunk_attention"))
+    eng = pmixed1[4]
+    log(f"[sampling] paged (220-page pool, prefix cache): preempted "
+        f"{eng._preempted} (requests {sorted(pmixed1[1])} at tokens "
+        f"{[pmixed1[1][i] for i in sorted(pmixed1[1])]}), "
+        f"{pmixed1[3]} tokens at {pmixed1[3] / pmixed1[2]:.1f} tokens/s; "
+        f"roomy pool preempted {roomy[4]._preempted}")
+    if not pmixed1[1] or roomy[1]:
+        raise AssertionError("the paged burst must preempt and the roomy "
+                             "one must not")
+    if pmixed1[0] != pmixed2[0]:
+        raise AssertionError("paged bursts differ run to run")
+    for i in range(0, 8, 2):
+        if pmixed1[0][i] != pgreedy[0][i]:
+            raise AssertionError(f"paged greedy request {i} differs from "
+                                 "the all-greedy paged burst")
+    full_equal = []
+    for i in sampled:
+        p, d = pmixed1[0][i], mixed1[0][i]
+        if roomy[0][i] != d:
+            raise AssertionError(f"sampled request {i}: roomy paged pool "
+                                 "differs from the dense engine")
+        n = pmixed1[1].get(i)
+        if (p != d) if n is None else (p[:n] != d[:n]):
+            raise AssertionError(f"sampled request {i}: paged differs from "
+                                 f"dense (first preempted at {n} tokens)")
+        full_equal.append(p == d)
+    log(f"[sampling] sampled rows: paged == dense on the roomy pool for all "
+        f"{len(sampled)}; on the preempting pool in full for "
+        f"{sum(full_equal)} of {len(sampled)} (the rest equal up to their "
+        f"preemption); runs reproducible; greedy rows unmoved")
+    out.update(tokens_per_s=tps, preempted=eng._preempted,
+               preempted_at=pmixed1[1],
+               paged_tokens_per_s=pmixed1[3] / pmixed1[2],
+               sampled_full_equal=sum(full_equal))
+    res["sampling"].update(out)
+
+
+# -- phase 9: observability -----------------------------------------------------------
+
+def phase_observability(res):
+    """The serve burst bare and with metrics, tracer and energy ledger
+    installed on the same weights: the same tokens, host drains, virtual
+    time and energy, and the ledger conserves bitwise."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (EnergyLedger, MetricsRegistry, Tracer,
+                                  verify_conservation)
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+    cfg = get_config("qwen2-1.5b")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    sinks = {}
+
+    def engine(p, **kw):
+        return cfg, ServingEngine(cfg, params=p, ecfg=EngineConfig(
+            max_batch=8, max_len=2048, governor="greenllm"), device="cuda",
+            name="e0", **kw)
+    bare = _timed_burst(engine, params, None)
+    reg, tr, led = MetricsRegistry(), Tracer(), EnergyLedger()
+    inst = _timed_burst(lambda p: engine(p, metrics=reg, tracer=tr,
+                                         ledger=led),
+                        params, None, "observability")
+    res["observability"] = {"launches": _launch_counts()}
+    _check_launched("observability", res["observability"]["launches"],
+                    ("rmsnorm", "add_rmsnorm", "decode_attention",
+                     "flash_attention"))
+    e0, e1 = bare[4], inst[4]
+    rep = e1.report()
+    (summ,) = verify_conservation(led, [dict(
+        replica="e0", prefill_j=rep.prefill_energy_j,
+        decode_j=rep.decode_energy_j, idle_j=rep.idle_energy_j)])
+    flat = reg.flat()
+    log(f"[observability] bare vs instrumented: tokens equal "
+        f"{bare[0] == inst[0]}, host drains {e0._host_drains} / "
+        f"{e1._host_drains}, vtime {e0.vtime!r} / {e1.vtime!r}; ledger "
+        f"conserved, {summ['attributed_j']:.1f} J attributed, "
+        f"{summ['energy_saved_j']:.1f} J saved vs f_max (plant model); "
+        f"{len(list(tr.spans()))} spans, {len(list(tr.decisions()))} DVFS "
+        f"decisions, {len(reg.timeline)} timeline snapshots; wall "
+        f"{bare[2]:.2f} s bare, {inst[2]:.2f} s instrumented ({res['card']})")
+    if bare[0] != inst[0] or e0._host_drains != e1._host_drains \
+            or e0.vtime != e1.vtime or e0.energy_j != e1.energy_j:
+        raise AssertionError("the instrumented run is not step-identical "
+                             "to the bare one")
+    if flat['greenllm_requests_total{replica="e0",event="completed"}'] != 8:
+        raise AssertionError(f"metrics miss completions: {flat}")
+    res["observability"].update(
+        host_drains=e1._host_drains, spans=len(list(tr.spans())),
+        attributed_j=summ["attributed_j"], wall_bare_s=bare[2],
+        wall_instrumented_s=inst[2], stats=e1.stats())
+
+
 # -- main ---------------------------------------------------------------------------------
 
 def gpu_name_and_limit():
@@ -1491,7 +1780,9 @@ def main(argv=None):
     fns = {"build": phase_build, "kernels": phase_kernels,
            "equivalence": phase_equivalence, "serve": phase_serve,
            "serve_paged": phase_serve_paged, "serve_q8": phase_serve_q8,
-           "paged_vs_dense": phase_paged_vs_dense, "profile": phase_profile}
+           "paged_vs_dense": phase_paged_vs_dense,
+           "sampling": phase_sampling, "observability": phase_observability,
+           "profile": phase_profile}
     for p in phases:
         t0 = time.perf_counter()
         fns[p](res)

@@ -8,3 +8,10 @@ from .router import LengthRouter, make_router, SINGLE_QUEUE
 from .decode_controller import (DualLoopController, DecodeControllerConfig,
                                 MaxFreqController, FixedFreqController)
 from .telemetry import TPSMeter, TBTMeter, OccupancyMeter, SlidingWindow
+from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
+                      parse_prometheus, quantile_from_buckets,
+                      read_timeline_jsonl)
+from .tracing import DvfsDecision, Span, Tracer, read_jsonl as read_trace_jsonl
+from .attribution import (CounterfactualPricer, EnergyLedger, LedgerCarry,
+                          verify_conservation)
+from .alerts import Alert, AlertEngine, AlertRule

@@ -7,6 +7,13 @@ burst, and print the typed ``ServingReport``.
   python -m repro_torch.launch.serve --device cpu --requests 4
   python -m repro_torch.launch.serve --paged            # paged KV pool
   python -m repro_torch.launch.serve --prefix-cache     # + prefix cache
+  # every second request samples at --temperature (--top-k / --top-p /
+  # --seed), the rest stay greedy
+  python -m repro_torch.launch.serve --mixed-sampling --temperature 0.8
+  # observability: Prometheus text + metrics timeline, request trace,
+  # per-request energy attribution, SLO alert rules
+  python -m repro_torch.launch.serve --metrics-out m.prom \
+      --trace-out trace.jsonl --attribution-out energy.jsonl --alerts
 
 Defaults match ``python -m repro.launch.serve`` (qwen2-1.5b, governor
 greenllm, unpaged, greedy, max_batch 8, max_len 192).  ``--prefix-cache``
@@ -14,34 +21,132 @@ implies ``--paged`` and, as in the reference, opens every synthetic prompt
 with one shared 48-token system prompt.  ``--full-width``
 serves ``get_config(arch)`` itself, with random seeded weights, instead of
 its ``.smoke()`` reduction; virtual time and energy are accounted on the
-full config either way.
+full config either way.  ``--cluster`` and ``--mesh`` are refused: the
+cluster and serving meshes are not ported yet (ROADMAP A10, A14).
 """
 import argparse
+import json
+import sys
 
 import numpy as np
 
 from repro_torch.configs import get_config
-from repro_torch.core import SamplingParams
+from repro_torch.core import (AlertEngine, AlertRule, EnergyLedger,
+                              MetricsRegistry, SamplingParams, SLOConfig,
+                              Tracer, verify_conservation)
 from repro_torch.serving import EngineConfig, Server, ServingEngine
 
 
+def sampling_for(args, i: int, max_tokens: int) -> SamplingParams:
+    """Per-request sampling: greedy by default; ``--temperature`` samples
+    every request, and ``--mixed-sampling`` restores greedy on the even
+    ones (a multi-tenant-style heterogeneous batch)."""
+    if args.temperature <= 0.0 or (args.mixed_sampling and i % 2 == 0):
+        return SamplingParams(max_tokens=max_tokens)
+    return SamplingParams(max_tokens=max_tokens,
+                          temperature=args.temperature, top_k=args.top_k,
+                          top_p=args.top_p,
+                          seed=None if args.seed < 0 else args.seed + i)
+
+
 def workload(args, vocab):
-    """(arrival, prompt_tokens, max_tokens) triples of the reference
-    launcher's synthetic burst (``repro.launch.serve.workload`` without a
-    named trace): the same seed, the same draws."""
+    """(arrival, prompt_tokens, max_tokens) triples: a named trace's
+    arrival/length mix, or the synthetic burst."""
     rng = np.random.default_rng(0)
-    # with --prefix-cache every prompt opens with the same system prompt;
-    # the tail is capped so the engine's prompt truncation (the last
-    # max_len // 2 tokens) never cuts into it
+    # with --prefix-cache every prompt opens with the same system prefix
+    # (the chat/RAG traffic shape the cache targets) so the dashboard's
+    # hit rate reflects real sharing instead of random-prompt misses; the
+    # tail is capped so the engine's keep-the-last-max_len/2 prompt
+    # truncation never chops (and misaligns) the shared head
     sys_prompt = rng.integers(0, vocab, size=48) if args.prefix_cache \
         else np.empty(0, np.int64)
     cap = max(args.max_len // 2 - len(sys_prompt), 1)
-    for _ in range(args.requests):
-        plen = min(int(rng.integers(16, 80)), cap)
-        yield (0.0,
-               np.concatenate([sys_prompt,
-                               rng.integers(0, vocab, size=plen)]),
-               int(rng.integers(16, 64)))
+    if args.trace != "synthetic":
+        from repro_torch.data import get_trace
+        trace = get_trace(args.trace, duration=args.duration)
+        for r in trace[: args.requests]:
+            plen = min(r.prompt_len, args.max_len // 2, cap)
+            yield (r.arrival,
+                   np.concatenate([sys_prompt,
+                                   rng.integers(0, vocab, size=plen)]),
+                   min(r.output_len, args.max_len // 3))
+    else:
+        for _ in range(args.requests):
+            plen = min(int(rng.integers(16, 80)), cap)
+            yield (0.0,
+                   np.concatenate([sys_prompt,
+                                   rng.integers(0, vocab, size=plen)]),
+                   int(rng.integers(16, 64)))
+
+
+def default_alert_rules(slo: SLOConfig):
+    """The ``--alerts`` rule set: TTFT/TBT error-budget burn rate over a
+    trailing window plus a hard p95-TBT latency ceiling."""
+    rules = [AlertRule.burn_rate(
+        f"{kind}-burn", "greenllm_slo_total",
+        bad_labels={"kind": kind, "outcome": "miss"},
+        good_labels={"kind": kind, "outcome": "pass"},
+        window_s=2.0, slo_target=0.9, burn_threshold=1.0, min_events=4,
+        severity="page") for kind in ("ttft", "tbt")]
+    rules.append(AlertRule.threshold(
+        "p95-tbt-high", "greenllm_tbt_p95_seconds", ">",
+        2.0 * slo.tbt_target, severity="warning"))
+    return rules
+
+
+class Dashboard:
+    """Periodic one-line stderr dashboard, driven by the event stream's
+    virtual timestamps — it fires when drained events cross the period
+    boundary (the backend's block cadence), never per token."""
+
+    def __init__(self, period: float, metrics: MetricsRegistry,
+                 out=sys.stderr, alerts=None):
+        self.period = period
+        self.metrics = metrics
+        self.out = out
+        self.alerts = alerts
+        self._next = period
+
+    def __call__(self, ev) -> None:
+        t = getattr(ev, "time", 0.0)
+        while t >= self._next:
+            self.line(self._next)
+            self._next += self.period
+
+    def line(self, t: float) -> None:
+        flat = self.metrics.flat()
+
+        def total(prefix, needle=""):
+            return sum(v for k, v in flat.items()
+                       if k.startswith(prefix) and needle in k)
+
+        freqs = {k.split('replica="')[1].rstrip('"}'): v
+                 for k, v in flat.items()
+                 if k.startswith("greenllm_frequency_mhz")}
+        p95 = max((v for k, v in flat.items()
+                   if k.startswith("greenllm_tbt_p95_seconds")),
+                  default=0.0)
+        fstr = " ".join(f"{n}={f:.0f}" for n, f in sorted(freqs.items()))
+        extra = ""
+        saved = total("greenllm_energy_saved_joules_total")
+        if saved:
+            extra += f" saved={saved / 1e3:.2f}kJ"
+        drops = total("greenllm_tracer_dropped")
+        if drops:
+            extra += f" trace_drops={drops:.0f}"
+        pc_hits = total("greenllm_prefix_cache_hits_total")
+        pc_miss = total("greenllm_prefix_cache_misses_total")
+        if pc_hits + pc_miss:
+            extra += f" pc_hit={100 * pc_hits / (pc_hits + pc_miss):.0f}%"
+        if self.alerts is not None:
+            firing = self.alerts.firing()
+            if firing:
+                extra += " ALERTS[" + ",".join(sorted(firing)) + "]"
+        print(f"[serve t={t:8.3f}s] "
+              f"done={total('greenllm_requests_total', 'completed'):.0f} "
+              f"E={total('greenllm_energy_joules_total') / 1e3:.2f}kJ "
+              f"p95_tbt={p95 * 1e3:5.1f}ms MHz[{fstr}]{extra}",
+              file=self.out)
 
 
 def main(argv=None):
@@ -61,6 +166,51 @@ def main(argv=None):
     ap.add_argument("--chunked", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="chunked prefill admission (always on when paged)")
+    ap.add_argument("--mesh", default="",
+                    help="'dp,tp' serving mesh: not ported yet (ROADMAP A14)")
+    ap.add_argument("--cluster", action="store_true",
+                    help="disaggregated prefill/decode cluster: not ported "
+                         "yet (ROADMAP A10)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature for submitted requests "
+                         "(0: greedy; per-request, not engine-global)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="per-request top-k filter (0: disabled)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="per-request nucleus mass (1.0: disabled)")
+    ap.add_argument("--seed", type=int, default=-1,
+                    help="base sampling seed; request i uses seed+i "
+                         "(-1: unseeded lanes)")
+    ap.add_argument("--mixed-sampling", action="store_true",
+                    help="alternate greedy and sampled requests in one "
+                         "batch (multi-tenant mix; needs --temperature)")
+    ap.add_argument("--trace", default="synthetic",
+                    help="synthetic | chat_5qps | azure_code8 | azure_conv5 "
+                         "| ... (data.traces names; arrivals replayed on "
+                         "the virtual clock)")
+    ap.add_argument("--duration", type=float, default=60.0,
+                    help="trace horizon in seconds (named traces only)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the Prometheus text exposition here at "
+                         "exit, plus the full metrics timeline next to it "
+                         "(<path>.timeline.jsonl)")
+    ap.add_argument("--trace-out", default="",
+                    help="write the request-lifecycle trace here as JSONL, "
+                         "plus a Chrome/Perfetto trace next to it "
+                         "(<path>.chrome.json)")
+    ap.add_argument("--dashboard", type=float, default=0.0,
+                    help="print a one-line stderr dashboard every N "
+                         "virtual seconds (0: off; implies a metrics "
+                         "registry)")
+    ap.add_argument("--attribution-out", default="",
+                    help="install the per-request energy ledger and write "
+                         "its attribution rows here as JSONL at exit "
+                         "(conservation-checked against the report)")
+    ap.add_argument("--alerts", action="store_true",
+                    help="evaluate the default SLO alert rule set (TTFT/"
+                         "TBT burn rate + p95-TBT ceiling) at block "
+                         "cadence; implies a metrics registry; firings "
+                         "are audited against the timeline at exit")
     ap.add_argument("--device", default="cuda",
                     help="torch device the engine runs on (cuda: the "
                          "port's kernels; cpu: their plain versions)")
@@ -68,25 +218,40 @@ def main(argv=None):
                     help="serve the full config instead of its .smoke() "
                          "reduction")
     args = ap.parse_args(argv)
+    if args.cluster:
+        raise SystemExit("--cluster: the disaggregated cluster is not ported "
+                         "to repro_torch yet (ROADMAP A10)")
+    if args.mesh:
+        raise SystemExit("--mesh: serving meshes are not ported to "
+                         "repro_torch yet (ROADMAP A14)")
 
     full = get_config(args.arch)
     served = full if args.full_width else full.smoke()
+    metrics = MetricsRegistry(snapshot_min_dt=0.005) \
+        if args.metrics_out or args.dashboard > 0 or args.alerts else None
+    tracer = Tracer() if args.trace_out else None
+    ledger = EnergyLedger() if args.attribution_out else None
+    alerts = AlertEngine(metrics, default_alert_rules(SLOConfig()),
+                         tracer=tracer) if args.alerts else None
+    on_event = Dashboard(args.dashboard, metrics, alerts=alerts) \
+        if args.dashboard > 0 else None
     ecfg = EngineConfig(max_batch=args.max_batch, max_len=args.max_len,
                         governor=args.governor,
                         paged=args.paged or args.prefix_cache,
                         chunked_prefill=args.chunked,
                         prefix_cache=args.prefix_cache)
     eng = ServingEngine(served, plant_cfg=full, ecfg=ecfg, device=args.device)
-    server = Server(eng)
+    server = Server(eng, on_event=on_event, metrics=metrics, tracer=tracer,
+                    ledger=ledger, alerts=alerts)
     n = 0
     for arrival, prompt, max_tokens in workload(args, served.vocab_size):
-        server.submit(prompt, SamplingParams(max_tokens=max_tokens),
+        server.submit(prompt, sampling_for(args, n, max_tokens),
                       arrival=arrival)
         n += 1
     rep = server.run()
     plane = "engine/paged" if args.paged else "engine"
     print(f"arch={args.arch} governor={args.governor} plane={plane} "
-          f"trace=synthetic requests={n}")
+          f"trace={args.trace} requests={n}")
     print(rep.summary())
     if eng.prefix_cache is not None:
         st = eng.prefix_cache.stats()
@@ -96,6 +261,43 @@ def main(argv=None):
               f"{st['hit_tokens']} prompt tokens served from cache, "
               f"{st['entries']} pages resident, "
               f"{st['evictions']} evictions)")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as fh:
+            fh.write(metrics.render_prometheus())
+        lines = metrics.write_timeline_jsonl(
+            args.metrics_out + ".timeline.jsonl")
+        print(f"metrics: {args.metrics_out} "
+              f"(+{lines} timeline snapshots)", file=sys.stderr)
+    if args.trace_out:
+        n_rec = tracer.write_jsonl(args.trace_out)
+        tracer.write_chrome_trace(args.trace_out + ".chrome.json")
+        print(f"trace: {args.trace_out} ({n_rec} records; chrome trace "
+              f"next to it)", file=sys.stderr)
+    if ledger is not None:
+        rows = rep.replicas if rep.replicas else [dict(
+            replica=server.backend.name,
+            prefill_j=rep.prefill_energy_j, decode_j=rep.decode_energy_j,
+            idle_j=rep.idle_energy_j)]
+        verify_conservation(ledger, rows)
+        top = sorted(rep.requests, key=lambda r: -r.energy_j)[:5]
+        print("per-request attributed energy (top 5 by joules):")
+        for r in top:
+            print(f"  rid={r.rid:<4d} E={r.energy_j:8.1f}J  "
+                  f"saved_vs_fmax={r.energy_saved_j:8.1f}J")
+        with open(args.attribution_out, "w") as fh:
+            for row in ledger.rows():
+                fh.write(json.dumps(row) + "\n")
+        print(f"attribution: {args.attribution_out} ({len(ledger.rows())} "
+              f"rows; conservation verified)", file=sys.stderr)
+    if alerts is not None:
+        alerts.evaluate(server.backend.now)     # final round at drain
+        audited = alerts.audit()
+        fired = [a for a in alerts.log if a.fired]
+        print(f"alerts: {len(fired)} firing transition(s), "
+              f"{audited} audited against the timeline", file=sys.stderr)
+        for a in fired:
+            print(f"  [{a.severity}] {a.rule} @ t={a.t:.3f}s "
+                  f"value={a.value:.4g}", file=sys.stderr)
     if rep.completed != n:
         raise RuntimeError(f"launcher burst must drain completely: "
                            f"{rep.completed}/{n} completed")

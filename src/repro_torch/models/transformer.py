@@ -11,7 +11,9 @@ loop over the stacked slices here.  Entry points: ``prefill_into_slot``
 its page chain), ``prefill_chunk_into_slot`` (one chunk of a chunked
 prefill into a page chain) and ``decode_step`` (one token per row at
 per-row positions, dense or through a page table).  Caches are updated in
-place and returned for parity with the reference.
+place and returned for parity with the reference.  ``sample_tokens_batched``
+draws one token per row with per-row sampling lanes, as the reference's
+does with the same keys; it is PyTorch operators, as it is XLA there.
 
 On CUDA tensors the model runs the port's kernels (add_rmsnorm for every
 residual add whose sum feeds a norm, rmsnorm for the other norms,
@@ -30,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.prng import gumbel
 from repro_torch.kernels.chunk_attention import chunk_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention_q8 import decode_attention_q8
@@ -275,9 +278,10 @@ def _run_stages(cfg: ModelConfig, params, x, *, caches, **kw):
 
 def _last_row_norm(cfg: ModelConfig, params, x, delta, length: int):
     """The final norm of row ``length - 1`` only: the last residual add
-    stays a plain add (the fused kernel would normalise every row)."""
-    return L.apply_norm(cfg, params["final_norm"],
-                        (x + delta)[:, length - 1:length])
+    stays a plain add (the fused kernel would normalise every row).  An
+    empty prompt reads row 0, as the reference's clamped slice does."""
+    row = max(length, 1) - 1
+    return L.apply_norm(cfg, params["final_norm"], (x + delta)[:, row:row + 1])
 
 
 # -- public API ------------------------------------------------------------------------
@@ -336,6 +340,57 @@ def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens, start: int,
     last = _last_row_norm(cfg, params, x, delta, length)
     logits = L.unembed(cfg, params["embed"], last)[:, 0]
     return logits, caches
+
+
+def sample_tokens_batched(logits, temps, top_k, top_p, keys):
+    """Per-row sampling (port of the reference's ``sample_tokens_batched``):
+    (B, vocab) logits -> (B,) int32 tokens, each row with its own lane.
+
+    * ``temps`` (B,): rows at 0 take the argmax, bit for bit; the others
+      sample at their own temperature.
+    * ``top_k`` (B,): keep the k highest scaled logits (``<= 0`` or
+      ``>= vocab`` disables the filter).
+    * ``top_p`` (B,): keep the smallest prefix of the top-k survivors'
+      distribution whose mass reaches ``top_p`` (``>= 1`` disables); rank
+      0 is always kept.
+    * ``keys`` (B, 2): one threefry key per row (``core.prng``), consumed
+      whole by this draw: Gumbel noise over the vocabulary, then the argmax
+      of noise + filtered logits, as ``jax.random.categorical`` draws.
+
+    Ranks follow the reference's ``argsort(scaled)[:, ::-1]``: a stable
+    ascending sort, reversed, so among equal logits the later index ranks
+    first.  Rows share nothing, and nothing is read on the host.
+    """
+    lg = logits.float()
+    greedy = lg.argmax(dim=-1).to(torch.int32)
+    temps = torch.as_tensor(temps, dtype=torch.float32, device=lg.device)
+    scaled, keep = sampling_filter(lg, temps, top_k, top_p)
+    filtered = torch.where(keep, scaled, torch.full_like(scaled, -torch.inf))
+    draw = (gumbel(keys, lg.shape[-1]) + filtered).argmax(dim=-1)
+    return torch.where(temps > 0.0, draw.to(torch.int32), greedy)
+
+
+def sampling_filter(lg, temps, top_k, top_p):
+    """(scaled logits, keep mask) of ``sample_tokens_batched``: float32
+    logits over the rows' temperatures (1 for greedy rows), and the top-k
+    and top-p survivors in vocabulary order."""
+    V = lg.shape[-1]
+    safe_t = torch.where(temps > 0.0, temps, torch.ones_like(temps))
+    scaled = lg / safe_t[:, None]
+    order = torch.sort(scaled, dim=-1, stable=True).indices.flip(-1)
+    s = scaled.gather(-1, order)
+    ranks = torch.arange(V, device=lg.device)[None, :]
+    k = torch.as_tensor(top_k, device=lg.device).to(torch.int64)
+    k_eff = torch.where((k <= 0) | (k >= V), torch.full_like(k, V), k)
+    keep = ranks < k_eff[:, None]
+    # softmax over the top-k survivors, written out as jax.nn.softmax is
+    masked = torch.where(keep, s, torch.full_like(s, -torch.inf))
+    e = torch.exp(masked - masked.max(dim=-1, keepdim=True).values)
+    probs = e / e.sum(dim=-1, keepdim=True)
+    cum_prev = torch.cumsum(probs, dim=-1) - probs
+    p = torch.as_tensor(top_p, dtype=torch.float32, device=lg.device)
+    keep &= (cum_prev < p[:, None]) | (p[:, None] >= 1.0)
+    return scaled, torch.zeros_like(keep).scatter_(-1, order, keep)
 
 
 def decode_step(params, cfg: ModelConfig, tokens, caches, pos,

@@ -9,7 +9,7 @@ Data plane:
   buckets (capped at ``max_len // 2``, the prompt truncation length) and run
   through ``models.prefill_into_slot``, which writes K/V in place into one
   row of the batch cache (or into the stream's page chain).  The first
-  token is the argmax of the last logits.
+  token is drawn from the last logits.
 * **k-step decode blocks** — ``kb`` steps run back to back over the cache
   viewed as ``[:, :ctx]`` (the smallest context bucket covering every
   position in the block), or, when paged, over the page table sliced to the
@@ -29,6 +29,19 @@ Data plane:
 * **Prefix cache** (``EngineConfig.prefix_cache``) — admission matches the
   longest cached page-aligned prompt prefix and shares those pages
   (refcounted, copy-on-write) instead of prefilling them again.
+* **Per-slot sampling** — each batch row carries its own temperature,
+  top-k, top-p and threefry *base* key in device vectors, written only at
+  slot assignment.  The draw for the token at position q folds q into the
+  row's key (``core.prng.fold_in``), so a stream's draws are a pure
+  function of (lane, position) and replay identically after preemption
+  with recompute.  Whether a block samples is a host-known flag:
+  all-greedy blocks take the plain argmax.
+
+Observability (``install_observability``): metrics, a tracer and an energy
+ledger, each behind one ``is None`` check, published from host floats at
+the points that already run on the host (prefill accounting, the end of a
+decode block, an idle jump); an instrumented run is step-identical to a
+bare one.
 
 Virtual time and energy come from the numpy plant model, so a run's
 report depends only on the tokens, and identical tokens give a report
@@ -41,9 +54,8 @@ quantizing happens inside the writes and adds no host sync.
 Not ported yet, and rejected with ``NotImplementedError`` naming the
 ROADMAP item: the legacy ``slot_native=False`` plane and its eager
 fallback for prompts longer than a ring buffer (A7 / A9), models outside
-the ported architectures (A9), sampling with ``temperature > 0`` (A6),
-serving meshes (A14), observability sinks (A7) and stream migration
-(A10).
+the ported architectures (A9) and serving meshes (A14).  Stream migration
+(``export_stream`` / ``import_stream``, A10) is absent.
 """
 from __future__ import annotations
 
@@ -54,13 +66,17 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import (DualLoopController, MaxFreqController, Request,
-                              RequestState, ServingReport, SLOConfig,
-                              StateEvent, TokenEvent, build_report,
-                              make_router)
+from repro_torch.core import (CounterfactualPricer, DualLoopController,
+                              MaxFreqController, Request, RequestState,
+                              ServingReport, SLOConfig, StateEvent,
+                              TokenEvent, build_report, make_router)
 from repro_torch.core.hardware import HardwareProfile, A100_SXM4_40G
+from repro_torch.core.prng import fold_in, prng_key
+from repro_torch.core.report import slo_pass_metrics
+from repro_torch.core.telemetry import OccupancyMeter, TBTMeter
 from repro_torch.models import ModelConfig, decode_step, init_cache, \
-    init_params, prefill_chunk_into_slot, prefill_into_slot
+    init_params, prefill_chunk_into_slot, prefill_into_slot, \
+    sample_tokens_batched
 from repro_torch.models.config import FULL_ATTN, LOCAL_ATTN
 from repro_torch.models.transformer import check_supported
 from repro_torch.models.kvcache import (attn_buffer_len, is_paged,
@@ -86,6 +102,24 @@ def _slice_caches(caches, ctx: int, max_len: int):
                 blocks.append(d)
         out.append(tuple(blocks))
     return out
+
+
+def _row_subkeys(keys: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """One draw key per batch row: each token's sequence position folded
+    into the row's base lane.  Lanes never advance, so draw i is a pure
+    function of (lane, position i), which is what makes seeded streams
+    replay identical tokens after preemption with recompute."""
+    return fold_in(keys, positions)
+
+
+def _sample_rows(sampled: bool, logits, pos_next, keys, temps, topk, topp):
+    """Per-row temperature / top-k / top-p draws when ``sampled`` (a
+    host-known flag: does any live row sample?), the plain argmax otherwise,
+    so all-greedy blocks never pay for the sampler's sort."""
+    if sampled:
+        return sample_tokens_batched(logits, temps, topk, topp,
+                                     _row_subkeys(keys, pos_next))
+    return logits.argmax(dim=-1).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -257,9 +291,14 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params=None, *,
                  ecfg: Optional[EngineConfig] = None,
                  hw: HardwareProfile = A100_SXM4_40G, seed: int = 0,
-                 plant_cfg: ModelConfig = None, device="cuda"):
+                 plant_cfg: ModelConfig = None, device="cuda",
+                 name: str = "engine", metrics=None, tracer=None,
+                 ledger=None):
         # plant_cfg: config used for virtual-time/energy accounting (e.g. the
         # FULL model) while `cfg` (possibly reduced) produces real tokens.
+        # name labels this engine's metric series and spans; metrics /
+        # tracer / ledger are the observability sinks (None: every emission
+        # site is skipped).
         self.cfg = cfg
         self.ecfg = ecfg = ecfg if ecfg is not None else EngineConfig()
         for flag, what, item in (
@@ -308,27 +347,53 @@ class ServingEngine:
         self.free_slots = list(range(B))
         self.pending: List[Request] = []
         self.vtime = 0.0
+        self.energy_j = 0.0         # prefill + decode, in billing order
         # per-phase accounting (matches sim.replay.Metrics)
         self.prefill_energy_j = 0.0
         self.decode_energy_j = 0.0
         self.idle_energy_j = 0.0    # billed when waiting on future arrivals
         self.prefill_tokens = 0
         self.decode_tokens = 0
+        self._occupancy = OccupancyMeter()   # pool-pressure telemetry
         self._order = 0
-        self._preempted = 0
         self._tbt: Dict[int, List[float]] = {}
+        self._completed = 0
+        self._preempted = 0
+        self._cancelled = 0
+        self._failed = 0            # given up via fail()
+        self._shed = 0              # dropped for a lapsed deadline
         self.requests: List[Request] = []  # everything this engine has seen
         self._events: List = []     # buffered stream events (drain_events)
         # False -> skip event buffering entirely (serving.api.Server clears
         # this unless an on_event callback is installed)
         self.events_on = True
         self._host_drains = 0       # one per decode block (the audit count)
+        self.name = name
+        self.metrics = None
+        self.tracer = None
+        self.ledger = None          # core.attribution.EnergyLedger (opt-in)
+        self._cf = None             # counterfactual pricer (with a ledger)
+        self._m = None              # bound metric children (with metrics)
+        self._obs_tbt = None        # engine-level TBT window for p95/p99
+        if metrics is not None or tracer is not None or ledger is not None:
+            self.install_observability(metrics, tracer, ledger)
 
         # device-resident decode state
         self._tok = torch.zeros((B,), dtype=torch.int32, device=self.device)
         self._pos = torch.zeros((B,), dtype=torch.int32, device=self.device)
         self._active_host = np.zeros(B, bool)
         self._sync_active()
+        # per-slot sampling lanes: temperature / top-k / top-p and each row's
+        # threefry base key (two 32-bit words in int64), written only at
+        # slot assignment and read only by the draws
+        self._temps = torch.zeros((B,), dtype=torch.float32,
+                                  device=self.device)
+        self._topk = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        self._topp = torch.ones((B,), dtype=torch.float32, device=self.device)
+        self._keys = torch.zeros((B, 2), dtype=torch.int64,
+                                 device=self.device)
+        self._sampled_host = np.zeros(B, bool)  # host mirror of temps > 0
+        self._base_key = prng_key(seed + 1)     # unseeded-lane source
 
         # prefill buckets: powers of two, capped by the smallest attention
         # buffer and by the prompt truncation length
@@ -377,8 +442,201 @@ class ServingEngine:
 
     def install_observability(self, metrics=None, tracer=None,
                               ledger=None) -> None:
-        raise _not_ported("observability sinks (metrics, tracer, ledger)",
-                          "A7")
+        """Install metric / trace / attribution sinks (``Server(metrics=...,
+        tracer=..., ledger=...)`` routes through here).  Any may be None;
+        with all None every emission site below is a skipped ``is not
+        None`` check, as with ``events_on``.  Emission rides the existing host-sync points only:
+        publishing reads host floats the engine already computed, never a
+        device value.  ``ledger`` (a ``core.attribution.EnergyLedger``,
+        shareable across replicas) mirrors every billed joule — and prices
+        the same intervals at max frequency through a noiseless plant
+        clone, so the live plant's RNG (and hence the run) is untouched."""
+        self.metrics = metrics
+        self.tracer = tracer
+        if ledger is not None:
+            self.ledger = ledger
+            ledger.register(self.name)
+            self._cf = CounterfactualPricer(self.plant)
+        if tracer is not None:
+            self.controller.on_decision = tracer.bind(self.name)
+        if metrics is not None:
+            self._init_metrics(metrics)
+
+    def _init_metrics(self, reg) -> None:
+        """Bind this replica's metric children once (hot paths touch bound
+        children — a float add — not the label-resolution path).  Metric
+        names are a stable API; see README "Observability"."""
+        r = self.name
+        ev = reg.counter("greenllm_requests_total",
+                         "request lifecycle events", ("replica", "event"))
+        slo = reg.counter("greenllm_slo_total",
+                          "per-request SLO verdicts at finish",
+                          ("replica", "kind", "outcome"))
+        self._m = {
+            "ev": {k: ev.labels(replica=r, event=k) for k in
+                   ("submitted", "completed", "cancelled", "failed", "shed",
+                    "preempted", "imported", "exported")},
+            "slo": {(k, o): slo.labels(replica=r, kind=k, outcome=o)
+                    for k in ("ttft", "tbt") for o in ("pass", "miss")},
+            "tok_pf": reg.counter("greenllm_tokens_total",
+                                  "tokens processed by phase",
+                                  ("replica", "phase"))
+                         .labels(replica=r, phase="prefill"),
+            "tok_dec": reg.counter("greenllm_tokens_total", "",
+                                   ("replica", "phase"))
+                          .labels(replica=r, phase="decode"),
+            "e_pf": reg.counter("greenllm_energy_joules_total",
+                                "energy by phase (virtual-clock accounting)",
+                                ("replica", "phase"))
+                       .labels(replica=r, phase="prefill"),
+            "e_dec": reg.counter("greenllm_energy_joules_total", "",
+                                 ("replica", "phase"))
+                        .labels(replica=r, phase="decode"),
+            "e_idle": reg.counter("greenllm_energy_joules_total", "",
+                                  ("replica", "phase"))
+                         .labels(replica=r, phase="idle"),
+            "e_saved": reg.counter(
+                "greenllm_energy_saved_joules_total",
+                "counterfactual joules saved vs max frequency (estimate)",
+                ("replica",)).labels(replica=r),
+            "freq": reg.gauge("greenllm_frequency_mhz",
+                              "controller SM clock set point", ("replica",))
+                       .labels(replica=r),
+            "occ": reg.gauge("greenllm_page_occupancy",
+                             "KV page-pool occupancy [0,1]", ("replica",))
+                      .labels(replica=r),
+            "frag": reg.gauge("greenllm_page_fragmentation",
+                              "last-page slack fraction", ("replica",))
+                       .labels(replica=r),
+            "q_pending": reg.gauge("greenllm_queue_depth",
+                                   "streams by lifecycle stage",
+                                   ("replica", "queue"))
+                            .labels(replica=r, queue="pending"),
+            "q_prefill": reg.gauge("greenllm_queue_depth", "",
+                                   ("replica", "queue"))
+                            .labels(replica=r, queue="prefilling"),
+            "q_active": reg.gauge("greenllm_queue_depth", "",
+                                  ("replica", "queue"))
+                           .labels(replica=r, queue="active"),
+            "ttft": reg.histogram("greenllm_ttft_seconds",
+                                  "time to first token", ("replica",),
+                                  buckets=(0.05, 0.1, 0.2, 0.4, 0.8, 1.6,
+                                           3.2, 6.4))
+                       .labels(replica=r),
+            "tbt": reg.histogram("greenllm_tbt_seconds",
+                                 "time between tokens", ("replica",),
+                                 buckets=(0.005, 0.01, 0.02, 0.04, 0.08,
+                                          0.1, 0.15, 0.25, 0.5))
+                      .labels(replica=r),
+            "p95": reg.gauge("greenllm_tbt_p95_seconds",
+                             "sliding-window p95 TBT", ("replica",))
+                      .labels(replica=r),
+            "p99": reg.gauge("greenllm_tbt_p99_seconds",
+                             "sliding-window p99 TBT", ("replica",))
+                      .labels(replica=r),
+        }
+        if self.tracer is not None:
+            # ring-buffer overflow in the tracer is otherwise silent
+            # truncation; surface the drop counts where dashboards look
+            self._m["drop_spans"] = reg.gauge(
+                "greenllm_tracer_dropped_spans",
+                "trace spans lost to ring-buffer overflow").labels()
+            self._m["drop_decisions"] = reg.gauge(
+                "greenllm_tracer_dropped_decisions",
+                "DVFS decisions lost to ring-buffer overflow").labels()
+        if self.ecfg.prefix_cache:
+            # registered only when caching is on: a bare engine's metric
+            # families are byte-identical to pre-cache exposition
+            self._m["pc_hits"] = reg.counter(
+                "greenllm_prefix_cache_hits_total",
+                "admissions that matched >= 1 cached prompt page",
+                ("replica",)).labels(replica=r)
+            self._m["pc_misses"] = reg.counter(
+                "greenllm_prefix_cache_misses_total",
+                "admissions with no cached prefix", ("replica",)) \
+                .labels(replica=r)
+            self._m["pc_evictions"] = reg.counter(
+                "greenllm_prefix_cache_evictions_total",
+                "cache entries reclaimed under pool pressure",
+                ("replica",)).labels(replica=r)
+            self._m["pc_shared"] = reg.gauge(
+                "greenllm_prefix_cache_shared_pages",
+                "cached pages currently shared with live streams",
+                ("replica",)).labels(replica=r)
+        # published-so-far totals: counters publish deltas at block cadence
+        self._pub = {"e_pf": 0.0, "e_dec": 0.0, "e_idle": 0.0,
+                     "e_saved": 0.0, "tok_pf": 0, "tok_dec": 0,
+                     "pc_hits": 0, "pc_misses": 0, "pc_evictions": 0}
+        self._obs_tbt = TBTMeter(horizon=1.0)
+
+    def _publish_metrics(self) -> None:
+        """Flush gauges + counter deltas and stamp a timeline snapshot at
+        the current virtual time.  Called only from existing host-side
+        points (end of a decode block, after prefill/idle accounting) —
+        this is bookkeeping over already-host-resident floats."""
+        m = self._m
+        if m is None:
+            return
+        pub = self._pub
+        for key, cur in (("e_pf", self.prefill_energy_j),
+                         ("e_dec", self.decode_energy_j),
+                         ("e_idle", self.idle_energy_j),
+                         ("tok_pf", self.prefill_tokens),
+                         ("tok_dec", self.decode_tokens)):
+            d = cur - pub[key]
+            if d > 0:
+                m[key].inc(d)
+                pub[key] = cur
+        if self.ledger is not None:
+            cur = self.ledger.replica_saved_j(self.name)
+            d = cur - pub["e_saved"]
+            if d > 0:                   # counters are monotone; savings can
+                m["e_saved"].inc(d)     # dip (noise near f_max) — hold then
+                pub["e_saved"] = cur
+        if self.tracer is not None and "drop_spans" in m:
+            m["drop_spans"].set(self.tracer.dropped_spans)
+            m["drop_decisions"].set(self.tracer.dropped_decisions)
+        m["freq"].set(self.controller.freq)
+        m["q_pending"].set(len(self.pending))
+        m["q_prefill"].set(len(self.prefilling))
+        m["q_active"].set(len(self.active))
+        if self.pager is not None:
+            occ = self.pager.occupancy()
+            m["occ"].set(occ["occupancy"])
+            m["frag"].set(occ["fragmentation"])
+        if self.prefix_cache is not None and "pc_hits" in m:
+            pc = self.prefix_cache
+            for key, cur in (("pc_hits", pc.hits),
+                             ("pc_misses", pc.misses),
+                             ("pc_evictions", pc.evictions)):
+                d = cur - pub[key]
+                if d > 0:
+                    m[key].inc(d)
+                    pub[key] = cur
+            m["pc_shared"].set(pc.shared_pages())
+        if self._obs_tbt is not None and len(self._obs_tbt):
+            p95 = self._obs_tbt.p95(self.vtime)
+            if p95 > 0.0:               # nan-safe: hold last on empty window
+                m["p95"].set(p95)
+                m["p99"].set(self._obs_tbt.p99(self.vtime))
+        self.metrics.record_snapshot(self.vtime)
+
+    def _obs_finish(self, req: Request) -> None:
+        """Score a FINISHED request's SLO verdicts into the counters (the
+        same targets ``core.report.slo_pass_metrics`` scores post-hoc)."""
+        m = self._m
+        if m is None:
+            return
+        m["ev"]["completed"].inc()
+        slo = self.ecfg.slo
+        if req.first_token >= 0:
+            ttft = req.first_token - req.arrival
+            ok = ttft <= slo.ttft_target(req.cls or "S")
+            m["slo"][("ttft", "pass" if ok else "miss")].inc()
+        recs = self._tbt.get(req.rid)
+        if recs:
+            ok = float(np.percentile(recs, 95)) <= slo.tbt_target
+            m["slo"][("tbt", "pass" if ok else "miss")].inc()
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device; on a GPU through pinned
@@ -408,10 +666,6 @@ class ServingEngine:
 
     # -- request intake --------------------------------------------------------
     def submit(self, req: Request, prompt_tokens: Optional[np.ndarray] = None):
-        sp = req.sampling        # temperature None or 0 means greedy
-        if sp is not None and sp.temperature is not None \
-                and sp.temperature > 0.0:
-            raise _not_ported("sampling with temperature > 0", "A6")
         if not req.cls:
             req.cls = self.router.class_names[
                 self.router.classify(req.prompt_len)]
@@ -423,19 +677,79 @@ class ServingEngine:
         req.state = RequestState.QUEUED
         self.pending.append(req)
         self.requests.append(req)
+        if self._m is not None:
+            self._m["ev"]["submitted"].inc()
+        if self.tracer is not None:
+            self.tracer.instant("submit", req.rid, self.vtime, self.name,
+                                prompt_len=req.prompt_len, cls=req.cls)
 
     def _emit(self, ev) -> None:
         if self.events_on:
             self._events.append(ev)
+
+    # -- per-slot sampling lanes ---------------------------------------------
+    def _resolve_sampling(self, req: Request):
+        """(temperature, top_k, top_p) of a request; ``temperature=None``
+        means greedy, as 0 does."""
+        sp = req.sampling
+        if sp is None or sp.temperature is None:
+            return 0.0, (int(sp.top_k) if sp else 0), \
+                (float(sp.top_p) if sp else 1.0)
+        return float(sp.temperature), int(sp.top_k), float(sp.top_p)
+
+    def _lane_for(self, req: Request) -> np.ndarray:
+        """The request's base lane, made at its first admission (seeded:
+        ``prng_key(seed)``; unseeded: the engine key folded with the rid)
+        and pinned on the request, so a recomputed stream draws the same
+        tokens again."""
+        if req.rng_lane is None:
+            sp = req.sampling
+            if sp is not None and sp.seed is not None:
+                lane = prng_key(sp.seed)
+            else:
+                lane = fold_in(self._base_key, req.rid)
+            req.rng_lane = lane.numpy().astype(np.uint32)
+        return req.rng_lane
+
+    def _set_slot_sampling(self, slot: int, req: Request) -> None:
+        """Write a stream's lane into row ``slot`` of the device vectors
+        (admission-time work; the decode loop never touches them from the
+        host)."""
+        temp, top_k, top_p = self._resolve_sampling(req)
+        self._temps[slot] = temp
+        self._topk[slot] = top_k
+        self._topp[slot] = top_p
+        self._keys[slot] = self._upload(
+            self._lane_for(req).astype(np.int64))
+        self._sampled_host[slot] = temp > 0.0
+
+    def _draw_first(self, slot: int, logits: torch.Tensor,
+                    pos: int) -> torch.Tensor:
+        """The token drawn from a prefill's last logits (1, V) for the
+        stream in ``slot``; it lands at position ``pos``, so its key is
+        the lane folded with ``pos``."""
+        s = slice(slot, slot + 1)
+        return _sample_rows(
+            bool(self._sampled_host[slot]), logits,
+            torch.full((1,), pos, dtype=torch.int64, device=self.device),
+            self._keys[s], self._temps[s], self._topk[s], self._topp[s])[0]
 
     def _account_prefill_tokens(self, n_tokens: int, first: bool,
                                 req: Request):
         """Bill ``n_tokens`` of prefill work (one prompt or one chunk)."""
         t_pf = self.plant.prefill_latency(n_tokens, self.controller.freq)
         p_pf = self.plant.prefill_power(n_tokens, self.controller.freq, t_pf)
+        self.energy_j += t_pf * p_pf
         self.prefill_energy_j += t_pf * p_pf
         self.prefill_tokens += n_tokens
         self.vtime += t_pf
+        if self.ledger is not None:
+            # the prefilling stream is this interval's only resident; the
+            # mirror sees the identical float the counters above added
+            e = t_pf * p_pf
+            self.ledger.record_prefill(
+                self.name, req.rid, e, tokens=n_tokens,
+                saved_j=self._cf.prefill_j(n_tokens) - e)
         if first:
             req.prefill_start = self.vtime - t_pf
 
@@ -451,6 +765,9 @@ class ServingEngine:
             req.tokens.append(tok)
             req.tokens_emitted = 1
             self._emit(TokenEvent(req.rid, self.vtime, (tok,), 1))
+            if self._m is not None and req.first_token >= 0:
+                self._m["ttft"].observe(
+                    max(req.first_token - req.arrival, 0.0))
         req.state = RequestState.DECODING
         self._emit(StateEvent(req.rid, self.vtime, RequestState.DECODING))
         self._active_host[slot] = True
@@ -479,13 +796,19 @@ class ServingEngine:
             ok = self.pager.ensure(slot, L)      # gated by _admit
             assert ok, "admission gate let an unallocatable prompt through"
             pt_row = self._pt_rows(slot, padded.shape[1])
+        self._set_slot_sampling(slot, req)
         logits, self.caches, _ = prefill_into_slot(
             self.params, self.cfg, padded, L, self.caches, slot,
             page_table=pt_row)
-        self._tok[slot] = logits[0].argmax().to(torch.int32)
+        self._tok[slot] = self._draw_first(slot, logits, L)
         self._pos[slot] = L
+        t0 = self.vtime
         self._account_prefill(req)
+        if self.tracer is not None:
+            self.tracer.span("prefill", req.rid, t0, self.vtime, self.name,
+                             tokens=L, bucket=padded.shape[1])
         self._register_prefix(req, slot, L)
+        self._publish_metrics()
         # one tiny host read per admission (the first token id)
         self._start_stream(req, slot, int(self._tok[slot]), L)
 
@@ -522,6 +845,11 @@ class ServingEngine:
             hit_tok = 0
             if self._cacheable:
                 hit_pages, hit_tok = self.prefix_cache.lookup(ctx_toks)
+            if self.tracer is not None:
+                self.tracer.span("queue", req.rid,
+                                 max(req.arrival, req.not_before),
+                                 self.vtime, self.name, slot=slot,
+                                 resume=resume)
             if hit_tok or resume or len(ctx_toks) > self.buckets[-1]:
                 self._start_chunked(req, slot, ctx_toks, resume, hit_pages,
                                     hit_tok)
@@ -538,6 +866,7 @@ class ServingEngine:
         if hit_tok:
             hit_tok = self._share_prefix(slot, hit_pages, hit_tok)
         self._order += 1
+        self._set_slot_sampling(slot, req)
         cs = _ChunkState(
             req, np.asarray(ctx_toks, np.int32),
             resume_tok=req.tokens[-1] if resume else None, order=self._order)
@@ -568,6 +897,9 @@ class ServingEngine:
                     for d in stage:
                         paged_page_copy(d, old, new)
         self._pos[slot] = hit_tok
+        if self.tracer is not None:
+            self.tracer.instant("prefix_hit", -1, self.vtime, self.name,
+                                pages=len(pages), tokens=hit_tok)
         return hit_tok
 
     def _reclaim_cached(self) -> bool:
@@ -611,13 +943,20 @@ class ServingEngine:
             logits, self.caches = prefill_chunk_into_slot(
                 self.params, self.cfg, padded, cs.start, len(chunk),
                 self.caches, slot, page_table=pt_row)
-            # only the final chunk's token survives to seed decoding
-            self._tok[slot] = logits[0].argmax().to(torch.int32)
-            self._pos[slot] = cs.start + len(chunk)
+            # every chunk draws at its end position; only the final chunk's
+            # token survives to seed decoding (the draws touch no lane state)
+            end = cs.start + len(chunk)
+            self._tok[slot] = self._draw_first(slot, logits, end)
+            self._pos[slot] = end
             # resumed streams keep their original prefill_start/first_token
+            t0 = self.vtime
             self._account_prefill_tokens(
                 len(chunk), not cs.billed and cs.resume_tok is None, cs.req)
             cs.billed = True
+            if self.tracer is not None:
+                self.tracer.span("prefill_chunk", cs.req.rid, t0, self.vtime,
+                                 self.name, chunk_start=cs.start,
+                                 tokens=len(chunk))
             cs.start += len(chunk)
             self._register_prefix(cs.req, slot, cs.start)
             progressed = True
@@ -637,6 +976,8 @@ class ServingEngine:
                 cs.req.first_token = self.vtime
                 self._start_stream(cs.req, slot, int(self._tok[slot]),
                                    len(cs.tokens))
+        if progressed:
+            self._publish_metrics()
         return progressed
 
     def _preempt_for_pages(self, exclude: Optional[int] = None) -> bool:
@@ -659,6 +1000,10 @@ class ServingEngine:
         self._preempted += 1
         req.state = RequestState.QUEUED
         self._emit(StateEvent(req.rid, self.vtime, RequestState.QUEUED))
+        if self._m is not None:
+            self._m["ev"]["preempted"].inc()
+        if self.tracer is not None:
+            self.tracer.instant("preempt", req.rid, self.vtime, self.name)
         return True
 
     # -- cancellation / failure ------------------------------------------------
@@ -696,12 +1041,25 @@ class ServingEngine:
         if self.pager is not None:
             self.pager.free_chain(slot)
         self._active_host[slot] = False
+        self._sampled_host[slot] = False
         self._sync_active()
         self.free_slots.append(slot)
 
     def _mark_terminal(self, req: Request, state: RequestState) -> bool:
         req.state = state
+        if state is RequestState.CANCELLED:
+            self._cancelled += 1
+            kind = "cancelled"
+        else:
+            self._failed += 1
+            kind = "failed"
         self._emit(StateEvent(req.rid, self.vtime, state))
+        if self._m is not None:
+            self._m["ev"][kind].inc()
+        if self.tracer is not None:
+            self.tracer.instant("cancel" if kind == "cancelled" else "fail",
+                                req.rid, self.vtime, self.name,
+                                tokens_emitted=req.tokens_emitted)
         return True
 
     def _evict_lapsed(self) -> None:
@@ -718,17 +1076,30 @@ class ServingEngine:
 
     def _mark_shed(self, req: Request) -> None:
         req.state = RequestState.SHED
+        self._shed += 1
         self._emit(StateEvent(req.rid, self.vtime, RequestState.SHED))
+        if self._m is not None:
+            self._m["ev"]["shed"].inc()
+        if self.tracer is not None:
+            self.tracer.instant("shed", req.rid, self.vtime, self.name,
+                                deadline=req.deadline)
 
     # -- decode ----------------------------------------------------------------
-    def _account_decode_step(self, batch: int, ctx: float, dur=None) -> float:
+    def _account_decode_step(self, batch: int, ctx: float, dur=None,
+                             rids=None) -> float:
         f = self.controller.maybe_tick(self.vtime)
         if dur is None:
             dur = self.plant.decode_step_latency(batch, ctx, f)
-        self.decode_energy_j += dur * self.plant.decode_power(batch, ctx, f,
-                                                              dur)
+        e = dur * self.plant.decode_power(batch, ctx, f, dur)
+        self.energy_j += e
+        self.decode_energy_j += e
         self.decode_tokens += batch
         self.vtime += dur
+        if rids is not None:
+            # each alive row produced one token this step: an equal split
+            self.ledger.record_decode(
+                self.name, rids, e,
+                saved_j=self._cf.decode_j(batch, ctx) - e)
         self.controller.record_tokens(self.vtime, batch, dur)
         return dur
 
@@ -737,6 +1108,7 @@ class ServingEngine:
                 or st.pos >= self.ecfg.max_len - 1):
             st.req.finish = self.vtime
             st.req.state = RequestState.FINISHED
+            self._completed += 1
             return True
         return False
 
@@ -745,6 +1117,7 @@ class ServingEngine:
             self.free_slots.append(slot)
             del self.active[slot]
             self._active_host[slot] = False
+            self._sampled_host[slot] = False
             if self.pager is not None:
                 self.pager.free_chain(slot)
         if slots:
@@ -772,10 +1145,11 @@ class ServingEngine:
                 "page pool exhausted: a lone stream cannot grow by one page "
                 f"({self.pager.pages_used}/{self.pager.num_pages - 1} used)")
 
-    def _run_block(self, ctx: int, kb: int) -> torch.Tensor:
+    def _run_block(self, ctx: int, kb: int, sampled: bool) -> torch.Tensor:
         """``kb`` decode steps over the caches cut to ``ctx`` positions (the
         page table cut to its pages when paged); returns the (kb, B) tokens,
-        still on the device."""
+        still on the device.  The token drawn at row r lands at position
+        ``pos[r] + 1``, so that is the position its key folds in."""
         pt = None
         if self.pager is not None:
             n_ctx = min(ctx // self.ecfg.page_size, self._max_pages)
@@ -789,7 +1163,8 @@ class ServingEngine:
             logits, _ = decode_step(self.params, self.cfg, tok[:, None],
                                     caches, pos, page_table=pt,
                                     active=active)
-            nxt = logits.argmax(dim=-1).to(torch.int32)
+            nxt = _sample_rows(sampled, logits, pos + 1, self._keys,
+                               self._temps, self._topk, self._topp)
             tok = torch.where(active, nxt, tok)
             pos = pos + active.to(torch.int32)
             out.append(tok)
@@ -815,6 +1190,9 @@ class ServingEngine:
             max_pos = max(max_pos,
                           max(cs.start for cs in self.prefilling.values()))
         wall = self.ecfg.use_wall_clock
+        # does any *decoding* row sample?  From host metadata, no device
+        # read; a sampled stream still mid-prefill (inactive) does not count
+        sampled = bool(self._sampled_host[self._active_host].any())
         toks_dev = []
         durs: List[Optional[float]] = []   # per-step; None -> plant model
         left = k
@@ -825,7 +1203,7 @@ class ServingEngine:
             room = max(ctx - max_pos, 1)
             kb = next((b for b in self._k_blocks if b <= min(left, room)), 1)
             t0 = time.perf_counter() if wall else 0.0
-            tk = self._run_block(ctx, kb)
+            tk = self._run_block(ctx, kb, sampled)
             toks_dev.append(tk)
             if wall:
                 if self.device.type == "cuda":
@@ -841,13 +1219,20 @@ class ServingEngine:
         # single drain per block: (k, B) int32
         self._host_drains += 1
         toks = torch.cat(toks_dev).cpu().numpy()
+        t_block = self.vtime
         done: List[int] = []
         block_toks: Dict[int, List[int]] = {slot: [] for slot, _ in snapshot}
         for i in range(k):
             ctx = float(np.mean([st.pos for st in self.active.values()
                                  if st.slot not in done]))
             alive = batch - len(done)
-            dur = self._account_decode_step(alive, ctx, durs[i])
+            rids = None if self.ledger is None else \
+                [st.req.rid for slot, st in snapshot if slot not in done]
+            dur = self._account_decode_step(alive, ctx, durs[i], rids)
+            if self._m is not None:
+                # one bucketed observation per step, weighted by its rows
+                self._m["tbt"].observe(dur, alive)
+                self._obs_tbt.record_tbt(self.vtime, dur)
             for slot, st in snapshot:
                 if slot in done:
                     continue
@@ -859,6 +1244,11 @@ class ServingEngine:
                 self._tbt.setdefault(st.req.rid, []).append(dur)
                 if self._finish_check(st):
                     done.append(slot)
+                    self._obs_finish(st.req)
+                    if self.tracer is not None:
+                        self.tracer.instant(
+                            "finish", st.req.rid, self.vtime, self.name,
+                            tokens=st.req.tokens_emitted)
         for slot, st in snapshot:       # one TokenEvent per stream per block
             if block_toks[slot]:
                 self._emit(TokenEvent(
@@ -873,8 +1263,14 @@ class ServingEngine:
             # live occupancy (cache-only pages excluded) biases the
             # controller toward higher clocks before the pool forces
             # preemption
-            self.controller.record_occupancy(
-                self.vtime, self.pager.occupancy()["occupancy_live"])
+            occ = self.pager.occupancy()["occupancy_live"]
+            self._occupancy.record(self.vtime, occ)
+            self.controller.record_occupancy(self.vtime, occ)
+        if self.tracer is not None:
+            self.tracer.span("decode_block", -1, t_block, self.vtime,
+                             self.name, steps=k, batch=batch,
+                             freq_mhz=self.controller.freq)
+        self._publish_metrics()
         return k
 
     # -- Backend protocol --------------------------------------------------------
@@ -897,8 +1293,12 @@ class ServingEngine:
         nxt = max(head.arrival, head.not_before)
         if nxt <= self.vtime + 1e-12:
             return False
-        self.idle_energy_j += (nxt - self.vtime) * self.plant.idle_power
+        e_idle = (nxt - self.vtime) * self.plant.idle_power
+        self.idle_energy_j += e_idle
+        if self.ledger is not None:
+            self.ledger.record_idle(self.name, e_idle)
         self.vtime = nxt
+        self._publish_metrics()
         return True
 
     def step(self, k: Optional[int] = None) -> int:
@@ -953,6 +1353,11 @@ class ServingEngine:
     def report(self) -> ServingReport:
         """The typed serving report (the scoring shared with the
         reference's backends)."""
+        led = {}
+        if self.ledger is not None:
+            led = dict(energy_by_rid=self.ledger.energy_by_rid(),
+                       saved_by_rid=self.ledger.saved_by_rid(),
+                       energy_saved_j=self.ledger.replica_saved_j(self.name))
         return build_report(
             backend="engine", requests=self.requests, tbt_records=self._tbt,
             slo=self.ecfg.slo, class_names=self.router.class_names,
@@ -962,4 +1367,62 @@ class ServingEngine:
             prefill_tokens=self.prefill_tokens,
             decode_tokens=self.decode_tokens,
             duration_s=self.vtime, preempted=self._preempted, migrated=0,
-            page_occupancy_peak=self.page_occupancy_peak())
+            page_occupancy_peak=self.page_occupancy_peak(), **led)
+
+    def _slo_stats(self) -> Dict:
+        """Per-class p90 TTFT and TTFT/TBT SLO pass rates —
+        ``core.report.slo_pass_metrics`` is the single scoring definition,
+        applied to the same population as ``report()`` (every request with
+        a first token, cancelled included), so the legacy dict and the
+        typed report can never diverge."""
+        m = slo_pass_metrics(self.requests, self._tbt, self.ecfg.slo,
+                             self.router.class_names)
+        return {"ttft_pass": m["ttft_pass"], "tbt_pass": m["tbt_pass"],
+                "p90_ttft_s": m["p90_ttft"]}
+
+    def stats(self) -> Dict:
+        tbts = [x for v in self._tbt.values() for x in v]
+        s = {
+            "completed": self._completed,
+            "cancelled": self._cancelled,
+            "failed": self._failed,
+            "shed": self._shed,
+            "pending": len(self.pending),
+            "active": len(self.active),
+            "prefilling": len(self.prefilling),
+            "vtime_s": self.vtime,
+            # active + idle, matching the cluster's legacy dict (idle is 0
+            # for batch workloads; billed only while waiting on arrivals)
+            "energy_j": self.energy_j + self.idle_energy_j,
+            "idle_energy_j": self.idle_energy_j,
+            # per-phase split, comparable with sim.replay.Metrics
+            "prefill_energy_j": self.prefill_energy_j,
+            "decode_energy_j": self.decode_energy_j,
+            "prefill_tokens": self.prefill_tokens,
+            "decode_tokens": self.decode_tokens,
+            "p95_tbt_ms": float(np.percentile(tbts, 95)) * 1e3 if tbts else 0,
+            "p99_tbt_ms": float(np.percentile(tbts, 99)) * 1e3 if tbts else 0,
+            "freq_mhz": self.controller.freq,
+        }
+        s.update(self._slo_stats())
+        if self.pager is not None:
+            # a stream at position pos holds K/V for positions 0..pos-1
+            live = {sl: st.pos for sl, st in self.active.items()}
+            live.update({sl: cs.start for sl, cs in self.prefilling.items()})
+            occ = self.pager.occupancy(live)
+            s.update({
+                "pages_used": occ["pages_used"],
+                "pages_total": occ["pages_total"],
+                "pages_shared": occ["pages_shared"],
+                "pages_reserved": occ["pages_reserved"],
+                "pages_cached": occ["pages_cached"],
+                "page_occupancy": occ["occupancy"],
+                "page_occupancy_live": occ["occupancy_live"],
+                "page_occupancy_peak": occ["peak_occupancy"],
+                "page_fragmentation": occ["fragmentation"],
+                "preempted": self._preempted,
+            })
+        if self.prefix_cache is not None:
+            pc = self.prefix_cache.stats()
+            s.update({f"prefix_cache_{k}": v for k, v in pc.items()})
+        return s

@@ -148,9 +148,6 @@ def test_wall_clock_accounting_serves_the_same_tokens(runs):
 
 def test_requests_are_refused_outside_the_slice(runs):
     port = runs[2]
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        Server(port).submit([1, 2, 3], SamplingParams(max_tokens=4,
-                                                      temperature=0.7))
     for cfg, bad, item in (
             (port.cfg.replace(attn_softcap=50.0), dict(paged=True), "A9"),
             (port.cfg, dict(mesh=(1, 1)), "A14"),
@@ -159,8 +156,9 @@ def test_requests_are_refused_outside_the_slice(runs):
             ServingEngine(cfg, params=port.params,
                           ecfg=EngineConfig(max_len=MAXLEN, **bad),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Server(port, metrics=object())
+    for flag in (["--cluster"], ["--mesh", "1,1"]):
+        with pytest.raises(SystemExit, match="ROADMAP A1[04]"):
+            serve_main(["--device", "cpu", *flag])
 
 
 def test_serve_cli_workload_and_summary(capsys):
@@ -174,3 +172,29 @@ def test_serve_cli_workload_and_summary(capsys):
     assert rep.completed == 3
     out = capsys.readouterr().out
     assert "plane=engine" in out and "completed=3" in out
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_zero_token_prompt_is_served_as_the_reference_serves_it(model, paged):
+    """An empty prompt beside a 5-token one: the reference reads the last
+    row through a clamped slice (row 0 for length 0), and so must the port.
+    Tokens, the report and the host drains are the reference's."""
+    jcfg, cfg, jp, tp = model
+    kw = dict(max_batch=4, max_len=MAXLEN, cache_dtype="float32",
+              paged=paged)
+
+    def serve(server, sampling_cls):
+        rng = np.random.default_rng(0)
+        hs = [server.submit(rng.integers(0, cfg.vocab_size, size=n),
+                            sampling_cls(max_tokens=3)) for n in (5, 0)]
+        return server.run(), [list(h.request.tokens) for h in hs]
+
+    ref = JServingEngine(jcfg, params=jp, ecfg=JEngineConfig(**kw),
+                         plant_cfg=jget_config("qwen2-1.5b"))
+    port = ServingEngine(cfg, params=tp, ecfg=EngineConfig(**kw),
+                         plant_cfg=get_config("qwen2-1.5b"), device="cpu")
+    jrep, jtoks = serve(JServer(ref), JSamplingParams)
+    trep, ttoks = serve(Server(port), SamplingParams)
+    assert ttoks == jtoks and all(len(t) == 3 for t in ttoks)
+    assert _norm(trep) == _norm(jrep)
+    assert port._host_drains == ref._host_drains

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,kernels,serve_paged
     python3 chip_smoke.py --phases build,kernels,serve_q8
     python3 chip_smoke.py --phases build,sampling,observability
+    python3 chip_smoke.py --phases build,kernels,arch
 
 Phases (each raises on failure; nothing is caught):
 
@@ -33,8 +34,9 @@ Phases (each raises on failure; nothing is caught):
    CTAs in fixed spans, so its determinism is checked bit for bit: two
    launches on the same inputs, and the same context in a 1024-slot view
    and in the whole 2048-slot buffer (bf16, float32 and int8 kernels).
-   Times (CUDA events, median of 21 samples of 20 launches each, after a
-   warm-up, inputs rotated through > 100 MB so L2 is cold as in the model)
+   Times (CUDA events, median of 21 samples of 20 launches each, or of 7
+   samples of fewer launches for a call over 2 ms, after a warm-up,
+   inputs rotated through > 100 MB so L2 is cold as in the model)
    for the kernel, its plain version and one PyTorch call computing the
    same function (``library_ms``, a yardstick the port never calls; none
    attends through a page table, so the paged kernel has none, and the
@@ -52,6 +54,24 @@ Phases (each raises on failure; nothing is caught):
    version and, bit for bit, against the dense int8 kernel on the same
    context; no PyTorch call attends over int8 K/V, so it has no library
    time.
+   Then the dense attention family's shapes: rmsnorm at the QK norm's
+   head rows (40960 x 128 for a 1024-token qwen3 prefill) and at d_model
+   5120 / 4096 / 3584; flash at qwen3's prefill (40:8) and gemma2's (hd
+   256, window 4096, softcap 50); the decode body (dense, int8, paged and
+   paged int8) at gemma2's wrapped 4096-slot ring and full layer (16:8,
+   hd 256, softcap 50), qwen3 (G 5), chatglm3 (G 16) and granite, the
+   paged kernels bitwise equal to the dense ones; chunk_attention with
+   window and softcap over page chains and over dense rows (a wrapped
+   ring included), at gemma2, qwen3 and chatglm3 shapes and at the gemma2
+   path's own chunks (4096 queries at 0, 3904 of 4096 at 4096, on the
+   4096-slot ring and on a 16384-slot row), on every route, bitwise
+   across repeated launches and between a dense row and a page chain
+   holding the same context.  Every case of every kernel sits in one
+   table per kernel (NORM_SHAPES, DECODE_CASES, FLASH_CASES, PAGED_CASES,
+   CHUNK_CASES, Q8_CASES); a named row is timed in bf16 and gets a
+   "[summary]" line (chunk_attention's with its float32 scratch bytes);
+   with a softcap no PyTorch call computes the function, so library_ms is
+   none.
 3. equivalence: a 4-layer, full-width qwen2-1.5b in float32 runs one
    300-token prompt and 16 greedy decode steps on the card (kernels) and on
    the CPU (plain versions) from the same params: first-token logits
@@ -59,6 +79,11 @@ Phases (each raises on failure; nothing is caught):
    requests through a paged engine with the prefix cache and a 15-page
    pool (prefix hits, a preemption, chunk_attention) on both: the same
    tokens.  Both checks run again with ``kv_quant`` (int8 caches).
+   Then qwen3-14b, granite-8b, chatglm3-6b and gemma2-9b at full width and
+   2 layers (one local + full period for gemma2), float32, CUDA against
+   CPU: logits after the prompt at 1e-3 and 8 greedy tokens equal; gemma2's
+   prompt is window + 600 tokens, its last 600 one chunk through the
+   dense-row route into the wrapped local ring.
 4. serve: full-width, full-depth qwen2-1.5b in bfloat16 with seeded random
    weights serves 8 greedy requests (prompts of 100-1000 tokens, 64-128 new
    tokens) through ``serving.api.Server`` and the slot-native engine
@@ -67,7 +92,7 @@ Phases (each raises on failure; nothing is caught):
    and a 219-page pool serves two waves of 8 greedy requests sharing a
    256-token system prompt; it must preempt, hit the cache and run
    chunk_attention, and no decode kernel but the paged one.  In this phase
-   and in phases 4, 6, 8 and 9, the kernels' launch counts are set to 0
+   and in phases 4, 6, 8, 9 and 10, the kernels' launch counts are set to 0
    just before a path's burst and read just after; each kernel of the path
    must have launched.
 6. serve_q8: phases 4 and 5 again with ``kv_quant`` (int8 K/V caches and
@@ -98,7 +123,21 @@ Phases (each raises on failure; nothing is caught):
    ledger installed, on the same weights: the same tokens, host drains,
    virtual time and energy, and the ledger conserves bitwise (path
    ``observability``, its launches counted).
-10. profile (opt-in, not in the default run): the serve, serve_paged and
+10. arch: the dense attention family served on the card, one model at a
+   time: qwen3-14b (the paper's model) at full width and depth, the serve
+   burst on the dense engine, greedy and with every odd request seeded
+   nucleus sampling, and the serve_paged waves on the paged engine with
+   the prefix cache (hits and a preemption); gemma2-9b at full width and
+   depth, max_len 16384, max_batch 4, 4 prompts of 4500-8000 tokens (past
+   the 4096 window: chunked through chunk_attention's dense-ring route;
+   decode wraps the rings; softcaps everywhere) on the dense engine with
+   bf16 and with int8 caches, and on the paged one (full layers pooled and
+   preempting beside dense rings, the prefix cache never hitting a
+   hybrid); granite-8b and
+   chatglm3-6b at full width and 4 layers, the serve burst.  Paths
+   ``arch_<model>[_paged]``, launches counted as in phase 5; tokens/s and
+   peak memory printed.
+11. profile (opt-in, not in the default run): the serve, serve_paged and
    both serve_q8 bursts again under ``torch.profiler`` after a warm-up
    run, printing the device's busy share of the wall time, the kernel
    time by name and the port's kernels' time by family with that run's
@@ -122,6 +161,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -131,10 +171,13 @@ BF16_FLOP_PER_S = 989e12         # dense tensor-core bf16
 L2_FLUSH_BYTES = 100 * 2 ** 20   # > the 50 MB L2
 BF16_ROUNDING = (1e-3, 1e-2)     # atol, rtol: one bf16 rounding apart
 PHASES = ("build", "kernels", "equivalence", "serve", "serve_paged",
-          "serve_q8", "paged_vs_dense", "sampling", "observability")
+          "serve_q8", "paged_vs_dense", "sampling", "observability", "arch")
 # the paths whose launches count
 SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
-               "sampling", "sampling_paged", "observability")
+               "sampling", "sampling_paged", "observability", "arch_qwen3",
+               "arch_qwen3_sampled", "arch_qwen3_paged", "arch_gemma2",
+               "arch_gemma2_q8", "arch_gemma2_paged", "arch_granite",
+               "arch_chatglm3")
 
 
 def log(*a):
@@ -147,11 +190,19 @@ def time_ms(fn, arg_sets, iters=20, reps=21):
     """Median over ``reps`` samples of the mean device time of ``iters``
     calls, rotating through ``arg_sets``.  A sleep kernel queued first lets
     the host enqueue every call before the device reaches them, so host
-    launch cost does not show in the device interval."""
+    launch cost does not show in the device interval.  A call longer than
+    2 ms is sampled 7 times, over as many calls as fill about 20 ms, so
+    that a large case stays cheap."""
     import torch
     for a in arg_sets[:2]:
         fn(*a)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    once_ms = (time.perf_counter() - t0) * 1e3
+    if once_ms > 2:
+        iters, reps = max(1, min(iters, round(20 / once_ms))), 7
     samples = []
     for r in range(reps):
         torch.cuda._sleep(4_000_000)
@@ -242,23 +293,44 @@ def _demangle(sym):
 
 # -- phase 2: kernels ----------------------------------------------------------------
 
+def _timed(res, name, case, kern, plain, sets, nbytes, flops, library=None):
+    """Times one bf16 case into ``case``: ms, plain_ms, bound_ms, bound_by
+    and library_ms (``library`` = (fn, sets), one PyTorch call computing
+    the same function; None where there is none), and lists it under
+    ``name`` for a "[summary]" line."""
+    case["ms"] = time_ms(kern, sets)
+    case["plain_ms"] = time_ms(plain, sets)
+    case["bound_ms"], case["bound_by"] = bound(nbytes, flops)
+    case["library_ms"] = time_ms(*library) if library else None
+    res["timed"].append((name, case))
+    return case
+
+
+# rmsnorm rows: the serve paths' (8 decode rows, a 256-token chunk, the
+# 1024-token prefill bucket) of qwen2's 1536; 4 x 10008, wider than one pass
+# of the kernel's registers (the last pass partial); the QK norm's head rows
+# of a 1024-token qwen3 prefill (q: 40960 x 128, k: 8192 x 128) and of a
+# decode step (8 x 40 = 320 x 128); d_model 5120 (qwen3), 4096 (granite,
+# chatglm3) and 3584 (gemma2)
+NORM_SHAPES = ((8, 1536), (256, 1536), (1024, 1536), (4, 10008),
+               (40960, 128), (8192, 128), (320, 128), (8, 5120),
+               (1024, 5120), (8, 4096), (8, 3584), (4096, 3584))
+
+
 def _rmsnorm_cases(res):
-    """rmsnorm and add_rmsnorm against their plain versions at the serve
-    paths' row counts (8 decode rows, a 256-token chunk, the 1024-token
-    prefill bucket) of 1536, bf16 and float32; add_rmsnorm also bitwise
-    against PyTorch's add followed by the unfused kernel; 4 rows of 10008
-    (wider than one pass of the kernel's registers, the last pass partial)
-    are checked the same way.  The 1536-wide shapes are timed in bf16
-    beside the library (``F.rms_norm``; for the fused kernel ``x + delta``
-    then ``F.rms_norm``); the timed fused calls add into their inputs in
-    place, as the model does.  Returns the 8-row cases (rmsnorm,
+    """rmsnorm and add_rmsnorm against their plain versions at NORM_SHAPES,
+    bf16 and float32; add_rmsnorm also bitwise against PyTorch's add
+    followed by the unfused kernel.  Timed in bf16 beside the library
+    (``F.rms_norm``; for the fused kernel ``x + delta`` then
+    ``F.rms_norm``); the timed fused calls add into their inputs in place,
+    as the model does.  Returns the 8 x 1536 cases (rmsnorm,
     add_rmsnorm)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as K
     g = torch.Generator(device="cuda").manual_seed(0)
     mains = {}
-    for rows, d in ((8, 1536), (256, 1536), (1024, 1536), (4, 10008)):
+    for rows, d in NORM_SHAPES:
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
             def mk():
                 return (torch.randn(rows, d, generator=g, device="cuda").to(dt),
@@ -281,30 +353,24 @@ def _rmsnorm_cases(res):
             acase = {"shape": [rows, d], "dtype": str(dt),
                      "max_abs_err": a_err, "bf16_share": a_share,
                      "bitwise_add_then_rmsnorm": True}
-            if dt == torch.bfloat16 and d == 1536:
+            if dt == torch.bfloat16:
                 es = x.element_size()
                 nbytes = 2 * rows * d * es + d * 4
                 abytes = 4 * rows * d * es + d * 4
                 sets = [mk() + (w,) for _ in range(n_sets(abytes))]
                 wl = w.to(dt)
-                case["ms"] = time_ms(lambda a, _d, w_: K.rmsnorm(a, w_), sets)
-                case["plain_ms"] = time_ms(
-                    lambda a, _d, w_: K.rmsnorm_plain(a, w_), sets)
-                case["library_ms"] = time_ms(
-                    lambda a, _d, _w: F.rms_norm(a, (d,), wl, 1e-6), sets)
-                case["bound_ms"], case["bound_by"] = bound(nbytes, 4 * rows * d)
-                acase["ms"] = time_ms(K.add_rmsnorm, sets)
-                acase["plain_ms"] = time_ms(K.add_rmsnorm_plain, sets)
-                acase["library_ms"] = time_ms(
-                    lambda a, b, _w: F.rms_norm(a + b, (d,), wl, 1e-6), sets)
+                _timed(res, f"rmsnorm {rows}x{d}", case,
+                       lambda a, _d, w_: K.rmsnorm(a, w_),
+                       lambda a, _d, w_: K.rmsnorm_plain(a, w_), sets, nbytes,
+                       4 * rows * d,
+                       (lambda a, _d, _w: F.rms_norm(a, (d,), wl, 1e-6), sets))
                 acase["library"] = "x + delta, then F.rms_norm"
-                acase["bound_ms"], acase["bound_by"] = bound(abytes,
-                                                             5 * rows * d)
-                if rows == 8:
+                _timed(res, f"add_rmsnorm {rows}x{d}", acase, K.add_rmsnorm,
+                       K.add_rmsnorm_plain, sets, abytes, 5 * rows * d,
+                       (lambda a, b, _w: F.rms_norm(a + b, (d,), wl, 1e-6),
+                        sets))
+                if (rows, d) == (8, 1536):
                     mains = {"rmsnorm": case, "add_rmsnorm": acase}
-                res.setdefault("norm_shapes", []).extend(
-                    [{"kernel": "rmsnorm", **case},
-                     {"kernel": "add_rmsnorm", **acase}])
             res["cases"].append({"kernel": "rmsnorm", **case})
             res["cases"].append({"kernel": "add_rmsnorm", **acase})
             log(f"[kernels] rmsnorm {case}")
@@ -312,13 +378,20 @@ def _rmsnorm_cases(res):
     return mains["rmsnorm"], mains["add_rmsnorm"]
 
 
-def _decode_inputs(g, B, Sk, KH, Hq, hd, dt, buf):
+def _decode_inputs(g, B, Sk, KH, Hq, hd, dt, buf, ring=False):
     """q, k/v as [:, :Sk] views of (B, buf, KH, hd) caches (the serve
-    path's ctx slice), k_pos with -1 holes, q_pos."""
+    path's ctx slice), k_pos and q_pos: k_pos with -1 holes and q_pos in
+    [Sk / 2, Sk), or, for a ``ring`` (Sk == buf), the slots' positions in a
+    wrapped ring whose newest key is q_pos, in [buf + 500, 3 buf)."""
     import torch
+    from repro_torch.models.kvcache import ring_slot_positions
     q = torch.randn(B, 1, Hq, hd, generator=g, device="cuda").to(dt)
     kc = torch.randn(B, buf, KH, hd, generator=g, device="cuda").to(dt)
     vc = torch.randn(B, buf, KH, hd, generator=g, device="cuda").to(dt)
+    if ring:
+        q_pos = torch.randint(buf + 500, 3 * buf, (B,), generator=g,
+                              device="cuda", dtype=torch.int32)
+        return q, kc, vc, ring_slot_positions(buf, q_pos + 1), q_pos
     q_pos = torch.randint(Sk // 2, Sk, (B,), generator=g, device="cuda",
                           dtype=torch.int32)
     k_pos = torch.arange(Sk, device="cuda", dtype=torch.int32)[None].repeat(B, 1)
@@ -341,89 +414,530 @@ def _decode_work(k_pos, q_pos, window, Hq, KH, hd, esize, B, key_bytes=None):
     return nbytes, 4 * nv * (Hq // KH) * hd * KH
 
 
+def _decode_valid(kp, qp, window):
+    """The decode mask as SDPA takes it: (B, 1, 1, Sk) bool."""
+    valid = (kp >= 0) & (kp <= qp[:, None])
+    if window:
+        valid &= kp > qp[:, None] - window
+    return valid[:, None, None, :]
+
+
+# decode cases: (B, Hq, KH, Sk, hd, window, softcap, ring, the "[summary]"
+# name of a timed case): qwen2's serve shape (12:2) short, long and with a
+# window; gemma2's local layer (a wrapped 4096-slot ring, window 4096) and
+# full layer (8192 keys), both 16:8 at hd 256 with softcap 50; qwen3 (40:8,
+# G 5), chatglm3 (32:2, G 16), granite (32:8)
+DECODE_CASES = [
+    (8, 12, 2, 192, 128, 0, 0.0, False, "decode_attention B=8 Sk=192"),
+    (8, 12, 2, 2048, 128, 0, 0.0, False, "decode_attention B=8 Sk=2048"),
+    (8, 12, 2, 2048, 128, 700, 0.0, False, None),
+    (4, 16, 8, 4096, 256, 4096, 50.0, True,
+     "decode_attention gemma2 local ring"),
+    (4, 16, 8, 8192, 256, 0, 50.0, False, None),
+    (8, 40, 8, 2048, 128, 0, 0.0, False, "decode_attention qwen3"),
+    (8, 32, 2, 2048, 128, 0, 0.0, False, None),
+    (8, 32, 8, 2048, 128, 0, 0.0, False, None)]
+
+
 def _decode_cases(res):
+    """decode_attention against its plain version at DECODE_CASES, bf16 and
+    float32; the named cases timed in bf16 beside SDPA with the same mask
+    where there is no softcap (no PyTorch call caps logits).  Returns
+    qwen2's Sk 2048 case."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as K
     g = torch.Generator(device="cuda").manual_seed(1)
-    B, KH, Hq, hd = 8, 2, 12, 128
     main = None
-    for Sk, window in ((192, 0), (2048, 0), (2048, 700)):
+    for B, Hq, KH, Sk, hd, window, cap, ring, name in DECODE_CASES:
+        kw = dict(window=window, softcap=cap)
+        buf = Sk if ring else max(Sk, 2048)
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-            q, k, v, kp, qp = _decode_inputs(g, B, Sk, KH, Hq, hd, dt, 2048)
+            q, k, v, kp, qp = _decode_inputs(g, B, Sk, KH, Hq, hd, dt, buf,
+                                             ring)
             err, share = check_close(
-                f"decode B={B} Sk={Sk} window={window} {dt}",
-                K.decode_attention(q, k, v, kp, qp, window=window),
-                K.decode_attention_plain(q, k, v, kp, qp, window=window), tol)
+                f"decode {(B, Hq, KH, Sk, hd, window, cap, ring)} {dt}",
+                K.decode_attention(q, k, v, kp, qp, **kw),
+                K.decode_attention_plain(q, k, v, kp, qp, **kw), tol)
             case = {"shape": [B, Sk, KH, Hq, hd], "window": window,
-                    "dtype": str(dt), "max_abs_err": err, "bf16_share": share}
-            if dt == torch.bfloat16 and window == 0:
+                    "softcap": cap, "ring": ring, "dtype": str(dt),
+                    "max_abs_err": err, "bf16_share": share}
+            if dt == torch.bfloat16 and name:
                 nbytes, flops = _decode_work(kp, qp, window, Hq, KH, hd, 2, B)
-                sets = [_decode_inputs(g, B, Sk, KH, Hq, hd, dt, 2048)
+                sets = [_decode_inputs(g, B, Sk, KH, Hq, hd, dt, buf, ring)
                         for _ in range(n_sets(nbytes))]
                 sets = [(q_, k_, v_, kp, qp) for q_, k_, v_, _, _ in sets]
-                case["ms"] = time_ms(
-                    lambda *a: K.decode_attention(*a, window=window), sets)
-                case["plain_ms"] = time_ms(
-                    lambda *a: K.decode_attention_plain(*a, window=window), sets)
-                # the library yardstick in its own layout (B, H, S, hd)
-                valid = ((kp >= 0) & (kp <= qp[:, None]))[:, None, None, :]
-                lib_sets = [(q_.transpose(1, 2), k_.transpose(1, 2).contiguous(),
-                             v_.transpose(1, 2).contiguous())
-                            for q_, k_, v_, _, _ in sets]
-                case["library_ms"] = time_ms(
-                    lambda q_, k_, v_: F.scaled_dot_product_attention(
-                        q_, k_, v_, attn_mask=valid, enable_gqa=True), lib_sets)
-                case["bound_ms"], case["bound_by"] = bound(nbytes, flops)
-                if Sk == 2048:
+                library = None
+                if not cap:
+                    # the library yardstick in its own layout (B, H, S, hd)
+                    valid = _decode_valid(kp, qp, window)
+                    library = (
+                        lambda q_, k_, v_: F.scaled_dot_product_attention(
+                            q_, k_, v_, attn_mask=valid, enable_gqa=True),
+                        [(q_.transpose(1, 2), k_.transpose(1, 2).contiguous(),
+                          v_.transpose(1, 2).contiguous())
+                         for q_, k_, v_, _, _ in sets])
+                _timed(res, name, case,
+                       lambda *a: K.decode_attention(*a, **kw),
+                       lambda *a: K.decode_attention_plain(*a, **kw), sets,
+                       nbytes, flops, library)
+                if name == "decode_attention B=8 Sk=2048":
                     main = case
             res["cases"].append({"kernel": "decode_attention", **case})
             log(f"[kernels] decode_attention {case}")
     return main
 
 
+# flash cases, batch 1: (S, Hq, KH, hd, window, softcap, the "[summary]"
+# name of a timed case): qwen2's prefill (12:2) short, at the 1024 bucket,
+# and with window and softcap; qwen3's (40:8); gemma2's (16:8, hd 256) on a
+# local layer (window 4096, softcap 50) and a full one (softcap alone)
+FLASH_CASES = [(96, 12, 2, 128, 0, 0.0, "flash_attention Sq=Sk=96"),
+               (1024, 12, 2, 128, 0, 0.0, "flash_attention Sq=Sk=1024"),
+               (1024, 12, 2, 128, 256, 30.0, None),
+               (1024, 40, 8, 128, 0, 0.0, "flash_attention qwen3"),
+               (4096, 16, 8, 256, 4096, 50.0, "flash_attention gemma2 local"),
+               (2048, 16, 8, 256, 0, 50.0, "flash_attention gemma2 full")]
+
+
 def _flash_cases(res):
+    """flash_attention against its plain version at FLASH_CASES, bf16 and
+    float32; the named cases timed in bf16 beside SDPA (causal) where there
+    is neither window nor softcap.  Returns qwen2's 1024-query case."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as K
     g = torch.Generator(device="cuda").manual_seed(2)
-    B, KH, Hq, hd = 1, 2, 12, 128
     main = None
-    for S, window, softcap in ((96, 0, 0.0), (1024, 0, 0.0), (1024, 256, 30.0)):
+    for S, Hq, KH, hd, window, cap, name in FLASH_CASES:
+        kw = dict(causal=True, window=window, softcap=cap)
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             def mk():
-                return (torch.randn(B, S, Hq, hd, generator=g, device="cuda").to(dt),
-                        torch.randn(B, S, KH, hd, generator=g, device="cuda").to(dt),
-                        torch.randn(B, S, KH, hd, generator=g, device="cuda").to(dt))
+                return tuple(torch.randn(1, S, h, hd, generator=g,
+                                         device="cuda").to(dt)
+                             for h in (Hq, KH, KH))
             q, k, v = mk()
-            kw = dict(causal=True, window=window, softcap=softcap)
             err, share = check_close(
-                f"flash S={S} window={window} softcap={softcap} {dt}",
-                K.flash_attention(q, k, v, **kw),
+                f"flash S={S} {Hq}:{KH} hd={hd} window={window} "
+                f"softcap={cap} {dt}", K.flash_attention(q, k, v, **kw),
                 K.flash_attention_plain(q, k, v, **kw), tol)
-            case = {"shape": [B, S, KH, Hq, hd], "window": window,
-                    "softcap": softcap, "dtype": str(dt), "max_abs_err": err,
+            case = {"shape": [1, S, KH, Hq, hd], "window": window,
+                    "softcap": cap, "dtype": str(dt), "max_abs_err": err,
                     "bf16_share": share}
-            if dt == torch.bfloat16 and window == 0:
-                esize = 2
-                nbytes = 2 * B * S * Hq * hd * esize + 2 * B * S * KH * hd * esize
-                pairs = S * (S + 1) // 2
-                flops = 4 * B * Hq * hd * pairs
+            if dt == torch.bfloat16 and name:
+                nbytes = 2 * S * Hq * hd * 2 + 2 * S * KH * hd * 2
+                pairs = sum(min(i + 1, window or S) for i in range(S))
                 sets = [mk() for _ in range(n_sets(nbytes))]
-                case["ms"] = time_ms(lambda *a: K.flash_attention(*a, **kw), sets)
-                case["plain_ms"] = time_ms(
-                    lambda *a: K.flash_attention_plain(*a, **kw), sets)
-                lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s)
-                            for s in sets]
-                case["library_ms"] = time_ms(
+                library = None if cap or window else (
                     lambda q_, k_, v_: F.scaled_dot_product_attention(
-                        q_, k_, v_, is_causal=True, enable_gqa=True), lib_sets)
-                case["bound_ms"], case["bound_by"] = bound(nbytes, flops)
-                if S == 1024:
+                        q_, k_, v_, is_causal=True, enable_gqa=True),
+                    [tuple(t.transpose(1, 2).contiguous() for t in s)
+                     for s in sets])
+                _timed(res, name, case,
+                       lambda *a: K.flash_attention(*a, **kw),
+                       lambda *a: K.flash_attention_plain(*a, **kw), sets,
+                       nbytes, 4 * Hq * hd * pairs, library)
+                if name == "flash_attention Sq=Sk=1024":
                     main = case
             res["cases"].append({"kernel": "flash_attention", **case})
             log(f"[kernels] flash_attention {case}")
     return main
+
+
+def _paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo=None, cover=None):
+    """q (B,1,Hq,hd), pools (P,ps,KH,hd) with P = B*n + 1 (page 0 scratch),
+    a (B,n) page table of distinct shuffled pages with scratch tails, and
+    q_pos inside each chain (``cover`` pages of row b, all n by default)."""
+    import torch
+    P = B * n + 1
+    q = torch.randn(B, 1, Hq, hd, generator=g, device="cuda").to(dt)
+    kp = torch.randn(P, ps, KH, hd, generator=g, device="cuda").to(dt)
+    vp = torch.randn(P, ps, KH, hd, generator=g, device="cuda").to(dt)
+    perm = torch.randperm(P - 1, generator=g, device="cuda")[:B * n] + 1
+    pt = perm.reshape(B, n).to(torch.int32)
+    cov = cover if cover is not None else [n] * B
+    for b in range(B):
+        pt[b, cov[b]:] = 0
+    lo = [0 if pos_lo is None else min(pos_lo, c * ps - 1) for c in cov]
+    qp = torch.tensor([int(torch.randint(lo[b], cov[b] * ps, (1,),
+                                         generator=g, device="cuda"))
+                       for b in range(B)], dtype=torch.int32, device="cuda")
+    return q, kp, vp, pt, qp
+
+
+# paged decode cases: (B, Hq, KH, ps, n_pages, hd, window, softcap, pos_lo,
+# partial chains, the "[summary]" name of a timed case): the reference's
+# three, a short context, qwen2's serving shape; gemma2's full layer (8192
+# keys, 16:8, hd 256, softcap 50), qwen3, chatglm3 and granite at 2048 keys
+PAGED_CASES = [
+    (2, 8, 2, 16, 8, 64, 0, 0.0, None, True, None),
+    (3, 4, 4, 8, 6, 128, 0, 0.0, None, True, None),
+    (1, 16, 4, 16, 4, 64, 24, 0.0, None, True, None),
+    (8, 12, 2, 16, 12, 128, 0, 0.0, 100, False, None),
+    (8, 12, 2, 16, 128, 128, 0, 0.0, 1024, False,
+     "paged_decode_attention 128 pages"),
+    (4, 16, 8, 16, 512, 256, 0, 50.0, 4096, False,
+     "paged_decode_attention gemma2 full"),
+    (8, 40, 8, 16, 128, 128, 0, 0.0, 1024, False, None),
+    (8, 32, 2, 16, 128, 128, 0, 0.0, 1024, False, None),
+    (8, 32, 8, 16, 128, 128, 0, 0.0, 1024, False, None)]
+
+
+def _paged_cases(res):
+    """paged_decode_attention against its plain version at PAGED_CASES and
+    bitwise against decode_attention on the same context laid out densely;
+    the named cases timed beside the dense kernel on the same context.
+    Returns qwen2's 128-page case."""
+    import torch
+    from repro_torch.kernels import decode_attention as D
+    from repro_torch.kernels import paged_decode_attention as K
+    g = torch.Generator(device="cuda").manual_seed(4)
+    main = None
+    for B, Hq, KH, ps, n, hd, window, cap, pos_lo, partial, label in \
+            PAGED_CASES:
+        kw = dict(window=window, softcap=cap)
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            cover = None
+            if partial:
+                cover = [int(torch.randint(1, n + 1, (1,), generator=g,
+                                           device="cuda")) for _ in range(B)]
+            q, kp, vp, pt, qp = _paged_inputs(g, B, Hq, KH, hd, ps, n, dt,
+                                              pos_lo, cover)
+            out = K.paged_decode_attention(q, kp, vp, pt, qp, **kw)
+            name = (f"paged B={B} {Hq}:{KH} hd={hd} ps={ps} n={n} w={window} "
+                    f"cap={cap} {dt}")
+            err, share = check_close(
+                name, out, K.paged_decode_attention_plain(
+                    q, kp, vp, pt, qp, **kw), tol)
+            # the same context laid out densely: bitwise equal
+            Sk = n * ps
+            kd = kp[pt.long()].reshape(B, Sk, KH, hd)
+            vd = vp[pt.long()].reshape(B, Sk, KH, hd)
+            kpos = torch.arange(Sk, device="cuda", dtype=torch.int32)[None]
+            dense = D.decode_attention(q, kd, vd, kpos.repeat(B, 1), qp, **kw)
+            if not torch.equal(out, dense):
+                raise AssertionError(f"{name}: paged and dense kernels differ "
+                                     f"by {max_err(out, dense):.3g} on the "
+                                     "same context (must be bitwise equal)")
+            case = {"shape": [B, Sk, KH, Hq, hd], "page_size": ps,
+                    "window": window, "softcap": cap, "dtype": str(dt),
+                    "max_abs_err": err, "bf16_share": share,
+                    "bitwise_equal_dense": True}
+            if dt == torch.bfloat16 and label:
+                nv = int((qp + 1).clamp(max=Sk).sum())
+                nbytes = (nv * 2 * KH * hd * 2 + B * n * 4 + B * 4
+                          + 2 * B * Hq * hd * 2)
+                sets = [_paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo)
+                        for _ in range(n_sets(nbytes))]
+                sets = [(q_, kp_, vp_, pt_, qp) for q_, kp_, vp_, pt_, _ in sets]
+                # no single PyTorch call attends through a page table
+                _timed(res, label, case,
+                       lambda *a: K.paged_decode_attention(*a, **kw),
+                       lambda *a: K.paged_decode_attention_plain(*a, **kw),
+                       sets, nbytes, 4 * nv * Hq * hd)
+                dense_sets = [(q_, kp_[pt_.long()].reshape(B, Sk, KH, hd),
+                               vp_[pt_.long()].reshape(B, Sk, KH, hd),
+                               kpos.repeat(B, 1), qp_)
+                              for q_, kp_, vp_, pt_, qp_ in sets]
+                case["dense_kernel_ms"] = time_ms(
+                    lambda *a: D.decode_attention(*a, **kw), dense_sets)
+                if label == "paged_decode_attention 128 pages":
+                    main = case
+            res["cases"].append({"kernel": "paged_decode_attention", **case})
+            log(f"[kernels] paged_decode_attention {case}")
+    return main
+
+
+class ChunkCase(NamedTuple):
+    """One chunk_attention case: a chunk of S queries at ``start``, the
+    first ``length`` real, Hq:KH heads of hd.  The past is a chain of
+    ``ps``-slot pages in a table of ``n_pages`` ids (0: just the chain up
+    to start + S) or, with ``buf_len`` > 0, the stream's dense row of
+    buf_len slots (a wrapped ring once start > buf_len).  ``bitwise``
+    cases are also checked bit for bit across launches and against the
+    same context in another page chain; ``summary`` names a timed case."""
+    S: int
+    start: int
+    length: int
+    Hq: int
+    KH: int
+    hd: int
+    ps: int = 16
+    n_pages: int = 0
+    window: int = 0
+    softcap: float = 0.0
+    buf_len: int = 0
+    bitwise: bool = False
+    summary: str = ""
+
+
+CHUNK_CASES = [
+    # qwen2's paged burst (timed; its key spans too), a full page-aligned
+    # chunk, start inside a page with a partial last page and pads, no
+    # past, 16:1 over pages of 8 (rows over many tiles), MHA and 12:2 at
+    # hd 256, hd 64
+    ChunkCase(256, 512, 200, 12, 2, 128, 16, 64, bitwise=True,
+              summary="chunk_attention S=256 at 512"),
+    ChunkCase(256, 512, 256, 12, 2, 128, 16, 48),
+    ChunkCase(96, 37, 90, 12, 2, 128, 16, 10, bitwise=True),
+    ChunkCase(64, 0, 64, 8, 8, 64, 16, 4),
+    ChunkCase(130, 300, 130, 16, 1, 128, 8, 64),
+    ChunkCase(48, 200, 40, 4, 4, 256, 16, 20),
+    ChunkCase(40, 1000, 33, 12, 2, 256, 16, 70),
+    ChunkCase(200, 77, 150, 8, 2, 64, 16, 24),
+    # gemma2 (16:8, hd 256, softcap 50): a chunk into the local layers'
+    # 4096-slot ring, wrapped and not, and over a full layer's chain
+    ChunkCase(512, 4600, 500, 16, 8, 256, window=4096, softcap=50.0,
+              buf_len=4096, bitwise=True,
+              summary="chunk_attention gemma2 local, wrapped ring"),
+    ChunkCase(512, 1000, 500, 16, 8, 256, window=4096, softcap=50.0,
+              buf_len=4096, bitwise=True),
+    ChunkCase(512, 4600, 512, 16, 8, 256, softcap=50.0,
+              summary="chunk_attention gemma2 full, paged"),
+    # the gemma2 path's own chunks (max_len 16384, 4096-query buckets): the
+    # first at 0 and the second at 4096, on the ring and on a full layer's
+    # dense row
+    ChunkCase(4096, 0, 4096, 16, 8, 256, window=4096, softcap=50.0,
+              buf_len=4096, summary="chunk_attention gemma2 ring, 4096 at 0"),
+    ChunkCase(4096, 4096, 3904, 16, 8, 256, window=4096, softcap=50.0,
+              buf_len=4096,
+              summary="chunk_attention gemma2 ring, 4096 at 4096"),
+    ChunkCase(4096, 0, 4096, 16, 8, 256, softcap=50.0, buf_len=16384,
+              summary="chunk_attention gemma2 full row, 4096 at 0"),
+    ChunkCase(4096, 4096, 3904, 16, 8, 256, softcap=50.0, buf_len=16384,
+              summary="chunk_attention gemma2 full row, 4096 at 4096"),
+    # qwen3 (40:8, G 5) over a chain and a dense row, chatglm3 (32:2),
+    # a window of 300 over a wrapped 512-slot ring and over a chain
+    ChunkCase(256, 512, 200, 40, 8, 128,
+              summary="chunk_attention qwen3, paged"),
+    ChunkCase(256, 512, 256, 40, 8, 128, buf_len=2048),
+    ChunkCase(128, 300, 128, 32, 2, 128),
+    ChunkCase(200, 900, 150, 8, 2, 64, window=300, buf_len=512),
+    ChunkCase(200, 900, 150, 8, 2, 64, window=300, softcap=30.0)]
+# (q dtype, int8 past, tolerance): the bf16 past, kv_quant's int8 past under
+# bf16 and float32 models, the float32 past
+CHUNK_ROUTES = (("bfloat16", False, 2e-2), ("bfloat16", True, 2e-2),
+                ("float32", False, 1e-4), ("float32", True, 1e-4))
+
+
+def _chunk_inputs(g, c, dt, i8, past=None, perm_seed=None):
+    """Case ``c``'s chunk (q, raw k/v in ``dt``) and past, in ``dt`` or
+    int8 with float32 scales (``i8``): a dense row (buf_len, KH, hd), or
+    pools (P, ps, KH, hd) and a (1, n_pages) table of distinct shuffled
+    page ids (from ``perm_seed`` when given) for the chain up to start + S,
+    scratch page 0 past it.  ``past``, the (K, V, K scale, V scale) of
+    positions 0 .. start - 1 as ``_past_by_position`` gives them, goes into
+    the chain, whose other pages hold other values and whose positions >=
+    start (the rest of the last past page and the chunk's pages, which the
+    kernel must not read) hold NaN: in K and V, or in the scales of an int8
+    pool.  Returns (args, kw) of chunk_attention."""
+    import torch
+    from repro_torch.models.kvcache import quantize_kv
+    S, KH, hd, ps = c.S, c.KH, c.hd, c.ps
+    q = torch.randn(1, S, c.Hq, hd, generator=g, device="cuda").to(dt)
+    k = torch.randn(1, S, KH, hd, generator=g, device="cuda").to(dt)
+    v = torch.randn(1, S, KH, hd, generator=g, device="cuda").to(dt)
+    used = -(-(c.start + S) // ps)
+    n = c.n_pages or used
+    lead = (c.buf_len,) if c.buf_len else (n + used + 1, ps)
+    kf = torch.randn(lead + (KH, hd), generator=g, device="cuda")
+    vf = torch.randn(lead + (KH, hd), generator=g, device="cuda")
+    if i8:
+        (kp, ks), (vp, vs) = quantize_kv(kf), quantize_kv(vf)
+    else:
+        kp, vp, ks, vs = kf.to(dt), vf.to(dt), None, None
+    kw = {"k_scale": ks, "v_scale": vs}
+    if c.buf_len:
+        return (q, k, v, kp, vp, None, c.start, c.length), kw
+    pg = g if perm_seed is None else torch.Generator(
+        device="cuda").manual_seed(perm_seed)
+    pt = torch.zeros(1, n, dtype=torch.int32, device="cuda")
+    pt[0, :used] = (torch.randperm(lead[0] - 1, generator=pg,
+                                   device="cuda")[:used] + 1).to(torch.int32)
+    if past is not None:          # the same context, other pages
+        ids = pt[0, :used].long()
+        for dst, src in zip((kp, vp, ks, vs), past):
+            if dst is not None:
+                chain = dst[ids].reshape((used * ps,) + dst.shape[2:])
+                chain[:c.start] = src
+                if chain.is_floating_point():
+                    chain[c.start:] = float("nan")
+                dst[ids] = chain.reshape(dst[ids].shape)
+    return (q, k, v, kp, vp, pt, c.start, c.length), kw
+
+
+def _past_by_position(c, args, kw):
+    """The past K, V and their scales (None for a past in q's dtype) of
+    positions 0 .. start - 1, read where case ``c`` keeps them: position p
+    at slot p % buf_len of a dense row (those the ring no longer holds
+    read as what their slot holds now), or in the page chain."""
+    import torch
+    _, _, _, kp, vp, pt, start, _ = args
+    pos = torch.arange(start, device="cuda")
+    if pt is None:
+        at = (pos % c.buf_len,)
+    else:
+        at = (pt[0, pos // c.ps].long(), pos % c.ps)
+    return [None if t is None else t[at]
+            for t in (kp, vp, kw["k_scale"], kw["v_scale"])]
+
+
+def _chunk_context(c, args, kw):
+    """[past | chunk] K and V in position order (past in q's dtype) and
+    their positions: -1 for a chunk pad and for a position the ring no
+    longer holds."""
+    import torch
+    q, k, v = args[:3]
+    pk, pv, _, _ = _past_by_position(c, args, kw)
+    j = torch.arange(c.start + c.S, device="cuda", dtype=torch.int32)
+    held = j >= c.start - c.buf_len if c.buf_len else j >= 0
+    kpos = torch.where(held & (j < c.start + c.length), j, -1)
+    return (torch.cat([pk, k[0]])[None], torch.cat([pv, v[0]])[None],
+            kpos.to(torch.int32))
+
+
+def _chunk_work(c, past_key_bytes):
+    """Bytes and FLOP of one bf16 launch of case ``c`` at the keys its rows
+    see (causal, pads masked, within the window, from the oldest position
+    a ring still holds): q read and the output written, each past key some
+    row sees and each real chunk key read once (``past_key_bytes`` per
+    past key and kv head, 4 hd for a raw bf16 chunk key), the page ids of
+    the chain; 4 hd FLOP per head and visible (query, key) pair."""
+    S, start, length, window = c.S, c.start, c.length, c.window
+    oldest = max(0, start - c.buf_len) if c.buf_len else 0
+    pairs, first = 0, start
+    for i in range(S):
+        hi = start + min(i, length - 1)
+        lo = max(oldest, start + i - window + 1) if window else oldest
+        pairs += max(0, hi - lo + 1)
+        first = min(first, lo)
+    n_ids = 0 if c.buf_len else -(-start // c.ps)
+    nbytes = (2 * S * c.Hq * c.hd * 2 + (start - first) * c.KH * past_key_bytes
+              + length * c.KH * 4 * c.hd + n_ids * 4)
+    return nbytes, 4 * c.hd * c.Hq * pairs
+
+
+def _chunk_cases(res):
+    """chunk_attention against its plain version at CHUNK_CASES on every
+    route (CHUNK_ROUTES), the float32 routes also against the port's
+    attention oracle on [past | chunk]; the ``bitwise`` cases bit for bit
+    across repeated launches and against the same context in another page
+    chain (a dense row's context laid out as a chain); the named cases
+    timed (bf16 and int8 pasts) beside their plain version and SDPA with
+    the same mask where there is no softcap, qwen2's burst shape also at
+    other key spans.  Returns qwen2's burst case, its int8 route under
+    ``q8_route``."""
+    import torch
+    from repro_torch.kernels import chunk_attention as C
+    from repro_torch.models.attention import attention
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    main = q8_main = None
+    bitwise = []
+    for ci, c in enumerate(CHUNK_CASES):
+        ckw = dict(window=c.window, softcap=c.softcap)
+        for dname, i8, tol in CHUNK_ROUTES:
+            dt = dts[dname]
+            args, kw = _chunk_inputs(g, c, dt, i8)
+            name = (f"chunk S={c.S} start={c.start} len={c.length} "
+                    f"{c.Hq}:{c.KH} hd={c.hd} "
+                    + (f"row {c.buf_len}" if c.buf_len else f"ps={c.ps}")
+                    + f" window={c.window} softcap={c.softcap} {dname}"
+                    + (" int8 past" if i8 else ""))
+            out = C.chunk_attention(*args, **ckw, **kw)
+            plain = C.chunk_attention_plain(*args, **ckw, **kw)
+            err, share = check_close(name, out, plain, tol)
+            if dt == torch.float32 and not i8:
+                kc, vc, kpos = _chunk_context(c, args, kw)
+                qpos = c.start + torch.arange(c.S, device="cuda",
+                                              dtype=torch.int32)
+                want = attention(args[0], kc, vc, qpos[None], kpos[None],
+                                 **ckw)
+                if max_err(out, want) > tol:
+                    raise AssertionError(f"{name}: differs from the port's "
+                                         "attention oracle by "
+                                         f"{max_err(out, want):.3g}")
+            if c.bitwise:
+                # a second launch, and the same context in a page chain
+                # (other page ids, other values on every other page)
+                again = C.chunk_attention(*args, **ckw, **kw)
+                args2, kw2 = _chunk_inputs(
+                    g, c._replace(buf_len=0), dt, i8,
+                    past=_past_by_position(c, args, kw), perm_seed=100 + ci)
+                other = C.chunk_attention(*(args[:3] + args2[3:]), **ckw,
+                                          **kw2)
+                for what, b in (("repeated", again), ("another chain", other)):
+                    if not torch.equal(out, b):
+                        raise AssertionError(f"{name}: {what} differs by "
+                                             f"{max_err(out, b):.3g} (must be "
+                                             "bitwise equal)")
+                    bitwise.append(f"{name} {what}")
+            case = {"shape": [c.S, c.start, c.length, c.KH, c.Hq, c.hd],
+                    "page_size": 0 if c.buf_len else c.ps,
+                    "n_pages": 0 if c.buf_len else args[5].shape[1],
+                    "buf_len": c.buf_len, "window": c.window,
+                    "softcap": c.softcap, "dtype": dname, "int8_past": i8,
+                    "max_abs_err": err, "bf16_share": share}
+            if dt == torch.bfloat16 and c.summary:
+                _time_chunk(res, g, c, i8, case)
+                if ci == 0:
+                    if i8:
+                        q8_main = case
+                    else:
+                        main = case
+            res["cases"].append({"kernel": "chunk_attention", **case})
+            log(f"[kernels] chunk_attention {case}")
+    res["chunk_bitwise"] = bitwise
+    log(f"[kernels] chunk bitwise: {len(bitwise)} checks passed")
+    main["q8_route"] = q8_main
+    return main
+
+
+def _time_chunk(res, g, c, i8, case):
+    """Case ``c`` timed into ``case`` with a bf16 q: the kernel, its plain
+    version, SDPA with the same mask on [past | chunk] in position order
+    (a bf16 past without softcap), the float32 scratch the launch
+    allocates, and for the first case the kernel at other key spans
+    (``C.SPAN`` set for the call)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import chunk_attention as C
+    ckw = dict(window=c.window, softcap=c.softcap)
+    nbytes, flops = _chunk_work(c, 2 * c.hd + 8 if i8 else 4 * c.hd)
+    made = [_chunk_inputs(g, c, torch.bfloat16, i8)
+            for _ in range(n_sets(nbytes))]
+    sets = [a + (kw["k_scale"], kw["v_scale"]) for a, kw in made]
+
+    def kern(*a):
+        return C.chunk_attention(*a[:8], **ckw, k_scale=a[8], v_scale=a[9])
+
+    def plain(*a):
+        return C.chunk_attention_plain(*a[:8], **ckw, k_scale=a[8],
+                                       v_scale=a[9])
+    library = None
+    if not i8 and not c.softcap:
+        kpos = _chunk_context(c, *made[0])[2]
+        qpos = c.start + torch.arange(c.S, device="cuda")
+        valid = (kpos[None] >= 0) & (kpos[None] <= qpos[:, None])  # (S, Sk)
+        if c.window:
+            valid &= kpos[None] > qpos[:, None] - c.window
+        library = (lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=valid, enable_gqa=True),
+            [tuple(t.transpose(1, 2).contiguous()
+                   for t in (a[0],) + _chunk_context(c, a, kw)[:2])
+             for a, kw in made])
+    name = c.summary + (", int8 past" if i8 else "")
+    _timed(res, name, case, kern, plain, sets, nbytes, flops, library)
+    case["scratch_bytes"] = 4 * C.split_geometry(
+        c.start, c.length, c.S, c.KH, c.Hq // c.KH, c.hd)[1]
+    if c is CHUNK_CASES[0] and not i8:
+        case["span"], case["span_ms"] = C.SPAN, {}
+        try:
+            for sp in (128, 256, 512, 1024):   # 1024: one span at the burst
+                C.SPAN = sp
+                case["span_ms"][sp] = time_ms(kern, sets)
+        finally:
+            C.SPAN = case["span"]
 
 
 def _geometry_cases(res):
@@ -473,296 +987,6 @@ def _geometry_cases(res):
                                  "dtype": str(dt), "max_abs_err": err,
                                  "bf16_share": share})
     log("[kernels] geometry checks passed")
-
-
-def _paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo=None, cover=None):
-    """q (B,1,Hq,hd), pools (P,ps,KH,hd) with P = B*n + 1 (page 0 scratch),
-    a (B,n) page table of distinct shuffled pages with scratch tails, and
-    q_pos inside each chain (``cover`` pages of row b, all n by default)."""
-    import torch
-    P = B * n + 1
-    q = torch.randn(B, 1, Hq, hd, generator=g, device="cuda").to(dt)
-    kp = torch.randn(P, ps, KH, hd, generator=g, device="cuda").to(dt)
-    vp = torch.randn(P, ps, KH, hd, generator=g, device="cuda").to(dt)
-    perm = torch.randperm(P - 1, generator=g, device="cuda")[:B * n] + 1
-    pt = perm.reshape(B, n).to(torch.int32)
-    cov = cover if cover is not None else [n] * B
-    for b in range(B):
-        pt[b, cov[b]:] = 0
-    lo = [0 if pos_lo is None else min(pos_lo, c * ps - 1) for c in cov]
-    qp = torch.tensor([int(torch.randint(lo[b], cov[b] * ps, (1,),
-                                         generator=g, device="cuda"))
-                       for b in range(B)], dtype=torch.int32, device="cuda")
-    return q, kp, vp, pt, qp
-
-
-# paged decode cases: (B, Hq, KH, ps, n_pages, hd, window, pos_lo, partial
-# chains): the reference's three, a short context, the serving shape
-PAGED_CASES = [(2, 8, 2, 16, 8, 64, 0, None, True),
-               (3, 4, 4, 8, 6, 128, 0, None, True),
-               (1, 16, 4, 16, 4, 64, 24, None, True),
-               (8, 12, 2, 16, 12, 128, 0, 100, False),
-               (8, 12, 2, 16, 128, 128, 0, 1024, False)]
-
-
-def _paged_cases(res):
-    """paged_decode_attention against its plain version (the reference's
-    cases and the serving shape) and bitwise against decode_attention on the
-    same context laid out densely; the serving shape timed beside the dense
-    kernel on the same context."""
-    import torch
-    from repro_torch.kernels import decode_attention as D
-    from repro_torch.kernels import paged_decode_attention as K
-    g = torch.Generator(device="cuda").manual_seed(4)
-    main = None
-    for B, Hq, KH, ps, n, hd, window, pos_lo, partial in PAGED_CASES:
-        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-            cover = None
-            if partial:
-                cover = [int(torch.randint(1, n + 1, (1,), generator=g,
-                                           device="cuda")) for _ in range(B)]
-            q, kp, vp, pt, qp = _paged_inputs(g, B, Hq, KH, hd, ps, n, dt,
-                                              pos_lo, cover)
-            out = K.paged_decode_attention(q, kp, vp, pt, qp, window=window)
-            name = f"paged B={B} {Hq}:{KH} hd={hd} ps={ps} n={n} w={window} {dt}"
-            err, share = check_close(
-                name, out, K.paged_decode_attention_plain(
-                    q, kp, vp, pt, qp, window=window), tol)
-            # the same context laid out densely: bitwise equal
-            Sk = n * ps
-            kd = kp[pt.long()].reshape(B, Sk, KH, hd)
-            vd = vp[pt.long()].reshape(B, Sk, KH, hd)
-            kpos = torch.arange(Sk, device="cuda", dtype=torch.int32)[None]
-            dense = D.decode_attention(q, kd, vd, kpos.repeat(B, 1), qp,
-                                       window=window)
-            if not torch.equal(out, dense):
-                raise AssertionError(f"{name}: paged and dense kernels differ "
-                                     f"by {max_err(out, dense):.3g} on the "
-                                     "same context (must be bitwise equal)")
-            case = {"shape": [B, Sk, KH, Hq, hd], "page_size": ps,
-                    "window": window, "dtype": str(dt), "max_abs_err": err,
-                    "bf16_share": share, "bitwise_equal_dense": True}
-            if dt == torch.bfloat16 and n == 128:
-                nv = int((qp + 1).clamp(max=Sk).sum())
-                nbytes = (nv * 2 * KH * hd * 2 + B * n * 4 + B * 4
-                          + 2 * B * Hq * hd * 2)
-                flops = 4 * nv * Hq * hd
-                sets = [_paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo)
-                        for _ in range(n_sets(nbytes))]
-                sets = [(q_, kp_, vp_, pt_, qp) for q_, kp_, vp_, pt_, _ in sets]
-                case["ms"] = time_ms(K.paged_decode_attention, sets)
-                case["plain_ms"] = time_ms(K.paged_decode_attention_plain, sets)
-                dense_sets = [(q_, kp_[pt_.long()].reshape(B, Sk, KH, hd),
-                               vp_[pt_.long()].reshape(B, Sk, KH, hd),
-                               kpos.repeat(B, 1), qp_)
-                              for q_, kp_, vp_, pt_, qp_ in sets]
-                case["dense_kernel_ms"] = time_ms(D.decode_attention,
-                                                  dense_sets)
-                # no single PyTorch call attends through a page table
-                case["library_ms"] = None
-                case["bound_ms"], case["bound_by"] = bound(nbytes, flops)
-                main = case
-            res["cases"].append({"kernel": "paged_decode_attention", **case})
-            log(f"[kernels] paged_decode_attention {case}")
-    return main
-
-
-def _chunk_inputs(g, S, start, length, Hq, KH, hd, ps, n_pages, dt, i8,
-                  perm_seed=None, pool=None):
-    """One stream's chunk (q, raw k/v in ``dt``), pools (P, ps, KH, hd) in
-    ``dt`` or int8 with float32 scales (``i8``), and its (1, n_pages) page
-    table: distinct shuffled pages for the chain up to start + S, scratch
-    page 0 past it.  ``pool``, given as (kp, vp, ks, vs, page_table), is
-    copied into a new pool whose other pages hold other values, under
-    another shuffle of the page ids (``perm_seed``): the same context in
-    another chain.  There, the chain's positions >= start (the rest of the
-    last past page and the chunk's pages, which the kernel must not read)
-    hold NaN: in K and V, or in the scales of an int8 pool."""
-    import torch
-    from repro_torch.models.kvcache import quantize_kv
-    used = -(-(start + S) // ps)
-    P = n_pages + used + 1
-    q = torch.randn(1, S, Hq, hd, generator=g, device="cuda").to(dt)
-    k = torch.randn(1, S, KH, hd, generator=g, device="cuda").to(dt)
-    v = torch.randn(1, S, KH, hd, generator=g, device="cuda").to(dt)
-    kf = torch.randn(P, ps, KH, hd, generator=g, device="cuda")
-    vf = torch.randn(P, ps, KH, hd, generator=g, device="cuda")
-    if i8:
-        (kp, ks), (vp, vs) = quantize_kv(kf), quantize_kv(vf)
-    else:
-        kp, vp, ks, vs = kf.to(dt), vf.to(dt), None, None
-    pg = g if perm_seed is None else torch.Generator(
-        device="cuda").manual_seed(perm_seed)
-    pt = torch.zeros(1, n_pages, dtype=torch.int32, device="cuda")
-    pt[0, :used] = (torch.randperm(P - 1, generator=pg, device="cuda")[:used]
-                    + 1).to(torch.int32)
-    if pool is not None:          # the same context, other pages
-        old_pt = pool[4]
-        new = pt[0, :used].long()
-        future = (torch.arange(used * ps, device="cuda") >= start).reshape(
-            used, ps)
-        for dst, src in zip((kp, vp, ks, vs), pool[:4]):
-            if dst is not None:
-                pages = src[old_pt[0, :used].long()]
-                if pages.is_floating_point():
-                    pages[future] = float("nan")
-                dst[new] = pages
-    return (q, k, v, kp, vp, pt, start, length), {"k_scale": ks,
-                                                  "v_scale": vs}
-
-
-# (S, start, length, Hq, KH, hd, ps, n_pages): the paged burst's shape
-# first (timed), a full page-aligned chunk, start inside a page with a
-# partial last page and pads, no past, 16:1 over pages of 8 (rows over many
-# tiles), MHA and 12:2 at hd 256, hd 64
-CHUNK_CASES = [(256, 512, 200, 12, 2, 128, 16, 64),
-               (256, 512, 256, 12, 2, 128, 16, 48),
-               (96, 37, 90, 12, 2, 128, 16, 10),
-               (64, 0, 64, 8, 8, 64, 16, 4),
-               (130, 300, 130, 16, 1, 128, 8, 64),
-               (48, 200, 40, 4, 4, 256, 16, 20),
-               (40, 1000, 33, 12, 2, 256, 16, 70),
-               (200, 77, 150, 8, 2, 64, 16, 24)]
-# (q dtype, int8 pool, tolerance): the bf16 pool, kv_quant's int8 pool under
-# bf16 and float32 models, the float32 pool
-CHUNK_ROUTES = (("bfloat16", False, 2e-2), ("bfloat16", True, 2e-2),
-                ("float32", False, 1e-4), ("float32", True, 1e-4))
-
-
-def _chunk_work(S, start, length, Hq, KH, hd, ps, past_key_bytes):
-    """Bytes and FLOP of one bf16 chunk launch: q read and the output
-    written, each visible key's K and V read once (``past_key_bytes`` per
-    past key and kv head, 4 hd for a raw bf16 chunk key), the page ids of
-    the past; 4 hd FLOP per head and visible (query, key) pair."""
-    pairs = sum(start + min(i, length - 1) + 1 for i in range(S))
-    nbytes = (2 * S * Hq * hd * 2 + start * KH * past_key_bytes
-              + length * KH * 4 * hd + -(-start // ps) * 4)
-    return nbytes, 4 * hd * Hq * pairs
-
-
-def _chunk_cases(res):
-    """chunk_attention against its plain version on every route and head
-    dim (CHUNK_CASES x CHUNK_ROUTES), the float32 routes also against the
-    port's attention oracle on [past | chunk]; bitwise across repeated
-    launches and across two page chains holding the same context; the
-    burst's shape timed (bf16 and int8 pools) beside its plain version,
-    SDPA with the same mask, and the kernel at other key spans."""
-    import torch
-    from repro_torch.kernels import chunk_attention as C
-    from repro_torch.models.attention import attention
-    g = torch.Generator(device="cuda").manual_seed(7)
-    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-    main = q8_main = None
-    bitwise = []
-    for ci, (S, start, length, Hq, KH, hd, ps, n) in enumerate(CHUNK_CASES):
-        for dname, i8, tol in CHUNK_ROUTES:
-            dt = dts[dname]
-            args, kw = _chunk_inputs(g, S, start, length, Hq, KH, hd, ps, n,
-                                     dt, i8)
-            name = (f"chunk S={S} start={start} len={length} {Hq}:{KH} "
-                    f"hd={hd} ps={ps} {dname}{' int8 pool' if i8 else ''}")
-            out = C.chunk_attention(*args, **kw)
-            plain = C.chunk_attention_plain(*args, **kw)
-            err, share = check_close(name, out, plain, tol)
-            if dt == torch.float32 and not i8:
-                q, k, v, kp, vp, pt, _, _ = args
-                Sk = n * ps
-                past = [x[pt.long()].reshape(1, Sk, KH, hd) for x in (kp, vp)]
-                j = torch.arange(Sk, device="cuda", dtype=torch.int32)[None]
-                qpos = start + torch.arange(S, device="cuda",
-                                            dtype=torch.int32)[None]
-                cur = torch.where(torch.arange(S, device="cuda")[None]
-                                  < length, qpos, -1)
-                want = attention(q, torch.cat([past[0], k], 1),
-                                 torch.cat([past[1], v], 1), qpos,
-                                 torch.cat([torch.where(j < start, j, -1),
-                                            cur], 1).to(torch.int32))
-                if max_err(out, want) > tol:
-                    raise AssertionError(f"{name}: differs from the port's "
-                                         "attention oracle by "
-                                         f"{max_err(out, want):.3g}")
-            if ci in (0, 2):
-                # bitwise: a second launch, and the same context in another
-                # chain (other page ids, other values on every other page)
-                again = C.chunk_attention(*args, **kw)
-                q, k, v, kp, vp, pt, _, _ = args
-                args2, kw2 = _chunk_inputs(
-                    g, S, start, length, Hq, KH, hd, ps, n, dt, i8,
-                    perm_seed=100 + ci,
-                    pool=(kp, vp, kw["k_scale"], kw["v_scale"], pt))
-                args2 = (q, k, v) + args2[3:]
-                other = C.chunk_attention(*args2, **kw2)
-                for what, b in (("repeated", again), ("another chain", other)):
-                    if not torch.equal(out, b):
-                        raise AssertionError(f"{name}: {what} differs by "
-                                             f"{max_err(out, b):.3g} (must be "
-                                             "bitwise equal)")
-                    bitwise.append(f"{name} {what}")
-            case = {"shape": [S, start, length, KH, Hq, hd, ps, n],
-                    "dtype": dname, "int8_pool": i8, "max_abs_err": err,
-                    "bf16_share": share}
-            if ci == 0 and dt == torch.bfloat16:
-                case.update(_time_chunk(g, S, start, length, Hq, KH, hd, ps,
-                                        n, i8))
-                if i8:
-                    q8_main = case
-                else:
-                    main = case
-            res["cases"].append({"kernel": "chunk_attention", **case})
-            log(f"[kernels] chunk_attention {case}")
-    res["chunk_bitwise"] = bitwise
-    log(f"[kernels] chunk bitwise: {len(bitwise)} checks passed")
-    main["q8_route"] = q8_main
-    return main
-
-
-def _time_chunk(g, S, start, length, Hq, KH, hd, ps, n, i8):
-    """The kernel at the paged burst's shape, its plain version, SDPA with
-    the same mask on [gathered past | chunk] (bf16 pool), and the kernel
-    at other key spans (``C.SPAN`` set for the call)."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import chunk_attention as C
-    nbytes, flops = _chunk_work(S, start, length, Hq, KH, hd, ps,
-                                2 * hd + 8 if i8 else 4 * hd)
-    made = [_chunk_inputs(g, S, start, length, Hq, KH, hd, ps, n,
-                          torch.bfloat16, i8) for _ in range(n_sets(nbytes))]
-    sets = [a + (kw["k_scale"], kw["v_scale"]) for a, kw in made]
-
-    def kern(*a):
-        return C.chunk_attention(*a[:8], k_scale=a[8], v_scale=a[9])
-
-    def plain(*a):
-        return C.chunk_attention_plain(*a[:8], k_scale=a[8], v_scale=a[9])
-    out = {"ms": time_ms(kern, sets), "plain_ms": time_ms(plain, sets)}
-    out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
-    if i8:
-        out["library_ms"] = None    # no PyTorch call reads int8 K/V
-        return out
-    out["span"], out["span_ms"] = C.SPAN, {}
-    try:
-        for sp in (128, 256, 512, 1024):   # 1024: one span at the burst
-            C.SPAN = sp
-            out["span_ms"][sp] = time_ms(kern, sets)
-    finally:
-        C.SPAN = out["span"]
-    j = torch.arange(n * ps, device="cuda")
-    qpos = start + torch.arange(S, device="cuda")
-    kpos = torch.cat([torch.where(j < start, j, -1),
-                      torch.where(torch.arange(S, device="cuda") < length,
-                                  qpos, -1)])
-    valid = (kpos[None] >= 0) & (kpos[None] <= qpos[:, None])   # (S, Sk)
-    lib_sets = []
-    for q, k, v, kp, vp, pt, *_ in sets:
-        full = [torch.cat([x[pt.long()].reshape(1, n * ps, KH, hd), c], 1)
-                for x, c in ((kp, k), (vp, v))]
-        lib_sets.append((q.transpose(1, 2).contiguous(),
-                         full[0].transpose(1, 2).contiguous(),
-                         full[1].transpose(1, 2).contiguous()))
-    out["library_ms"] = time_ms(
-        lambda q_, k_, v_: F.scaled_dot_product_attention(
-            q_, k_, v_, attn_mask=valid, enable_gqa=True), lib_sets)
-    return out
 
 
 def _decode_bitwise(res):
@@ -839,13 +1063,36 @@ def _q8_inputs(g, B, Sk, KH, Hq, hd, dt, buf, pos=None):
             k_pos.to(torch.int32), q_pos)
 
 
+# int8 decode cases: (B, Hq, KH, Sk, hd, window, softcap, pos, the
+# "[summary]" name of a timed case): the reference's two cases first, then
+# the geometry sweep, qwen2's serving shape (pos None: holes), gemma2's
+# wrapped 4096-slot local ring (window 4096) and full layer (softcap 50),
+# qwen3, chatglm3 and granite
+Q8_CASES = [
+    (2, 8, 2, 512, 64, 0, 0.0, 300, None),
+    (1, 16, 8, 256, 128, 128, 0.0, 700, None),
+    (1, 16, 8, 256, 128, 0, 0.0, 255, None),
+    (2, 4, 4, 512, 64, 128, 0.0, 700, None),
+    (3, 8, 1, 256, 128, 0, 0.0, 60, None),
+    (1, 16, 16, 256, 256, 0, 0.0, 100, None),
+    (2, 16, 1, 300, 256, 0, 0.0, 299, None),
+    (8, 12, 2, 192, 128, 0, 0.0, None, None),
+    (8, 12, 2, 2048, 128, 700, 0.0, None, None),
+    (8, 12, 2, 2048, 128, 0, 0.0, None, "decode_attention_q8 B=8 Sk=2048"),
+    (4, 16, 8, 4096, 256, 4096, 50.0, 9000,
+     "decode_attention_q8 gemma2 local ring"),
+    (4, 16, 8, 8192, 256, 0, 50.0, None, None),
+    (8, 40, 8, 2048, 128, 0, 0.0, None, None),
+    (8, 32, 2, 2048, 128, 0, 0.0, None, None),
+    (8, 32, 8, 2048, 128, 0, 0.0, None, None)]
+
+
 def _q8_cases(res):
-    """decode_attention_q8 against its plain version (the reference's two
-    cases, every head dim and group size with windows and ring wraps, the
-    serving shape with holes, timed beside the bf16 kernel on the same
-    context dequantized), and the paged int8 route against its plain
-    version and, bitwise, against the dense int8 kernel on the same
-    context.  Returns the main cases (dense, paged)."""
+    """decode_attention_q8 against its plain version at Q8_CASES (the named
+    cases timed beside the bf16 kernel on the same context, dequantized),
+    and the paged int8 route at PAGED_CASES against its plain version and,
+    bitwise, against the dense int8 kernel on the same context.  Returns
+    the main cases (dense, paged)."""
     import torch
     from repro_torch.kernels import decode_attention as D
     from repro_torch.kernels import decode_attention_q8 as Q
@@ -853,48 +1100,45 @@ def _q8_cases(res):
     from repro_torch.models.kvcache import dequantize_kv, quantize_kv
     g = torch.Generator(device="cuda").manual_seed(5)
     main = None
-    # (B, Hq, KH, Sk, hd, window, pos): the reference's two cases first,
-    # then the geometry sweep, then the serving shape (pos None: holes)
-    cases = [(2, 8, 2, 512, 64, 0, 300), (1, 16, 8, 256, 128, 128, 700),
-             (1, 16, 8, 256, 128, 0, 255), (2, 4, 4, 512, 64, 128, 700),
-             (3, 8, 1, 256, 128, 0, 60), (1, 16, 16, 256, 256, 0, 100),
-             (2, 16, 1, 300, 256, 0, 299), (8, 12, 2, 192, 128, 0, None),
-             (8, 12, 2, 2048, 128, 700, None), (8, 12, 2, 2048, 128, 0, None)]
-    for B, Hq, KH, Sk, hd, window, pos in cases:
+    for B, Hq, KH, Sk, hd, window, cap, pos, label in Q8_CASES:
+        kw = dict(window=window, softcap=cap)
+        buf = max(Sk, 2048) if pos is None else Sk
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-            args = _q8_inputs(g, B, Sk, KH, Hq, hd, dt,
-                              2048 if pos is None else Sk, pos)
+            args = _q8_inputs(g, B, Sk, KH, Hq, hd, dt, buf, pos)
             err, share = check_close(
-                f"decode_q8 {(B, Hq, KH, Sk, hd, window, pos)} {dt}",
-                Q.decode_attention_q8(*args, window=window),
-                Q.decode_attention_q8_plain(*args, window=window), tol)
+                f"decode_q8 {(B, Hq, KH, Sk, hd, window, cap, pos)} {dt}",
+                Q.decode_attention_q8(*args, **kw),
+                Q.decode_attention_q8_plain(*args, **kw), tol)
             case = {"shape": [B, Sk, KH, Hq, hd], "window": window,
-                    "pos": pos, "dtype": str(dt), "max_abs_err": err,
-                    "bf16_share": share}
-            if dt == torch.bfloat16 and Sk == 2048 and window == 0:
+                    "softcap": cap, "pos": pos, "dtype": str(dt),
+                    "max_abs_err": err, "bf16_share": share}
+            if dt == torch.bfloat16 and label:
                 _, _, _, _, _, kp, qp = args
                 # int8 K and V rows plus two float32 scales per key, kv head
-                nbytes, flops = _decode_work(kp, qp, 0, Hq, KH, hd, 2, B,
+                nbytes, flops = _decode_work(kp, qp, window, Hq, KH, hd, 2, B,
                                              key_bytes=2 * hd + 8)
-                sets = [_q8_inputs(g, B, Sk, KH, Hq, hd, dt, 2048)[:5]
+                sets = [_q8_inputs(g, B, Sk, KH, Hq, hd, dt, buf, pos)[:5]
                         + (kp, qp) for _ in range(n_sets(nbytes))]
-                case["ms"] = time_ms(Q.decode_attention_q8, sets)
-                case["plain_ms"] = time_ms(Q.decode_attention_q8_plain, sets)
+                # no PyTorch call attends over int8 K/V
+                _timed(res, label, case,
+                       lambda *a: Q.decode_attention_q8(*a, **kw),
+                       lambda *a: Q.decode_attention_q8_plain(*a, **kw), sets,
+                       nbytes, flops)
                 # the bf16 kernel on the same context, dequantized
                 bf_sets = [(q_, dequantize_kv(k_, ks_, dt),
                             dequantize_kv(v_, vs_, dt), kp_, qp_)
                            for q_, k_, ks_, v_, vs_, kp_, qp_ in sets]
-                case["bf16_kernel_ms"] = time_ms(D.decode_attention, bf_sets)
-                # no PyTorch call attends over int8 K/V
-                case["library_ms"] = None
-                case["bound_ms"], case["bound_by"] = bound(nbytes, flops)
-                main = case
+                case["bf16_kernel_ms"] = time_ms(
+                    lambda *a: D.decode_attention(*a, **kw), bf_sets)
+                if label == "decode_attention_q8 B=8 Sk=2048":
+                    main = case
             res["cases"].append({"kernel": "decode_attention_q8", **case})
             log(f"[kernels] decode_attention_q8 {case}")
 
     # the paged int8 route
     paged_main = None
-    for B, Hq, KH, ps, n, hd, window, pos_lo, partial in PAGED_CASES:
+    for B, Hq, KH, ps, n, hd, window, cap, pos_lo, partial, label in \
+            PAGED_CASES:
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             cover = None
             if partial:
@@ -906,28 +1150,29 @@ def _q8_cases(res):
                                                   torch.float32, pos_lo, cover)
                 return (q.to(dt), *quantize_kv(kf), *quantize_kv(vf), pt, qp)
             q, kq, ks, vq, vs, pt, qp = mk()
-            kw = dict(window=window, k_scale=ks, v_scale=vs)
-            out = K.paged_decode_attention(q, kq, vq, pt, qp, **kw)
+            kw = dict(window=window, softcap=cap)
+            out = K.paged_decode_attention(q, kq, vq, pt, qp, k_scale=ks,
+                                           v_scale=vs, **kw)
             name = (f"paged q8 B={B} {Hq}:{KH} hd={hd} ps={ps} n={n} "
-                    f"w={window} {dt}")
+                    f"w={window} cap={cap} {dt}")
             err, share = check_close(name, out, K.paged_decode_attention_plain(
-                q, kq, vq, pt, qp, **kw), tol)
+                q, kq, vq, pt, qp, k_scale=ks, v_scale=vs, **kw), tol)
             Sk = n * ps
             dense = [x[pt.long()].reshape(B, Sk, KH, x.shape[-1])
                      for x in (kq, ks, vq, vs)]
             kpos = torch.arange(Sk, device="cuda", dtype=torch.int32)[None]
             want = Q.decode_attention_q8(q, *dense, kpos.repeat(B, 1), qp,
-                                         window=window)
+                                         **kw)
             if not torch.equal(out, want):
                 raise AssertionError(f"{name}: paged and dense int8 kernels "
                                      f"differ by {max_err(out, want):.3g} on "
                                      "the same context (must be bitwise "
                                      "equal)")
             case = {"route": "q8", "shape": [B, Sk, KH, Hq, hd],
-                    "page_size": ps, "window": window, "dtype": str(dt),
-                    "max_abs_err": err, "bf16_share": share,
+                    "page_size": ps, "window": window, "softcap": cap,
+                    "dtype": str(dt), "max_abs_err": err, "bf16_share": share,
                     "bitwise_equal_dense": True}
-            if dt == torch.bfloat16 and n == 128:
+            if dt == torch.bfloat16 and label:
                 nv = int((qp + 1).clamp(max=Sk).sum())
                 nbytes = (nv * KH * (2 * hd + 8) + B * n * 4 + B * 4
                           + 2 * B * Hq * hd * 2)
@@ -936,23 +1181,21 @@ def _q8_cases(res):
 
                 def paged(q_, kq_, ks_, vq_, vs_, pt_, qp_):
                     return K.paged_decode_attention(
-                        q_, kq_, vq_, pt_, qp_, k_scale=ks_, v_scale=vs_)
+                        q_, kq_, vq_, pt_, qp_, k_scale=ks_, v_scale=vs_, **kw)
 
                 def plain(q_, kq_, ks_, vq_, vs_, pt_, qp_):
                     return K.paged_decode_attention_plain(
-                        q_, kq_, vq_, pt_, qp_, k_scale=ks_, v_scale=vs_)
-                case["ms"] = time_ms(paged, sets)
-                case["plain_ms"] = time_ms(plain, sets)
+                        q_, kq_, vq_, pt_, qp_, k_scale=ks_, v_scale=vs_, **kw)
+                _timed(res, f"{label}, int8 route", case, paged, plain, sets,
+                       nbytes, 4 * nv * Hq * hd)
                 dense_sets = [(q_, *[x[pt_.long()].reshape(B, Sk, KH, x.shape[-1])
                                      for x in (kq_, ks_, vq_, vs_)],
                                kpos.repeat(B, 1), qp_)
                               for q_, kq_, ks_, vq_, vs_, pt_, qp_ in sets]
-                case["dense_kernel_ms"] = time_ms(Q.decode_attention_q8,
-                                                  dense_sets)
-                case["library_ms"] = None
-                case["bound_ms"], case["bound_by"] = bound(nbytes,
-                                                           4 * nv * Hq * hd)
-                paged_main = case
+                case["dense_kernel_ms"] = time_ms(
+                    lambda *a: Q.decode_attention_q8(*a, **kw), dense_sets)
+                if label == "paged_decode_attention 128 pages":
+                    paged_main = case
             res["cases"].append({"kernel": "paged_decode_attention", **case})
             log(f"[kernels] paged_decode_attention q8 route {case}")
     return main, paged_main
@@ -980,7 +1223,7 @@ KERNELS = {
 
 
 def phase_kernels(res):
-    res["cases"] = []
+    res["cases"], res["timed"] = [], []
     norm, add_norm = _rmsnorm_cases(res)
     res["main_case"] = {"rmsnorm": norm, "add_rmsnorm": add_norm,
                         "decode_attention": _decode_cases(res),
@@ -994,24 +1237,20 @@ def phase_kernels(res):
     res["main_case"]["paged_decode_attention"]["q8_route"] = paged_q8
     _geometry_cases(res)
     _decode_bitwise(res)
-    mc = res["main_case"]
-    rows = [(f"{x['kernel']} {x['shape'][0]}x{x['shape'][1]}", x)
-            for x in res["norm_shapes"]]
-    for name, c in rows + [
-            ("flash_attention Sq=Sk=1024", mc["flash_attention"]),
-            ("decode_attention B=8 Sk=2048", mc["decode_attention"]),
-            ("chunk_attention S=256 at 512", chunk),
-            ("chunk_attention int8 pool", chunk["q8_route"]),
-            ("paged_decode_attention 128 pages", paged),
-            ("paged_decode_attention int8 route", paged_q8),
-            ("decode_attention_q8 B=8 Sk=2048", q8)]:
-        lib = c.get("library_ms")
-        other = c.get("dense_kernel_ms") or c.get("bf16_kernel_ms")
+    for name, c in res["timed"]:
+        lib = c["library_ms"]
         ref = (f"library_ms {lib:.5f} ({c['ms'] / lib:.2f}x)" if lib else
-               f"dense kernel {other:.5f}" if other else "no library call")
+               "library_ms none")
+        for key, what in (("dense_kernel_ms", "dense kernel"),
+                          ("bf16_kernel_ms", "bf16 kernel, dequantized")):
+            if key in c:
+                ref += f", {what} {c[key]:.5f}"
+        scratch = (f", scratch_bytes {c['scratch_bytes']}"
+                   if "scratch_bytes" in c else "")
         log(f"[summary] {name} bf16: ms {c['ms']:.5f}, {ref}, plain_ms "
             f"{c['plain_ms']:.5f}, bound_ms {c['bound_ms']:.5f} "
-            f"({c['bound_by']}, {c['ms'] / c['bound_ms']:.0f}x)")
+            f"({c['bound_by']}, {c['ms'] / c['bound_ms']:.1f}x), max_abs_err "
+            f"{c['max_abs_err']:.3g}{scratch}")
     log(f"[summary] chunk_attention key spans (ms): {chunk['span_ms']}; "
         f"SPAN {chunk['span']}")
 
@@ -1095,6 +1334,84 @@ def phase_equivalence(res):
             raise AssertionError(f"paged equivalence run {tag} missed a "
                                  f"route: {gpu} {counts}")
         res["equivalence"][tag]["paged"] = {**gpu, "launches": counts}
+    _arch_equivalence(res)
+
+
+def _arch_equivalence(res):
+    """CUDA against CPU on each new arch at full width, cut to 2 layers (one
+    local + full period for gemma2), in float32 from the same params: a
+    300-token prompt and 8 greedy decode steps (qwen3, granite, chatglm3),
+    or for gemma2 a prompt of window + 600 tokens, its first 4096 tokens
+    in one prefill and the rest as one chunk (the dense-row route: it
+    wraps the local layer's 4096-slot ring), then 8 decode steps; the
+    logits after the prompt allclose at 1e-3, the tokens equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    for arch in ("qwen3-14b", "granite-8b", "chatglm3-6b", "gemma2-9b"):
+        cfg = get_config(arch).replace(num_layers=2, dtype="float32")
+        t0 = time.perf_counter()
+        params = init_params(torch.Generator().manual_seed(0), cfg)
+        gparams = _to(params, "cuda")
+        n = 300 if not cfg.window else cfg.window + 600
+        prompt = np.random.default_rng(4).integers(0, cfg.vocab_size, size=n)
+        first, toks = {}, {}
+        _reset_counts()
+        for dev, p in (("cuda", gparams), ("cpu", params)):
+            if cfg.window:
+                first[dev], toks[dev] = _ring_greedy_run(p, cfg, prompt, 8,
+                                                         dev)
+            else:
+                first[dev], toks[dev] = _greedy_run(p, cfg, prompt, 8, dev)
+            if dev == "cuda":
+                counts = _launch_counts()
+        err = max_err(first["cuda"], first["cpu"])
+        log(f"[equivalence] {arch} 2 layers full width f32, {n}-token "
+            f"prompt: logits max |err| {err:.3g}; tokens cuda {toks['cuda']} "
+            f"cpu {toks['cpu']}; launches {counts} "
+            f"({time.perf_counter() - t0:.1f}s)")
+        if not torch.allclose(first["cuda"], first["cpu"], atol=1e-3,
+                              rtol=1e-3):
+            raise AssertionError(f"{arch}: logits differ by {err:.3g} > 1e-3")
+        if toks["cuda"] != toks["cpu"]:
+            raise AssertionError(f"{arch}: greedy tokens differ between CUDA "
+                                 "and CPU")
+        need = ["decode_attention", "flash_attention", "rmsnorm"]
+        if cfg.window:
+            need.append("chunk_attention/dense")
+        _check_launched(f"equivalence {arch}", counts, need)
+        res["equivalence"][arch] = {"logits_max_abs_err": err,
+                                    "tokens": toks["cuda"], "prompt": n,
+                                    "launches": counts}
+        del params, gparams
+        torch.cuda.empty_cache()
+
+
+def _ring_greedy_run(params, cfg, prompt, steps, device):
+    """The prompt's first ``cfg.window`` tokens in one prefill, the rest as
+    one chunk, into a cache whose local layers are ``cfg.window``-slot
+    rings; then greedy decode steps."""
+    import torch
+    from repro_torch.models import (decode_step, init_cache,
+                                    prefill_chunk_into_slot,
+                                    prefill_into_slot)
+    w = cfg.window
+    caches = init_cache(cfg, 1, 2 * len(prompt), dtype=torch.float32,
+                        device=device)
+    toks = torch.as_tensor(prompt, dtype=torch.int64, device=device)[None]
+    _, caches, _ = prefill_into_slot(params, cfg, toks[:, :w], w, caches, 0)
+    logits, caches = prefill_chunk_into_slot(params, cfg, toks[:, w:], w,
+                                             len(prompt) - w, caches, 0)
+    first = logits.float().cpu()
+    out = [int(logits[0].argmax())]
+    p = torch.tensor([len(prompt)], dtype=torch.int32, device=device)
+    for _ in range(steps - 1):
+        tok = torch.tensor([[out[-1]]], device=device)
+        logits, caches = decode_step(params, cfg, tok, caches, p)
+        out.append(int(logits[0].argmax()))
+        p = p + 1
+    return first, out
 
 
 def _paged_engine_run(params, cfg, device):
@@ -1268,6 +1585,7 @@ def _counters():
             "add_rmsnorm": (rmsnorm, "add_launches"),
             "decode_attention": (decode_attention, "launches"),
             "chunk_attention": (chunk_attention, "launches"),
+            "chunk_attention/dense": (chunk_attention, "dense_launches"),
             "flash_attention": (flash_attention, "launches"),
             "paged_decode_attention": (paged_decode_attention, "launches"),
             "paged_decode_attention/q8": (paged_decode_attention,
@@ -1735,6 +2053,190 @@ def phase_observability(res):
         wall_instrumented_s=inst[2], stats=e1.stats())
 
 
+# -- phase 10: arch ----------------------------------------------------------------------
+
+# the new configs in the arch phase: (arch, layers (None: full depth),
+# burst): qwen3-14b and gemma2-9b at full width and depth, granite-8b and
+# chatglm3-6b at full width and 4 layers
+ARCH_RUNS = (("qwen3-14b", None), ("gemma2-9b", None), ("granite-8b", 4),
+             ("chatglm3-6b", 4))
+
+
+def _long_burst(server, vocab):
+    """4 greedy requests with prompts of 4500-8000 tokens (past gemma2's
+    4096-token window, so every prompt is chunked into the local rings)
+    and 32-64 new tokens (decode wraps the rings)."""
+    import numpy as np
+    from repro_torch.core import SamplingParams
+    rng = np.random.default_rng(3)
+    lens = np.linspace(4500, 8000, 4).astype(int)
+    rng.shuffle(lens)
+    handles = [server.submit(rng.integers(0, vocab, size=int(n)),
+                             SamplingParams(max_tokens=int(rng.integers(32,
+                                                                        65))))
+               for n in lens]
+    return lens, handles, server.run()
+
+
+def _arch_burst(res, path, cfg, eng, burst, need, forbid=()):
+    """One burst on ``eng`` with the launch counts set to 0 before it and
+    read after it; every kernel route in ``need`` must have launched and
+    none in ``forbid``.  Tokens/s, launches, preemption and prefix-cache
+    counters go to res[path]."""
+    import torch
+    from repro_torch.serving import Server
+    server = Server(eng)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = burst(server, cfg.vocab_size)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    handles, rep = out[-2], out[-1]
+    if rep.completed != len(handles):
+        raise AssertionError(f"{path}: only {rep.completed}/{len(handles)} "
+                             "completed")
+    _check_outputs(handles, cfg.vocab_size)
+    _check_launched(path, counts, need)
+    if any(counts[n] for n in forbid):
+        raise AssertionError(f"{path} ran {forbid}: {counts}")
+    toks = sum(len(h.request.tokens) for h in handles)
+    pc = eng.prefix_cache.stats() if eng.prefix_cache is not None else None
+    res[path] = {"wall_s": wall, "tokens_out": toks,
+                 "tokens_per_s": toks / wall, "launches": counts,
+                 "completed": rep.completed, "energy_j": rep.total_energy_j,
+                 "host_drains": eng._host_drains,
+                 "preempted": eng._preempted, "prefix_cache": pc,
+                 "prompt_tokens": sum(h.request.prompt_len for h in handles),
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"[arch] {path}: {cfg.name} {cfg.num_layers} layers, "
+        f"{len(handles)} requests, {res[path]['prompt_tokens']} prompt "
+        f"tokens, {toks} tokens out in {wall:.2f}s wall = "
+        f"{toks / wall:.1f} tokens/s; host drains {eng._host_drains}; "
+        f"preempted {eng._preempted}; prefix cache {pc}; peak memory "
+        f"{res[path]['peak_mem_gb']:.1f} GiB; launches {counts}")
+    return res[path]
+
+
+def phase_arch(res):
+    """The dense attention family on the card, one model at a time (its
+    weights freed before the next): qwen3-14b (the paper's model) at full
+    width and depth serves the serve burst on the dense engine (greedy,
+    then mixed with seeded sampling) and the serve_paged waves on the
+    paged engine with the prefix cache (it must hit and preempt);
+    gemma2-9b at full width and depth, max_len 16384 (prompts truncated to
+    8192, local rings of 4096), max_batch 4, serves 4 prompts of 4500-8000
+    tokens on the dense engine (bf16, then int8 caches) and on the paged
+    one (full layers pooled and preempting, local rings dense): every
+    prompt chunks through the dense-ring route of chunk_attention and
+    decode wraps the rings, with the softcap in every attention kernel;
+    granite-8b and chatglm3-6b at full width and 4 layers serve the serve
+    burst.  Seeded random bf16 weights."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, layers in ARCH_RUNS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _leaves(params))
+        log(f"[arch] {arch}: {cfg.num_layers} layers, {n / 1e9:.2f} B "
+            f"parameters in bf16 built in {time.perf_counter() - t0:.1f}s")
+        tag = arch.split("-")[0]
+        if arch == "gemma2-9b":
+            def engine(**kw):
+                return ServingEngine(cfg, params=params, ecfg=EngineConfig(
+                    max_batch=4, max_len=16384, governor="greenllm", **kw),
+                    device="cuda")
+            eng = engine()
+            if eng.chunk_len != cfg.window:
+                raise AssertionError(f"gemma2 chunks of {eng.chunk_len}")
+            r = _arch_burst(res, f"arch_{tag}", cfg, eng, _long_burst,
+                            ("rmsnorm", "add_rmsnorm", "decode_attention",
+                             "chunk_attention/dense"), ("chunk_attention",))
+            del eng
+            # int8 K/V: the rings and full rows quantized, the same weights
+            qcfg = cfg.replace(kv_quant=True)
+            eng = ServingEngine(qcfg, params=params, ecfg=EngineConfig(
+                max_batch=4, max_len=16384, governor="greenllm"),
+                device="cuda")
+            _arch_burst(res, f"arch_{tag}_q8", qcfg, eng, _long_burst,
+                        ("rmsnorm", "add_rmsnorm", "decode_attention_q8",
+                         "chunk_attention/dense"),
+                        ("chunk_attention", "decode_attention"))
+            del eng
+            # full layers pooled (1000 pages: the burst needs ~1600, so it
+            # preempts), local rings dense; the prefix cache never hits a
+            # hybrid
+            eng = engine(paged=True, page_size=16, num_pages=1000,
+                         prefix_cache=True)
+            r = _arch_burst(res, f"arch_{tag}_paged", cfg, eng, _long_burst,
+                            ("rmsnorm", "add_rmsnorm", "decode_attention",
+                             "paged_decode_attention", "chunk_attention",
+                             "chunk_attention/dense"))
+            if not r["preempted"] or r["prefix_cache"]["hits"]:
+                raise AssertionError(f"gemma2 paged: preempted "
+                                     f"{r['preempted']}, prefix cache "
+                                     f"{r['prefix_cache']}")
+            del eng
+        else:
+            eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
+                max_batch=8, max_len=2048, governor="greenllm"),
+                device="cuda")
+            _arch_burst(res, f"arch_{tag}", cfg, eng,
+                        lambda s, v: _burst(s, v),
+                        ("rmsnorm", "add_rmsnorm", "decode_attention",
+                         "flash_attention"))
+            del eng
+            if arch == "qwen3-14b":
+                # every odd request seeded nucleus sampling
+                eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
+                    max_batch=8, max_len=2048, governor="greenllm"),
+                    device="cuda")
+                _arch_burst(res, f"arch_{tag}_sampled", cfg, eng,
+                            lambda s, v: _burst(s, v, _seeded),
+                            ("rmsnorm", "add_rmsnorm", "decode_attention",
+                             "flash_attention"))
+                del eng
+                eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
+                    max_batch=8, max_len=2048, paged=True, page_size=16,
+                    num_pages=220, prefix_cache=True, governor="greenllm"),
+                    device="cuda")
+                r = _arch_burst(res, f"arch_{tag}_paged", cfg, eng,
+                                _paged_waves,
+                                ("rmsnorm", "add_rmsnorm",
+                                 "paged_decode_attention", "flash_attention",
+                                 "chunk_attention"), ("decode_attention",))
+                if not (r["prefix_cache"]["hits"] and r["preempted"]):
+                    raise AssertionError(f"qwen3 paged: no prefix hit or no "
+                                         f"preemption: {r}")
+                del eng
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 # -- main ---------------------------------------------------------------------------------
 
 def gpu_name_and_limit():
@@ -1782,7 +2284,7 @@ def main(argv=None):
            "serve_paged": phase_serve_paged, "serve_q8": phase_serve_q8,
            "paged_vs_dense": phase_paged_vs_dense,
            "sampling": phase_sampling, "observability": phase_observability,
-           "profile": phase_profile}
+           "arch": phase_arch, "profile": phase_profile}
     for p in phases:
         t0 = time.perf_counter()
         fns[p](res)

@@ -1,7 +1,9 @@
 """Architecture config registry: ``get_config(arch_id)`` / ``--arch <id>``.
 
-The port serves the dense attention-only family so far, so it registers
-qwen2-1.5b only; the other architectures join with their model code.
+The port serves the dense attention-only family so far (full and
+sliding-window attention, RoPE, RMSNorm, gated MLPs), so it registers those
+configs, in the reference's order; the other architectures join with their
+model code.
 Every config cites its source in the module docstring.
 """
 from __future__ import annotations
@@ -12,7 +14,11 @@ from typing import Dict, List
 from repro_torch.models.config import ModelConfig
 
 ARCH_IDS: List[str] = [
+    "granite-8b",
     "qwen2-1.5b",
+    "chatglm3-6b",
+    "gemma2-9b",
+    "qwen3-14b",
 ]
 
 _MODULES: Dict[str, str] = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

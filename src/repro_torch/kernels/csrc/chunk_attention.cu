@@ -1,21 +1,30 @@
 // Chunked-prefill attention for Hopper: one stream's prompt chunk against
-// [its page-chain past | the raw chunk], the past read straight from the
-// paged pool through the stream's page-table row.
+// [its past | the raw chunk], the past read straight from where it lives:
+// the paged pool through the stream's page-table row, or the stream's row
+// of a dense cache, which is a ring buffer when it is shorter than the
+// context.
 //
 // Replaces: the chunk mode of src/repro/models/transformer.py::_apply_attn
 // (XLA attention over the gathered, dequantized past concatenated with the
 // chunk's own K/V; no Pallas kernel).  Query i of the chunk sits at
-// position start + i.  Key positions 0 .. start-1 are the past: position p
-// lives in page page_table[p / ps] at offset p % ps of the pool (P, ps, KH,
-// hd).  Position start + j is the chunk's key j, read from the raw chunk
-// (S, KH, hd), valid when j < length.  Query i sees every past key and the
-// chunk keys j <= min(i, length - 1): one bound per row, hi(i) = start +
-// min(i, length - 1).  Pool entries at positions >= start (the rest of the
-// last page, the chain's tail, scratch page 0) are never read, so the
-// caller may write the chunk into the chain after this launch on the same
-// stream (the reference reads the past before that write).  No window, no
-// softcap (the wrapper refuses them).  Softmax and accumulation are
-// float32; query head h reads kv head h / G.
+// position start + i.  Key positions below start are the past:
+// - paged: position p lives in page page_table[p / ps] at offset p % ps of
+//   the pool (P, ps, KH, hd);
+// - dense row: position p lives at slot p % buf_len of the row (buf_len,
+//   KH, hd), and is resident when p >= start - buf_len (the ring
+//   arithmetic of models/kvcache.py::ring_slot_positions; older positions,
+//   which the ring has overwritten, are masked).
+// Position start + j is the chunk's key j, read from the raw chunk (S, KH,
+// hd), valid when j < length.  Query i sees the keys in [lo(i), hi(i)]:
+// hi(i) = start + min(i, length - 1) (causal, pads masked), and lo(i) the
+// larger of start + i - window + 1 (with a window) and the oldest resident
+// position.  Logits are soft-capped, tanh(s / softcap) * softcap, when
+// softcap > 0.  Past entries at positions >= start (the rest of the last
+// page, the chain's tail, scratch page 0, ring slots about to be
+// overwritten) are never read as such, so the caller may write the chunk
+// after this launch on the same stream (the reference reads the past
+// before that write).  Softmax and accumulation are float32; query head h
+// reads kv head h / G.
 //
 // Bound on the H100: operations.  At the paged burst's shape (256 queries
 // at start 512, 12:2 heads, hd 128) the visible (query, key) pairs need
@@ -23,9 +32,10 @@
 //
 // Rows.  The G query heads of a kv head are packed into one tile: row R of
 // kv head kh is query R / G, head kh * G + R % G, so a tile of 64 rows holds
-// every head of ~64 / G consecutive queries, each K/V tile is staged once
-// for all of them, and a tile's rows have nearly the same causal bound.
-// The grid is (row tiles, KH, spans).
+// every head of ~64 / G consecutive queries (G need not divide 64: a query
+// may straddle two tiles), each K/V tile is staged once for all of them,
+// and a tile's rows have nearly the same bounds.  The grid is (row tiles,
+// KH, spans).
 //
 // bfloat16 q (`tc` below): the tensor-core tile step of flash_tile.cuh
 // (mma.sync m16n8k16, ldmatrix from XOR-swizzled cp.async stages, two warp
@@ -34,24 +44,26 @@
 // are 64 key positions (32 at hd 256) counted from position 0, a row at a
 // time from its source: a past row through the page ids, which the CTA
 // first copies into shared memory (a 64-key tile covers four pages of 16),
-// a chunk row from the raw K/V, a position past start + length zero-filled.
-// k tiles wholly above a tile's highest bound are skipped, and only tiles
-// that reach above its lowest bound are masked.
+// or from its ring slot; a chunk row from the raw K/V; a position past
+// start + length zero-filled.  k tiles wholly above a tile's highest bound
+// or wholly below its lowest lower bound are skipped, and only tiles that
+// reach past a row's bound are masked.
 // - Spans.  At the burst's shape the row tiles give 48 CTAs for 132 SMs,
 //   so the keys are also split over CTAs in fixed spans of `span` key
 //   positions counted from 0 (the wrapper's constant SPAN, never derived
 //   from the chunk, the chain or the SM count): each CTA writes an
 //   unnormalised float32 partial (acc, m, l) per row, and a second kernel
-//   folds a row's spans in span order, skipping empty ones.  A row's bits
-//   depend only on its keys, its bound and the span: not on the page ids,
-//   the pool, the chain's tail or the run.
-// - int8 pool with float32 scales (kv_quant): a past row is loaded as
+//   folds a row's spans in span order, from the span of its lower bound to
+//   that of its upper one, skipping empty ones.  A row's bits depend only
+//   on its keys, its bounds and the span: not on the page ids, the pool,
+//   the chain's tail, the ring's other slots or the run.
+// - int8 past with float32 scales (kv_quant): a past row is loaded as
 //   int8, multiplied by its scale in float32 and rounded to bf16, which is
 //   dequantize_kv (models/kvcache.py) exactly, then stored into the stage;
 //   the raw chunk stays bf16, as in the reference.
 //
 // float32 q (`fma` below): the FMA step of flash_tile.cuh with the same
-// rows and sources (an int8 pool dequantized to float32), one span.
+// rows, sources and bounds (an int8 past dequantized to float32), one span.
 #include <type_traits>
 
 #include "flash_tile.cuh"
@@ -62,8 +74,10 @@ namespace {
 
 using namespace rt::flash;
 
-// Where a past key row lives: the pools (P, ps, KH, hd) and, for int8
-// pools, their float32 scales (P, ps, KH, 1), strides in elements.
+// Where a past key row lives: the pools (P, ps, KH, hd) read through the
+// page ids (buf_len 0), or a dense row (buf_len, KH, hd) read at ring slot
+// p % buf_len (page always 0, so sp is unused); for an int8 past, the
+// float32 scales (..., KH, 1).  Strides in elements.
 struct Pool {
   const void* kp;
   const void* vp;
@@ -71,6 +85,34 @@ struct Pool {
   const float* vs;
   long long sp, ss, sh;        // pool strides: page, slot, kv head
   long long s_sp, s_ss, s_sh;  // scale strides
+  int ps, buf_len;
+
+  // element offsets of past position p's row for kv head kh (ro) and of
+  // its scale (so)
+  __device__ __forceinline__ void locate(const int* pages, int p, int kh,
+                                         long long& ro, long long& so) const {
+    int page = 0, off;
+    if (buf_len > 0) {
+      off = p % buf_len;
+    } else {
+      const int pg = p / ps;
+      off = p - pg * ps;
+      page = pages[pg];
+    }
+    ro = page * sp + off * ss + kh * sh;
+    so = page * s_sp + off * s_ss + kh * s_sh;
+  }
+};
+
+// The visible keys of a chunk row: positions [lo, hi] of query i.
+struct Bounds {
+  int start, length, window, oldest;   // oldest: the first resident position
+  __device__ __forceinline__ int hi(int i) const {
+    return start + min(i, length - 1);
+  }
+  __device__ __forceinline__ int lo(int i) const {
+    return window > 0 ? max(oldest, start + i - window + 1) : oldest;
+  }
 };
 
 // Copy the page ids of positions 0 .. start-1 into shared memory.
@@ -114,9 +156,9 @@ __global__ void __launch_bounds__(Tiles<HD>::kThreads)
 chunk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, Pool pool,
              const int* __restrict__ table, float* __restrict__ part, int S,
-             int start, int length, int ps, int n_past_pages, int G, int span,
-             long long q_ss, long long q_sh, long long k_ss, long long k_sh,
-             long long v_ss, long long v_sh, float scale) {
+             Bounds bd, int n_past_pages, int G, int span, long long q_ss,
+             long long q_sh, long long k_ss, long long k_sh, long long v_ss,
+             long long v_sh, float scale, float softcap) {
   using L = Tiles<HD>;
   constexpr int BK = L::BK, NS = L::NS, NT = L::NT, DT = L::DT;
   constexpr int KG = L::KG, GT = L::GT, CPR = L::CPR;
@@ -129,16 +171,17 @@ chunk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int kh = blockIdx.y, KH = gridDim.y, SG = S * G;
   const int R0 = blockIdx.x * BQ, sp = blockIdx.z;
+  const int start = bd.start, length = bd.length;
   const Lane<HD> w(gt);
   const float sl2 = scale * kLog2e;
 
-  // the keys this CTA takes: positions [lo, hi) of its span below the
-  // tile's highest bound; the tile's lowest bound decides which k tiles
-  // need a mask
-  const int last = min(length, S) - 1;
-  const int k_hi = start + min((min(R0 + BQ, SG) - 1) / G, last) + 1;
-  const int hi_min = start + min(R0 / G, last);
-  const int lo = sp * span, hi = min(k_hi, lo + span);
+  // the keys this CTA takes: positions [lo, hi) of its span between the
+  // tile's lowest lower bound and its highest upper bound; the tile's
+  // lowest upper and highest lower bounds decide which k tiles need a mask
+  const int i_first = R0 / G, i_last = (min(R0 + BQ, SG) - 1) / G;
+  const int k_hi = bd.hi(i_last) + 1, hi_min = bd.hi(i_first);
+  const int lo_min = bd.lo(i_first), lo_max = bd.lo(i_last);
+  const int lo = max(sp * span, lo_min), hi = min(k_hi, sp * span + span);
   if (hi <= lo) return;   // the whole CTA: nothing of its span is visible
   const int t0 = lo / BK, nt = (hi - 1) / BK + 1 - t0;
   const int ng = nt > grp ? (nt - grp + KG - 1) / KG : 0;
@@ -155,9 +198,8 @@ chunk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int r = idx / CPR, ch = idx % CPR, p = c0 + r;
         const int at = L::at(r, ch);
         if (p < start) {
-          const int pg = p / ps, off = p - pg * ps, page = pages[pg];
-          const long long ro = page * pool.sp + off * pool.ss + kh * pool.sh;
-          const long long so = page * pool.s_sp + off * pool.s_ss + kh * pool.s_sh;
+          long long ro, so;
+          pool.locate(pages, p, kh, ro, so);
           stage_past<E>(kd + at, pool.kp, pool.ks, ro, so, ch);
           stage_past<E>(vd + at, pool.vp, pool.vs, ro, so, ch);
         } else {
@@ -188,10 +230,13 @@ chunk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const QFrags<HD> qf(Qs, w);
   State<HD> st;
   // the bounds of the thread's two rows
-  int rb[2];
+  int rb[2], lb[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-    rb[i] = start + min((R0 + w.rw * 16 + w.gq + 8 * i) / G, last);
+  for (int i = 0; i < 2; ++i) {
+    const int qi = (R0 + w.rw * 16 + w.gq + 8 * i) / G;
+    rb[i] = bd.hi(qi);
+    lb[i] = bd.lo(qi);
+  }
 
   for (int n = 0; n < ng; ++n) {
     const int c0 = (t0 + grp + n * KG) * BK;
@@ -200,19 +245,30 @@ chunk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       group_sync<GT>(grp);
     }
     load_kv(n + NS - 1);
-    // scale (log2 domain) and the rows' bounds
+    const bool mask = c0 + BK - 1 > hi_min || c0 < lo_max;
+    // scale (log2 domain), softcap, the rows' bounds
     step<HD>(st, qf, Ks + (n % NS) * BK * HD, Vs + (n % NS) * BK * HD, w,
              [&](float (&s)[NT][4]) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= sl2;
-      if (c0 + BK - 1 > hi_min) {
+      if (softcap > 0.f) {
+        const float pre = scale / softcap, post = softcap * kLog2e;
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (c0 + j * 8 + 2 * w.tq + (e & 1) > rb[e >> 1]) s[j][e] = kNegInf;
+          for (int e = 0; e < 4; ++e) s[j][e] = tanhf(s[j][e] * pre) * post;
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= sl2;
+      }
+      if (mask) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = c0 + j * 8 + 2 * w.tq + (e & 1);
+            if (c > rb[e >> 1] || c < lb[e >> 1]) s[j][e] = kNegInf;
+          }
       }
     });
   }
@@ -239,19 +295,21 @@ chunk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Fold row R's span partials in span order (spans with no visible key, l =
-// 0, skipped), normalise, cast to bf16.  Block (R, kh), one thread per dim.
+// Fold row R's span partials in span order, from the span of its lower
+// bound to that of its upper one (spans with no visible key, l = 0,
+// skipped), normalise, cast to bf16.  Block (R, kh), one thread per dim.
 template <int HD>
 __global__ void __launch_bounds__(HD)
 chunk_merge_kernel(const float* __restrict__ part, bf16* __restrict__ out,
-                   int S, int start, int length, int G, int span, int spans) {
+                   int S, Bounds bd, int G, int span, int spans) {
   const int R = blockIdx.x, kh = blockIdx.y, KH = gridDim.y, d = threadIdx.x;
   const int SG = S * G, qi = R / G;
-  const int hi = start + min(qi, min(length, S) - 1);
-  const int n = min(spans, hi / span + 1);   // spans up to the row's bound
+  const int hi = bd.hi(qi), lo = bd.lo(qi);
+  // the spans whose CTAs saw this row's keys (none when lo > hi)
+  const int s0 = lo / span, s1 = lo > hi ? -1 : min(spans - 1, hi / span);
   const float* ml = part + (long long)KH * spans * SG * HD;
   float m = kNegInf, l = 0.f, acc = 0.f;
-  for (int s = 0; s < n; ++s) {
+  for (int s = s0; s <= s1; ++s) {
     const long long pr = ((long long)kh * spans + s) * SG + R;
     const float ls = ml[2 * pr + 1];
     if (ls == 0.f) continue;
@@ -295,9 +353,9 @@ __global__ void __launch_bounds__(kThreads)
 chunk_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, Pool pool,
                  const int* __restrict__ table, float* __restrict__ out,
-                 int S, int start, int length, int ps, int n_past_pages, int G,
-                 long long q_ss, long long q_sh, long long k_ss,
-                 long long k_sh, long long v_ss, long long v_sh, float scale) {
+                 int S, Bounds bd, int n_past_pages, int G, long long q_ss,
+                 long long q_sh, long long k_ss, long long k_sh,
+                 long long v_ss, long long v_sh, float scale, float softcap) {
   extern __shared__ float4 smem4[];
   const Smem<HD> sm(reinterpret_cast<float*>(smem4));
   int* pages = reinterpret_cast<int*>(sm.end());
@@ -305,7 +363,7 @@ chunk_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int N = Vec<float>::N;
   const int kh = blockIdx.y, Hq = gridDim.y * G, SG = S * G;
   const int R0 = blockIdx.x * BQ;
-  const int last = min(length, S) - 1;
+  const int start = bd.start, length = bd.length;
 
   stage_pages(pages, table, n_past_pages);
   stage_q<HD>(sm, [&](int r, int dv, float* e) {
@@ -318,21 +376,26 @@ chunk_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   });
   State<HD> st;
-  int rb[4];
+  int rb[4], lb[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) rb[i] = start + min((R0 + st.rg * 4 + i) / G, last);
-  const int k_hi = start + min((min(R0 + BQ, SG) - 1) / G, last) + 1;
+  for (int i = 0; i < 4; ++i) {
+    const int qi = (R0 + st.rg * 4 + i) / G;
+    rb[i] = bd.hi(qi);
+    lb[i] = bd.lo(qi);
+  }
+  const int i_last = (min(R0 + BQ, SG) - 1) / G;
+  const int k_hi = bd.hi(i_last) + 1;
 
-  for (int c0 = 0; c0 < k_hi; c0 += BK) {
+  for (int c0 = bd.lo(R0 / G) / BK * BK; c0 < k_hi; c0 += BK) {
     __syncthreads();   // previous tile consumed; Qt and the page ids written
     // the key row at position c0 + c: past, chunk or zero
     stage_kv<HD>(sm, [&](float* e, bool is_v, int c, int c4) {
       const int p = c0 + c;
       if (p < start) {
-        const int pg = p / ps, off = p - pg * ps, page = pages[pg];
-        past4<E>(e, is_v ? pool.vp : pool.kp, is_v ? pool.vs : pool.ks,
-                 page * pool.sp + off * pool.ss + kh * pool.sh,
-                 page * pool.s_sp + off * pool.s_ss + kh * pool.s_sh, c4);
+        long long ro, so;
+        pool.locate(pages, p, kh, ro, so);
+        past4<E>(e, is_v ? pool.vp : pool.kp, is_v ? pool.vs : pool.ks, ro,
+                 so, c4);
       } else if (p - start < length) {
         const int j = p - start;
         load_vec(is_v ? v + j * v_ss + kh * v_sh + c4 * N
@@ -343,7 +406,8 @@ chunk_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     });
     __syncthreads();
-    step<HD>(st, sm, c0, scale, 0.f, [&](int i, int c) { return c <= rb[i]; });
+    step<HD>(st, sm, c0, scale, softcap,
+             [&](int i, int c) { return c <= rb[i] && c >= lb[i]; });
   }
 
 #pragma unroll
@@ -365,9 +429,11 @@ struct Args {
   const int* table;
   void* out;
   float* part;
-  int S, start, length, ps, n_past_pages, KH, G, span, spans;
+  int S;
+  Bounds bd;
+  int n_past_pages, KH, G, span, spans;
   long long q_ss, q_sh, k_ss, k_sh, v_ss, v_sh;
-  float scale;
+  float scale, softcap;
 };
 
 template <typename T, typename E, int HD>
@@ -392,18 +458,17 @@ int launch(const Args& a, cudaStream_t s) {
   T* out = static_cast<T*>(a.out);
   if constexpr (kTC) {
     tc::chunk_kernel<HD, E><<<grid, threads, bytes, s>>>(
-        q, k, v, a.pool, a.table, a.part, a.S, a.start, a.length, a.ps,
-        a.n_past_pages, a.G, a.span, a.q_ss, a.q_sh, a.k_ss, a.k_sh, a.v_ss,
-        a.v_sh, a.scale);
+        q, k, v, a.pool, a.table, a.part, a.S, a.bd, a.n_past_pages, a.G,
+        a.span, a.q_ss, a.q_sh, a.k_ss, a.k_sh, a.v_ss, a.v_sh, a.scale,
+        a.softcap);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     tc::chunk_merge_kernel<HD><<<dim3(SG, a.KH), HD, 0, s>>>(
-        a.part, out, a.S, a.start, a.length, a.G, a.span, a.spans);
+        a.part, out, a.S, a.bd, a.G, a.span, a.spans);
   } else {
     fma::chunk_fma_kernel<HD, E><<<grid, threads, bytes, s>>>(
-        q, k, v, a.pool, a.table, out, a.S, a.start, a.length, a.ps,
-        a.n_past_pages, a.G, a.q_ss, a.q_sh, a.k_ss, a.k_sh, a.v_ss, a.v_sh,
-        a.scale);
+        q, k, v, a.pool, a.table, out, a.S, a.bd, a.n_past_pages, a.G,
+        a.q_ss, a.q_sh, a.k_ss, a.k_sh, a.v_ss, a.v_sh, a.scale, a.softcap);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -421,17 +486,22 @@ int dispatch_hd(int hd, const Args& a, cudaStream_t s) {
 }  // namespace
 
 // q: (S, Hq, hd) with strides (q_ss, q_sh, 1); k, v: the raw chunk (S, KH,
-// hd) with strides (k_ss, k_sh, 1), (v_ss, v_sh, 1), in q's dtype; k_pool,
-// v_pool: (P, ps, KH, hd) with strides (p_sp, p_ss, p_sh, 1), in q's dtype
-// or, with pool_i8, int8 with k_scale, v_scale (P, ps, KH, 1) float32 with
-// strides (s_sp, s_ss, s_sh, 1); table: the stream's page ids, int32,
-// contiguous, covering positions 0 .. start-1; out: (S, Hq, hd) contiguous.
-// bfloat16 (dtype) runs the tensor-core body with key spans of `span`
-// positions (a positive multiple of 64), spans = ceil((start + length) /
-// span), and part a float32 scratch of KH*spans*S*G*(hd+2) elements;
-// float32 runs the FMA body, one span (span 0, spans 1, no scratch).
-// Requires 1 <= length <= S, G >= 1, hd in {64, 128, 256} and 16-byte
-// aligned rows.  Returns the CUDA error code.
+// hd) with strides (k_ss, k_sh, 1), (v_ss, v_sh, 1), in q's dtype.  The
+// past, in q's dtype or, with pool_i8, int8 with k_scale, v_scale float32
+// (..., KH, 1) with strides (s_sp, s_ss, s_sh, 1):
+// - buf_len 0: k_pool, v_pool (P, ps, KH, hd) with strides (p_sp, p_ss,
+//   p_sh, 1), read through table, the stream's page ids, int32,
+//   contiguous, covering positions 0 .. start-1 (n_pages of them);
+// - buf_len > 0: the stream's dense rows (buf_len, KH, hd) with strides
+//   (p_ss, p_sh, 1) (p_sp, s_sp, ps, n_pages and table unused), position
+//   p at slot p % buf_len, resident from start - buf_len.
+// window > 0 bounds each query's lookback; softcap > 0 caps the logits.
+// out: (S, Hq, hd) contiguous.  bfloat16 (dtype) runs the tensor-core body
+// with key spans of `span` positions (a positive multiple of 64), spans =
+// ceil((start + length) / span), and part a float32 scratch of
+// KH*spans*S*G*(hd+2) elements; float32 runs the FMA body, one span (span
+// 0, spans 1, no scratch).  Requires 1 <= length <= S, G >= 1, hd in {64,
+// 128, 256} and 16-byte aligned rows.  Returns the CUDA error code.
 extern "C" int chunk_attention_launch(
     const void* q, const void* k, const void* v, const void* k_pool,
     const void* v_pool, const void* k_scale, const void* v_scale,
@@ -440,22 +510,27 @@ extern "C" int chunk_attention_launch(
     long long q_ss, long long q_sh, long long k_ss, long long k_sh,
     long long v_ss, long long v_sh, long long p_sp, long long p_ss,
     long long p_sh, long long s_sp, long long s_ss, long long s_sh,
-    float scale, int dtype, int pool_i8, void* stream) {
-  const int n_past_pages = ps > 0 ? (start + ps - 1) / ps : -1;
+    float scale, float softcap, int window, int buf_len, int dtype,
+    int pool_i8, void* stream) {
+  const bool dense = buf_len > 0;
+  const int n_past_pages = dense ? 0 : ps > 0 ? (start + ps - 1) / ps : -1;
   const bool split = dtype == kBF16;
   const int want = split && span > 0 ? (start + length + span - 1) / span : 1;
-  if (length < 1 || length > S || start < 0 || ps < 1 || KH < 1 || G < 1 ||
+  if (length < 1 || length > S || start < 0 || KH < 1 || G < 1 ||
+      window < 0 || buf_len < 0 || (!dense && (ps < 1 || !table)) ||
       n_past_pages > n_pages || (split ? span < 64 || span % 64 || !part
                                        : span != 0) ||
       spans != want || (pool_i8 && (!k_scale || !v_scale)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Bounds bd{start, length, window,
+                  dense && start > buf_len ? start - buf_len : 0};
   const Args a{q, k, v,
                Pool{k_pool, v_pool, static_cast<const float*>(k_scale),
-                    static_cast<const float*>(v_scale), p_sp, p_ss, p_sh,
-                    s_sp, s_ss, s_sh},
+                    static_cast<const float*>(v_scale), dense ? 0 : p_sp,
+                    p_ss, p_sh, dense ? 0 : s_sp, s_ss, s_sh, ps, buf_len},
                static_cast<const int*>(table), out, static_cast<float*>(part),
-               S, start, length, ps, n_past_pages, KH, G, span, spans,
-               q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, scale};
+               S, bd, n_past_pages, KH, G, span, spans,
+               q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
     return pool_i8 ? dispatch_hd<__nv_bfloat16, int8_t>(hd, a, s)

@@ -4,7 +4,8 @@
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention (Pallas
 // body `_kernel`; bshd wrapper src/repro/kernels/ops.py::decode_attention_bshd).
 // Key j of row b is valid when 0 <= k_pos[b, j] <= q_pos[b] and, with a
-// window, k_pos[b, j] > q_pos[b] - window.  The kernel body, its bound and
+// window, k_pos[b, j] > q_pos[b] - window; logits are soft-capped when
+// softcap > 0.  The kernel body, its bound and
 // its design are in decode_attention.cuh, shared with the paged kernel.
 // The cache view cache[:, :ctx] is strided (batch stride = buf_len*KH*hd),
 // so strides are passed and nothing is copied.  A batch stride of 0 (for K,
@@ -20,13 +21,13 @@ template <typename T>
 int run(const void* q, const void* k, const void* v, const void* k_pos,
         const void* q_pos, void* out, void* part, int spans, int B, int Sk,
         int KH, int G, int hd, const long long* st, int window, float scale,
-        cudaStream_t s) {
+        float softcap, cudaStream_t s) {
   const decode::Cache<T, decode::DenseRows> keys{
       {static_cast<const int*>(k_pos), Sk, window, st[8]},
       static_cast<const T*>(k), static_cast<const T*>(v),
       {st[2], st[3], st[4]}, {st[5], st[6], st[7]}};
   return decode::dispatch_hd<T>(hd, q, q_pos, out, part, spans, B, KH, G,
-                                st[0], st[1], scale, keys, s);
+                                st[0], st[1], scale, softcap, keys, s);
 }
 
 }  // namespace
@@ -35,7 +36,8 @@ int run(const void* q, const void* k, const void* v, const void* k_pos,
 // strides (*_sb, *_ss, *_sh, 1); k_pos: (B, Sk) int32 with strides (kp_sb, 1);
 // q_pos: (B,) int32 contiguous; out: (B, Hq, hd) contiguous; part: float32
 // scratch of B*KH*spans*G*(hd+2) elements, spans = decode::n_spans(Sk).
-// Strides are in elements.  Requires G = Hq/KH <= 16, hd in {64, 128, 256}
+// Strides are in elements; softcap 0 leaves the logits uncapped.  Requires
+// G = Hq/KH <= 16, hd in {64, 128, 256}
 // and 16-byte aligned K/V rows.  Returns the CUDA error code.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* k_pos,
@@ -43,16 +45,17 @@ extern "C" int decode_attention_launch(
     int KH, int G, int hd,
     long long q_sb, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long kp_sb, int window, float scale, int dtype, void* stream) {
+    long long kp_sb, int window, float scale, float softcap, int dtype,
+    void* stream) {
   if (G < 1 || G > decode::kMaxG || spans != decode::n_spans(Sk))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[9] = {q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, kp_sb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
     return run<__nv_bfloat16>(q, k, v, k_pos, q_pos, out, part, spans, B,
-                              Sk, KH, G, hd, st, window, scale, s);
+                              Sk, KH, G, hd, st, window, scale, softcap, s);
   if (dtype == kF32)
     return run<float>(q, k, v, k_pos, q_pos, out, part, spans, B, Sk, KH, G,
-                      hd, st, window, scale, s);
+                      hd, st, window, scale, softcap, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

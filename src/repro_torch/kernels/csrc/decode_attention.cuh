@@ -5,7 +5,9 @@
 // stored element type over a row policy, `DenseRows` or `PagedRows`).
 //
 // Key j of row b is used when Keys::valid says so; a row with no valid key
-// gives zeros.  Softmax and accumulation are float32.
+// gives zeros.  A logit s (the scaled dot product) is soft-capped to
+// tanh(s / softcap) * softcap when softcap > 0 (gemma2), before the running
+// max.  Softmax and accumulation are float32.
 //
 // Bound on the H100: bytes.  Every valid key's K and V row is read once and
 // each is used for 2*G FLOP per element (G = Hq/KH query heads share it), so
@@ -208,7 +210,7 @@ template <typename T, int HD, class Keys>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const int* __restrict__ q_pos,
               float* __restrict__ part, int KH, int G, long long q_sb,
-              long long q_sh, float scale, const Keys keys) {
+              long long q_sh, float scale, float softcap, const Keys keys) {
   using S = typename Keys::Elem;
   constexpr bool kScaled = Keys::kScaled;
   using C = Geom<S, HD>;
@@ -342,7 +344,11 @@ decode_kernel(const T* __restrict__ q, const int* __restrict__ q_pos,
         for (int o = 1; o < TPK; o <<= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, o);
         if constexpr (kScaled) dot *= ksc;
-        if (sp == 0) p_s[g * CK + sj] = key_ok ? dot * scale : kNegInf;
+        if (sp == 0) {
+          float x = dot * scale;
+          if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+          p_s[g * CK + sj] = key_ok ? x : kNegInf;
+        }
       }
     }
     __syncthreads();
@@ -462,7 +468,7 @@ combine_kernel(const float* __restrict__ part, T* __restrict__ out, int KH,
 template <typename T, int HD, class Keys>
 int launch(const void* q, const void* q_pos, void* out, float* part,
            int spans, int B, int KH, int G, long long q_sb, long long q_sh,
-           float scale, const Keys& keys, cudaStream_t s) {
+           float scale, float softcap, const Keys& keys, cudaStream_t s) {
   using C = Geom<typename Keys::Elem, HD>;
   const int bytes = C::smem_bytes(G, Keys::kScaled);
   auto kern = decode_kernel<T, HD, Keys>;
@@ -471,7 +477,7 @@ int launch(const void* q, const void* q_pos, void* out, float* part,
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<dim3(spans, KH, B), kThreads, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const int*>(q_pos), part, KH, G,
-      q_sb, q_sh, scale, keys);
+      q_sb, q_sh, scale, softcap, keys);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   combine_kernel<T, HD><<<dim3(KH * G, B), HD, 0, s>>>(
@@ -484,15 +490,16 @@ int launch(const void* q, const void* q_pos, void* out, float* part,
 template <typename T, class Keys>
 int dispatch_hd(int hd, const void* q, const void* q_pos, void* out,
                 void* part, int spans, int B, int KH, int G, long long q_sb,
-                long long q_sh, float scale, const Keys& keys, cudaStream_t s) {
+                long long q_sh, float scale, float softcap, const Keys& keys,
+                cudaStream_t s) {
   float* p = static_cast<float*>(part);
   switch (hd) {
     case 64:
-      return launch<T, 64>(q, q_pos, out, p, spans, B, KH, G, q_sb, q_sh, scale, keys, s);
+      return launch<T, 64>(q, q_pos, out, p, spans, B, KH, G, q_sb, q_sh, scale, softcap, keys, s);
     case 128:
-      return launch<T, 128>(q, q_pos, out, p, spans, B, KH, G, q_sb, q_sh, scale, keys, s);
+      return launch<T, 128>(q, q_pos, out, p, spans, B, KH, G, q_sb, q_sh, scale, softcap, keys, s);
     case 256:
-      return launch<T, 256>(q, q_pos, out, p, spans, B, KH, G, q_sb, q_sh, scale, keys, s);
+      return launch<T, 256>(q, q_pos, out, p, spans, B, KH, G, q_sb, q_sh, scale, softcap, keys, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,8 +4,8 @@
 //
 // Replaces: src/repro/kernels/decode_attention_q8.py::decode_attention_q8
 // (Pallas body `_kernel`).  It computes what decode_attention.cu computes
-// (validity 0 <= k_pos <= q_pos and the window, float32 online softmax,
-// zeros for a row with no valid key) on the dequantized cache: K/V are
+// (validity 0 <= k_pos <= q_pos and the window, the softcap, float32 online
+// softmax, zeros for a row with no valid key) on the dequantized cache: K/V are
 // widened to float32 after the load from shared memory, and the scales are
 // applied in float32 registers (factored out of the sums: see
 // decode_attention.cuh).  q and the output are float32 or bfloat16.
@@ -27,7 +27,8 @@ using namespace rt;
 // (B, Sk, KH, 1) with strides (*_sb, *_ss, *_sh, 1); k_pos: (B, Sk) int32
 // with strides (kp_sb, 1); q_pos: (B,) int32 contiguous; out: (B, Hq, hd)
 // contiguous, q's dtype; part: float32 scratch of B*KH*spans*G*(hd+2)
-// elements, spans = decode::n_spans(Sk).  Strides are in elements.
+// elements, spans = decode::n_spans(Sk).  Strides are in elements; softcap
+// 0 leaves the logits uncapped.
 // Requires G = Hq/KH <= 16, hd in {64, 128, 256} and 16-byte aligned K/V
 // rows.  Returns the CUDA error code.
 extern "C" int decode_attention_q8_launch(
@@ -37,7 +38,8 @@ extern "C" int decode_attention_q8_launch(
     long long q_sb, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long ks_sb, long long ks_ss, long long ks_sh, long long vs_sb,
-    long long vs_ss, long long vs_sh, long long kp_sb, int window, float scale, int dtype, void* stream) {
+    long long vs_ss, long long vs_sh, long long kp_sb, int window, float scale,
+    float softcap, int dtype, void* stream) {
   if (G < 1 || G > decode::kMaxG || spans != decode::n_spans(Sk))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -50,9 +52,9 @@ extern "C" int decode_attention_q8_launch(
   if (dtype == kBF16)
     return decode::dispatch_hd<__nv_bfloat16>(hd, q, q_pos, out, part, spans,
                                               B, KH, G, q_sb, q_sh, scale,
-                                              keys, s);
+                                              softcap, keys, s);
   if (dtype == kF32)
     return decode::dispatch_hd<float>(hd, q, q_pos, out, part, spans, B, KH,
-                                      G, q_sb, q_sh, scale, keys, s);
+                                      G, q_sb, q_sh, scale, softcap, keys, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

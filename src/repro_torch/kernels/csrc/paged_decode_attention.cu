@@ -9,7 +9,8 @@
 // counterpart here.  Key j of row b lives in physical page
 // page_table[b, j / ps] at offset j % ps; pages are linear, so its position
 // is j itself and there is no k_pos array: key j is valid when j <= q_pos[b]
-// and, with a window, j > q_pos[b] - window.  The walk is n_pages*ps keys,
+// and, with a window, j > q_pos[b] - window; logits are soft-capped when
+// softcap > 0.  The walk is n_pages*ps keys,
 // of which only those from the first to the last valid one are loaded, so
 // scratch-page tails (unallocated chain entries, which point at page 0) are
 // never read.  The table is read with its row stride: the engine passes the
@@ -41,7 +42,7 @@ extern "C" int paged_decode_attention_launch(
     int spans, int B, int n_pages, int ps, int KH, int G, int hd,
     long long q_sb, long long q_sh,
     long long pt_sb, long long p_sp, long long p_ss, long long p_sh,
-    int window, float scale, int dtype, void* stream) {
+    int window, float scale, float softcap, int dtype, void* stream) {
   if (G < 1 || G > decode::kMaxG || ps < 1 ||
       spans != decode::n_spans((long long)n_pages * ps))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -55,14 +56,14 @@ extern "C" int paged_decode_attention_launch(
         rows, static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
         st, st};
     return decode::dispatch_hd<T>(hd, q, q_pos, out, part, spans, B, KH, G,
-                                  q_sb, q_sh, scale, keys, s);
+                                  q_sb, q_sh, scale, softcap, keys, s);
   }
   if (dtype == kF32) {
     const decode::Cache<float, decode::PagedRows> keys{
         rows, static_cast<const float*>(k_pool),
         static_cast<const float*>(v_pool), st, st};
     return decode::dispatch_hd<float>(hd, q, q_pos, out, part, spans, B, KH,
-                                      G, q_sb, q_sh, scale, keys, s);
+                                      G, q_sb, q_sh, scale, softcap, keys, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -79,7 +80,7 @@ extern "C" int paged_decode_attention_q8_launch(
     int ps, int KH, int G, int hd, long long q_sb, long long q_sh,
     long long pt_sb, long long p_sp, long long p_ss, long long p_sh,
     long long s_sp, long long s_ss, long long s_sh, int window, float scale,
-    int dtype, void* stream) {
+    float softcap, int dtype, void* stream) {
   if (G < 1 || G > decode::kMaxG || ps < 1 ||
       spans != decode::n_spans((long long)n_pages * ps))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -95,9 +96,9 @@ extern "C" int paged_decode_attention_q8_launch(
   if (dtype == kBF16)
     return decode::dispatch_hd<__nv_bfloat16>(hd, q, q_pos, out, part, spans,
                                               B, KH, G, q_sb, q_sh, scale,
-                                              keys, s);
+                                              softcap, keys, s);
   if (dtype == kF32)
     return decode::dispatch_hd<float>(hd, q, q_pos, out, part, spans, B, KH,
-                                      G, q_sb, q_sh, scale, keys, s);
+                                      G, q_sb, q_sh, scale, softcap, keys, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

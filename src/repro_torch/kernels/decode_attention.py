@@ -21,7 +21,7 @@ from .ref import reference_decode_attention
 launches = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = ((_P,) * 7 + (_I,) * 6 + (_L,) * 9 + (_I, _F, _I, _P))
+_ARGTYPES = ((_P,) * 7 + (_I,) * 6 + (_L,) * 9 + (_I, _F, _F, _I, _P))
 MAX_GROUP = 16      # query heads per kv head the kernel holds
 HEAD_DIMS = (64, 128, 256)
 SPAN = 128          # key indices per CTA (decode::kSpan)
@@ -43,20 +43,23 @@ def scratch(walk: int, B: int, KH: int, G: int, hd: int, device):
 
 
 def decode_attention_plain(q, k, v, k_pos, q_pos, *, window: int = 0,
-                           scale=None):
+                           softcap: float = 0.0, scale=None):
     out = reference_decode_attention(q[:, 0], k.transpose(1, 2),
                                      v.transpose(1, 2), k_pos, q_pos,
-                                     window=window, scale=scale)
+                                     window=window, softcap=softcap,
+                                     scale=scale)
     return out[:, None]
 
 
-def decode_attention(q, k, v, k_pos, q_pos, *, window: int = 0, scale=None):
+def decode_attention(q, k, v, k_pos, q_pos, *, window: int = 0,
+                     softcap: float = 0.0, scale=None):
     """q (B,1,Hq,hd); k,v (B,Sk,KH,hd); k_pos (B,Sk) int32 slot positions
-    (-1 = unfilled); q_pos (B,) int32 -> (B,1,Hq,hd)."""
+    (-1 = unfilled); q_pos (B,) int32 -> (B,1,Hq,hd).  ``softcap`` > 0
+    caps the logits, tanh(s / softcap) * softcap."""
     global launches
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, k_pos, q_pos, window=window,
-                                      scale=scale)
+                                      softcap=softcap, scale=scale)
     _build.check_cuda("decode_attention", q, k, v, k_pos, q_pos)
     B, one, Hq, hd = q.shape
     Bk, Sk, KH, hdk = k.shape
@@ -88,7 +91,7 @@ def decode_attention(q, k, v, k_pos, q_pos, *, window: int = 0, scale=None):
              q_pos.data_ptr(), out.data_ptr(), part.data_ptr(), spans, B, Sk,
              KH, Hq // KH, hd, q.stride(0), q.stride(2), k.stride(0),
              k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-             k_pos.stride(0), int(window), float(scale), code,
+             k_pos.stride(0), int(window), float(scale), float(softcap), code,
              _build.stream_handle())
     _build.raise_on_error("decode_attention", err)
     launches += 1

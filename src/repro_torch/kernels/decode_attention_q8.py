@@ -26,29 +26,32 @@ from .ref import reference_decode_attention
 launches = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = ((_P,) * 9 + (_I,) * 6 + (_L,) * 15 + (_I, _F, _I, _P))
+_ARGTYPES = ((_P,) * 9 + (_I,) * 6 + (_L,) * 15 + (_I, _F, _F, _I, _P))
 MAX_GROUP = 16      # query heads per kv head the kernel holds
 HEAD_DIMS = (64, 128, 256)
 
 
 def decode_attention_q8_plain(q, k, k_s, v, v_s, k_pos, q_pos, *,
-                              window: int = 0, scale=None):
+                              window: int = 0, softcap: float = 0.0,
+                              scale=None):
     kf = (k.float() * k_s).transpose(1, 2)
     vf = (v.float() * v_s).transpose(1, 2)
     out = reference_decode_attention(q[:, 0].float(), kf, vf, k_pos, q_pos,
-                                     window=window, scale=scale)
+                                     window=window, softcap=softcap,
+                                     scale=scale)
     return out.to(q.dtype)[:, None]
 
 
 def decode_attention_q8(q, k, k_s, v, v_s, k_pos, q_pos, *, window: int = 0,
-                        scale=None):
+                        softcap: float = 0.0, scale=None):
     """q (B,1,Hq,hd); k,v (B,Sk,KH,hd) int8; k_s,v_s (B,Sk,KH,1) float32;
     k_pos (B,Sk) int32 slot positions (-1 = unfilled); q_pos (B,) int32
-    -> (B,1,Hq,hd) in q's dtype."""
+    -> (B,1,Hq,hd) in q's dtype.  ``softcap`` > 0 caps the logits."""
     global launches
     if q.device.type == "cpu":
         return decode_attention_q8_plain(q, k, k_s, v, v_s, k_pos, q_pos,
-                                         window=window, scale=scale)
+                                         window=window, softcap=softcap,
+                                         scale=scale)
     _build.check_cuda("decode_attention_q8", q, k, k_s, v, v_s, k_pos, q_pos)
     B, one, Hq, hd = q.shape
     Bk, Sk, KH, hdk = k.shape
@@ -87,7 +90,8 @@ def decode_attention_q8(q, k, k_s, v, v_s, k_pos, q_pos, *, window: int = 0,
              q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2), k_s.stride(0),
              k_s.stride(1), k_s.stride(2), v_s.stride(0), v_s.stride(1),
-             v_s.stride(2), k_pos.stride(0), int(window), float(scale), code,
+             v_s.stride(2), k_pos.stride(0), int(window), float(scale),
+             float(softcap), code,
              _build.stream_handle())
     _build.raise_on_error("decode_attention_q8", err)
     launches += 1

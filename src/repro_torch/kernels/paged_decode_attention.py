@@ -34,41 +34,43 @@ launches = 0
 q8_launches = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = ((_P,) * 7 + (_I,) * 7 + (_L,) * 6 + (_I, _F, _I, _P))
-_Q8_ARGTYPES = ((_P,) * 9 + (_I,) * 7 + (_L,) * 9 + (_I, _F, _I, _P))
+_ARGTYPES = ((_P,) * 7 + (_I,) * 7 + (_L,) * 6 + (_I, _F, _F, _I, _P))
+_Q8_ARGTYPES = ((_P,) * 9 + (_I,) * 7 + (_L,) * 9 + (_I, _F, _F, _I, _P))
 MAX_GROUP = 16      # query heads per kv head the kernel holds
 HEAD_DIMS = (64, 128, 256)
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, page_table, q_pos, *,
-                                 window: int = 0, scale=None, k_scale=None,
-                                 v_scale=None):
+                                 window: int = 0, softcap: float = 0.0,
+                                 scale=None, k_scale=None, v_scale=None):
     if k_scale is not None:
         # int8 pools: the gathered chain dequantized in float32
         out = paged_decode_attention_ref(q[:, 0].float(), k_pool, v_pool,
                                          page_table, q_pos, window=window,
-                                         scale=scale, k_scale=k_scale,
-                                         v_scale=v_scale)
+                                         softcap=softcap, scale=scale,
+                                         k_scale=k_scale, v_scale=v_scale)
         return out.to(q.dtype)[:, None]
     # the reference reads the gathered pool in q's dtype
     # (models/kvcache.py::paged_cache_kv_arrays)
     out = paged_decode_attention_ref(q[:, 0], k_pool.to(q.dtype),
                                      v_pool.to(q.dtype), page_table, q_pos,
-                                     window=window, scale=scale)
+                                     window=window, softcap=softcap,
+                                     scale=scale)
     return out[:, None]
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, q_pos, *,
-                           window: int = 0, scale=None, k_scale=None,
-                           v_scale=None):
+                           window: int = 0, softcap: float = 0.0, scale=None,
+                           k_scale=None, v_scale=None):
     """q (B,1,Hq,hd); k_pool, v_pool (P,ps,KH,hd) contiguous, in q's dtype,
     or int8 with k_scale, v_scale (P,ps,KH,1) float32 contiguous;
-    page_table (B,n_pages) int32; q_pos (B,) int32 -> (B,1,Hq,hd)."""
+    page_table (B,n_pages) int32; q_pos (B,) int32 -> (B,1,Hq,hd).
+    ``softcap`` > 0 caps the logits."""
     global launches, q8_launches
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
-            q, k_pool, v_pool, page_table, q_pos, window=window, scale=scale,
-            k_scale=k_scale, v_scale=v_scale)
+            q, k_pool, v_pool, page_table, q_pos, window=window,
+            softcap=softcap, scale=scale, k_scale=k_scale, v_scale=v_scale)
     q8 = k_scale is not None or v_scale is not None
     scales = (k_scale, v_scale) if q8 else ()
     _build.check_cuda("paged_decode_attention", q, k_pool, v_pool,
@@ -120,7 +122,8 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, q_pos, *,
     geom = (part.data_ptr(), spans, B, n_pages, ps, KH, Hq // KH, hd,
             q.stride(0), q.stride(2), page_table.stride(0), k_pool.stride(0),
             k_pool.stride(1), k_pool.stride(2))
-    tail = (int(window), float(scale), code, _build.stream_handle())
+    tail = (int(window), float(scale), float(softcap), code,
+            _build.stream_handle())
     if q8:
         fn = _build.function("paged_decode_attention",
                              "paged_decode_attention_q8_launch", _Q8_ARGTYPES)

@@ -40,7 +40,7 @@ def reference_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 
 def reference_decode_attention(q, k, v, k_pos, q_pos, *, window=0,
-                               scale=None):
+                               softcap=0.0, scale=None):
     """q (B,Hq,hd); k,v (B,KH,Sk,hd); k_pos (B,Sk); q_pos (B,)."""
     B, Hq, hd = q.shape
     KH = k.shape[1]
@@ -50,6 +50,8 @@ def reference_decode_attention(q, k, v, k_pos, q_pos, *, window=0,
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
     s = torch.einsum("bhd,bhkd->bhk", q.float(), k.float()) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
     valid = (k_pos >= 0) & (k_pos <= q_pos[:, None])
     if window:
         valid &= k_pos > (q_pos[:, None] - window)
@@ -60,8 +62,8 @@ def reference_decode_attention(q, k, v, k_pos, q_pos, *, window=0,
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, page_table, q_pos, *,
-                               window=0, scale=None, k_scale=None,
-                               v_scale=None):
+                               window=0, softcap=0.0, scale=None,
+                               k_scale=None, v_scale=None):
     """q (B,Hq,hd); k_pool/v_pool (P,ps,KH,hd); page_table (B,n_pages) int32
     physical page ids; q_pos (B,) int32 -> (B,Hq,hd).  Gathers each chain
     dense; key j has position j (pages are linear), valid when <= q_pos and
@@ -90,10 +92,49 @@ def paged_decode_attention_ref(q, k_pool, v_pool, page_table, q_pos, *,
     if window:
         valid &= kpos[None, :] > (q_pos[:, None] - window)
     s = torch.einsum("bhd,bshd->bhs", q.float(), k) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
     s = torch.where(valid[:, None, :], s, -torch.inf)
     p = torch.softmax(s, dim=-1)
     p = torch.where(valid.any(-1)[:, None, None], p, 0.0)
     return torch.einsum("bhs,bshd->bhd", p, v).to(q.dtype)
+
+
+# queries per block of reference_chunk_attention: bounds the float32 score
+# block (Hq, _Q_BLOCK, Sk) a 4096-query chunk over a 16384-slot row would
+# otherwise make whole
+_Q_BLOCK = 1024
+
+
+def reference_chunk_attention(q, k, v, q_pos, k_pos, *, window=0,
+                              softcap=0.0, scale=None):
+    """One stream's queries against one context: q (S,Hq,hd); k, v
+    (Sk,KH,hd); q_pos (S,), k_pos (Sk,) int32 positions (-1 = empty) ->
+    (S,Hq,hd) in q's dtype.  Key j is seen by query i when 0 <= k_pos[j] <=
+    q_pos[i] and, with a window, k_pos[j] > q_pos[i] - window; float32
+    scores (soft-capped when softcap > 0), softmax and P.V, as
+    ``reference_decode_attention`` computes each row, in blocks of
+    ``_Q_BLOCK`` queries."""
+    S, Hq, hd = q.shape
+    KH = k.shape[1]
+    scale = hd ** -0.5 if scale is None else scale
+    kf = k.float().repeat_interleave(Hq // KH, dim=1)
+    vf = v.float().repeat_interleave(Hq // KH, dim=1)
+    outs = []
+    for i in range(0, S, _Q_BLOCK):
+        qp = q_pos[i:i + _Q_BLOCK, None]
+        valid = (k_pos[None] >= 0) & (k_pos[None] <= qp)
+        if window:
+            valid &= k_pos[None] > qp - window
+        qb = q[i:i + _Q_BLOCK].float()
+        s = torch.einsum("qhd,khd->hqk", qb, kf) * scale
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        s = torch.where(valid[None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        p = torch.where(valid.any(-1)[None, :, None], p, 0.0)
+        outs.append(torch.einsum("hqk,khd->qhd", p, vf))
+    return torch.cat(outs).to(q.dtype)
 
 
 def rmsnorm_ref(x, w, eps=1e-6):

@@ -4,6 +4,9 @@ burst, and print the typed ``ServingReport``.
 
   python -m repro_torch.launch.serve                    # qwen2-1.5b smoke, CUDA
   python -m repro_torch.launch.serve --full-width       # the full config
+  # the dense attention family: qwen3-14b (the paper's model), granite-8b,
+  # chatglm3-6b, gemma2-9b (local/full rings, softcaps)
+  python -m repro_torch.launch.serve --arch qwen3-14b --full-width
   python -m repro_torch.launch.serve --device cpu --requests 4
   python -m repro_torch.launch.serve --paged            # paged KV pool
   python -m repro_torch.launch.serve --prefix-cache     # + prefix cache
@@ -30,7 +33,7 @@ import sys
 
 import numpy as np
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import (AlertEngine, AlertRule, EnergyLedger,
                               MetricsRegistry, SamplingParams, SLOConfig,
                               Tracer, verify_conservation)
@@ -151,7 +154,7 @@ class Dashboard:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--arch", default="qwen2-1.5b", choices=ARCH_IDS)
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--governor", default="greenllm",
                     choices=["greenllm", "defaultnv"])

@@ -10,7 +10,8 @@ entries at ``slot = position % buf_len`` and reconstruct absolute positions
 arithmetically for masking.  Where the JAX reference returns updated
 buffers (and the serving engine donates the old ones so XLA updates them in
 place), the port writes into the given buffers in place: ``index_put_`` for
-per-row decode writes, slice assignment for a prefill row.  The write lands
+per-row decode writes and a chunk's ring slots, slice assignment for a
+prefill row.  The write lands
 in the base tensor even when the leaf is a view (a layer of a stacked cache,
 or the ``[:, :ctx]`` slice of a decode block).
 """
@@ -133,6 +134,33 @@ def cache_write_prefill_slot(cache: Dict, k_seq, v_seq, slot: int) -> Dict:
     for name, val in _writes(cache, k_seq, v_seq):
         cache[name][slot, :S] = val[0].to(cache[name].dtype)
     return cache
+
+
+def cache_write_chunk_slot(cache: Dict, k_seq, v_seq, slot: int,
+                           start: int, length: int) -> Dict:
+    """Write the first ``length`` tokens of a prompt chunk (1, S_pad, KH,
+    hd) into row ``slot`` at the ring slots of positions
+    ``start..start+length-1``, in place (quantized first in an int8 cache).
+    The slots may wrap onto valid earlier context, so pads (>= length) are
+    not written at all, as the reference drops them.  Of a chunk longer
+    than the ring, the last ``buf_len`` tokens stay, as the reference's
+    in-order scatter leaves them."""
+    buf_len = cache["k"].shape[1]
+    first = max(0, length - buf_len)
+    posi = start + torch.arange(first, length, device=k_seq.device)
+    slots = torch.remainder(posi, buf_len)
+    for name, val in _writes(cache, k_seq[0, first:length],
+                             v_seq[0, first:length]):
+        cache[name][slot, slots] = val.to(cache[name].dtype)
+    return cache
+
+
+def cache_row_kv_arrays(cache: Dict, slot: int, dtype=torch.bfloat16):
+    """(k, v) of batch row ``slot``, (1, buf_len, KH, hd), dequantized to
+    ``dtype``: the past-context read of a chunked prefill into a dense
+    row (its positions: ``ring_slot_positions(buf_len, start)``)."""
+    return cache_kv_arrays({kk: vv[slot:slot + 1] for kk, vv in cache.items()},
+                           dtype)
 
 
 def cache_key_positions(cache: Dict, pos, batch: int):

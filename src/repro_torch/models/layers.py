@@ -1,7 +1,8 @@
 """Shared layer primitives for the dense attention-only path: RMSNorm,
-RoPE, the SwiGLU MLP and tied embeddings (port of
-``src/repro/models/layers.py``; the other branches come with the
-architectures that use them)."""
+RoPE (full or partial), the gated MLPs (SwiGLU, GeGLU), tied or untied
+embeddings with gemma's scaled embeddings and final logit softcap (port of
+``src/repro/models/layers.py``; layer norm, sincos positions and the plain
+MLP come with the architectures that use them)."""
 from __future__ import annotations
 
 import functools
@@ -20,7 +21,8 @@ def dense_init(gen: torch.Generator, shape, fan_in: int, dtype):
     generator's device."""
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (x * (1.0 / math.sqrt(fan_in))).to(dtype)
+    # scaled in place: one float32 temporary of a stacked weight at a time
+    return x.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
 
 
 # -- norms ---------------------------------------------------------------------
@@ -84,22 +86,53 @@ def init_mlp(gen, cfg: ModelConfig, dtype, lead=()):
             "down": dense_init(gen, lead + (ff, d), ff, dtype)}
 
 
+def activation(cfg: ModelConfig, x):
+    if cfg.act == "silu":
+        return F.silu(x)
+    if cfg.act == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(cfg.act)
+
+
 def apply_mlp(cfg: ModelConfig, p, x):
-    """SwiGLU: silu(x @ gate) * (x @ up) @ down."""
-    return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+    """Gated MLP: act(x @ gate) * (x @ up) @ down (SwiGLU, GeGLU)."""
+    return (activation(cfg, x @ p["gate"]) * (x @ p["up"])) @ p["down"]
 
 
 # -- embedding / unembedding ---------------------------------------------------------
 
 def init_embed(gen, cfg: ModelConfig, dtype):
-    return {"embedding": dense_init(gen, (cfg.vocab_size, cfg.d_model),
-                                    cfg.d_model, dtype)}
+    p = {"embedding": dense_init(gen, (cfg.vocab_size, cfg.d_model),
+                                 cfg.d_model, dtype)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                  cfg.d_model, dtype)
+    return p
+
+
+@functools.lru_cache(maxsize=16)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    # sqrt(d_model) rounded to the activation dtype first, as the reference
+    # multiplies by jnp.asarray(sqrt(d), x.dtype): sqrt(3584) = 59.866 is
+    # 59.75 in bf16
+    return float(torch.tensor(math.sqrt(d_model), dtype=dtype))
 
 
 def embed_tokens(cfg: ModelConfig, p, tokens):
-    return p["embedding"][tokens]
+    x = p["embedding"][tokens]
+    if cfg.embed_scale:
+        x = x * _embed_scale(cfg.d_model, x.dtype)
+    return x
 
 
 def unembed(cfg: ModelConfig, p, x):
-    """Tied weights: x @ embedding.T."""
-    return x @ p["embedding"].T
+    """x @ embedding.T (tied) or x @ lm_head; with a final softcap the
+    logits become float32 and then tanh(l / c) * c."""
+    if cfg.tie_embeddings:
+        logits = x @ p["embedding"].T
+    else:
+        logits = x @ p["lm_head"]
+    if cfg.final_softcap:
+        c = cfg.final_softcap
+        logits = torch.tanh(logits.float() / c) * c
+    return logits

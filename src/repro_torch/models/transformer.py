@@ -1,29 +1,37 @@
 """Decoder model, attention-only path (port of
-``src/repro/models/transformer.py`` for the architectures whose every layer
-is full attention with RMSNorm, RoPE, a SwiGLU MLP and tied embeddings, such
-as qwen2).
+``src/repro/models/transformer.py`` for the dense attention family: full
+and sliding-window attention layers with RMSNorm (pre-norm, and gemma2's
+sandwich norms), RoPE (full or partial), optional QKV bias and QK norm,
+attention and final logit softcaps, a gated MLP (SwiGLU or GeGLU) and tied
+or untied embeddings: qwen2, qwen3, granite, chatglm3, gemma2).
 
 Layers are grouped into *stages* as in the reference: the config's block
-pattern stacked over its repeat count, every parameter and cache leaf with a
-leading ``n_rep`` axis.  The reference's ``lax.scan`` over that axis is a
-loop over the stacked slices here.  Entry points: ``prefill_into_slot``
-(one bucket-padded prompt written into one row of the batch cache, or into
-its page chain), ``prefill_chunk_into_slot`` (one chunk of a chunked
-prefill into a page chain) and ``decode_step`` (one token per row at
-per-row positions, dense or through a page table).  Caches are updated in
-place and returned for parity with the reference.  ``sample_tokens_batched``
+pattern (gemma2's (local, full)) stacked over its repeat count, every
+parameter and cache leaf with a leading ``n_rep`` axis.  The reference's
+``lax.scan`` over that axis is a loop over the stacked slices here.  Entry
+points: ``prefill_into_slot`` (one bucket-padded prompt written into one
+row of the batch cache, or into its page chain), ``prefill_chunk_into_slot``
+(one chunk of a chunked prefill into a page chain or a dense row, ring
+buffers included) and ``decode_step`` (one token per row at per-row
+positions, dense or through a page table).  Caches are updated in place
+and returned for parity with the reference.  ``sample_tokens_batched``
 draws one token per row with per-row sampling lanes, as the reference's
 does with the same keys; it is PyTorch operators, as it is XLA there.
 
+A LOCAL layer attends within ``cfg.window``; a FULL layer whose dense
+buffer is shorter than ``cfg.max_seq`` (a long-context ring) within the
+buffer's length; the window rule is the reference's in every mode.
+
 On CUDA tensors the model runs the port's kernels (add_rmsnorm for every
-residual add whose sum feeds a norm, rmsnorm for the other norms,
-flash_attention for prefill, chunk_attention for chunked prefill over a page
-chain, decode_attention for dense decode, paged_decode_attention for paged
-decode); on CPU tensors the same calls take the kernels' plain versions.
-Under ``cfg.kv_quant`` the caches hold int8 K/V with float32 scales: writes
-quantize, dense decode runs decode_attention_q8 on the int8 views, paged
-decode the int8 route of paged_decode_attention, and chunk_attention reads
-the past dequantized to q's dtype, as the reference does.
+residual add whose sum feeds a norm, rmsnorm for the other norms and the
+QK norm's head rows, flash_attention for prefill, chunk_attention for
+chunked prefill over a page chain or a dense row, decode_attention for
+dense decode, paged_decode_attention for paged decode); on CPU tensors the
+same calls take the kernels' plain versions.  Under ``cfg.kv_quant`` the
+caches hold int8 K/V with float32 scales: writes quantize, dense decode
+runs decode_attention_q8 on the int8 views, paged decode the int8 route of
+paged_decode_attention, and chunk_attention reads the past dequantized to
+q's dtype, as the reference does.
 """
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from . import kvcache as KV
 from . import layers as L
-from .config import ModelConfig, FULL_ATTN
+from .config import ModelConfig, FULL_ATTN, LOCAL_ATTN
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -55,25 +63,19 @@ def stages_of(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for features of other architectures, which later slices port
-    (ROADMAP A9)."""
-    bad = [name for name, off in (
-        ("non-full-attention blocks", set(cfg.block_pattern) == {FULL_ATTN}),
-        ("MoE", not cfg.is_moe), ("qk_norm", not cfg.qk_norm),
-        ("post_block_norm", not cfg.post_block_norm),
-        ("embed_scale", not cfg.embed_scale),
-        ("attn_softcap", not cfg.attn_softcap),
-        ("final_softcap", not cfg.final_softcap),
-        ("non-rope positions", cfg.pos_embedding == "rope"),
-        ("partial rotary", cfg.rotary_frac == 1.0),
-        ("layer norm", cfg.norm == "rms"),
-        ("non-SwiGLU MLP", cfg.glu and cfg.act == "silu" and cfg.d_ff > 0),
-        ("untied embeddings", cfg.tie_embeddings),
-        ("prefix embeddings", not cfg.num_prefix_embeds)) if not off]
+    """Raise for features of other architectures, which later slices port,
+    each naming its ROADMAP A9 item."""
+    kinds = set(cfg.block_pattern)
+    bad = [f"{name} (ROADMAP A9.{item})" for name, item, off in (
+        ("SSM / RG-LRU blocks", 6, kinds <= {FULL_ATTN, LOCAL_ATTN}),
+        ("MoE", 4, not cfg.is_moe),
+        ("non-rope positions", 5, cfg.pos_embedding == "rope"),
+        ("layer norm", 5, cfg.norm == "rms"),
+        ("a plain (non-gated) MLP", 5, cfg.glu and cfg.d_ff > 0),
+        ("prefix embeddings", 5, not cfg.num_prefix_embeds)) if not off]
     if bad:
         raise NotImplementedError(
-            f"model '{cfg.name}' needs {', '.join(bad)}, not ported yet "
-            "(ROADMAP A9)")
+            f"model '{cfg.name}' needs {', '.join(bad)}, not ported yet")
 
 
 # -- params ---------------------------------------------------------------------
@@ -91,15 +93,25 @@ def _init_block(gen, cfg: ModelConfig, dtype, n_rep: int) -> Dict:
         for name, n in (("q_b", qd), ("k_b", kvd), ("v_b", kvd)):
             attn[name] = torch.zeros(lead + (n,), dtype=dtype,
                                      device=gen.device)
-    return {"norm": L.init_norm(cfg, gen.device, lead), "attn": attn,
-            "mlp_norm": L.init_norm(cfg, gen.device, lead),
-            "mlp": L.init_mlp(gen, cfg, dtype, lead)}
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            attn[name] = torch.ones(lead + (cfg.head_dim,),
+                                    dtype=torch.float32, device=gen.device)
+    p = {"norm": L.init_norm(cfg, gen.device, lead), "attn": attn}
+    if cfg.post_block_norm:
+        p["post_norm"] = L.init_norm(cfg, gen.device, lead)
+    p["mlp_norm"] = L.init_norm(cfg, gen.device, lead)
+    p["mlp"] = L.init_mlp(gen, cfg, dtype, lead)
+    if cfg.post_block_norm:
+        p["post_mlp_norm"] = L.init_norm(cfg, gen.device, lead)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     """Random parameters on ``gen.device`` with the reference's tree, shapes
     and dtypes (``transformer.init_params``): stage leaves carry a leading
-    ``n_rep`` axis, norm scales are float32, the rest is ``cfg.dtype``.
+    ``n_rep`` axis, norm scales (QK norms included) are float32, the rest
+    is ``cfg.dtype``.
     The values come from ``gen``, not from JAX's generator."""
     check_supported(cfg)
     dtype = DTYPES[cfg.dtype]
@@ -114,13 +126,17 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     return params
 
 
+# leaves the reference makes float32 whatever the model's dtype
+_F32_LEAVES = ("scale", "q_norm", "k_norm")
+
+
 def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
     """The reference's param pytree, given as numpy arrays (e.g.
     ``jax.tree.map(np.asarray, params)``), as the port's params on
     ``device``.  A bfloat16 leaf arrives as an ``ml_dtypes.bfloat16`` array
     and is reinterpreted bit for bit, so the conversion is lossless.
-    ``dtype``, when given, casts the weights; norm scales stay float32 as in
-    the reference."""
+    ``dtype``, when given, casts the weights; a leaf the reference keeps in
+    float32 (``_F32_LEAVES``: norm scales, QK norms) stays float32."""
     def conv(x, key):
         if isinstance(x, dict):
             return {k: conv(v, k) for k, v in x.items()}
@@ -131,7 +147,8 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        if dtype is not None and t.is_floating_point() and key != "scale":
+        if dtype is not None and t.is_floating_point() \
+                and key not in _F32_LEAVES:
             t = t.to(dtype)
         return t.to(device)
     return conv(tree, None)
@@ -166,8 +183,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 # -- blocks --------------------------------------------------------------------------
 
-def _apply_attn(cfg: ModelConfig, p, x, *, mode, positions, rope, cache, pos,
-                slot=None, k_pos_memo=None, length=None, page_table=None):
+def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
+                cache, pos, slot=None, k_pos_memo=None, length=None,
+                page_table=None):
     B, S, _ = x.shape
     a = p["attn"]
     q = x @ a["q"]
@@ -178,17 +196,24 @@ def _apply_attn(cfg: ModelConfig, p, x, *, mode, positions, rope, cache, pos,
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        # the rmsnorm kernel over rows of head_dim
+        q = L.rmsnorm(q, a["q_norm"], cfg.norm_eps)
+        k = L.rmsnorm(k, a["k_norm"], cfg.norm_eps)
     inv, rot = rope
     q = L.apply_rope(q, positions, inv, rot)
     k = L.apply_rope(k, positions, inv, rot)
 
-    # full attention only (see check_supported): no sliding window, except
-    # that a dense buffer shorter than the sequence bounds the lookback as a
-    # ring
+    # the reference's window rule: LOCAL layers attend within cfg.window;
+    # a dense buffer shorter than max_seq on a FULL layer (a long-context
+    # ring) bounds the lookback by its length
+    window = cfg.window if kind == LOCAL_ATTN else 0
+    cap = cfg.attn_softcap
     if mode == "decode" and KV.is_paged(cache):
         KV.paged_cache_write_decode(cache, k, v, pos, page_table)
         out = paged_decode_attention(q, cache["kp"], cache["vp"], page_table,
-                                     pos, scale=cfg.attn_scale,
+                                     pos, window=window, softcap=cap,
+                                     scale=cfg.attn_scale,
                                      k_scale=cache.get("kp_s"),
                                      v_scale=cache.get("vp_s"))
     elif mode == "decode":
@@ -198,61 +223,79 @@ def _apply_attn(cfg: ModelConfig, p, x, *, mode, positions, rope, cache, pos,
         if k_pos is None:
             k_pos = k_pos_memo[buf_len] = KV.cache_key_positions(cache, pos, B)
         # as in the reference, also when the buffer is a ctx-bucket slice
-        window = buf_len if buf_len < cfg.max_seq else 0
+        if window == 0 and buf_len < cfg.max_seq:
+            window = buf_len
         if "k_s" in cache:
             # int8 cache: the kernel dequantizes after its loads, so the
             # buffer is never dequantized as a whole
             out = decode_attention_q8(q, cache["k"], cache["k_s"], cache["v"],
                                       cache["v_s"], k_pos, pos, window=window,
-                                      scale=cfg.attn_scale)
+                                      softcap=cap, scale=cfg.attn_scale)
         else:
             k_full, v_full = KV.cache_kv_arrays(cache, q.dtype)
             out = decode_attention(q, k_full, v_full, k_pos, pos,
-                                   window=window, scale=cfg.attn_scale)
+                                   window=window, softcap=cap,
+                                   scale=cfg.attn_scale)
     elif mode == "chunk":
-        # [past read from the chain through the page table | raw current
-        # chunk], the past read before the chunk is written (the reference's
-        # mode "chunk"); the kernel never reads positions >= pos
-        if not KV.is_paged(cache):
-            raise NotImplementedError(
-                "chunked prefill into a dense cache (reached by the "
-                "long-context rings) is not ported yet (ROADMAP A9)")
-        out = chunk_attention(q, k, v, cache["kp"], cache["vp"], page_table,
-                              pos, length, scale=cfg.attn_scale,
-                              k_scale=cache.get("kp_s"),
-                              v_scale=cache.get("vp_s"))
-        KV.paged_cache_write_chunk(cache, k, v, page_table[0], pos, length)
+        # [past | raw current chunk], the past (the page chain, or the
+        # slot's dense row, a ring when shorter than the context) read
+        # before the chunk is written (the reference's mode "chunk"); the
+        # kernel never reads positions >= pos
+        if KV.is_paged(cache):
+            past = (cache["kp"], cache["vp"], page_table, cache.get("kp_s"),
+                    cache.get("vp_s"))
+        else:
+            if window == 0 and cache["k"].shape[1] < cfg.max_seq:
+                window = cache["k"].shape[1]
+            past = (cache["k"][slot], cache["v"][slot], None,
+                    cache["k_s"][slot] if "k_s" in cache else None,
+                    cache["v_s"][slot] if "v_s" in cache else None)
+        out = chunk_attention(q, k, v, *past[:3], pos, length, window=window,
+                              softcap=cap, scale=cfg.attn_scale,
+                              k_scale=past[3], v_scale=past[4])
+        if KV.is_paged(cache):
+            KV.paged_cache_write_chunk(cache, k, v, page_table[0], pos,
+                                       length)
+        else:
+            KV.cache_write_chunk_slot(cache, k, v, slot, pos, length)
     elif mode == "prefill":
         # slot-native: this prompt's K/V go into one row of the batch cache
         # (pads included, hidden by the position mask) or into its page
         # chain (pads dropped: their pages may not be allocated); attention
         # reads the fresh K/V, not the cache
-        window = 0
         if KV.is_paged(cache):
             KV.paged_cache_write_chunk(cache, k, v, page_table[0], 0, length)
         else:
             KV.cache_write_prefill_slot(cache, k, v, slot)
             buf_len = cache["k"].shape[1]
-            window = buf_len if buf_len < S else 0
+            if window == 0 and buf_len < S:
+                window = buf_len
         out = flash_attention(q, k, v, causal=True, window=window,
-                              softcap=cfg.attn_softcap, scale=cfg.attn_scale)
+                              softcap=cap, scale=cfg.attn_scale)
     else:
         raise ValueError(mode)
     return out.reshape(B, S, cfg.q_dim) @ a["o"]
 
 
-def _apply_block(cfg: ModelConfig, p, x, delta, **kw):
+def _apply_block(cfg: ModelConfig, kind: str, p, x, delta, **kw):
     """One pre-norm block on the residual stream ``x + delta`` (``delta``
     the previous block's MLP output, not yet added; None before the first
     block).  Returns (stream, this block's MLP output): the caller adds it
     where the sum feeds the next norm, so every such add shares its launch
-    with that norm (``add_rmsnorm``)."""
+    with that norm (``add_rmsnorm``).  Sandwich norms (``post_block_norm``)
+    normalise the attention and MLP outputs before their residual adds."""
     if delta is None:
         h = L.apply_norm(cfg, p["norm"], x)
     else:
         x, h = L.apply_add_norm(cfg, p["norm"], x, delta)
-    x, h = L.apply_add_norm(cfg, p["mlp_norm"], x, _apply_attn(cfg, p, h, **kw))
-    return x, L.apply_mlp(cfg, p["mlp"], h)
+    mix = _apply_attn(cfg, p, h, kind, **kw)
+    if cfg.post_block_norm:
+        mix = L.apply_norm(cfg, p["post_norm"], mix)
+    x, h = L.apply_add_norm(cfg, p["mlp_norm"], x, mix)
+    m = L.apply_mlp(cfg, p["mlp"], h)
+    if cfg.post_block_norm:
+        m = L.apply_norm(cfg, p["post_mlp_norm"], m)
+    return x, m
 
 
 def _layer(tree, r: int):
@@ -270,9 +313,9 @@ def _run_stages(cfg: ModelConfig, params, x, *, caches, **kw):
     for (kinds, n_rep), sp, sc in zip(stages_of(cfg), params["stages"],
                                       caches):
         for r in range(n_rep):
-            for j in range(len(kinds)):
-                x, delta = _apply_block(cfg, _layer(sp["blocks"][j], r), x,
-                                        delta, cache=_layer(sc[j], r), **kw)
+            for j, kind in enumerate(kinds):
+                x, delta = _apply_block(cfg, kind, _layer(sp["blocks"][j], r),
+                                        x, delta, cache=_layer(sc[j], r), **kw)
     return x, delta
 
 
@@ -320,10 +363,12 @@ def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens, start: int,
                             length: int, caches, slot: int, page_table=None):
     """One chunk of a chunked prefill: ``tokens`` (1, S_pad) at positions
     ``start..start+S_pad-1`` (``length`` of them real; host ints) for the
-    stream whose page-table row (1, n_pages) is ``page_table``, attending to
-    everything the stream has already written (earlier chunks, or a shared
-    prefix) and then writing the chunk's K/V into its chain.  Chunks go in
-    position order.
+    stream in row ``slot`` (its page-table row (1, n_pages) is
+    ``page_table`` for paged pools), attending to everything the stream has
+    already written (earlier chunks, or a shared prefix) and then writing
+    the chunk's K/V into its chain or its dense row, at ring slots
+    ``position % buf_len`` with the pads dropped.  Chunks go in position
+    order.
 
     Returns (last_logits (1, vocab), caches): logits at position
     ``start+length-1``; only the final chunk's seed decoding.

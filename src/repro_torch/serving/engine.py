@@ -22,9 +22,12 @@ Data plane:
   boundaries, and a dry pool shrinks the block, reclaims cached prefixes,
   then preempts the youngest stream (recompute-on-resume).  The page table
   has a device mirror, uploaded only after the host table changed.
+  Buffers shorter than ``max_len`` (gemma2's sliding-window rings) stay
+  dense rows beside the pools; such a hybrid never shares prefixes.
 * **Chunked prefill** — a prefix hit, a resume after preemption or a prompt
-  longer than the largest bucket is prefilled in bucket-sized chunks
-  (``models.prefill_chunk_into_slot``), one per stream per scheduling
+  longer than the largest bucket (capped by the smallest ring) is
+  prefilled in bucket-sized chunks (``models.prefill_chunk_into_slot``,
+  into page chains and dense rows alike), one per stream per scheduling
   round, interleaved with decode blocks.
 * **Prefix cache** (``EngineConfig.prefix_cache``) — admission matches the
   longest cached page-aligned prompt prefix and shares those pages
@@ -88,15 +91,15 @@ from .prefix_cache import PrefixCache
 
 
 def _slice_caches(caches, ctx: int, max_len: int):
-    """Views of the full-length attention buffers cut to ``ctx`` positions
-    (stacked leaves (n_rep, B, buf_len, KH, hd)).  Writes through a view
-    land in the full buffer, so nothing is spliced back."""
+    """Views of the full-length dense attention buffers cut to ``ctx``
+    positions (stacked leaves (n_rep, B, buf_len, KH, hd)); ring buffers
+    (shorter than max_len) and page pools are kept whole.  Writes through
+    a view land in the full buffer, so nothing is spliced back."""
     out = []
     for stage in caches:
         blocks = []
         for d in stage:
-            n = d["k"].shape[2]
-            if n == max_len and ctx < n:
+            if "k" in d and d["k"].shape[2] == max_len and ctx < max_len:
                 blocks.append({kk: vv[:, :, :ctx] for kk, vv in d.items()})
             else:
                 blocks.append(d)

@@ -291,7 +291,7 @@ def record_launches(monkeypatch):
 
     def fake_function(lib, name, argtypes):
         assert (lib, name) == ("chunk_attention", "chunk_attention_launch")
-        assert len(argtypes) == 36
+        assert len(argtypes) == 39
 
         def fn(*args):
             seen.append(args)
@@ -365,3 +365,146 @@ def test_launch_geometry_follows_the_chunk_only(record_launches,
     with pytest.raises(TypeError):                        # int8 without scales
         C.chunk_attention(*ok[:3], _meta(9, 16, 2, 128, dt=i8),
                           _meta(9, 16, 2, 128, dt=i8), ok[5], 64, 8)
+
+
+# -- window, softcap and the dense-row route ----------------------------------
+
+DENSE_CASES = [
+    # S, start, length, Hq, KH, hd, buf_len, window, softcap
+    (16, 20, 11, 12, 2, 128, 64, 0, 0.0),      # a dense row, not wrapped
+    (24, 100, 20, 8, 4, 64, 64, 64, 50.0),     # wrapped ring, window = ring
+    (12, 150, 12, 4, 2, 256, 64, 64, 0.0),     # hd 256, wrapped twice over
+    (20, 70, 17, 8, 8, 64, 128, 40, 2.0),      # window inside the ring, a
+                                               # softcap that bites
+]
+# paged chains with a window and a softcap: (case of CASES, window, softcap)
+WINDOW_CASES = [(CASES[0], 10, 2.0), (CASES[2], 24, 50.0), (CASES[3], 40, 0.0)]
+
+
+def _dense_inputs(case, route, seed=0):
+    """numpy q, raw chunk k/v and the stream's dense rows (buf_len, KH,
+    hd): float32 values, or int8 with float32 scales for an int8 route."""
+    S, start, length, Hq, KH, hd, buf = case[:7]
+    rng = np.random.default_rng(sum(case[:7]) + seed)
+    q = rng.standard_normal((1, S, Hq, hd), np.float32)
+    k = rng.standard_normal((1, S, KH, hd), np.float32)
+    v = rng.standard_normal((1, S, KH, hd), np.float32)
+    if ROUTES[route][1]:
+        kr = rng.integers(-127, 128, (buf, KH, hd)).astype(np.int8)
+        vr = rng.integers(-127, 128, (buf, KH, hd)).astype(np.int8)
+        ks = (rng.random((buf, KH, 1)) * 0.02 + 1e-3).astype(np.float32)
+        vs = (rng.random((buf, KH, 1)) * 0.02 + 1e-3).astype(np.float32)
+    else:
+        kr = rng.standard_normal((buf, KH, hd), np.float32)
+        vr = rng.standard_normal((buf, KH, hd), np.float32)
+        ks = vs = None
+    return q, k, v, kr, vr, ks, vs
+
+
+def _dense_reference(case, route, arrays):
+    """The reference's chunk mode on a dense cache row: the row read with
+    ``cache_row_kv_arrays`` (dequantized to q's dtype), its positions from
+    ``ring_slot_positions``, [row | raw chunk], window and softcap."""
+    S, start, length, _, _, _, buf, window, cap = case
+    jd = QD[ROUTES[route][0]][0]
+    q, k, v, kr, vr, ks, vs = arrays
+    if ks is None:
+        cache = {"k": jnp.asarray(kr)[None].astype(jd),
+                 "v": jnp.asarray(vr)[None].astype(jd)}
+    else:
+        cache = {"k": jnp.asarray(kr)[None], "v": jnp.asarray(vr)[None],
+                 "k_s": jnp.asarray(ks)[None], "v_s": jnp.asarray(vs)[None]}
+    qj, kj, vj = (jnp.asarray(a).astype(jd) for a in (q, k, v))
+    pk, pv = JKV.cache_row_kv_arrays(cache, 0, jd)
+    past_pos = JKV.ring_slot_positions(buf, start)[None]
+    positions = (start + jnp.arange(S, dtype=jnp.int32))[None]
+    cur = jnp.where(jnp.arange(S)[None] < length, positions, -1)
+    return jattn.attention(qj, jnp.concatenate([pk, kj.astype(pk.dtype)], 1),
+                           jnp.concatenate([pv, vj.astype(pv.dtype)], 1),
+                           positions, jnp.concatenate([past_pos, cur], 1),
+                           window=window, softcap=cap)
+
+
+@pytest.mark.parametrize("case", DENSE_CASES)
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_dense_row_plain_matches_reference_chunk_mode(case, route):
+    """The dense-row route's plain version (page_table None) computes the
+    reference's chunk mode on a dense row: unwrapped and wrapped rings,
+    windows and softcaps, float32, bf16 and int8 rows."""
+    td = QD[ROUTES[route][0]][1]
+    arrays = _dense_inputs(case, route)
+    q, k, v, kr, vr, ks, vs = arrays
+    row = (lambda a: torch.from_numpy(a)) if ROUTES[route][1] else \
+        (lambda a: torch.from_numpy(a).to(td))
+    kw = {} if ks is None else {"k_scale": torch.from_numpy(ks),
+                                "v_scale": torch.from_numpy(vs)}
+    out = C.chunk_attention(torch.from_numpy(q).to(td),
+                            torch.from_numpy(k).to(td),
+                            torch.from_numpy(v).to(td), row(kr), row(vr),
+                            None, case[1], case[2], window=case[7],
+                            softcap=case[8], **kw)
+    assert out.shape == q.shape and out.dtype == td
+    _close(out.float(), _dense_reference(case, route, arrays),
+           QD[ROUTES[route][0]][2])
+
+
+@pytest.mark.parametrize("wcase", WINDOW_CASES)
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_paged_window_and_softcap_match_reference_chunk_mode(wcase, route):
+    """The paged route's plain version with a window and a softcap against
+    the reference's chunk mode with the same."""
+    case, window, cap = wcase
+    arrays = _inputs(case, route)
+    args, kw = _torch_args(case, route, arrays)
+    out = C.chunk_attention(*args, window=window, softcap=cap, **kw)
+    S, start, length = case[:3]
+    jd = QD[ROUTES[route][0]][0]
+    q, k, v, kp, vp, ks, vs, table = arrays
+    if ks is None:
+        cache = {"kp": jnp.asarray(kp).astype(jd),
+                 "vp": jnp.asarray(vp).astype(jd)}
+    else:
+        cache = {"kp": jnp.asarray(kp), "vp": jnp.asarray(vp),
+                 "kp_s": jnp.asarray(ks), "vp_s": jnp.asarray(vs)}
+    qj, kj, vj = (jnp.asarray(a).astype(jd) for a in (q, k, v))
+    pk, pv = JKV.paged_cache_kv_arrays(cache, jnp.asarray(table), jd)
+    positions = (start + jnp.arange(S, dtype=jnp.int32))[None]
+    cur = jnp.where(jnp.arange(S)[None] < length, positions, -1)
+    want = jattn.attention(
+        qj, jnp.concatenate([pk, kj.astype(pk.dtype)], 1),
+        jnp.concatenate([pv, vj.astype(pv.dtype)], 1), positions,
+        jnp.concatenate([JKV.paged_key_positions(pk.shape[1], start), cur],
+                        1), window=window, softcap=cap)
+    _close(out.float(), want, QD[ROUTES[route][0]][2])
+
+
+def test_dense_route_launch_arguments(record_launches):
+    """The dense-row route passes the row's strides, buf_len, no page
+    table and no page count; window and softcap reach the kernel; the
+    span count follows the chunk alone, as on the paged route."""
+    i8, f32 = torch.int8, torch.float32
+    # a (B, buf, KH, hd) cache's row 1: strides (KH*hd, hd)
+    cache = _meta(3, 96, 2, 128)
+    for i8row in (False, True):
+        kw = {"k_scale": _meta(96, 2, 1, dt=f32),
+              "v_scale": _meta(96, 2, 1, dt=f32)} if i8row else {}
+        row = _meta(96, 2, 128, dt=i8) if i8row else cache[1]
+        C.chunk_attention(_meta(1, 40, 12, 128), _meta(1, 40, 2, 128),
+                          _meta(1, 40, 2, 128), row, row, None, 300, 33,
+                          window=96, softcap=50.0, **kw)
+        args = record_launches[-1]
+        assert args[7] is None                        # no page table
+        # S, start, length, n_pages, ps, KH, G, hd, span, spans
+        assert args[10:20] == (40, 300, 33, 0, 0, 2, 6, 128, C.SPAN,
+                               -(-333 // C.SPAN))
+        assert args[26:29] == (0, 256, 128)           # row strides
+        assert args[29:32] == ((0, 2, 1) if i8row else (0, 0, 0))
+        # scale, softcap, window, buf_len, dtype, int8 past
+        assert args[32:38] == (128 ** -0.5, 50.0, 96, 96, 1, int(i8row))
+    with pytest.raises(ValueError):                   # a row is 3-d
+        C.chunk_attention(_meta(1, 40, 12, 128), _meta(1, 40, 2, 128),
+                          _meta(1, 40, 2, 128), cache, cache, None, 300, 33)
+    with pytest.raises(ValueError):                   # a negative window
+        C.chunk_attention(_meta(1, 40, 12, 128), _meta(1, 40, 2, 128),
+                          _meta(1, 40, 2, 128), cache[1], cache[1], None,
+                          300, 33, window=-1)

@@ -23,7 +23,7 @@ from repro.models import (decode_step as jdecode, init_cache as jinit_cache,
                           init_params as jinit_params,
                           prefill_into_slot as jprefill)
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import (decode_step, init_cache, init_params,
                                 params_from_numpy, prefill_into_slot)
 from repro_torch.models.transformer import check_supported
@@ -94,7 +94,17 @@ def test_init_params_matches_reference_tree(dtype):
 
 @pytest.mark.parametrize("arch", [a for a in JARCH_IDS if a != "qwen2-1.5b"])
 def test_other_architectures_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    """The dense attention family is registered, a copy of the reference's
+    config, and accepted; every other architecture is refused naming its
+    ROADMAP A9 item (MoE A9.4, prefix embeddings / layer norm / sincos
+    A9.5, SSM and RG-LRU A9.6)."""
+    if arch in ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jget_config(arch))
+        check_supported(get_config(arch))
+        check_supported(get_config(arch).smoke())
+        return
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A9\.[456]"):
         check_supported(jget_config(arch).smoke())
 
 

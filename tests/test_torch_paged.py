@@ -331,11 +331,27 @@ def test_paged_prefill_chunks_and_decode_match_reference(smoke):
 
 
 def test_dense_chunk_mode_is_refused(smoke):
-    _, cfg, _, tp = smoke
-    tc = init_cache(cfg, 1, 64, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        prefill_chunk_into_slot(tp, cfg, torch.zeros((1, 16), dtype=torch.long),
-                                0, 16, tc, 0)
+    """Chunked prefill into a dense cache row runs the dense route of
+    chunk_attention: a 40-token prompt in chunks of 16 (the last one
+    padded) into row 1 of a 2-row cache gives the reference's logits and
+    cache row, and row 0 stays untouched."""
+    jcfg, cfg, jp, tp = smoke
+    jc = jinit_cache(jcfg, 2, 64, dtype=jnp.float32)
+    tc = init_cache(cfg, 2, 64, dtype=torch.float32, device="cpu")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, 40)
+    for start in range(0, 40, 16):
+        n = min(16, 40 - start)
+        padded = np.zeros((1, 16), np.int32)
+        padded[0, :n] = toks[start:start + n]
+        jl, jc = jchunk(jp, jcfg, jnp.asarray(padded), start, n, jc, 1)
+        tl, tc = prefill_chunk_into_slot(tp, cfg, torch.from_numpy(padded),
+                                         start, n, tc, 1)
+        _close(tl.numpy(), np.asarray(jl), MODEL_TOL)
+    for jd, td in zip(jc[0], tc[0]):
+        for kk in ("k", "v"):
+            _close(td[kk][:, 1, :40].numpy(), np.asarray(jd[kk])[:, 1, :40],
+                   MODEL_TOL)
+            assert not td[kk][:, 0].any()
 
 
 # -- the copied allocator and prefix cache ---------------------------------------

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.models import attention as jattn
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 
@@ -27,6 +28,7 @@ from repro_torch.kernels import decode_attention as D
 from repro_torch.kernels import decode_attention_q8 as Q
 from repro_torch.kernels import paged_decode_attention as P
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.models import kvcache as TKV
 
 from test_torch_kernels import (DECODE_CASES, DTYPES, FLASH_CASES, _both,
                                 _close, _decode_inputs, _np)
@@ -354,3 +356,72 @@ def test_flash_bf16_mirror_fits_the_bf16_tolerance(case):
     share = ((out.float() - plain.float()).abs()
              / (1e-3 + 1e-2 * plain.float().abs())).max()
     assert share <= 1, float(share)
+
+
+# -- softcap --------------------------------------------------------------------
+
+# DECODE_CASES' wrapped ring with a window, MHA at hd 256 and the holes, and
+# gemma2's grouping (16:8 is G 2) at hd 256 with a window, wrapped and not
+SOFTCAP_CASES = [DECODE_CASES[2], DECODE_CASES[4], DECODE_CASES[5],
+                 (2, 4, 2, 256, 256, 64, 400, False),
+                 (2, 4, 2, 256, 256, 64, 200, False)]
+
+
+@pytest.mark.parametrize("case", SOFTCAP_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_softcap_decode_plain_versions_match_reference_attention(case,
+                                                                 dtype):
+    """The softcap of the plain decode versions (dense, int8, and, where the
+    context is linear, paged and paged int8) against the reference's
+    attention (``models/attention.py``, which caps gemma2's logits), at a
+    cap of 50 and at one that bites (q scaled up, cap 2)."""
+    win = case[5]
+    qn, kn, vn, kp, qp = _decode_inputs(case, dtype)
+    tol = DTYPES[dtype][2]
+    B, Hq, hd = qn.shape
+    KH, Sk = kn.shape[1], kn.shape[2]
+    kpt, qpt = torch.from_numpy(kp), torch.from_numpy(qp)
+    kb, vb = (np.ascontiguousarray(a.transpose(0, 2, 1, 3)) for a in (kn, vn))
+    (kq, ks), (vq, vs) = (TKV.quantize_kv(torch.from_numpy(a))
+                          for a in (kb, vb))
+    kd, vd = (TKV.dequantize_kv(a, s, torch.float32).numpy()
+              for a, s in ((kq, ks), (vq, vs)))
+    # key j at position j, or empty past q_pos: the context of a chain
+    j = np.arange(Sk)[None]
+    linear = bool(((kp == j) | ((kp == -1) & (j > qp[:, None]))).all())
+    for cap, qscale in ((50.0, 1.0), (2.0, 4.0)):
+        qs = qn * qscale
+        qj, qt = _both(qs, dtype)
+
+        def want(k, v):
+            kj, vj = (jnp.asarray(a).astype(qj.dtype) for a in (k, v))
+            return jattn.attention(qj[:, None], kj, vj,
+                                   jnp.asarray(qp)[:, None], jnp.asarray(kp),
+                                   window=win, softcap=cap)[:, 0]
+        _, kt = _both(kb, dtype)
+        _, vt = _both(vb, dtype)
+        out = D.decode_attention(qt[:, None], kt, vt, kpt, qpt, window=win,
+                                 softcap=cap)[:, 0]
+        _close(_np(out), want(kb, vb), tol)
+        q8 = Q.decode_attention_q8(qt[:, None], kq, ks, vq, vs, kpt, qpt,
+                                   window=win, softcap=cap)[:, 0]
+        _close(_np(q8), want(kd, vd), tol)
+        if linear:
+            # the same context as a chain of 16-slot pages
+            n = Sk // 16
+            table = torch.arange(1, B * n + 1, dtype=torch.int32).reshape(B, n)
+
+            def pool(x):
+                p = torch.zeros((B * n + 1, 16) + tuple(x.shape[2:]),
+                                dtype=x.dtype)
+                p[1:] = x.reshape((B * n, 16) + tuple(x.shape[2:]))
+                return p
+            pout = P.paged_decode_attention(qt[:, None], pool(kt), pool(vt),
+                                            table, qpt, window=win,
+                                            softcap=cap)[:, 0]
+            _close(_np(pout), want(kb, vb), tol)
+            p8 = P.paged_decode_attention(qt[:, None], pool(kq), pool(vq),
+                                          table, qpt, window=win,
+                                          softcap=cap, k_scale=pool(ks),
+                                          v_scale=pool(vs))[:, 0]
+            _close(_np(p8), want(kd, vd), tol)

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,kernels,serve_q8
     python3 chip_smoke.py --phases build,sampling,observability
     python3 chip_smoke.py --phases build,kernels,arch
+    python3 chip_smoke.py --phases build,equivalence,arch
 
 Phases (each raises on failure; nothing is caught):
 
@@ -79,11 +80,21 @@ Phases (each raises on failure; nothing is caught):
    requests through a paged engine with the prefix cache and a 15-page
    pool (prefix hits, a preemption, chunk_attention) on both: the same
    tokens.  Both checks run again with ``kv_quant`` (int8 caches).
-   Then qwen3-14b, granite-8b, chatglm3-6b and gemma2-9b at full width and
-   2 layers (one local + full period for gemma2), float32, CUDA against
-   CPU: logits after the prompt at 1e-3 and 8 greedy tokens equal; gemma2's
-   prompt is window + 600 tokens, its last 600 one chunk through the
-   dense-row route into the wrapped local ring.
+   Then qwen3-14b, granite-8b, chatglm3-6b, gemma2-9b, qwen3-moe-30b-a3b,
+   mixtral-8x7b, musicgen-large and llava-next-mistral-7b at full width
+   and 2 layers (one local + full period for gemma2), float32, CUDA
+   against CPU: logits after the prompt at 1e-3 and 8 greedy tokens
+   equal; gemma2's prompt is window + 600 tokens, its last 600 one chunk
+   through the dense-row route into the wrapped local ring, the others'
+   300 tokens.  For the MoE models every routing call's chosen experts
+   are compared first: a set that differs where the top-k boundary's two
+   probabilities lie more than 1e-5 apart fails; a narrower tie is printed
+   with its gap and that model's logits and tokens are reported, not
+   asserted.  Then one MoE layer at qwen3-moe's width (a 1024-token group,
+   capacity 1.25): moe_einsum against moe_scatter within 1e-5 in float32,
+   the keep mask against the CPU's, and both timed in bf16 (that group
+   and an 8-row decode step) beside the layer's bound (every expert's
+   weights read once).
 4. serve: full-width, full-depth qwen2-1.5b in bfloat16 with seeded random
    weights serves 8 greedy requests (prompts of 100-1000 tokens, 64-128 new
    tokens) through ``serving.api.Server`` and the slot-native engine
@@ -123,27 +134,33 @@ Phases (each raises on failure; nothing is caught):
    ledger installed, on the same weights: the same tokens, host drains,
    virtual time and energy, and the ledger conserves bitwise (path
    ``observability``, its launches counted).
-10. arch: the dense attention family served on the card, one model at a
-   time: qwen3-14b (the paper's model) at full width and depth, the serve
-   burst on the dense engine, greedy and with every odd request seeded
-   nucleus sampling, and the serve_paged waves on the paged engine with
-   the prefix cache (hits and a preemption); gemma2-9b at full width and
+10. arch: the attention-only architectures served on the card, one model
+   at a time: qwen3-14b (the paper's model) and qwen3-moe-30b-a3b (48
+   layers, 128 experts, top 8) at full width and depth, the serve burst
+   on the dense engine, greedy and with every odd request seeded nucleus
+   sampling, and the serve_paged waves on the paged engine with the
+   prefix cache (hits and a preemption); gemma2-9b at full width and
    depth, max_len 16384, max_batch 4, 4 prompts of 4500-8000 tokens (past
    the 4096 window: chunked through chunk_attention's dense-ring route;
    decode wraps the rings; softcaps everywhere) on the dense engine with
    bf16 and with int8 caches, and on the paged one (full layers pooled and
    preempting beside dense rings, the prefix cache never hitting a
-   hybrid); granite-8b and
-   chatglm3-6b at full width and 4 layers, the serve burst.  Paths
-   ``arch_<model>[_paged]``, launches counted as in phase 5; tokens/s and
-   peak memory printed.
+   hybrid); mixtral-8x7b (every layer a 4096 ring, 8 experts, top 2) at
+   full width and 4 layers, the same long burst dense with bf16 and int8
+   caches; granite-8b and chatglm3-6b at full width and 4 layers,
+   musicgen-large (layer norm, sincos, MHA at hd 64: no rmsnorm launch)
+   at full width and depth, the serve burst; llava-next-mistral-7b (text
+   only) at full width and depth, the serve burst and the paged waves.
+   Paths ``arch_<model>[_sampled|_q8|_paged]``, launches counted as in
+   phase 5; tokens/s, peak memory and a digest of the tokens printed.
 11. profile (opt-in, not in the default run): the serve, serve_paged and
-   both serve_q8 bursts again under ``torch.profiler`` after a warm-up
-   run, printing the device's busy share of the wall time, the kernel
-   time by name and the port's kernels' time by family with that run's
-   launches, then the PyTorch operators the host dispatches per forward
-   pass (in all, and the residual adds among them) and the norm launches
-   per pass, fused and unfused.
+   both serve_q8 bursts, then qwen3-moe-30b-a3b's serve burst at full
+   depth, again under ``torch.profiler`` after a warm-up run, printing
+   the device's busy share of the wall time, the kernel time by name and
+   the port's kernels' time by family with that run's launches, then
+   the PyTorch operators the host dispatches per forward pass (in all,
+   and the residual adds among them) and the norm launches per pass,
+   fused and unfused.
 
 The line before the last is one JSON object with a ``kernels`` list; the
 last line is {"ok": true, "device": {...}}.  Details go to
@@ -154,6 +171,7 @@ repository.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import statistics
@@ -177,7 +195,9 @@ SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "sampling", "sampling_paged", "observability", "arch_qwen3",
                "arch_qwen3_sampled", "arch_qwen3_paged", "arch_gemma2",
                "arch_gemma2_q8", "arch_gemma2_paged", "arch_granite",
-               "arch_chatglm3")
+               "arch_chatglm3", "arch_qwen3moe", "arch_qwen3moe_sampled",
+               "arch_qwen3moe_paged", "arch_mixtral", "arch_mixtral_q8",
+               "arch_musicgen", "arch_llava", "arch_llava_paged")
 
 
 def log(*a):
@@ -1337,55 +1357,207 @@ def phase_equivalence(res):
     _arch_equivalence(res)
 
 
+# the archs of the equivalence phase beyond qwen2: the dense family (params
+# drawn on the CPU), then the MoE models and the layer-norm / prefix family
+# (drawn on the card, which is quicker for mixtral's 11 GB of float32
+# experts, and copied to the CPU)
+EQUIV_ARCHS = (("qwen3-14b", "cpu"), ("granite-8b", "cpu"),
+               ("chatglm3-6b", "cpu"), ("gemma2-9b", "cpu"),
+               ("qwen3-moe-30b-a3b", "cuda"), ("mixtral-8x7b", "cuda"),
+               ("musicgen-large", "cuda"), ("llava-next-mistral-7b", "cuda"))
+TIE_GAP = 1e-5      # a routing difference at a wider top-k boundary fails
+
+
 def _arch_equivalence(res):
-    """CUDA against CPU on each new arch at full width, cut to 2 layers (one
-    local + full period for gemma2), in float32 from the same params: a
-    300-token prompt and 8 greedy decode steps (qwen3, granite, chatglm3),
-    or for gemma2 a prompt of window + 600 tokens, its first 4096 tokens
-    in one prefill and the rest as one chunk (the dense-row route: it
-    wraps the local layer's 4096-slot ring), then 8 decode steps; the
-    logits after the prompt allclose at 1e-3, the tokens equal."""
+    """CUDA against CPU on each arch beyond qwen2 at full width, cut to 2
+    layers (one local + full period for gemma2), in float32 from the same
+    params: a 300-token prompt and 8 greedy decode steps, or for gemma2 a
+    prompt of window + 600 tokens, its first 4096 tokens in one prefill and
+    the rest as one chunk (the dense-row route: it wraps the local layer's
+    4096-slot ring), then 8 decode steps; the logits after the prompt
+    allclose at 1e-3, the tokens equal.  For the MoE models the experts
+    each routing call chose are compared first, call by call: a token whose
+    chosen set differs between CUDA and CPU where the k-th and (k+1)-th
+    probabilities lie more than TIE_GAP apart fails the phase; a narrower
+    tie (float32 rounding may swap them) is printed with its gap, and that
+    model's logits and tokens are then reported, not asserted.  Then one
+    MoE layer at qwen3-moe's width (``_moe_layer``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    for arch in ("qwen3-14b", "granite-8b", "chatglm3-6b", "gemma2-9b"):
+    for arch, init_on in EQUIV_ARCHS:
         cfg = get_config(arch).replace(num_layers=2, dtype="float32")
         t0 = time.perf_counter()
-        params = init_params(torch.Generator().manual_seed(0), cfg)
-        gparams = _to(params, "cuda")
-        n = 300 if not cfg.window else cfg.window + 600
+        gen = torch.Generator(device=init_on).manual_seed(0)
+        params = init_params(gen, cfg)
+        if init_on == "cuda":
+            gparams, params = params, _to(params, "cpu")
+        else:
+            gparams = _to(params, "cuda")
+        ring = arch == "gemma2-9b"
+        n = cfg.window + 600 if ring else 300
         prompt = np.random.default_rng(4).integers(0, cfg.vocab_size, size=n)
-        first, toks = {}, {}
+        first, toks, routes = {}, {}, {}
         _reset_counts()
         for dev, p in (("cuda", gparams), ("cpu", params)):
-            if cfg.window:
-                first[dev], toks[dev] = _ring_greedy_run(p, cfg, prompt, 8,
-                                                         dev)
-            else:
-                first[dev], toks[dev] = _greedy_run(p, cfg, prompt, 8, dev)
+            with _RoutingLog() as routes[dev]:
+                run = _ring_greedy_run if ring else _greedy_run
+                first[dev], toks[dev] = run(p, cfg, prompt, 8, dev)
             if dev == "cuda":
                 counts = _launch_counts()
         err = max_err(first["cuda"], first["cpu"])
+        ties = _routing_ties(routes["cuda"], routes["cpu"], cfg,
+                             arch) if cfg.is_moe else []
         log(f"[equivalence] {arch} 2 layers full width f32, {n}-token "
             f"prompt: logits max |err| {err:.3g}; tokens cuda {toks['cuda']} "
-            f"cpu {toks['cpu']}; launches {counts} "
+            f"cpu {toks['cpu']}; routing calls {len(routes['cuda'])}, "
+            f"narrow ties {ties}; launches {counts} "
             f"({time.perf_counter() - t0:.1f}s)")
-        if not torch.allclose(first["cuda"], first["cpu"], atol=1e-3,
-                              rtol=1e-3):
-            raise AssertionError(f"{arch}: logits differ by {err:.3g} > 1e-3")
-        if toks["cuda"] != toks["cpu"]:
-            raise AssertionError(f"{arch}: greedy tokens differ between CUDA "
-                                 "and CPU")
-        need = ["decode_attention", "flash_attention", "rmsnorm"]
-        if cfg.window:
+        if not ties:
+            if not torch.allclose(first["cuda"], first["cpu"], atol=1e-3,
+                                  rtol=1e-3):
+                raise AssertionError(f"{arch}: logits differ by {err:.3g} "
+                                     "> 1e-3")
+            if toks["cuda"] != toks["cpu"]:
+                raise AssertionError(f"{arch}: greedy tokens differ between "
+                                     "CUDA and CPU")
+        need = ["decode_attention", "flash_attention"]
+        need += ["rmsnorm"] if cfg.norm == "rms" else []
+        if ring:
             need.append("chunk_attention/dense")
         _check_launched(f"equivalence {arch}", counts, need)
+        if cfg.norm != "rms" and (counts["rmsnorm"] or counts["add_rmsnorm"]):
+            raise AssertionError(f"{arch}: a layer-norm model ran rmsnorm")
         res["equivalence"][arch] = {"logits_max_abs_err": err,
-                                    "tokens": toks["cuda"], "prompt": n,
+                                    "tokens": toks["cuda"],
+                                    "tokens_cpu": toks["cpu"], "prompt": n,
+                                    "narrow_ties": ties,
+                                    "asserted": not ties,
                                     "launches": counts}
         del params, gparams
         torch.cuda.empty_cache()
+    _moe_layer(res)
+
+
+class _RoutingLog:
+    """While open, every MoE routing call (``models.moe._routing``) appends
+    its top (k + 1) probabilities and experts, copied to the host, to the
+    list it yields."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.calls, self.orig = [], moe._routing
+
+        def recorded(cfg, p, x):
+            out = self.orig(cfg, p, x)
+            probs = torch.softmax(x.float() @ p["router"], dim=-1)
+            v, i = torch.topk(probs, cfg.experts_per_token + 1, dim=-1)
+            self.calls.append((v.cpu(), i.cpu()))
+            return out
+        moe._routing = recorded
+        return self.calls
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._routing = self.orig
+
+
+def _routing_ties(cuda_calls, cpu_calls, cfg, arch):
+    """Compare the chosen expert sets call by call (the same calls in the
+    same order while the tokens agree).  Returns the narrow ties found
+    (call, tokens, gap); raises on a differing set at a gap wider than
+    TIE_GAP.  Comparison stops after the first call with a tie: past it
+    the two devices may decode other tokens."""
+    import torch
+    k = cfg.experts_per_token
+    if len(cuda_calls) != len(cpu_calls):
+        raise AssertionError(f"{arch}: {len(cuda_calls)} routing calls on "
+                             f"CUDA, {len(cpu_calls)} on the CPU")
+    for c, ((gv, gi), (cv, ci)) in enumerate(zip(cuda_calls, cpu_calls)):
+        diff = (gi[..., :k].sort(-1).values
+                != ci[..., :k].sort(-1).values).any(-1)
+        if not diff.any():
+            continue
+        gap = torch.minimum(gv[..., k - 1] - gv[..., k],
+                            cv[..., k - 1] - cv[..., k])[diff]
+        worst = float(gap.max())
+        if worst > TIE_GAP:
+            raise AssertionError(
+                f"{arch}: routing call {c} chose other experts on CUDA than "
+                f"on the CPU for {int(diff.sum())} tokens, top-k boundary "
+                f"gap up to {worst:.3g} > {TIE_GAP}")
+        return [{"call": c, "tokens": int(diff.sum()), "gap": worst}]
+    return []
+
+
+def _moe_layer(res):
+    """One MoE layer at qwen3-moe's width (d 2048, 128 experts of ff 768,
+    top 8, capacity 1.25) on the card: a 1024-token routing group through
+    ``moe_einsum`` and ``moe_scatter`` in float32, within 1e-5 of each
+    other, the keep mask equal to the CPU's (unless a top-k boundary tie
+    within TIE_GAP is printed); then both timed in bf16 at that group and
+    at a decode step of 8 rows (each its own group of one token, nothing
+    dropped), beside the layer's bound: every expert's weights are read
+    once (the reference's algorithm runs all E experts on C slots, empty
+    ones too), the kept choices' FFN FLOP at the bf16 peak."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("qwen3-moe-30b-a3b").replace(dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    p = moe.init_moe(g, cfg, torch.float32)
+    x = torch.randn(1, 1024, cfg.d_model, generator=g, device="cuda")
+    ye, _ = moe.moe_einsum(cfg, p, x)
+    ys, _ = moe.moe_scatter(cfg, p, x)
+    err = max_err(ye, ys)
+    if not torch.allclose(ye, ys, atol=1e-5, rtol=1e-5):
+        raise AssertionError(f"moe layer: einsum and scatter differ by "
+                             f"{err:.3g} > 1e-5")
+    keep = moe._dispatch(cfg, p, x, None)[3].cpu()
+    cp, cx = _to(p, "cpu"), x.cpu()
+    with _RoutingLog() as gl:
+        moe._routing(cfg, p, x)
+    with _RoutingLog() as cl:
+        moe._routing(cfg, cp, cx)
+    ties = _routing_ties(gl, cl, cfg, "moe layer")
+    keep_equal = bool(torch.equal(keep, moe._dispatch(cfg, cp, cx, None)[3]))
+    if not keep_equal and not ties:
+        raise AssertionError("moe layer: keep masks differ between CUDA and "
+                             "the CPU with no routing tie")
+    out = {"einsum_vs_scatter_max_abs_err": err, "keep_equal_cpu": keep_equal,
+           "kept": int(keep.sum()), "choices": keep.numel(),
+           "capacity": moe.capacity(cfg, 1024), "narrow_ties": ties}
+    bcfg = cfg.replace(dtype="bfloat16")
+    bp = {n: t.to(torch.bfloat16) if n != "router" else t
+          for n, t in p.items()}
+    del p, cp
+    E, d, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+    w_bytes = sum(t.numel() * t.element_size() for t in bp.values())
+    for name, B, S in (("group1024", 1, 1024), ("decode8", 8, 1)):
+        xb = torch.randn(B, S, d, generator=g, device="cuda",
+                         dtype=torch.bfloat16)
+        kept = int(moe._dispatch(bcfg, bp, xb, None)[3].sum())
+        flops = kept * 6 * d * ff + B * S * 2 * d * E
+        bound_ms, by = bound(w_bytes + 2 * xb.numel() * 2, flops)
+        case = {"shape": [B, S, d], "kept": kept, "bound_ms": bound_ms,
+                "bound_by": by}
+        for impl in ("einsum", "scatter"):
+            fn = getattr(moe, f"moe_{impl}")
+            case[f"{impl}_ms"] = time_ms(lambda a: fn(bcfg, bp, a), [(xb,)])
+        out[name] = case
+        log(f"[moe] qwen3-moe layer {name} ({B} x {S} tokens, {kept} kept "
+            f"choices): einsum {case['einsum_ms']:.4f} ms, scatter "
+            f"{case['scatter_ms']:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+            f"{w_bytes / 1e9:.2f} GB of expert and router weights)")
+    out["decode_step_bound_ms"] = cfg.num_layers * out["decode8"]["bound_ms"]
+    log(f"[moe] float32 1024-token group: einsum vs scatter max |err| "
+        f"{err:.3g}, {out['kept']}/{out['choices']} choices kept at capacity "
+        f"{out['capacity']}, keep mask equal to the CPU's: {keep_equal}, "
+        f"narrow ties {ties}; a {cfg.num_layers}-layer decode step's MoE "
+        f"bound {out['decode_step_bound_ms']:.2f} ms")
+    res["moe_layer"] = out
 
 
 def _ring_greedy_run(params, cfg, prompt, steps, device):
@@ -1443,10 +1615,10 @@ def _paged_engine_run(params, cfg, device):
 
 # -- phase 4: serve ------------------------------------------------------------------------
 
-def _serve_engine(kv_quant=False):
+def _serve_engine(kv_quant=False, arch="qwen2-1.5b"):
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import EngineConfig, ServingEngine
-    cfg = get_config("qwen2-1.5b").replace(kv_quant=kv_quant)
+    cfg = get_config(arch).replace(kv_quant=kv_quant)
     return cfg, ServingEngine(cfg, ecfg=EngineConfig(max_batch=8, max_len=2048,
                                                      governor="greenllm"),
                               seed=0, device="cuda")
@@ -1507,7 +1679,7 @@ def _profiled(path, make_engine, burst):
     kernel time by name and the port's kernels' time by family with the
     launches of that run; then once more counting the PyTorch operators the
     host dispatches per forward pass (``_op_count``; forward passes from
-    the rmsnorm launches, 2 per layer + 1 per pass)."""
+    the attention launches, one per layer and pass on every route)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.api import Server
@@ -1546,7 +1718,8 @@ def _profiled(path, make_engine, burst):
     ops, by_op = _op_count(lambda: burst(server, cfg.vocab_size))
     counted = _launch_counts()
     norms = counted["rmsnorm"] + counted["add_rmsnorm"]
-    passes = norms // (2 * cfg.num_layers + 1)
+    passes = sum(n for r, n in counted.items()
+                 if "norm" not in r) // cfg.num_layers
     adds = sum(n for op, n in by_op.items() if op.startswith("aten.add"))
     log(f"[profile] {path}: {ops} PyTorch operators dispatched for {passes} "
         f"forward passes = {ops / passes:.1f} per pass; aten.add "
@@ -1564,7 +1737,11 @@ def _profiled(path, make_engine, burst):
 def phase_profile(res):
     """Opt-in (``--phases ...,profile``): the serve, serve_paged and
     serve_q8 bursts under ``torch.profiler``, each after a warm-up run of
-    itself (a paged one then starts with a warm prefix cache)."""
+    itself (a paged one then starts with a warm prefix cache); then the
+    serve burst on qwen3-moe-30b-a3b at full width and depth (the arch
+    phase's ``arch_qwen3moe``), whose decode reads every expert."""
+    import gc
+    import torch
     res["profile"] = {
         "serve": _profiled("serve", _serve_engine, _burst),
         "serve_paged": _profiled("serve_paged", _paged_serve_engine,
@@ -1574,6 +1751,11 @@ def phase_profile(res):
         "serve_q8_paged": _profiled("serve_q8_paged",
                                     lambda: _paged_serve_engine(True),
                                     _paged_waves)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["profile"]["arch_qwen3moe"] = _profiled(
+        "arch_qwen3moe", lambda: _serve_engine(arch="qwen3-moe-30b-a3b"),
+        _burst)
 
 
 def _counters():
@@ -1620,6 +1802,14 @@ def _check_outputs(handles, vocab):
                                  f"bad output {toks}")
 
 
+def _tokens_digest(handles):
+    """The first 16 hex digits of the sha256 of every request's tokens: a
+    burst's tokens compared across runs, calls and source trees."""
+    return hashlib.sha256(json.dumps(
+        [list(map(int, h.request.tokens)) for h in handles]).encode()
+    ).hexdigest()[:16]
+
+
 def _kv_bytes_per_token(eng):
     """Bytes of K/V state (values and scales, every layer) per token the
     engine's caches or pools hold."""
@@ -1650,7 +1840,8 @@ def phase_serve(res, kv_quant=False, path="serve"):
     log(rep.summary())
     log(f"[{path}] {len(handles)} requests, prompts {sorted(lens.tolist())}, "
         f"{out_toks} tokens out in {wall:.2f}s wall = {out_toks / wall:.1f} "
-        f"tokens/s; host drains {eng._host_drains}; launches {counts}")
+        f"tokens/s; host drains {eng._host_drains}; tokens sha256 "
+        f"{_tokens_digest(handles)}; launches {counts}")
     if rep.completed != len(handles):
         raise AssertionError(f"only {rep.completed}/{len(handles)} completed")
     _check_outputs(handles, cfg.vocab_size)
@@ -1663,6 +1854,7 @@ def phase_serve(res, kv_quant=False, path="serve"):
                  "tokens_per_s": out_toks / wall, "launches": counts,
                  "completed": rep.completed, "energy_j": rep.total_energy_j,
                  "host_drains": eng._host_drains,
+                 "tokens_sha256": _tokens_digest(handles),
                  "kv_bytes_per_token": _kv_bytes_per_token(eng)}
 
 
@@ -1718,7 +1910,8 @@ def phase_serve_paged(res, kv_quant=False, path="serve_paged"):
         f"tokens out in {wall:.2f}s wall = {out_toks / wall:.1f} tokens/s; "
         f"host drains {eng._host_drains}; preempted {eng._preempted}; "
         f"prefix cache {pc}; peak pages {eng.pager.peak_used}/"
-        f"{eng.pager.num_pages - 1}; launches {counts}")
+        f"{eng.pager.num_pages - 1}; tokens sha256 "
+        f"{_tokens_digest(handles)}; launches {counts}")
     if rep.completed != len(handles):
         raise AssertionError(f"only {rep.completed}/{len(handles)} completed")
     _check_outputs(handles, cfg.vocab_size)
@@ -1740,6 +1933,7 @@ def phase_serve_paged(res, kv_quant=False, path="serve_paged"):
         "completed": rep.completed, "energy_j": rep.total_energy_j,
         "host_drains": eng._host_drains, "preempted": eng._preempted,
         "prefix_cache": pc, "peak_pages": eng.pager.peak_used,
+        "tokens_sha256": _tokens_digest(handles),
         "kv_bytes_per_token": _kv_bytes_per_token(eng)}
 
 
@@ -2055,17 +2249,31 @@ def phase_observability(res):
 
 # -- phase 10: arch ----------------------------------------------------------------------
 
-# the new configs in the arch phase: (arch, layers (None: full depth),
-# burst): qwen3-14b and gemma2-9b at full width and depth, granite-8b and
-# chatglm3-6b at full width and 4 layers
-ARCH_RUNS = (("qwen3-14b", None), ("gemma2-9b", None), ("granite-8b", 4),
-             ("chatglm3-6b", 4))
+# the arch phase's models, one at a time: (arch, layers (None: full depth),
+# path tag, bursts).  Bursts: "serve" (the serve burst, greedy),
+# "sampled" (the same with every odd request seeded nucleus sampling),
+# "waves" (the serve_paged waves on a paged engine with the prefix cache,
+# which must hit and preempt), "long" / "long_q8" / "long_paged" (4
+# prompts of 4500-8000 tokens past a 4096 window at max_len 16384: dense
+# with bf16 and int8 caches, and paged, which must preempt).  qwen3-14b,
+# gemma2-9b, qwen3-moe-30b-a3b, musicgen-large and llava-next-mistral-7b at
+# full width and depth; granite-8b, chatglm3-6b and mixtral-8x7b (93 GB of
+# bf16 weights at its 32 layers) at full width and 4 layers
+ARCH_RUNS = (
+    ("qwen3-14b", None, "qwen3", ("serve", "sampled", "waves")),
+    ("gemma2-9b", None, "gemma2", ("long", "long_q8", "long_paged")),
+    ("granite-8b", 4, "granite", ("serve",)),
+    ("chatglm3-6b", 4, "chatglm3", ("serve",)),
+    ("qwen3-moe-30b-a3b", None, "qwen3moe", ("serve", "sampled", "waves")),
+    ("mixtral-8x7b", 4, "mixtral", ("long", "long_q8")),
+    ("musicgen-large", None, "musicgen", ("serve",)),
+    ("llava-next-mistral-7b", None, "llava", ("serve", "waves")))
 
 
 def _long_burst(server, vocab):
-    """4 greedy requests with prompts of 4500-8000 tokens (past gemma2's
-    4096-token window, so every prompt is chunked into the local rings)
-    and 32-64 new tokens (decode wraps the rings)."""
+    """4 greedy requests with prompts of 4500-8000 tokens (past the
+    4096-token window of gemma2 and mixtral, so every prompt is chunked
+    into the local rings) and 32-64 new tokens (decode wraps the rings)."""
     import numpy as np
     from repro_torch.core import SamplingParams
     rng = np.random.default_rng(3)
@@ -2102,6 +2310,7 @@ def _arch_burst(res, path, cfg, eng, burst, need, forbid=()):
     if any(counts[n] for n in forbid):
         raise AssertionError(f"{path} ran {forbid}: {counts}")
     toks = sum(len(h.request.tokens) for h in handles)
+    digest = _tokens_digest(handles)
     pc = eng.prefix_cache.stats() if eng.prefix_cache is not None else None
     res[path] = {"wall_s": wall, "tokens_out": toks,
                  "tokens_per_s": toks / wall, "launches": counts,
@@ -2109,30 +2318,39 @@ def _arch_burst(res, path, cfg, eng, burst, need, forbid=()):
                  "host_drains": eng._host_drains,
                  "preempted": eng._preempted, "prefix_cache": pc,
                  "prompt_tokens": sum(h.request.prompt_len for h in handles),
+                 "tokens_sha256": digest,
                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     log(f"[arch] {path}: {cfg.name} {cfg.num_layers} layers, "
         f"{len(handles)} requests, {res[path]['prompt_tokens']} prompt "
         f"tokens, {toks} tokens out in {wall:.2f}s wall = "
         f"{toks / wall:.1f} tokens/s; host drains {eng._host_drains}; "
-        f"preempted {eng._preempted}; prefix cache {pc}; peak memory "
+        f"preempted {eng._preempted}; prefix cache {pc}; tokens sha256 "
+        f"{digest}; peak memory "
         f"{res[path]['peak_mem_gb']:.1f} GiB; launches {counts}")
     return res[path]
 
 
 def phase_arch(res):
-    """The dense attention family on the card, one model at a time (its
-    weights freed before the next): qwen3-14b (the paper's model) at full
-    width and depth serves the serve burst on the dense engine (greedy,
-    then mixed with seeded sampling) and the serve_paged waves on the
-    paged engine with the prefix cache (it must hit and preempt);
-    gemma2-9b at full width and depth, max_len 16384 (prompts truncated to
-    8192, local rings of 4096), max_batch 4, serves 4 prompts of 4500-8000
-    tokens on the dense engine (bf16, then int8 caches) and on the paged
-    one (full layers pooled and preempting, local rings dense): every
-    prompt chunks through the dense-ring route of chunk_attention and
-    decode wraps the rings, with the softcap in every attention kernel;
-    granite-8b and chatglm3-6b at full width and 4 layers serve the serve
-    burst.  Seeded random bf16 weights."""
+    """The attention-only architectures on the card, one model at a time
+    (its weights freed before the next), each burst of ``ARCH_RUNS`` on a
+    fresh engine: qwen3-14b (the paper's model) and qwen3-moe-30b-a3b (48
+    layers of 128 experts, top 8, capacity 1.25) at full width and depth
+    serve the serve burst on the dense engine (greedy, then mixed with
+    seeded sampling) and the serve_paged waves on the paged engine with
+    the prefix cache (it must hit and preempt); gemma2-9b at full width and
+    depth and mixtral-8x7b at full width and 4 layers, max_len 16384
+    (prompts truncated to 8192, local rings of 4096), max_batch 4, serve 4
+    prompts of 4500-8000 tokens on the dense engine (bf16, then int8
+    caches), gemma2 also on the paged one (full layers pooled and
+    preempting, local rings dense): every prompt chunks through the
+    dense-ring route of chunk_attention and decode wraps the rings;
+    granite-8b and chatglm3-6b at full width and 4 layers and
+    musicgen-large (layer norm: no rmsnorm launch) at full width and depth
+    serve the serve burst; llava-next-mistral-7b (text only) at full width
+    and depth the serve burst and the paged waves.  Seeded random bf16
+    weights.  At capacity 1.25 an MoE model's routing depends on which
+    tokens share a prefill call, so its paged waves (chunks, prefix hits)
+    are not held to its dense burst."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -2140,7 +2358,7 @@ def phase_arch(res):
     from repro_torch.serving import EngineConfig, ServingEngine
     gc.collect()
     torch.cuda.empty_cache()
-    for arch, layers in ARCH_RUNS:
+    for arch, layers, tag, bursts in ARCH_RUNS:
         cfg = get_config(arch)
         if layers:
             cfg = cfg.replace(num_layers=layers)
@@ -2152,75 +2370,71 @@ def phase_arch(res):
         n = sum(t.numel() for t in _leaves(params))
         log(f"[arch] {arch}: {cfg.num_layers} layers, {n / 1e9:.2f} B "
             f"parameters in bf16 built in {time.perf_counter() - t0:.1f}s")
-        tag = arch.split("-")[0]
-        if arch == "gemma2-9b":
-            def engine(**kw):
-                return ServingEngine(cfg, params=params, ecfg=EngineConfig(
-                    max_batch=4, max_len=16384, governor="greenllm", **kw),
-                    device="cuda")
-            eng = engine()
-            if eng.chunk_len != cfg.window:
-                raise AssertionError(f"gemma2 chunks of {eng.chunk_len}")
-            r = _arch_burst(res, f"arch_{tag}", cfg, eng, _long_burst,
-                            ("rmsnorm", "add_rmsnorm", "decode_attention",
-                             "chunk_attention/dense"), ("chunk_attention",))
-            del eng
-            # int8 K/V: the rings and full rows quantized, the same weights
-            qcfg = cfg.replace(kv_quant=True)
-            eng = ServingEngine(qcfg, params=params, ecfg=EngineConfig(
-                max_batch=4, max_len=16384, governor="greenllm"),
-                device="cuda")
-            _arch_burst(res, f"arch_{tag}_q8", qcfg, eng, _long_burst,
-                        ("rmsnorm", "add_rmsnorm", "decode_attention_q8",
-                         "chunk_attention/dense"),
-                        ("chunk_attention", "decode_attention"))
-            del eng
-            # full layers pooled (1000 pages: the burst needs ~1600, so it
-            # preempts), local rings dense; the prefix cache never hits a
-            # hybrid
-            eng = engine(paged=True, page_size=16, num_pages=1000,
-                         prefix_cache=True)
-            r = _arch_burst(res, f"arch_{tag}_paged", cfg, eng, _long_burst,
-                            ("rmsnorm", "add_rmsnorm", "decode_attention",
-                             "paged_decode_attention", "chunk_attention",
-                             "chunk_attention/dense"))
-            if not r["preempted"] or r["prefix_cache"]["hits"]:
-                raise AssertionError(f"gemma2 paged: preempted "
-                                     f"{r['preempted']}, prefix cache "
-                                     f"{r['prefix_cache']}")
-            del eng
-        else:
-            eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
-                max_batch=8, max_len=2048, governor="greenllm"),
-                device="cuda")
-            _arch_burst(res, f"arch_{tag}", cfg, eng,
-                        lambda s, v: _burst(s, v),
-                        ("rmsnorm", "add_rmsnorm", "decode_attention",
-                         "flash_attention"))
-            del eng
-            if arch == "qwen3-14b":
-                # every odd request seeded nucleus sampling
+        rms = ("rmsnorm", "add_rmsnorm")
+        norms, no_norms = (rms, ()) if cfg.norm == "rms" else ((), rms)
+        for burst in bursts:
+            eng = None
+            if burst in ("serve", "sampled"):
                 eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
                     max_batch=8, max_len=2048, governor="greenllm"),
                     device="cuda")
-                _arch_burst(res, f"arch_{tag}_sampled", cfg, eng,
-                            lambda s, v: _burst(s, v, _seeded),
-                            ("rmsnorm", "add_rmsnorm", "decode_attention",
-                             "flash_attention"))
-                del eng
+                _arch_burst(res, f"arch_{tag}" + ("_sampled" * (
+                    burst == "sampled")), cfg, eng,
+                    lambda s, v, b=burst: _burst(
+                        s, v, _seeded if b == "sampled" else None),
+                    norms + ("decode_attention", "flash_attention"),
+                    no_norms)
+            elif burst == "waves":
                 eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
                     max_batch=8, max_len=2048, paged=True, page_size=16,
                     num_pages=220, prefix_cache=True, governor="greenllm"),
                     device="cuda")
                 r = _arch_burst(res, f"arch_{tag}_paged", cfg, eng,
                                 _paged_waves,
-                                ("rmsnorm", "add_rmsnorm",
-                                 "paged_decode_attention", "flash_attention",
-                                 "chunk_attention"), ("decode_attention",))
+                                norms + ("paged_decode_attention",
+                                         "flash_attention",
+                                         "chunk_attention"),
+                                no_norms + ("decode_attention",))
                 if not (r["prefix_cache"]["hits"] and r["preempted"]):
-                    raise AssertionError(f"qwen3 paged: no prefix hit or no "
-                                         f"preemption: {r}")
-                del eng
+                    raise AssertionError(f"{arch} paged: no prefix hit or "
+                                         f"no preemption: {r}")
+            else:
+                # long prompts: chunked through the dense-row route into
+                # the 4096-slot rings; "long_q8" quantizes rings and rows,
+                # "long_paged" pools the full layers (1000 pages: the burst
+                # needs ~1600, so it preempts; the prefix cache never hits
+                # a hybrid)
+                q8 = burst == "long_q8"
+                bcfg = cfg.replace(kv_quant=q8)
+                extra = dict(paged=True, page_size=16, num_pages=1000,
+                             prefix_cache=True) if burst == "long_paged" \
+                    else {}
+                eng = ServingEngine(bcfg, params=params, ecfg=EngineConfig(
+                    max_batch=4, max_len=16384, governor="greenllm",
+                    **extra), device="cuda")
+                if burst == "long" and eng.chunk_len != cfg.window:
+                    raise AssertionError(f"{arch} chunks of "
+                                         f"{eng.chunk_len}")
+                if burst == "long_paged":
+                    r = _arch_burst(res, f"arch_{tag}_paged", cfg, eng,
+                                    _long_burst,
+                                    norms + ("decode_attention",
+                                             "paged_decode_attention",
+                                             "chunk_attention",
+                                             "chunk_attention/dense"))
+                    if not r["preempted"] or r["prefix_cache"]["hits"]:
+                        raise AssertionError(
+                            f"{arch} paged: preempted {r['preempted']}, "
+                            f"prefix cache {r['prefix_cache']}")
+                else:
+                    decode = "decode_attention_q8" if q8 \
+                        else "decode_attention"
+                    _arch_burst(res, f"arch_{tag}" + "_q8" * q8, bcfg, eng,
+                                _long_burst,
+                                norms + (decode, "chunk_attention/dense"),
+                                ("chunk_attention",)
+                                + ("decode_attention",) * q8)
+            del eng
         del params
         gc.collect()
         torch.cuda.empty_cache()

@@ -1,9 +1,8 @@
 """Architecture config registry: ``get_config(arch_id)`` / ``--arch <id>``.
 
-The port serves the dense attention-only family so far (full and
-sliding-window attention, RoPE, RMSNorm, gated MLPs), so it registers those
-configs, in the reference's order; the other architectures join with their
-model code.
+The port serves the attention-only architectures (dense, MoE, audio and
+VLM backbones), so it registers those configs, in the reference's order; the
+recurrent hybrids (mamba2, recurrentgemma) join with their model code.
 Every config cites its source in the module docstring.
 """
 from __future__ import annotations
@@ -14,10 +13,14 @@ from typing import Dict, List
 from repro_torch.models.config import ModelConfig
 
 ARCH_IDS: List[str] = [
+    "musicgen-large",
     "granite-8b",
     "qwen2-1.5b",
+    "qwen3-moe-30b-a3b",
+    "llava-next-mistral-7b",
     "chatglm3-6b",
     "gemma2-9b",
+    "mixtral-8x7b",
     "qwen3-14b",
 ]
 

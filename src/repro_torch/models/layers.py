@@ -1,8 +1,8 @@
-"""Shared layer primitives for the dense attention-only path: RMSNorm,
-RoPE (full or partial), the gated MLPs (SwiGLU, GeGLU), tied or untied
-embeddings with gemma's scaled embeddings and final logit softcap (port of
-``src/repro/models/layers.py``; layer norm, sincos positions and the plain
-MLP come with the architectures that use them)."""
+"""Shared layer primitives of the attention-only architectures: RMSNorm and
+layer norm, RoPE (full or partial) and sinusoidal absolute positions, the
+gated MLPs (SwiGLU, GeGLU) and the plain biased GELU MLP, tied or untied
+embeddings with gemma's scaled embeddings, the prefix projection and the
+final logit softcap (port of ``src/repro/models/layers.py``)."""
 from __future__ import annotations
 
 import functools
@@ -18,7 +18,15 @@ from .config import ModelConfig
 
 def dense_init(gen: torch.Generator, shape, fan_in: int, dtype):
     """Normal(0, 1/fan_in) in float32, cast to ``dtype``, on the
-    generator's device."""
+    generator's device.  A stack of expert stacks (more than 3 dims:
+    (n_rep, E, d, ff)) is drawn one layer slice at a time, so its float32
+    temporary is one layer's (qwen3-moe's would be 38.7 GB whole); the
+    other leaves are drawn whole, as before, which keeps their values."""
+    if len(shape) > 3:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        for r in range(shape[0]):
+            out[r] = dense_init(gen, shape[1:], fan_in, dtype)
+        return out
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     # scaled in place: one float32 temporary of a stacked weight at a time
@@ -32,20 +40,41 @@ def rmsnorm(x, scale, eps=1e-6):
     return _rmsnorm_kernel.rmsnorm(x, scale, eps)
 
 
+def layernorm(x, scale, bias, eps=1e-5):
+    """Layer norm in float32 (biased variance, as ``jnp.var``), cast back."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return y.to(dt)
+
+
 def init_norm(cfg: ModelConfig, device, lead=()):
-    return {"scale": torch.ones(tuple(lead) + (cfg.d_model,),
-                                dtype=torch.float32, device=device)}
+    """float32 ``scale`` of ones, and for layer norm a float32 ``bias`` of
+    zeros."""
+    shape = tuple(lead) + (cfg.d_model,)
+    p = {"scale": torch.ones(shape, dtype=torch.float32, device=device)}
+    if cfg.norm != "rms":
+        p["bias"] = torch.zeros(shape, dtype=torch.float32, device=device)
+    return p
 
 
 def apply_norm(cfg: ModelConfig, p, x):
-    return rmsnorm(x, p["scale"], cfg.norm_eps)
+    if cfg.norm == "rms":
+        return rmsnorm(x, p["scale"], cfg.norm_eps)
+    return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
 
 
 def apply_add_norm(cfg: ModelConfig, p, x, delta):
-    """The residual add and the norm of its sum, in one launch on CUDA
-    tensors (``add_rmsnorm``): x becomes x + delta in place; returns (x,
-    norm(x))."""
-    return _rmsnorm_kernel.add_rmsnorm(x, delta, p["scale"], cfg.norm_eps)
+    """The residual add and the norm of its sum: x becomes x + delta in
+    place; returns (x, norm(x)).  RMSNorm takes one launch on CUDA tensors
+    (``add_rmsnorm``); layer norm is a plain add, then the norm."""
+    if cfg.norm == "rms":
+        return _rmsnorm_kernel.add_rmsnorm(x, delta, p["scale"],
+                                           cfg.norm_eps)
+    x.add_(delta)
+    return x, apply_norm(cfg, p, x)
 
 
 # -- RoPE -------------------------------------------------------------------------
@@ -76,11 +105,36 @@ def apply_rope(x, positions, inv_freq, rot):
     return torch.cat([out, xp.float()], dim=-1).to(dt)
 
 
+def sincos_embedding(positions, dim):
+    """Sinusoidal absolute positions (musicgen), float32 (B,S,dim) from
+    (B,S) positions, with the reference's numpy float32 frequencies."""
+    half = dim // 2
+    ang = positions[..., None].float() * _sincos_freq(half,
+                                                      str(positions.device))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def _sincos_freq(half: int, device: str) -> torch.Tensor:
+    freq = np.exp(-math.log(10_000.0) * np.arange(half, dtype=np.float32)
+                  / half)
+    return torch.from_numpy(np.asarray(freq, np.float32)).to(device)
+
+
 # -- MLP ---------------------------------------------------------------------------
 
 def init_mlp(gen, cfg: ModelConfig, dtype, lead=()):
+    """Gated (gate, up, down) or plain (up, up_b, down, down_b, the biases
+    zero in ``dtype``), as the reference's ``init_mlp``."""
     d, ff = cfg.d_model, cfg.d_ff
     lead = tuple(lead)
+    if not cfg.glu:
+        return {"up": dense_init(gen, lead + (d, ff), d, dtype),
+                "up_b": torch.zeros(lead + (ff,), dtype=dtype,
+                                    device=gen.device),
+                "down": dense_init(gen, lead + (ff, d), ff, dtype),
+                "down_b": torch.zeros(lead + (d,), dtype=dtype,
+                                      device=gen.device)}
     return {"gate": dense_init(gen, lead + (d, ff), d, dtype),
             "up": dense_init(gen, lead + (d, ff), d, dtype),
             "down": dense_init(gen, lead + (ff, d), ff, dtype)}
@@ -95,7 +149,11 @@ def activation(cfg: ModelConfig, x):
 
 
 def apply_mlp(cfg: ModelConfig, p, x):
-    """Gated MLP: act(x @ gate) * (x @ up) @ down (SwiGLU, GeGLU)."""
+    """Gated MLP: act(x @ gate) * (x @ up) @ down (SwiGLU, GeGLU); plain:
+    act(x @ up + up_b) @ down + down_b."""
+    if not cfg.glu:
+        return activation(cfg, x @ p["up"] + p["up_b"]) @ p["down"] \
+            + p["down_b"]
     return (activation(cfg, x @ p["gate"]) * (x @ p["up"])) @ p["down"]
 
 
@@ -107,6 +165,11 @@ def init_embed(gen, cfg: ModelConfig, dtype):
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                   cfg.d_model, dtype)
+    if cfg.num_prefix_embeds:
+        # the reference's tree; the slot-native engine takes no prefix
+        # embeddings, so nothing reads it yet (ROADMAP A9.8)
+        p["prefix_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model),
+                                      cfg.d_model, dtype)
     return p
 
 

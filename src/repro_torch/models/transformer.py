@@ -1,9 +1,12 @@
 """Decoder model, attention-only path (port of
-``src/repro/models/transformer.py`` for the dense attention family: full
-and sliding-window attention layers with RMSNorm (pre-norm, and gemma2's
-sandwich norms), RoPE (full or partial), optional QKV bias and QK norm,
-attention and final logit softcaps, a gated MLP (SwiGLU or GeGLU) and tied
-or untied embeddings: qwen2, qwen3, granite, chatglm3, gemma2).
+``src/repro/models/transformer.py`` for the attention-only architectures:
+full and sliding-window attention layers with RMSNorm or layer norm
+(pre-norm, and gemma2's sandwich norms), RoPE (full or partial) or
+sinusoidal absolute positions, optional QKV bias and QK norm, attention
+and final logit softcaps, a gated MLP (SwiGLU or GeGLU), a plain biased
+GELU MLP or a top-k MoE FFN (``models/moe.py``), and tied or untied
+embeddings: qwen2, qwen3, granite, chatglm3, gemma2, qwen3-moe, mixtral,
+musicgen and llava's text backbone).
 
 Layers are grouped into *stages* as in the reference: the config's block
 pattern (gemma2's (local, full)) stacked over its repeat count, every
@@ -23,8 +26,8 @@ buffer is shorter than ``cfg.max_seq`` (a long-context ring) within the
 buffer's length; the window rule is the reference's in every mode.
 
 On CUDA tensors the model runs the port's kernels (add_rmsnorm for every
-residual add whose sum feeds a norm, rmsnorm for the other norms and the
-QK norm's head rows, flash_attention for prefill, chunk_attention for
+residual add whose sum feeds an RMSNorm, rmsnorm for the other RMSNorms
+and the QK norm's head rows, flash_attention for prefill, chunk_attention for
 chunked prefill over a page chain or a dense row, decode_attention for
 dense decode, paged_decode_attention for paged decode); on CPU tensors the
 same calls take the kernels' plain versions.  Under ``cfg.kv_quant`` the
@@ -48,6 +51,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from . import kvcache as KV
 from . import layers as L
+from . import moe
 from .config import ModelConfig, FULL_ATTN, LOCAL_ATTN
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -63,19 +67,12 @@ def stages_of(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for features of other architectures, which later slices port,
-    each naming its ROADMAP A9 item."""
-    kinds = set(cfg.block_pattern)
-    bad = [f"{name} (ROADMAP A9.{item})" for name, item, off in (
-        ("SSM / RG-LRU blocks", 6, kinds <= {FULL_ATTN, LOCAL_ATTN}),
-        ("MoE", 4, not cfg.is_moe),
-        ("non-rope positions", 5, cfg.pos_embedding == "rope"),
-        ("layer norm", 5, cfg.norm == "rms"),
-        ("a plain (non-gated) MLP", 5, cfg.glu and cfg.d_ff > 0),
-        ("prefix embeddings", 5, not cfg.num_prefix_embeds)) if not off]
-    if bad:
+    """Raise for the recurrent blocks, which a later slice ports (ROADMAP
+    A9.6)."""
+    if not set(cfg.block_pattern) <= {FULL_ATTN, LOCAL_ATTN}:
         raise NotImplementedError(
-            f"model '{cfg.name}' needs {', '.join(bad)}, not ported yet")
+            f"model '{cfg.name}' needs SSM / RG-LRU blocks (ROADMAP A9.6), "
+            "not ported yet")
 
 
 # -- params ---------------------------------------------------------------------
@@ -101,7 +98,10 @@ def _init_block(gen, cfg: ModelConfig, dtype, n_rep: int) -> Dict:
     if cfg.post_block_norm:
         p["post_norm"] = L.init_norm(cfg, gen.device, lead)
     p["mlp_norm"] = L.init_norm(cfg, gen.device, lead)
-    p["mlp"] = L.init_mlp(gen, cfg, dtype, lead)
+    if cfg.is_moe:
+        p["moe"] = moe.init_moe(gen, cfg, dtype, lead)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, dtype, lead)
     if cfg.post_block_norm:
         p["post_mlp_norm"] = L.init_norm(cfg, gen.device, lead)
     return p
@@ -110,8 +110,8 @@ def _init_block(gen, cfg: ModelConfig, dtype, n_rep: int) -> Dict:
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     """Random parameters on ``gen.device`` with the reference's tree, shapes
     and dtypes (``transformer.init_params``): stage leaves carry a leading
-    ``n_rep`` axis, norm scales (QK norms included) are float32, the rest
-    is ``cfg.dtype``.
+    ``n_rep`` axis, norm scales and biases (QK norms included) and MoE
+    routers are float32, the rest is ``cfg.dtype``.
     The values come from ``gen``, not from JAX's generator."""
     check_supported(cfg)
     dtype = DTYPES[cfg.dtype]
@@ -127,7 +127,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 
 
 # leaves the reference makes float32 whatever the model's dtype
-_F32_LEAVES = ("scale", "q_norm", "k_norm")
+_F32_LEAVES = ("scale", "bias", "q_norm", "k_norm", "router")
 
 
 def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
@@ -136,7 +136,8 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
     ``device``.  A bfloat16 leaf arrives as an ``ml_dtypes.bfloat16`` array
     and is reinterpreted bit for bit, so the conversion is lossless.
     ``dtype``, when given, casts the weights; a leaf the reference keeps in
-    float32 (``_F32_LEAVES``: norm scales, QK norms) stays float32."""
+    float32 (``_F32_LEAVES``: norm scales and biases, QK norms, MoE
+    routers) stays float32."""
     def conv(x, key):
         if isinstance(x, dict):
             return {k: conv(v, k) for k, v in x.items()}
@@ -200,9 +201,10 @@ def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
         # the rmsnorm kernel over rows of head_dim
         q = L.rmsnorm(q, a["q_norm"], cfg.norm_eps)
         k = L.rmsnorm(k, a["k_norm"], cfg.norm_eps)
-    inv, rot = rope
-    q = L.apply_rope(q, positions, inv, rot)
-    k = L.apply_rope(k, positions, inv, rot)
+    if cfg.pos_embedding == "rope":
+        inv, rot = rope
+        q = L.apply_rope(q, positions, inv, rot)
+        k = L.apply_rope(k, positions, inv, rot)
 
     # the reference's window rule: LOCAL layers attend within cfg.window;
     # a dense buffer shorter than max_seq on a FULL layer (a long-context
@@ -283,7 +285,10 @@ def _apply_block(cfg: ModelConfig, kind: str, p, x, delta, **kw):
     block).  Returns (stream, this block's MLP output): the caller adds it
     where the sum feeds the next norm, so every such add shares its launch
     with that norm (``add_rmsnorm``).  Sandwich norms (``post_block_norm``)
-    normalise the attention and MLP outputs before their residual adds."""
+    normalise the attention and MLP outputs before their residual adds.
+    An MoE FFN routes the prompt's real tokens only: in prefill and chunk
+    modes the first ``length`` tokens of the (single) row are real, the
+    rest bucket pads; in decode every row is one real token."""
     if delta is None:
         h = L.apply_norm(cfg, p["norm"], x)
     else:
@@ -292,7 +297,12 @@ def _apply_block(cfg: ModelConfig, kind: str, p, x, delta, **kw):
     if cfg.post_block_norm:
         mix = L.apply_norm(cfg, p["post_norm"], mix)
     x, h = L.apply_add_norm(cfg, p["mlp_norm"], x, mix)
-    m = L.apply_mlp(cfg, p["mlp"], h)
+    if cfg.is_moe:
+        length = kw.get("length")
+        m, _ = moe.apply_moe(cfg, p["moe"], h, None if length is None
+                             else [length] * h.shape[0])
+    else:
+        m = L.apply_mlp(cfg, p["mlp"], h)
     if cfg.post_block_norm:
         m = L.apply_norm(cfg, p["post_mlp_norm"], m)
     return x, m
@@ -327,6 +337,14 @@ def _last_row_norm(cfg: ModelConfig, params, x, delta, length: int):
     return L.apply_norm(cfg, params["final_norm"], (x + delta)[:, row:row + 1])
 
 
+def _add_positions(cfg: ModelConfig, x, positions):
+    """The embeddings plus sinusoidal absolute positions (musicgen); other
+    models rotate q and k instead (RoPE, in ``_apply_attn``)."""
+    if cfg.pos_embedding == "sincos":
+        x = x + L.sincos_embedding(positions, cfg.d_model).to(x.dtype)
+    return x
+
+
 # -- public API ------------------------------------------------------------------------
 
 def prefill_into_slot(params, cfg: ModelConfig, tokens, length: int, caches,
@@ -350,6 +368,7 @@ def prefill_into_slot(params, cfg: ModelConfig, tokens, length: int, caches,
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
+    x = _add_positions(cfg, x, positions)
     x, delta = _run_stages(cfg, params, x, caches=caches, mode="prefill",
                            positions=positions,
                            rope=L.rope_freqs(cfg, x.device), pos=None,
@@ -378,6 +397,7 @@ def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens, start: int,
     B, S = tokens.shape
     positions = start + torch.arange(S, dtype=torch.int32,
                                      device=x.device)[None].expand(B, S)
+    x = _add_positions(cfg, x, positions)
     x, delta = _run_stages(cfg, params, x, caches=caches, mode="chunk",
                            positions=positions,
                            rope=L.rope_freqs(cfg, x.device), pos=start,
@@ -456,6 +476,7 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
     pos = torch.as_tensor(pos, dtype=torch.int32,
                           device=x.device).expand(B).contiguous()
     positions = pos.reshape(B, 1)
+    x = _add_positions(cfg, x, positions)
     x, delta = _run_stages(cfg, params, x, caches=caches, mode="decode",
                            positions=positions,
                            rope=L.rope_freqs(cfg, x.device), pos=pos,

@@ -55,9 +55,9 @@ float32 scales, whatever ``cache_dtype`` says (as in the reference);
 quantizing happens inside the writes and adds no host sync.
 
 Not ported yet, and rejected with ``NotImplementedError`` naming the
-ROADMAP item: the legacy ``slot_native=False`` plane and its eager
-fallback for prompts longer than a ring buffer (A7 / A9), models outside
-the ported architectures (A9) and serving meshes (A14).  Stream migration
+ROADMAP item: the legacy ``slot_native=False`` plane (A7) and its eager
+fallback for prompts longer than a ring buffer (A9.8), the recurrent
+architectures (SSM / RG-LRU, A9.6) and serving meshes (A14).  Stream migration
 (``export_stream`` / ``import_stream``, A10) is absent.
 """
 from __future__ import annotations
@@ -839,7 +839,7 @@ class ServingEngine:
                     and not self._chunked:
                 raise _not_ported(
                     "the eager prefill fallback for a prompt longer than "
-                    "the largest bucket (chunked_prefill=False)", "A9")
+                    "the largest bucket (chunked_prefill=False)", "A9.8")
             self.pending.pop(0)
             slot = self.free_slots.pop(0)
             # longest cached prefix (after the admission gates: a lookup

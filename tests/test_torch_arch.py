@@ -1,22 +1,30 @@
-"""The dense attention family beyond qwen2 (qwen3-14b, granite-8b,
-chatglm3-6b, gemma2-9b) in the port, against the JAX reference on the CPU,
-on the reference's own weights (``params_from_numpy``), at each config's
-``.smoke()`` size in float32:
+"""The attention-only architectures beyond qwen2 in the port, against the
+JAX reference on the CPU, on the reference's own weights
+(``params_from_numpy``), at each config's ``.smoke()`` size in float32: the
+dense family (qwen3-14b, granite-8b, chatglm3-6b, gemma2-9b), the MoE
+models (qwen3-moe-30b-a3b, mixtral-8x7b; dropless at smoke size, capacity
+factor 8) and the layer-norm / prefix family (musicgen-large: layer norm,
+sincos positions, the plain GELU MLP, MHA; llava-next-mistral-7b's text
+backbone with its unused ``prefix_proj``):
 
 * ``init_params`` builds the reference's tree, shapes and dtypes: QK norms
   (qwen3), untied ``lm_head`` (qwen3, granite, chatglm3), sandwich norms
-  (gemma2); the weight bridge keeps every float32 leaf float32 when it
-  casts the weights;
+  (gemma2), MoE routers and expert stacks, layer-norm biases, plain-MLP
+  biases and ``prefix_proj``; the weight bridge keeps every float32 leaf
+  (norm scales and biases, QK norms, routers) float32 when it casts the
+  weights;
 * gemma2's scaled embedding rounds sqrt(d_model) to the activation dtype
   first, as the reference does (sqrt(3584) = 59.866 is 59.75 in bf16);
 * per arch, ``prefill_into_slot`` into row 0, ``prefill_chunk_into_slot``
   of a longer prompt in chunks into row 1 of the same dense cache, then
   decode steps of both rows at their own positions: logits agree to 1e-4
-  and greedy tokens are identical.  gemma2's smoke window is 64, so its
-  local layers are 64-slot rings: the chunks of the 150-token prompt wrap
-  them (the dense-ring route of chunk_attention), and decode wraps them
-  again; its final logits are soft-capped, its attention logits too;
-* the serve CLI's ``--arch`` serves each of them (smoke size, CPU).
+  and greedy tokens are identical.  gemma2's and mixtral's smoke window is
+  64, so their local layers are 64-slot rings: the chunks of the 150-token
+  prompt wrap them (the dense-ring route of chunk_attention), and decode
+  wraps them again; gemma2's final logits are soft-capped, its attention
+  logits too;
+* the serve CLI's ``--arch`` serves each of them (smoke size, CPU) and
+  refuses the recurrent ones.
 
 1e-4: float32 throughout; the two frameworks sum matmuls and softmaxes in
 different orders, which moves logits of these models by ~1e-6.
@@ -43,7 +51,9 @@ from repro_torch.models import (decode_step, init_cache, init_params,
                                 prefill_into_slot)
 from repro_torch.models import layers as TL
 
-ARCHS = ["qwen3-14b", "granite-8b", "chatglm3-6b", "gemma2-9b"]
+ARCHS = ["qwen3-14b", "granite-8b", "chatglm3-6b", "gemma2-9b",
+         "qwen3-moe-30b-a3b", "mixtral-8x7b", "musicgen-large",
+         "llava-next-mistral-7b"]
 TOL = 1e-4
 MAXLEN = 192
 SHORT, LONG, CHUNK, STEPS = 20, 150, 32, 6
@@ -88,6 +98,27 @@ def test_bridge_keeps_float32_leaves_float32():
     for path, t in _leaves(tp):
         if path[-1] in ("scale", "q_norm", "k_norm"):
             assert t.dtype == torch.float32, path
+
+
+@pytest.mark.parametrize("arch,leaves", [
+    ("qwen3-moe-30b-a3b", ("router",)), ("musicgen-large", ("bias",))])
+def test_bridge_keeps_routers_and_norm_biases_float32(arch, leaves):
+    """The MoE router and the layer norm's bias are float32 in the
+    reference beside bf16 weights (``init_moe``, ``init_norm``); a cast to
+    bf16 keeps them float32, bit for bit (a rounded router would move
+    expert choices)."""
+    jcfg = jget_config(arch).smoke()                    # bf16 weights
+    jp = jax.tree.map(np.asarray, jinit_params(jax.random.PRNGKey(1), jcfg))
+    tp = params_from_numpy(jp, "cpu", dtype=torch.bfloat16)
+    seen = 0
+    for (path, t), (_, j) in zip(_leaves(tp), _leaves(jp)):
+        if path[-1] in leaves:
+            assert t.dtype == torch.float32, path
+            np.testing.assert_array_equal(t.numpy(), j)
+            seen += 1
+        elif j.dtype != np.float32:
+            assert t.dtype == torch.bfloat16, path
+    assert seen > 0
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -137,10 +168,11 @@ def test_prefill_chunks_and_decode_match_reference(model):
     arch, jcfg, cfg, jp, tp = model
     jc = jinit_cache(jcfg, 2, MAXLEN, dtype=jnp.float32)
     tc = init_cache(cfg, 2, MAXLEN, dtype=torch.float32, device="cpu")
-    if arch == "gemma2-9b":
+    if cfg.window:
         # the local layers are 64-slot rings, which the long prompt wraps
         assert cfg.window == 64 and tc[0][0]["k"].shape[2] == 64
-        assert tc[0][1]["k"].shape[2] == MAXLEN
+        if arch == "gemma2-9b":
+            assert tc[0][1]["k"].shape[2] == MAXLEN
     rng = np.random.default_rng(3)
     short = rng.integers(0, cfg.vocab_size, SHORT)
     long_ = rng.integers(0, cfg.vocab_size, LONG)
@@ -194,4 +226,4 @@ def test_serve_cli_serves_the_arch(arch, flags, capsys):
 
 def test_serve_cli_refuses_other_archs():
     with pytest.raises(SystemExit):
-        serve_main(["--device", "cpu", "--arch", "mixtral-8x7b"])
+        serve_main(["--device", "cpu", "--arch", "mamba2-370m"])

@@ -14,7 +14,16 @@ float32, ``cache_dtype="float32"``):
   and its chain alike, and a cancel frees a slot mid-decode;
 * qwen3-14b on the paged engine with the prefix cache (QK norms, untied
   head), ``tests/test_torch_paged_engine.py``'s trace and buckets cut to
-  16: prefix hits, chunks, preemption and a cancel.
+  16: prefix hits, chunks, preemption and a cancel;
+* the MoE models and the layer-norm / prefix family, each on the dense and
+  the paged engine, greedy or with seeded sampling: qwen3-moe-30b-a3b
+  (dense seeded; paged with prefix hits, chunks, preemption and a cancel,
+  as qwen3-14b), mixtral-8x7b (every layer a 64-slot ring: dense with int8
+  caches, chunked into the rings; paged seeded, where the pool holds no
+  layer and the pager alone admits and preempts), musicgen-large (layer
+  norm, sincos positions, plain GELU MLP; dense greedy, paged seeded) and
+  llava-next-mistral-7b (dense seeded, paged greedy).  At smoke size the
+  MoE models route with capacity factor 8 (no drops).
 
 Virtual time and energy come from the numpy plant model, so identical
 tokens must give identical ``ServingReport`` fields (floats compared
@@ -143,12 +152,47 @@ def test_gemma2_trace_equals_reference(case):
 
 
 def test_qwen3_paged_prefix_trace_equals_reference():
+    _paged_prefix_trace("qwen3-14b")
+
+
+def test_qwen3_moe_paged_prefix_trace_equals_reference():
+    _paged_prefix_trace("qwen3-moe-30b-a3b")
+
+
+def _paged_prefix_trace(arch):
     def run(server, cls, vocab):
         return _drive(server, cls, vocab)
-    ref, jrun, port, trun = _both("qwen3-14b", dict(PAGED_ECFG), run,
+    ref, jrun, port, trun = _both(arch, dict(PAGED_ECFG), run,
                                   prep=_force_chunk)
     _same(ref, jrun, port, trun)
     assert port.prefix_cache.stats() == ref.prefix_cache.stats()
     assert ref.prefix_cache.stats()["hits"] > 0 and port._preempted > 0
     assert trun[0].cancelled == 1
     assert 0 < len(trun[1][CANCEL_RID]) < TRACE[CANCEL_RID][3]
+
+
+PAGED = dict(GEMMA_ECFG, paged=True, page_size=16, num_pages=14,
+             prefix_cache=True)
+# (arch, case) -> (engine config, kv_quant, seeded sampling)
+ARCH_CASES = {
+    ("qwen3-moe-30b-a3b", "dense seeded"): (GEMMA_ECFG, False, True),
+    ("mixtral-8x7b", "dense kv_quant"): (GEMMA_ECFG, True, False),
+    ("mixtral-8x7b", "paged seeded"): (PAGED, False, True),
+    ("musicgen-large", "dense"): (GEMMA_ECFG, False, False),
+    ("musicgen-large", "paged seeded"): (PAGED, False, True),
+    ("llava-next-mistral-7b", "dense seeded"): (GEMMA_ECFG, False, True),
+    ("llava-next-mistral-7b", "paged"): (PAGED, False, False),
+}
+
+
+@pytest.mark.parametrize("arch,case", list(ARCH_CASES))
+def test_new_arch_trace_equals_reference(arch, case):
+    ecfg, kv_quant, seeded = ARCH_CASES[(arch, case)]
+    ref, jrun, port, trun = _both(arch, dict(ecfg), _gemma_run, kv_quant,
+                                  seeded=seeded)
+    _same(ref, jrun, port, trun)
+    assert trun[0].completed == len(GEMMA_TRACE)
+    if ecfg.get("paged"):
+        assert port._preempted > 0
+    if kv_quant:
+        assert port.caches[0][0]["k"].dtype.is_floating_point is False

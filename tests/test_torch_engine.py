@@ -149,7 +149,8 @@ def test_wall_clock_accounting_serves_the_same_tokens(runs):
 def test_requests_are_refused_outside_the_slice(runs):
     port = runs[2]
     for cfg, bad, item in (
-            (port.cfg.replace(norm="layer"), dict(paged=True), "A9"),
+            (port.cfg.replace(block_pattern=("full", "rglru")),
+             dict(paged=True), "A9.6"),
             (port.cfg, dict(mesh=(1, 1)), "A14"),
             (port.cfg, dict(slot_native=False), "A7")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -94,10 +94,9 @@ def test_init_params_matches_reference_tree(dtype):
 
 @pytest.mark.parametrize("arch", [a for a in JARCH_IDS if a != "qwen2-1.5b"])
 def test_other_architectures_are_refused(arch):
-    """The dense attention family is registered, a copy of the reference's
-    config, and accepted; every other architecture is refused naming its
-    ROADMAP A9 item (MoE A9.4, prefix embeddings / layer norm / sincos
-    A9.5, SSM and RG-LRU A9.6)."""
+    """Every attention-only architecture is registered, a copy of the
+    reference's config, and accepted; the recurrent ones (SSM and RG-LRU)
+    are refused naming their ROADMAP A9 item (A9.6)."""
     if arch in ARCH_IDS:
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(jget_config(arch))

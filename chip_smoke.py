@@ -8,6 +8,8 @@
     python3 chip_smoke.py --phases build,sampling,observability
     python3 chip_smoke.py --phases build,kernels,arch
     python3 chip_smoke.py --phases build,equivalence,arch
+    python3 chip_smoke.py --phases build,kernels,equivalence,arch \
+        --archs mamba2-370m,recurrentgemma-9b
 
 Phases (each raises on failure; nothing is caught):
 
@@ -67,7 +69,14 @@ Phases (each raises on failure; nothing is caught):
    path's own chunks (4096 queries at 0, 3904 of 4096 at 4096, on the
    4096-slot ring and on a 16384-slot row), on every route, bitwise
    across repeated launches and between a dense row and a page chain
-   holding the same context.  Every case of every kernel sits in one
+   holding the same context.  Then recurrentgemma's shapes (MQA 16:1 at
+   hd 256, window 2048): rmsnorm at its 2048-token chunk and at mamba2's
+   widths (d_model 1024, the SSD's gated norm over rows of 2048); flash
+   at the 1024 bucket and past the window; decode on the wrapped
+   2048-slot ring and on a 2048-slot dense row; paged decode over
+   1024-position chains, bitwise the dense kernel; chunk_attention's
+   2048-query chunks into the ring (at 0, and wrapped) and a chunk over a
+   page chain.  Every case of every kernel sits in one
    table per kernel (NORM_SHAPES, DECODE_CASES, FLASH_CASES, PAGED_CASES,
    CHUNK_CASES, Q8_CASES); a named row is timed in bf16 and gets a
    "[summary]" line (chunk_attention's with its float32 scratch bytes);
@@ -90,7 +99,11 @@ Phases (each raises on failure; nothing is caught):
    are compared first: a set that differs where the top-k boundary's two
    probabilities lie more than 1e-5 apart fails; a narrower tie is printed
    with its gap and that model's logits and tokens are reported, not
-   asserted.  Then one MoE layer at qwen3-moe's width (a 1024-token group,
+   asserted.  Then the recurrent models at full width in float32, CUDA
+   against CPU: mamba2-370m at 2 layers and recurrentgemma-9b at 3 (one
+   rglru, rglru, local period), a 300-token prompt and 8 greedy tokens,
+   logits within 1e-4 and tokens equal.  Then one MoE layer at qwen3-moe's
+   width (a 1024-token group,
    capacity 1.25): moe_einsum against moe_scatter within 1e-5 in float32,
    the keep mask against the CPU's, and both timed in bf16 (that group
    and an 8-row decode step) beside the layer's bound (every expert's
@@ -150,12 +163,25 @@ Phases (each raises on failure; nothing is caught):
    caches; granite-8b and chatglm3-6b at full width and 4 layers,
    musicgen-large (layer norm, sincos, MHA at hd 64: no rmsnorm launch)
    at full width and depth, the serve burst; llava-next-mistral-7b (text
-   only) at full width and depth, the serve burst and the paged waves.
-   Paths ``arch_<model>[_sampled|_q8|_paged]``, launches counted as in
-   phase 5; tokens/s, peak memory and a digest of the tokens printed.
+   only) at full width and depth, the serve burst and the paged waves;
+   mamba2-370m (48 SSM blocks: the norms are its only kernels) at full
+   width and depth, the serve burst greedy and sampled; recurrentgemma-9b
+   at full width and depth (26 RG-LRU blocks, 12 local MQA layers) the
+   serve burst, the long burst (chunks into its 2048-slot rings, decode
+   wraps them; ``arch_rgemma_long``), the reuse burst in float32 (a stream
+   chunked into a slot an earlier stream left gives the tokens it gives
+   alone on a fresh engine, and no decode block moves the recurrent rows
+   of a slot outside the batch; ``arch_rgemma_reuse``) and the paged
+   waves (its local layers pooled at max_len 2048; they must preempt and
+   never hit the prefix cache).  ``--archs`` keeps only the named models
+   in this phase and in the equivalence phase's arch checks.
+   Paths ``arch_<model>[_sampled|_q8|_paged|_long|_reuse]``, launches
+   counted as in phase 5; tokens/s, the burst's peak memory (weights
+   included) and a digest of the tokens printed.
 11. profile (opt-in, not in the default run): the serve, serve_paged and
-   both serve_q8 bursts, then qwen3-moe-30b-a3b's serve burst at full
-   depth, again under ``torch.profiler`` after a warm-up run, printing
+   both serve_q8 bursts, then qwen3-moe-30b-a3b's and recurrentgemma-9b's
+   serve bursts at full depth, again under ``torch.profiler`` after a
+   warm-up run, printing
    the device's busy share of the wall time, the kernel time by name and
    the port's kernels' time by family with that run's launches, then
    the PyTorch operators the host dispatches per forward pass (in all,
@@ -197,7 +223,9 @@ SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "arch_gemma2_q8", "arch_gemma2_paged", "arch_granite",
                "arch_chatglm3", "arch_qwen3moe", "arch_qwen3moe_sampled",
                "arch_qwen3moe_paged", "arch_mixtral", "arch_mixtral_q8",
-               "arch_musicgen", "arch_llava", "arch_llava_paged")
+               "arch_musicgen", "arch_llava", "arch_llava_paged",
+               "arch_mamba2", "arch_mamba2_sampled", "arch_rgemma",
+               "arch_rgemma_long", "arch_rgemma_reuse", "arch_rgemma_paged")
 
 
 def log(*a):
@@ -334,7 +362,11 @@ def _timed(res, name, case, kern, plain, sets, nbytes, flops, library=None):
 # chatglm3) and 3584 (gemma2)
 NORM_SHAPES = ((8, 1536), (256, 1536), (1024, 1536), (4, 10008),
                (40960, 128), (8192, 128), (320, 128), (8, 5120),
-               (1024, 5120), (8, 4096), (8, 3584), (4096, 3584))
+               (1024, 5120), (8, 4096), (8, 3584), (4096, 3584),
+               # recurrentgemma's 2048-token chunk, mamba2's d_model and its
+               # SSD gated norm (float32 rows of 2048 in the model)
+               (2048, 4096), (8, 1024), (1024, 1024), (8, 2048),
+               (1024, 2048))
 
 
 def _rmsnorm_cases(res):
@@ -446,7 +478,9 @@ def _decode_valid(kp, qp, window):
 # name of a timed case): qwen2's serve shape (12:2) short, long and with a
 # window; gemma2's local layer (a wrapped 4096-slot ring, window 4096) and
 # full layer (8192 keys), both 16:8 at hd 256 with softcap 50; qwen3 (40:8,
-# G 5), chatglm3 (32:2, G 16), granite (32:8)
+# G 5), chatglm3 (32:2, G 16), granite (32:8); recurrentgemma's local layer
+# (MQA 16:1 at hd 256, window 2048) as the long burst's wrapped 2048-slot
+# ring and as the serve burst's 2048-slot dense row
 DECODE_CASES = [
     (8, 12, 2, 192, 128, 0, 0.0, False, "decode_attention B=8 Sk=192"),
     (8, 12, 2, 2048, 128, 0, 0.0, False, "decode_attention B=8 Sk=2048"),
@@ -456,7 +490,10 @@ DECODE_CASES = [
     (4, 16, 8, 8192, 256, 0, 50.0, False, None),
     (8, 40, 8, 2048, 128, 0, 0.0, False, "decode_attention qwen3"),
     (8, 32, 2, 2048, 128, 0, 0.0, False, None),
-    (8, 32, 8, 2048, 128, 0, 0.0, False, None)]
+    (8, 32, 8, 2048, 128, 0, 0.0, False, None),
+    (4, 16, 1, 2048, 256, 2048, 0.0, True,
+     "decode_attention rgemma local ring"),
+    (8, 16, 1, 2048, 256, 2048, 0.0, False, "decode_attention rgemma")]
 
 
 def _decode_cases(res):
@@ -511,13 +548,17 @@ def _decode_cases(res):
 # flash cases, batch 1: (S, Hq, KH, hd, window, softcap, the "[summary]"
 # name of a timed case): qwen2's prefill (12:2) short, at the 1024 bucket,
 # and with window and softcap; qwen3's (40:8); gemma2's (16:8, hd 256) on a
-# local layer (window 4096, softcap 50) and a full one (softcap alone)
+# local layer (window 4096, softcap 50) and a full one (softcap alone);
+# recurrentgemma's local layer (MQA 16:1 at hd 256, window 2048) at the
+# serve burst's 1024 bucket, and past its window
 FLASH_CASES = [(96, 12, 2, 128, 0, 0.0, "flash_attention Sq=Sk=96"),
                (1024, 12, 2, 128, 0, 0.0, "flash_attention Sq=Sk=1024"),
                (1024, 12, 2, 128, 256, 30.0, None),
                (1024, 40, 8, 128, 0, 0.0, "flash_attention qwen3"),
                (4096, 16, 8, 256, 4096, 50.0, "flash_attention gemma2 local"),
-               (2048, 16, 8, 256, 0, 50.0, "flash_attention gemma2 full")]
+               (2048, 16, 8, 256, 0, 50.0, "flash_attention gemma2 full"),
+               (1024, 16, 1, 256, 2048, 0.0, "flash_attention rgemma"),
+               (2304, 16, 1, 256, 2048, 0.0, None)]
 
 
 def _flash_cases(res):
@@ -588,7 +629,9 @@ def _paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo=None, cover=None):
 # paged decode cases: (B, Hq, KH, ps, n_pages, hd, window, softcap, pos_lo,
 # partial chains, the "[summary]" name of a timed case): the reference's
 # three, a short context, qwen2's serving shape; gemma2's full layer (8192
-# keys, 16:8, hd 256, softcap 50), qwen3, chatglm3 and granite at 2048 keys
+# keys, 16:8, hd 256, softcap 50), qwen3, chatglm3 and granite at 2048 keys;
+# recurrentgemma's pooled local layers (16:1, hd 256, window 2048) at the
+# paged waves' 1024-position chains
 PAGED_CASES = [
     (2, 8, 2, 16, 8, 64, 0, 0.0, None, True, None),
     (3, 4, 4, 8, 6, 128, 0, 0.0, None, True, None),
@@ -600,7 +643,10 @@ PAGED_CASES = [
      "paged_decode_attention gemma2 full"),
     (8, 40, 8, 16, 128, 128, 0, 0.0, 1024, False, None),
     (8, 32, 2, 16, 128, 128, 0, 0.0, 1024, False, None),
-    (8, 32, 8, 16, 128, 128, 0, 0.0, 1024, False, None)]
+    (8, 32, 8, 16, 128, 128, 0, 0.0, 1024, False, None),
+    (8, 16, 1, 16, 128, 256, 2048, 0.0, 1024, False,
+     "paged_decode_attention rgemma"),
+    (3, 16, 1, 16, 40, 256, 2048, 0.0, None, True, None)]
 
 
 def _paged_cases(res):
@@ -733,7 +779,17 @@ CHUNK_CASES = [
     ChunkCase(256, 512, 256, 40, 8, 128, buf_len=2048),
     ChunkCase(128, 300, 128, 32, 2, 128),
     ChunkCase(200, 900, 150, 8, 2, 64, window=300, buf_len=512),
-    ChunkCase(200, 900, 150, 8, 2, 64, window=300, softcap=30.0)]
+    ChunkCase(200, 900, 150, 8, 2, 64, window=300, softcap=30.0),
+    # recurrentgemma (MQA 16:1 at hd 256, window 2048): the long burst's
+    # 2048-query chunks into the 2048-slot ring (at 0, and wrapped at 4096
+    # with a short last chunk), and a recompute chunk of the paged waves
+    ChunkCase(2048, 0, 2048, 16, 1, 256, window=2048, buf_len=2048,
+              summary="chunk_attention rgemma ring, 2048 at 0"),
+    ChunkCase(2048, 4096, 1500, 16, 1, 256, window=2048, buf_len=2048,
+              bitwise=True,
+              summary="chunk_attention rgemma ring, 2048 at 4096"),
+    ChunkCase(256, 512, 200, 16, 1, 256, window=2048, bitwise=True,
+              summary="chunk_attention rgemma, paged")]
 # (q dtype, int8 past, tolerance): the bf16 past, kv_quant's int8 past under
 # bf16 and float32 models, the float32 past
 CHUNK_ROUTES = (("bfloat16", False, 2e-2), ("bfloat16", True, 2e-2),
@@ -1437,7 +1493,59 @@ def _arch_equivalence(res):
                                     "launches": counts}
         del params, gparams
         torch.cuda.empty_cache()
-    _moe_layer(res)
+    _recurrent_equivalence(res)
+    if any(a == "qwen3-moe-30b-a3b" for a, _ in EQUIV_ARCHS):
+        _moe_layer(res)
+
+
+# the recurrent archs of the equivalence phase and their depth: mamba2's
+# SSM blocks, one (rglru, rglru, local) period of recurrentgemma
+RECURRENT_EQUIV = (("mamba2-370m", 2), ("recurrentgemma-9b", 3))
+
+
+def _recurrent_equivalence(res):
+    """CUDA against CPU on the recurrent archs at full width in float32 from
+    the same params (drawn on the card): a 300-token prompt in one prefill
+    (the SSD in chunks of 150, the RG-LRU scan over 300 steps) and 8 greedy
+    decode steps; the logits after the prompt within 1e-4, the tokens
+    equal.  mamba2 launches the norms only (its SSD gated norm is rmsnorm
+    over float32 rows of 2048); recurrentgemma also flash and decode at
+    MQA 16:1, hd 256."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    for arch, layers in RECURRENT_EQUIV:
+        cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+        t0 = time.perf_counter()
+        gparams = init_params(torch.Generator(device="cuda").manual_seed(0),
+                              cfg)
+        params = _to(gparams, "cpu")
+        prompt = np.random.default_rng(4).integers(0, cfg.vocab_size,
+                                                   size=300)
+        _reset_counts()
+        gfirst, gtoks = _greedy_run(gparams, cfg, prompt, 8, "cuda")
+        counts = _launch_counts()
+        cfirst, ctoks = _greedy_run(params, cfg, prompt, 8, "cpu")
+        err = max_err(gfirst, cfirst)
+        log(f"[equivalence] {arch} {layers} layers full width f32, 300-token "
+            f"prompt: logits max |err| {err:.3g}; tokens cuda {gtoks} cpu "
+            f"{ctoks}; launches {counts} ({time.perf_counter() - t0:.1f}s)")
+        if not torch.allclose(gfirst, cfirst, atol=1e-4, rtol=1e-4):
+            raise AssertionError(f"{arch}: logits differ by {err:.3g} > 1e-4")
+        if gtoks != ctoks:
+            raise AssertionError(f"{arch}: greedy tokens differ between CUDA "
+                                 "and CPU")
+        need = ["rmsnorm", "add_rmsnorm"]
+        if cfg.num_heads:
+            need += ["decode_attention", "flash_attention"]
+        _check_launched(f"equivalence {arch}", counts, need)
+        res["equivalence"][arch] = {"logits_max_abs_err": err,
+                                    "tokens": gtoks, "tokens_cpu": ctoks,
+                                    "prompt": 300, "layers": layers,
+                                    "launches": counts}
+        del params, gparams
+        torch.cuda.empty_cache()
 
 
 class _RoutingLog:
@@ -1679,7 +1787,8 @@ def _profiled(path, make_engine, burst):
     kernel time by name and the port's kernels' time by family with the
     launches of that run; then once more counting the PyTorch operators the
     host dispatches per forward pass (``_op_count``; forward passes from
-    the attention launches, one per layer and pass on every route)."""
+    the attention launches, one per attention layer and pass on every
+    route)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.api import Server
@@ -1718,8 +1827,9 @@ def _profiled(path, make_engine, burst):
     ops, by_op = _op_count(lambda: burst(server, cfg.vocab_size))
     counted = _launch_counts()
     norms = counted["rmsnorm"] + counted["add_rmsnorm"]
+    attn_layers = sum(k in ("full", "local") for k in cfg.layer_kinds)
     passes = sum(n for r, n in counted.items()
-                 if "norm" not in r) // cfg.num_layers
+                 if "norm" not in r) // attn_layers
     adds = sum(n for op, n in by_op.items() if op.startswith("aten.add"))
     log(f"[profile] {path}: {ops} PyTorch operators dispatched for {passes} "
         f"forward passes = {ops / passes:.1f} per pass; aten.add "
@@ -1739,23 +1849,30 @@ def phase_profile(res):
     serve_q8 bursts under ``torch.profiler``, each after a warm-up run of
     itself (a paged one then starts with a warm prefix cache); then the
     serve burst on qwen3-moe-30b-a3b at full width and depth (the arch
-    phase's ``arch_qwen3moe``), whose decode reads every expert."""
+    phase's ``arch_qwen3moe``), whose decode reads every expert, and on
+    recurrentgemma-9b at full width and depth (``arch_rgemma``: 26 RG-LRU
+    blocks of PyTorch operators beside 12 local attention layers).  With
+    ``--archs``, only the named models' bursts."""
     import gc
     import torch
-    res["profile"] = {
-        "serve": _profiled("serve", _serve_engine, _burst),
-        "serve_paged": _profiled("serve_paged", _paged_serve_engine,
-                                 _paged_waves),
-        "serve_q8": _profiled("serve_q8", lambda: _serve_engine(True),
-                              _burst),
-        "serve_q8_paged": _profiled("serve_q8_paged",
-                                    lambda: _paged_serve_engine(True),
-                                    _paged_waves)}
-    gc.collect()
-    torch.cuda.empty_cache()
-    res["profile"]["arch_qwen3moe"] = _profiled(
-        "arch_qwen3moe", lambda: _serve_engine(arch="qwen3-moe-30b-a3b"),
-        _burst)
+    res["profile"] = {}
+    if ONLY_ARCHS is None:
+        res["profile"] = {
+            "serve": _profiled("serve", _serve_engine, _burst),
+            "serve_paged": _profiled("serve_paged", _paged_serve_engine,
+                                     _paged_waves),
+            "serve_q8": _profiled("serve_q8", lambda: _serve_engine(True),
+                                  _burst),
+            "serve_q8_paged": _profiled("serve_q8_paged",
+                                        lambda: _paged_serve_engine(True),
+                                        _paged_waves)}
+    for arch, path in (("qwen3-moe-30b-a3b", "arch_qwen3moe"),
+                       ("recurrentgemma-9b", "arch_rgemma")):
+        if ONLY_ARCHS is None or arch in ONLY_ARCHS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            res["profile"][path] = _profiled(
+                path, lambda a=arch: _serve_engine(arch=a), _burst)
 
 
 def _counters():
@@ -2258,7 +2375,14 @@ def phase_observability(res):
 # with bf16 and int8 caches, and paged, which must preempt).  qwen3-14b,
 # gemma2-9b, qwen3-moe-30b-a3b, musicgen-large and llava-next-mistral-7b at
 # full width and depth; granite-8b, chatglm3-6b and mixtral-8x7b (93 GB of
-# bf16 weights at its 32 layers) at full width and 4 layers
+# bf16 weights at its 32 layers) at full width and 4 layers.  The recurrent
+# models at full width and depth: mamba2-370m (48 SSM blocks, no attention)
+# the serve burst greedy and sampled; recurrentgemma-9b (38 layers: 26
+# RG-LRU, 12 local MQA 16:1 at hd 256, window 2048) the serve burst, the
+# long burst on the dense engine ("long": its 2048-slot rings; the path is
+# ``arch_rgemma_long`` beside the serve burst's ``arch_rgemma``), "reuse"
+# (a stream chunked into a slot an earlier stream left, float32) and the
+# paged waves (its local layers pooled at max_len 2048; never a prefix hit)
 ARCH_RUNS = (
     ("qwen3-14b", None, "qwen3", ("serve", "sampled", "waves")),
     ("gemma2-9b", None, "gemma2", ("long", "long_q8", "long_paged")),
@@ -2267,7 +2391,16 @@ ARCH_RUNS = (
     ("qwen3-moe-30b-a3b", None, "qwen3moe", ("serve", "sampled", "waves")),
     ("mixtral-8x7b", 4, "mixtral", ("long", "long_q8")),
     ("musicgen-large", None, "musicgen", ("serve",)),
-    ("llava-next-mistral-7b", None, "llava", ("serve", "waves")))
+    ("llava-next-mistral-7b", None, "llava", ("serve", "waves")),
+    ("mamba2-370m", None, "mamba2", ("serve", "sampled")),
+    ("recurrentgemma-9b", None, "rgemma", ("serve", "long", "reuse",
+                                           "waves")))
+# the archs ``--archs`` keeps (None: every one)
+ONLY_ARCHS = None
+# every attention kernel route (a model without attention launches none)
+ATTN_ROUTES = ("decode_attention", "flash_attention", "chunk_attention",
+               "chunk_attention/dense", "paged_decode_attention",
+               "paged_decode_attention/q8", "decode_attention_q8")
 
 
 def _long_burst(server, vocab):
@@ -2296,6 +2429,7 @@ def _arch_burst(res, path, cfg, eng, burst, need, forbid=()):
     server = Server(eng)
     _reset_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = burst(server, cfg.vocab_size)
     torch.cuda.synchronize()
@@ -2331,7 +2465,7 @@ def _arch_burst(res, path, cfg, eng, burst, need, forbid=()):
 
 
 def phase_arch(res):
-    """The attention-only architectures on the card, one model at a time
+    """Every architecture beyond qwen2 on the card, one model at a time
     (its weights freed before the next), each burst of ``ARCH_RUNS`` on a
     fresh engine: qwen3-14b (the paper's model) and qwen3-moe-30b-a3b (48
     layers of 128 experts, top 8, capacity 1.25) at full width and depth
@@ -2347,10 +2481,14 @@ def phase_arch(res):
     granite-8b and chatglm3-6b at full width and 4 layers and
     musicgen-large (layer norm: no rmsnorm launch) at full width and depth
     serve the serve burst; llava-next-mistral-7b (text only) at full width
-    and depth the serve burst and the paged waves.  Seeded random bf16
-    weights.  At capacity 1.25 an MoE model's routing depends on which
-    tokens share a prefill call, so its paged waves (chunks, prefix hits)
-    are not held to its dense burst."""
+    and depth the serve burst and the paged waves; mamba2-370m (no
+    attention: the norms are its kernels) the serve burst greedy and
+    sampled; recurrentgemma-9b the serve burst, the long burst into its
+    2048-slot rings, the reuse burst (``_reuse_burst``) and the paged waves
+    (its local layers pooled; preempting, never a prefix hit).  Seeded
+    random bf16 weights.  At capacity 1.25 an MoE model's routing depends
+    on which tokens share a prefill call, so its paged waves (chunks,
+    prefix hits) are not held to its dense burst."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -2372,6 +2510,8 @@ def phase_arch(res):
             f"parameters in bf16 built in {time.perf_counter() - t0:.1f}s")
         rms = ("rmsnorm", "add_rmsnorm")
         norms, no_norms = (rms, ()) if cfg.norm == "rms" else ((), rms)
+        attends = bool(cfg.num_heads)
+        recurrent = not set(cfg.block_pattern) <= {"full", "local"}
         for burst in bursts:
             eng = None
             if burst in ("serve", "sampled"):
@@ -2382,8 +2522,10 @@ def phase_arch(res):
                     burst == "sampled")), cfg, eng,
                     lambda s, v, b=burst: _burst(
                         s, v, _seeded if b == "sampled" else None),
-                    norms + ("decode_attention", "flash_attention"),
-                    no_norms)
+                    norms + ("decode_attention", "flash_attention") * attends,
+                    no_norms + ATTN_ROUTES * (not attends))
+            elif burst == "reuse":
+                _reuse_burst(res, f"arch_{tag}_reuse", cfg, params, norms)
             elif burst == "waves":
                 eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
                     max_batch=8, max_len=2048, paged=True, page_size=16,
@@ -2395,9 +2537,11 @@ def phase_arch(res):
                                          "flash_attention",
                                          "chunk_attention"),
                                 no_norms + ("decode_attention",))
-                if not (r["prefix_cache"]["hits"] and r["preempted"]):
-                    raise AssertionError(f"{arch} paged: no prefix hit or "
-                                         f"no preemption: {r}")
+                # a model with recurrent rows never shares a prefix
+                if not (bool(r["prefix_cache"]["hits"]) != recurrent
+                        and r["preempted"]):
+                    raise AssertionError(f"{arch} paged: prefix hits or "
+                                         f"preemption not as required: {r}")
             else:
                 # long prompts: chunked through the dense-row route into
                 # the 4096-slot rings; "long_q8" quantizes rings and rows,
@@ -2429,15 +2573,116 @@ def phase_arch(res):
                 else:
                     decode = "decode_attention_q8" if q8 \
                         else "decode_attention"
-                    _arch_burst(res, f"arch_{tag}" + "_q8" * q8, bcfg, eng,
-                                _long_burst,
+                    long_tag = "_long" if "serve" in bursts else ""
+                    _arch_burst(res, f"arch_{tag}" + ("_q8" if q8
+                                                      else long_tag),
+                                bcfg, eng, _long_burst,
                                 norms + (decode, "chunk_attention/dense"),
                                 ("chunk_attention",)
                                 + ("decode_attention",) * q8)
+            # an engine and the reuse burst's wrappers refer to each other:
+            # collect them before the next burst
             del eng
+            gc.collect()
+            torch.cuda.empty_cache()
         del params
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def _reuse_burst(res, path, cfg, params, norms):
+    """A stream chunked into a slot an earlier stream left, at full width
+    and depth in float32 (the bf16 weights cast; float32 caches, as the
+    bitwise invariants require), max_batch 2, max_len 8192: A (300 tokens,
+    48 new) is prefilled in one bucket, B (3000, 16 new) chunks 2048 + 952
+    beside A's decode, C (2500, 16 new) waits for the slot of the first of
+    them to finish and chunks into it from position 0 beside the other's
+    decode.  C's tokens must equal C served alone on a fresh engine (sha256
+    digests), and across every decode block the recurrent rows of each
+    slot outside the decode batch (free, or a stream between its chunks)
+    must keep their bits."""
+    import numpy as np
+    import torch
+    from repro_torch.core import SamplingParams
+    from repro_torch.serving import EngineConfig, Server, ServingEngine
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = _to(params, torch.float32)
+    ecfg = EngineConfig(max_batch=2, max_len=8192, governor="greenllm",
+                        cache_dtype="float32")
+    rng = np.random.default_rng(5)
+    trace = ((300, 48), (3000, 16), (2500, 16))
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n, _ in trace]
+    eng = ServingEngine(cfg32, params=p32, ecfg=ecfg, device="cuda")
+    slots, frozen = _watch_rows(eng)
+    kept = []
+
+    def burst(server, vocab):
+        kept.extend(server.submit(p, SamplingParams(max_tokens=m))
+                    for p, (_, m) in zip(prompts, trace))
+        return kept, server.run()
+    r = _arch_burst(res, path, cfg32, eng, burst,
+                    norms + ("decode_attention", "flash_attention",
+                             "chunk_attention/dense"), ("chunk_attention",))
+    alone = ServingEngine(cfg32, params=p32, ecfg=ecfg, device="cuda")
+    server = Server(alone)
+    h = server.submit(prompts[2], SamplingParams(max_tokens=16))
+    server.run()
+    got, want = _tokens_digest(kept[2:]), _tokens_digest([h])
+    r.update(slots=slots, frozen_blocks=frozen, reused_sha256=got,
+             alone_sha256=want)
+    log(f"[arch] {path}: slots by stream {slots}; decode blocks holding "
+        f"rows outside the batch {frozen}; stream 2 chunked into a reused "
+        f"slot {got}, served alone {want}")
+    if slots[2] not in (slots[0], slots[1]) or slots[0] == slots[1]:
+        raise AssertionError(f"{path}: stream 2 did not reuse a slot: "
+                             f"{slots}")
+    if got != want:
+        raise AssertionError(f"{path}: a stream chunked into a reused slot "
+                             "differs from the same stream served alone")
+    if not (frozen["mid_prefill"] and frozen["free"]):
+        raise AssertionError(f"{path}: no decode block held a row outside "
+                             f"the batch: {frozen}")
+
+
+def _watch_rows(eng):
+    """Record the slot each stream is admitted to, and check every decode
+    block of ``eng``: the recurrent rows (SSM / RG-LRU state and conv
+    window, every layer) of each slot outside the decode batch hold the
+    same bits after the block as before it.  Returns (slots by rid, counts
+    of the blocks that held a mid-prefill row and a free row)."""
+    import torch
+    slots, frozen = {}, {"mid_prefill": 0, "free": 0}
+    leaves = [t for stage in eng.caches for d in stage if "conv" in d
+              for t in d.values()]
+    admit, chunked, decode = (eng._admit_slot, eng._start_chunked,
+                              eng._decode_block)
+
+    def admit_slot(req, slot):
+        slots[req.rid] = slot
+        return admit(req, slot)
+
+    def start_chunked(req, slot, *a):
+        slots[req.rid] = slot
+        return chunked(req, slot, *a)
+
+    def decode_block(k):
+        held = [s for s in range(eng.ecfg.max_batch) if s not in eng.active]
+        if not held:
+            return decode(k)
+        frozen["mid_prefill"] += any(s in eng.prefilling for s in held)
+        frozen["free"] += any(s not in eng.prefilling for s in held)
+        before = [t[:, held].clone() for t in leaves]
+        n = decode(k)
+        for t, b in zip(leaves, before):
+            if not torch.equal(t[:, held], b):
+                raise AssertionError(f"a decode block moved the recurrent "
+                                     f"rows of slots {held} outside the "
+                                     "batch")
+        return n
+
+    eng._admit_slot, eng._start_chunked = admit_slot, start_chunked
+    eng._decode_block = decode_block
+    return slots, frozen
 
 
 def _leaves(tree):
@@ -2468,6 +2713,10 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}, or "
                          "'profile' (a traced serve burst)")
+    ap.add_argument("--archs", default="",
+                    help="comma-separated arch ids: the arch phase and the "
+                         "equivalence phase's arch checks keep only these "
+                         "(default: every one)")
     ap.add_argument("--src", default=str(SRC),
                     help="the source tree to import repro_torch from (default "
                          "the checkout's src/; another tree's, e.g. an earlier "
@@ -2475,6 +2724,13 @@ def main(argv=None):
                          "cases against that version's kernels)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
+    if args.archs:
+        keep = set(args.archs.split(","))
+        global ARCH_RUNS, EQUIV_ARCHS, RECURRENT_EQUIV, ONLY_ARCHS
+        ONLY_ARCHS = keep
+        ARCH_RUNS = tuple(r for r in ARCH_RUNS if r[0] in keep)
+        EQUIV_ARCHS = tuple(r for r in EQUIV_ARCHS if r[0] in keep)
+        RECURRENT_EQUIV = tuple(r for r in RECURRENT_EQUIV if r[0] in keep)
     src = Path(args.src).resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: no {src / 'repro_torch'}; run from a checkout "

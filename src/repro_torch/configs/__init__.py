@@ -1,9 +1,9 @@
 """Architecture config registry: ``get_config(arch_id)`` / ``--arch <id>``.
 
-The port serves the attention-only architectures (dense, MoE, audio and
-VLM backbones), so it registers those configs, in the reference's order; the
-recurrent hybrids (mamba2, recurrentgemma) join with their model code.
-Every config cites its source in the module docstring.
+Ten assigned architectures + the paper's own evaluation model (qwen3-14b),
+in the reference's order: dense, MoE, audio and VLM backbones, the SSM
+(mamba2) and the RG-LRU hybrid (recurrentgemma).  Every config cites its
+source in the module docstring.
 """
 from __future__ import annotations
 
@@ -16,11 +16,13 @@ ARCH_IDS: List[str] = [
     "musicgen-large",
     "granite-8b",
     "qwen2-1.5b",
+    "mamba2-370m",
     "qwen3-moe-30b-a3b",
     "llava-next-mistral-7b",
     "chatglm3-6b",
     "gemma2-9b",
     "mixtral-8x7b",
+    "recurrentgemma-9b",
     "qwen3-14b",
 ]
 

@@ -4,9 +4,11 @@ burst, and print the typed ``ServingReport``.
 
   python -m repro_torch.launch.serve                    # qwen2-1.5b smoke, CUDA
   python -m repro_torch.launch.serve --full-width       # the full config
-  # the dense attention family: qwen3-14b (the paper's model), granite-8b,
-  # chatglm3-6b, gemma2-9b (local/full rings, softcaps)
+  # any of the reference's 11 archs, e.g. qwen3-14b (the paper's model),
+  # gemma2-9b (local/full rings, softcaps), qwen3-moe-30b-a3b (MoE),
+  # mamba2-370m (SSM) or recurrentgemma-9b (RG-LRU + local MQA)
   python -m repro_torch.launch.serve --arch qwen3-14b --full-width
+  python -m repro_torch.launch.serve --arch recurrentgemma-9b --paged
   python -m repro_torch.launch.serve --device cpu --requests 4
   python -m repro_torch.launch.serve --paged            # paged KV pool
   python -m repro_torch.launch.serve --prefix-cache     # + prefix cache

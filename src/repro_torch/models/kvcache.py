@@ -1,7 +1,7 @@
 """Decode-time state: full and ring-buffer KV caches and paged K/V pools,
 in the model's float type or as int8 with per-(token, kv head) float32
-scales (``cfg.kv_quant``) (port of ``src/repro/models/kvcache.py``;
-recurrent states come with a later slice).
+scales (``cfg.kv_quant``), and the recurrent row states of SSM and RG-LRU
+blocks (port of ``src/repro/models/kvcache.py``).
 
 A dense cache leaf is (B, buf_len, KH, hd); an int8 cache adds "k_s" /
 "v_s" leaves (B, buf_len, KH, 1) (a pool: "kp_s" / "vp_s"), written by the
@@ -14,6 +14,12 @@ per-row decode writes and a chunk's ring slots, slice assignment for a
 prefill row.  The write lands
 in the base tensor even when the leaf is a view (a layer of a stacked cache,
 or the ``[:, :ctx]`` slice of a decode block).
+
+A recurrent state has no positions: an SSM block keeps {"state" (B, heads,
+headdim, n) float32, "conv" (B, cw-1, channels)}, an RG-LRU block {"h" (B,
+w) float32, "conv" (B, cw-1, w)}, the conv windows in the cache dtype.
+Every batch row is one stream's; ``state_row_slot`` / ``state_write_slot``
+read and write row ``slot`` (a host int) in place.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from typing import Dict
 
 import torch
 
-from .config import ModelConfig, FULL_ATTN, LOCAL_ATTN
+from .config import ModelConfig, FULL_ATTN, LOCAL_ATTN, SSM, RGLRU
 
 
 def attn_buffer_len(cfg: ModelConfig, kind: str, max_len: int, long_context: bool) -> int:
@@ -56,6 +62,59 @@ def init_attn_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     S = attn_buffer_len(cfg, kind, max_len, long_context)
     shape = tuple(lead) + (batch, S, cfg.num_kv_heads, cfg.head_dim)
     return _zeros(cfg, shape, dtype, device, ("k", "v"))
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                   device="cuda", lead=()) -> Dict:
+    """Zeroed {"state" float32 (heads, headdim, n), "conv" ``dtype`` (cw-1,
+    inner + 2n)} per row, of shape lead + (batch, ...)."""
+    lead = tuple(lead) + (batch,)
+    conv_ch = cfg.ssm_inner + 2 * cfg.ssm_state
+    return {"state": torch.zeros(lead + (cfg.ssm_heads, cfg.ssm_headdim,
+                                        cfg.ssm_state),
+                                 dtype=torch.float32, device=device),
+            "conv": torch.zeros(lead + (cfg.conv_width - 1, conv_ch),
+                                dtype=dtype, device=device)}
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                     device="cuda", lead=()) -> Dict:
+    """Zeroed {"h" float32 (w,), "conv" ``dtype`` (cw-1, w)} per row, of
+    shape lead + (batch, ...)."""
+    lead = tuple(lead) + (batch,)
+    w = cfg.lru_width or cfg.d_model
+    return {"h": torch.zeros(lead + (w,), dtype=torch.float32, device=device),
+            "conv": torch.zeros(lead + (cfg.conv_width - 1, w), dtype=dtype,
+                                device=device)}
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     long_context: bool = False, dtype=torch.bfloat16,
+                     device="cuda", lead=()) -> Dict:
+    """The dense cache of one block kind: K/V buffers for attention, the
+    row state for SSM and RG-LRU."""
+    if kind in (FULL_ATTN, LOCAL_ATTN):
+        return init_attn_cache(cfg, kind, batch, max_len, long_context,
+                               dtype, device, lead)
+    if kind == SSM:
+        return init_ssm_cache(cfg, batch, dtype, device, lead)
+    if kind == RGLRU:
+        return init_rglru_cache(cfg, batch, dtype, device, lead)
+    raise ValueError(kind)
+
+
+def state_row_slot(batch_cache: Dict, slot: int) -> Dict:
+    """Row ``slot`` of a batch recurrent state, as views with a leading
+    dim of 1 (a chunk resumes from it)."""
+    return {k: v[slot:slot + 1] for k, v in batch_cache.items()}
+
+
+def state_write_slot(batch_cache: Dict, one_cache: Dict, slot: int) -> Dict:
+    """Copy a one-row recurrent state into row ``slot`` of the batch state,
+    in place, cast to each leaf's dtype."""
+    for k, v in batch_cache.items():
+        v[slot:slot + 1] = one_cache[k].to(v.dtype)
+    return batch_cache
 
 
 def ring_slot_positions(buf_len: int, pos):

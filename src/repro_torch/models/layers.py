@@ -1,8 +1,9 @@
-"""Shared layer primitives of the attention-only architectures: RMSNorm and
-layer norm, RoPE (full or partial) and sinusoidal absolute positions, the
-gated MLPs (SwiGLU, GeGLU) and the plain biased GELU MLP, tied or untied
-embeddings with gemma's scaled embeddings, the prefix projection and the
-final logit softcap (port of ``src/repro/models/layers.py``)."""
+"""Shared layer primitives: RMSNorm and layer norm, RoPE (full or partial)
+and sinusoidal absolute positions, the depthwise causal conv of the SSM
+and RG-LRU blocks, the gated MLPs (SwiGLU, GeGLU) and the plain biased
+GELU MLP, tied or untied embeddings with gemma's scaled embeddings, the
+prefix projection and the final logit softcap (port of
+``src/repro/models/layers.py``)."""
 from __future__ import annotations
 
 import functools
@@ -119,6 +120,36 @@ def _sincos_freq(half: int, device: str) -> torch.Tensor:
     freq = np.exp(-math.log(10_000.0) * np.arange(half, dtype=np.float32)
                   / half)
     return torch.from_numpy(np.asarray(freq, np.float32)).to(device)
+
+
+# -- depthwise causal conv (SSM and RG-LRU blocks) ---------------------------------
+
+def causal_conv(x, w, b, prefix=None):
+    """Depthwise causal conv: x (B,S,C), w (cw,C), b (C,) -> (B,S,C), in
+    x's dtype, tap by tap as the reference sums them.  ``prefix`` ((B,
+    cw-1, C)) seeds the left context (a chunk resumes from the window in
+    its cache); zeros otherwise."""
+    cw = w.shape[0]
+    if prefix is None:
+        xp = F.pad(x, (0, 0, cw - 1, 0))
+    else:
+        xp = torch.cat([prefix.to(x.dtype), x], dim=1)
+    out = torch.zeros_like(x)
+    for i in range(cw):
+        out = out + xp[:, i: i + x.shape[1]] * w[i]
+    return out + b
+
+
+def conv_window(cw: int, x, prefix, end: int):
+    """The cw-1 conv inputs before position ``end`` of [prefix | x]: the
+    window the next token (or chunk) convolves with.  With bucket pads it
+    ends at the last real token, not at the bucket's end."""
+    B_, _, C = x.shape
+    if cw <= 1:
+        return x.new_zeros((B_, 0, C))
+    lead = prefix.to(x.dtype) if prefix is not None else \
+        x.new_zeros((B_, cw - 1, C))
+    return torch.cat([lead, x], dim=1)[:, end: end + cw - 1]
 
 
 # -- MLP ---------------------------------------------------------------------------

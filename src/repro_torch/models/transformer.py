@@ -1,17 +1,20 @@
-"""Decoder model, attention-only path (port of
-``src/repro/models/transformer.py`` for the attention-only architectures:
-full and sliding-window attention layers with RMSNorm or layer norm
-(pre-norm, and gemma2's sandwich norms), RoPE (full or partial) or
-sinusoidal absolute positions, optional QKV bias and QK norm, attention
-and final logit softcaps, a gated MLP (SwiGLU or GeGLU), a plain biased
-GELU MLP or a top-k MoE FFN (``models/moe.py``), and tied or untied
-embeddings: qwen2, qwen3, granite, chatglm3, gemma2, qwen3-moe, mixtral,
-musicgen and llava's text backbone).
+"""Decoder model (port of ``src/repro/models/transformer.py``) for every
+architecture of the reference: full and sliding-window attention layers,
+Mamba2 SSD mixers (``models/ssm.py``) and RG-LRU blocks
+(``models/rglru.py``), with RMSNorm or layer norm (pre-norm, and gemma2's
+sandwich norms), RoPE (full or partial) or sinusoidal absolute positions,
+optional QKV bias and QK norm, attention and final logit softcaps, a gated
+MLP (SwiGLU or GeGLU), a plain biased GELU MLP or a top-k MoE FFN
+(``models/moe.py``), and tied or untied embeddings: qwen2, qwen3, granite,
+chatglm3, gemma2, qwen3-moe, mixtral, musicgen, llava's text backbone,
+mamba2 (SSM blocks, no MLP) and recurrentgemma (rglru, rglru, local).
 
 Layers are grouped into *stages* as in the reference: the config's block
-pattern (gemma2's (local, full)) stacked over its repeat count, every
-parameter and cache leaf with a leading ``n_rep`` axis.  The reference's
-``lax.scan`` over that axis is a loop over the stacked slices here.  Entry
+pattern (gemma2's (local, full), recurrentgemma's (rglru, rglru, local))
+stacked over its repeat count, plus a tail when the depth is not a
+multiple of it, every parameter and cache leaf with a leading ``n_rep``
+axis.  The reference's ``lax.scan`` over that axis is a loop over the
+stacked slices here.  Entry
 points: ``prefill_into_slot`` (one bucket-padded prompt written into one
 row of the batch cache, or into its page chain), ``prefill_chunk_into_slot``
 (one chunk of a chunked prefill into a page chain or a dense row, ring
@@ -24,6 +27,15 @@ does with the same keys; it is PyTorch operators, as it is XLA there.
 A LOCAL layer attends within ``cfg.window``; a FULL layer whose dense
 buffer is shorter than ``cfg.max_seq`` (a long-context ring) within the
 buffer's length; the window rule is the reference's in every mode.
+
+A recurrent block (SSM, RG-LRU) keeps one state row per batch row.  A
+prefill starts it from zeros; decode advances every active row and leaves
+the others' bits as they were (``_freeze_inactive``); a chunk resumes from
+the row, except a stream's first chunk (``start == 0``), which starts from
+zeros, as one-shot prefill does.  The reference resumes every chunk from
+the row, so a chunked prompt in a row an earlier stream used starts from
+that stream's state (ROADMAP §C); the port computes what the reference's
+one-shot prefill computes instead.
 
 On CUDA tensors the model runs the port's kernels (add_rmsnorm for every
 residual add whose sum feeds an RMSNorm, rmsnorm for the other RMSNorms
@@ -52,7 +64,9 @@ from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from . import kvcache as KV
 from . import layers as L
 from . import moe
-from .config import ModelConfig, FULL_ATTN, LOCAL_ATTN
+from .config import ModelConfig, FULL_ATTN, LOCAL_ATTN, SSM, RGLRU
+from .rglru import init_rglru, rglru_decode_step, rglru_forward
+from .ssm import init_ssm, ssm_decode_step, ssm_forward
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -66,19 +80,9 @@ def stages_of(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     return out
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the recurrent blocks, which a later slice ports (ROADMAP
-    A9.6)."""
-    if not set(cfg.block_pattern) <= {FULL_ATTN, LOCAL_ATTN}:
-        raise NotImplementedError(
-            f"model '{cfg.name}' needs SSM / RG-LRU blocks (ROADMAP A9.6), "
-            "not ported yet")
-
-
 # -- params ---------------------------------------------------------------------
 
-def _init_block(gen, cfg: ModelConfig, dtype, n_rep: int) -> Dict:
-    lead = (n_rep,)
+def _init_attn(gen, cfg: ModelConfig, dtype, lead) -> Dict:
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     attn = {
         "q": L.dense_init(gen, lead + (d, qd), d, dtype),
@@ -94,9 +98,27 @@ def _init_block(gen, cfg: ModelConfig, dtype, n_rep: int) -> Dict:
         for name in ("q_norm", "k_norm"):
             attn[name] = torch.ones(lead + (cfg.head_dim,),
                                     dtype=torch.float32, device=gen.device)
-    p = {"norm": L.init_norm(cfg, gen.device, lead), "attn": attn}
+    return attn
+
+
+def _has_mlp(cfg: ModelConfig, kind: str) -> bool:
+    """SSM blocks are the mixer alone (mamba2's d_ff is 0)."""
+    return cfg.d_ff > 0 and kind != SSM
+
+
+def _init_block(gen, cfg: ModelConfig, kind: str, dtype, n_rep: int) -> Dict:
+    lead = (n_rep,)
+    p = {"norm": L.init_norm(cfg, gen.device, lead)}
+    if kind == SSM:
+        p["ssm"] = init_ssm(gen, cfg, dtype, lead)
+    elif kind == RGLRU:
+        p["rglru"] = init_rglru(gen, cfg, dtype, lead)
+    else:
+        p["attn"] = _init_attn(gen, cfg, dtype, lead)
     if cfg.post_block_norm:
         p["post_norm"] = L.init_norm(cfg, gen.device, lead)
+    if not _has_mlp(cfg, kind):
+        return p
     p["mlp_norm"] = L.init_norm(cfg, gen.device, lead)
     if cfg.is_moe:
         p["moe"] = moe.init_moe(gen, cfg, dtype, lead)
@@ -110,10 +132,10 @@ def _init_block(gen, cfg: ModelConfig, dtype, n_rep: int) -> Dict:
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     """Random parameters on ``gen.device`` with the reference's tree, shapes
     and dtypes (``transformer.init_params``): stage leaves carry a leading
-    ``n_rep`` axis, norm scales and biases (QK norms included) and MoE
-    routers are float32, the rest is ``cfg.dtype``.
+    ``n_rep`` axis; norm scales and biases (QK norms included), MoE
+    routers, the SSM's ``A_log``, ``D``, ``dt_bias`` and gated norm, and
+    the RG-LRU's ``lam`` and gates are float32, the rest is ``cfg.dtype``.
     The values come from ``gen``, not from JAX's generator."""
-    check_supported(cfg)
     dtype = DTYPES[cfg.dtype]
     params: Dict[str, Any] = {
         "embed": L.init_embed(gen, cfg, dtype),
@@ -122,12 +144,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     }
     for kinds, n_rep in stages_of(cfg):
         params["stages"].append({"blocks": tuple(
-            _init_block(gen, cfg, dtype, n_rep) for _ in kinds)})
+            _init_block(gen, cfg, kind, dtype, n_rep) for kind in kinds)})
     return params
 
 
-# leaves the reference makes float32 whatever the model's dtype
-_F32_LEAVES = ("scale", "bias", "q_norm", "k_norm", "router")
+# leaves the reference makes float32 whatever the model's dtype (``norm``
+# is the SSM mixer's gated-norm array; a block's norm is a dict of scale
+# and bias)
+_F32_LEAVES = ("scale", "bias", "q_norm", "k_norm", "router", "A_log", "D",
+               "dt_bias", "norm", "lam", "rg_w", "ig_w")
 
 
 def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
@@ -137,7 +162,7 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
     and is reinterpreted bit for bit, so the conversion is lossless.
     ``dtype``, when given, casts the weights; a leaf the reference keeps in
     float32 (``_F32_LEAVES``: norm scales and biases, QK norms, MoE
-    routers) stays float32."""
+    routers, the SSM's and RG-LRU's float32 parameters) stays float32."""
     def conv(x, key):
         if isinstance(x, dict):
             return {k: conv(v, k) for k, v in x.items()}
@@ -161,23 +186,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                long_context: bool = False, dtype=torch.bfloat16,
                device="cuda", paged_pool=None) -> List:
     """Stacked cache parallel to params['stages']: per stage, a tuple (one
-    per block kind) of {"k", "v"} of shape (n_rep, batch, buf_len, KH, hd).
+    per block kind) of {"k", "v"} of shape (n_rep, batch, buf_len, KH, hd)
+    for attention, the row states of ``kvcache.init_block_cache`` for SSM
+    and RG-LRU blocks.
 
     ``paged_pool=(num_pages, page_size)`` makes every full-length attention
     buffer a shared page pool {"kp", "vp"} of shape (n_rep, num_pages,
-    page_size, KH, hd), addressed through a page table."""
+    page_size, KH, hd), addressed through a page table; rings and
+    recurrent states stay dense rows."""
     caches = []
     for kinds, n_rep in stages_of(cfg):
         group = []
         for k in kinds:
-            if paged_pool is not None and KV.attn_buffer_len(
-                    cfg, k, max_len, long_context) == max_len:
+            if paged_pool is not None and k in (FULL_ATTN, LOCAL_ATTN) \
+                    and KV.attn_buffer_len(cfg, k, max_len,
+                                           long_context) == max_len:
                 group.append(KV.init_paged_attn_cache(
                     cfg, *paged_pool, dtype, device, lead=(n_rep,)))
             else:
-                group.append(KV.init_attn_cache(cfg, k, batch, max_len,
-                                                long_context, dtype, device,
-                                                lead=(n_rep,)))
+                group.append(KV.init_block_cache(cfg, k, batch, max_len,
+                                                 long_context, dtype, device,
+                                                 lead=(n_rep,)))
         caches.append(tuple(group))
     return caches
 
@@ -279,23 +308,65 @@ def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
     return out.reshape(B, S, cfg.q_dim) @ a["o"]
 
 
-def _apply_block(cfg: ModelConfig, kind: str, p, x, delta, **kw):
+def _freeze_inactive(cache: Dict, new: Dict, active) -> None:
+    """Write a decode step's new recurrent state into the cache in place,
+    for the rows of ``active`` ((B,) bool; None: every row) only.  A
+    recurrent state has no positions to mask, so an inactive row (a free
+    slot, or a stream between its chunks) must keep its bits."""
+    for k, leaf in cache.items():
+        v = new[k]
+        if active is not None:
+            v = torch.where(active.view((-1,) + (1,) * (v.ndim - 1)), v,
+                            leaf)
+        leaf.copy_(v)
+
+
+def _apply_recurrent(cfg: ModelConfig, kind: str, p, x, *, mode, cache,
+                     pos, slot=None, length=None, active=None, **_):
+    """The SSM or RG-LRU mixer over its row state: decode advances the
+    active rows; prefill writes row ``slot`` from a zero state; a chunk
+    resumes from row ``slot``, or from zeros when it is a stream's first
+    (``pos`` == 0: the row may hold an earlier stream's state)."""
+    if kind == SSM:
+        fwd, step, bp = ssm_forward, ssm_decode_step, p["ssm"]
+    else:
+        fwd, step, bp = rglru_forward, rglru_decode_step, p["rglru"]
+    if mode == "decode":
+        mix, new = step(cfg, bp, x, cache)
+        _freeze_inactive(cache, new, active)
+        return mix
+    row = KV.state_row_slot(cache, slot) if mode == "chunk" and pos > 0 \
+        else None
+    mix, new = fwd(cfg, bp, x, return_state=True, cache=row, length=length)
+    KV.state_write_slot(cache, new, slot)
+    return mix
+
+
+def _apply_block(cfg: ModelConfig, kind: str, p, x, delta, active=None,
+                 **kw):
     """One pre-norm block on the residual stream ``x + delta`` (``delta``
-    the previous block's MLP output, not yet added; None before the first
-    block).  Returns (stream, this block's MLP output): the caller adds it
-    where the sum feeds the next norm, so every such add shares its launch
-    with that norm (``add_rmsnorm``).  Sandwich norms (``post_block_norm``)
-    normalise the attention and MLP outputs before their residual adds.
-    An MoE FFN routes the prompt's real tokens only: in prefill and chunk
-    modes the first ``length`` tokens of the (single) row are real, the
-    rest bucket pads; in decode every row is one real token."""
+    the previous block's output, not yet added; None before the first
+    block).  Returns (stream, this block's output: its MLP's, or an SSM
+    block's mixer's): the caller adds it where the sum feeds the next
+    norm, so every such add shares its launch with that norm
+    (``add_rmsnorm``).  Sandwich norms (``post_block_norm``) normalise the
+    attention and MLP outputs before their residual adds.  An MoE FFN
+    routes the prompt's real tokens only: in prefill and chunk modes the
+    first ``length`` tokens of the (single) row are real, the rest bucket
+    pads; in decode every row is one real token.  ``active`` freezes the
+    inactive rows' recurrent state in decode."""
     if delta is None:
         h = L.apply_norm(cfg, p["norm"], x)
     else:
         x, h = L.apply_add_norm(cfg, p["norm"], x, delta)
-    mix = _apply_attn(cfg, p, h, kind, **kw)
+    if kind in (SSM, RGLRU):
+        mix = _apply_recurrent(cfg, kind, p, h, active=active, **kw)
+    else:
+        mix = _apply_attn(cfg, p, h, kind, **kw)
     if cfg.post_block_norm:
         mix = L.apply_norm(cfg, p["post_norm"], mix)
+    if not _has_mlp(cfg, kind):
+        return x, mix
     x, h = L.apply_add_norm(cfg, p["mlp_norm"], x, mix)
     if cfg.is_moe:
         length = kw.get("length")
@@ -387,7 +458,11 @@ def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens, start: int,
     already written (earlier chunks, or a shared prefix) and then writing
     the chunk's K/V into its chain or its dense row, at ring slots
     ``position % buf_len`` with the pads dropped.  Chunks go in position
-    order.
+    order.  Recurrent blocks resume from the row's state, but the first
+    chunk (``start == 0``) starts from zeros, whatever an earlier stream in
+    the row left there: the reference's chunk mode reads the row (ROADMAP
+    §C).  A stream with recurrent state never starts past 0 (such a model
+    gets no prefix hits), so ``start == 0`` is exactly its first chunk.
 
     Returns (last_logits (1, vocab), caches): logits at position
     ``start+length-1``; only the final chunk's seed decoding.
@@ -466,10 +541,9 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
     to its own context; RoPE, masks and cache writes are per row) or a
     scalar shared by every row.  ``page_table`` ((B, n_pages) int32, a
     ctx-bucket slice of the engine's table) must be given when the caches
-    hold paged pools.  ``active`` is accepted for parity with the
-    reference, which freezes inactive rows' recurrent states with it; an
-    attention-only model has none (inactive rows' K/V writes are hidden by
-    position masking).
+    hold paged pools.  ``active`` ((B,) bool) freezes the inactive rows'
+    recurrent (SSM / RG-LRU) states, which no position mask hides (their
+    K/V writes are hidden by position masking); None advances every row.
     """
     B = tokens.shape[0]
     x = L.embed_tokens(cfg, params["embed"], tokens)
@@ -480,7 +554,8 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
     x, delta = _run_stages(cfg, params, x, caches=caches, mode="decode",
                            positions=positions,
                            rope=L.rope_freqs(cfg, x.device), pos=pos,
-                           k_pos_memo={}, page_table=page_table)
+                           k_pos_memo={}, page_table=page_table,
+                           active=active)
     _, x = L.apply_add_norm(cfg, params["final_norm"], x, delta)
     logits = L.unembed(cfg, params["embed"], x)[:, 0]
     return logits, caches

@@ -22,13 +22,17 @@ Data plane:
   boundaries, and a dry pool shrinks the block, reclaims cached prefixes,
   then preempts the youngest stream (recompute-on-resume).  The page table
   has a device mirror, uploaded only after the host table changed.
-  Buffers shorter than ``max_len`` (gemma2's sliding-window rings) stay
-  dense rows beside the pools; such a hybrid never shares prefixes.
+  Buffers shorter than ``max_len`` (gemma2's and recurrentgemma's
+  sliding-window rings) and recurrent row states (SSM, RG-LRU) stay dense
+  rows beside the pools; such a hybrid never shares prefixes.
 * **Chunked prefill** — a prefix hit, a resume after preemption or a prompt
   longer than the largest bucket (capped by the smallest ring) is
   prefilled in bucket-sized chunks (``models.prefill_chunk_into_slot``,
   into page chains and dense rows alike), one per stream per scheduling
-  round, interleaved with decode blocks.
+  round, interleaved with decode blocks.  A recurrent row state is frozen
+  by the active mask while its stream is between chunks, and a stream's
+  first chunk starts it from zeros, so a slot freed by a finished, cancelled
+  or preempted stream is refilled from a clean row with no extra work.
 * **Prefix cache** (``EngineConfig.prefix_cache``) — admission matches the
   longest cached page-aligned prompt prefix and shares those pages
   (refcounted, copy-on-write) instead of prefilling them again.
@@ -56,9 +60,9 @@ quantizing happens inside the writes and adds no host sync.
 
 Not ported yet, and rejected with ``NotImplementedError`` naming the
 ROADMAP item: the legacy ``slot_native=False`` plane (A7) and its eager
-fallback for prompts longer than a ring buffer (A9.8), the recurrent
-architectures (SSM / RG-LRU, A9.6) and serving meshes (A14).  Stream migration
-(``export_stream`` / ``import_stream``, A10) is absent.
+fallback for prompts longer than a ring buffer (A9.8), and serving meshes
+(A14).  Stream migration (``export_stream`` / ``import_stream``, A10) is
+absent.
 """
 from __future__ import annotations
 
@@ -81,7 +85,6 @@ from repro_torch.models import ModelConfig, decode_step, init_cache, \
     init_params, prefill_chunk_into_slot, prefill_into_slot, \
     sample_tokens_batched
 from repro_torch.models.config import FULL_ATTN, LOCAL_ATTN
-from repro_torch.models.transformer import check_supported
 from repro_torch.models.kvcache import (attn_buffer_len, is_paged,
                                         paged_page_copy)
 from repro_torch.sim import PlantModel
@@ -310,7 +313,6 @@ class ServingEngine:
                  "A7")):
             if flag:
                 raise _not_ported(what, item)
-        check_supported(cfg)
         self.device = torch.device(device)
         self.params = params if params is not None else init_params(
             torch.Generator(device=self.device).manual_seed(seed), cfg)

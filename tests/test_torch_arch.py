@@ -1,11 +1,12 @@
-"""The attention-only architectures beyond qwen2 in the port, against the
-JAX reference on the CPU, on the reference's own weights
-(``params_from_numpy``), at each config's ``.smoke()`` size in float32: the
-dense family (qwen3-14b, granite-8b, chatglm3-6b, gemma2-9b), the MoE
-models (qwen3-moe-30b-a3b, mixtral-8x7b; dropless at smoke size, capacity
-factor 8) and the layer-norm / prefix family (musicgen-large: layer norm,
-sincos positions, the plain GELU MLP, MHA; llava-next-mistral-7b's text
-backbone with its unused ``prefix_proj``):
+"""The architectures beyond qwen2 in the port, against the JAX reference
+on the CPU, on the reference's own weights (``params_from_numpy``), at
+each config's ``.smoke()`` size in float32: the dense family (qwen3-14b,
+granite-8b, chatglm3-6b, gemma2-9b), the MoE models (qwen3-moe-30b-a3b,
+mixtral-8x7b; dropless at smoke size, capacity factor 8), the layer-norm
+/ prefix family (musicgen-large: layer norm, sincos positions, the plain
+GELU MLP, MHA; llava-next-mistral-7b's text backbone with its unused
+``prefix_proj``) and the recurrent ones (mamba2-370m: SSM blocks, no MLP;
+recurrentgemma-9b: rglru, rglru, local with MQA):
 
 * ``init_params`` builds the reference's tree, shapes and dtypes: QK norms
   (qwen3), untied ``lm_head`` (qwen3, granite, chatglm3), sandwich norms
@@ -22,9 +23,11 @@ backbone with its unused ``prefix_proj``):
   64, so their local layers are 64-slot rings: the chunks of the 150-token
   prompt wrap them (the dense-ring route of chunk_attention), and decode
   wraps them again; gemma2's final logits are soft-capped, its attention
-  logits too;
+  logits too; recurrentgemma's rings are 64 slots as well, and its
+  recurrent rows resume chunk after chunk (row 1 never held a stream, so
+  the reference's chunk mode starts it from zeros too);
 * the serve CLI's ``--arch`` serves each of them (smoke size, CPU) and
-  refuses the recurrent ones.
+  refuses an unknown id.
 
 1e-4: float32 throughout; the two frameworks sum matmuls and softmaxes in
 different orders, which moves logits of these models by ~1e-6.
@@ -53,7 +56,7 @@ from repro_torch.models import layers as TL
 
 ARCHS = ["qwen3-14b", "granite-8b", "chatglm3-6b", "gemma2-9b",
          "qwen3-moe-30b-a3b", "mixtral-8x7b", "musicgen-large",
-         "llava-next-mistral-7b"]
+         "llava-next-mistral-7b", "mamba2-370m", "recurrentgemma-9b"]
 TOL = 1e-4
 MAXLEN = 192
 SHORT, LONG, CHUNK, STEPS = 20, 150, 32, 6
@@ -170,7 +173,8 @@ def test_prefill_chunks_and_decode_match_reference(model):
     tc = init_cache(cfg, 2, MAXLEN, dtype=torch.float32, device="cpu")
     if cfg.window:
         # the local layers are 64-slot rings, which the long prompt wraps
-        assert cfg.window == 64 and tc[0][0]["k"].shape[2] == 64
+        local = cfg.block_pattern.index("local")
+        assert cfg.window == 64 and tc[0][local]["k"].shape[2] == 64
         if arch == "gemma2-9b":
             assert tc[0][1]["k"].shape[2] == MAXLEN
     rng = np.random.default_rng(3)
@@ -213,11 +217,14 @@ def test_prefill_chunks_and_decode_match_reference(model):
 
 
 @pytest.mark.parametrize("arch,flags", [(a, []) for a in ARCHS]
-                         + [("gemma2-9b", ["--paged"])])
+                         + [(a, ["--paged"]) for a in (
+                             "gemma2-9b", "mamba2-370m",
+                             "recurrentgemma-9b")])
 def test_serve_cli_serves_the_arch(arch, flags, capsys):
     """``--arch`` takes the new ids: each smoke config serves the
-    launcher's burst on the CPU (gemma2 at max_len 160: prompts past its
-    64-slot rings are chunked into them; with ``--paged`` beside a pool)."""
+    launcher's burst on the CPU (gemma2 and recurrentgemma at max_len 160:
+    prompts past their 64-slot rings are chunked into them; with
+    ``--paged`` beside a pool, or, for mamba2, with no pool at all)."""
     rep = serve_main(["--device", "cpu", "--arch", arch, "--requests", "3",
                       "--max-len", "160", *flags])
     assert rep.completed == 3
@@ -225,5 +232,7 @@ def test_serve_cli_serves_the_arch(arch, flags, capsys):
 
 
 def test_serve_cli_refuses_other_archs():
+    """Every reference arch is a choice of ``--arch``; an unknown id is
+    refused."""
     with pytest.raises(SystemExit):
-        serve_main(["--device", "cpu", "--arch", "mamba2-370m"])
+        serve_main(["--device", "cpu", "--arch", "mamba2-1.3b"])

@@ -29,7 +29,7 @@ from repro.serving import Server as JServer
 from repro.serving import ServingEngine as JServingEngine
 
 from repro_torch.configs import get_config
-from repro_torch.core import SamplingParams
+from repro_torch.core import Request, SamplingParams
 from repro_torch.launch.serve import main as serve_main, workload
 from repro_torch.models import params_from_numpy
 from repro_torch.serving import EngineConfig, Server, ServingEngine
@@ -148,15 +148,22 @@ def test_wall_clock_accounting_serves_the_same_tokens(runs):
 
 def test_requests_are_refused_outside_the_slice(runs):
     port = runs[2]
-    for cfg, bad, item in (
-            (port.cfg.replace(block_pattern=("full", "rglru")),
-             dict(paged=True), "A9.6"),
-            (port.cfg, dict(mesh=(1, 1)), "A14"),
-            (port.cfg, dict(slot_native=False), "A7")):
+    for bad, item in ((dict(mesh=(1, 1)), "A14"),
+                      (dict(slot_native=False), "A7")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            ServingEngine(cfg, params=port.params,
+            ServingEngine(port.cfg, params=port.params,
                           ecfg=EngineConfig(max_len=MAXLEN, **bad),
                           device="cpu")
+    # the eager fallback for a prompt past the largest bucket (here a
+    # 16-slot ring's) when chunked prefill is off
+    eng = ServingEngine(port.cfg.replace(block_pattern=("local", "full"),
+                                         window=16),
+                        ecfg=EngineConfig(max_len=MAXLEN,
+                                          chunked_prefill=False),
+                        device="cpu")
+    eng.submit(Request(rid=0, arrival=0.0, prompt_len=20, output_len=4))
+    with pytest.raises(NotImplementedError, match="ROADMAP A9.8"):
+        eng.step()
     for flag in (["--cluster"], ["--mesh", "1,1"]):
         with pytest.raises(SystemExit, match="ROADMAP A1[04]"):
             serve_main(["--device", "cpu", *flag])

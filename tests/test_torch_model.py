@@ -26,7 +26,7 @@ from repro.models import (decode_step as jdecode, init_cache as jinit_cache,
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import (decode_step, init_cache, init_params,
                                 params_from_numpy, prefill_into_slot)
-from repro_torch.models.transformer import check_supported
+from repro_torch.serving import EngineConfig, ServingEngine
 
 TOL = 1e-4
 
@@ -94,17 +94,16 @@ def test_init_params_matches_reference_tree(dtype):
 
 @pytest.mark.parametrize("arch", [a for a in JARCH_IDS if a != "qwen2-1.5b"])
 def test_other_architectures_are_refused(arch):
-    """Every attention-only architecture is registered, a copy of the
-    reference's config, and accepted; the recurrent ones (SSM and RG-LRU)
-    are refused naming their ROADMAP A9 item (A9.6)."""
-    if arch in ARCH_IDS:
-        assert dataclasses.asdict(get_config(arch)) == \
-            dataclasses.asdict(jget_config(arch))
-        check_supported(get_config(arch))
-        check_supported(get_config(arch).smoke())
-        return
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A9\.[456]"):
-        check_supported(jget_config(arch).smoke())
+    """Every one of the reference's architectures is registered in its
+    order, a copy of the reference's config, and accepted: the engine
+    builds each smoke config on the CPU (the recurrent ones, refused until
+    ROADMAP A9.6, included); none is refused any more."""
+    assert ARCH_IDS == list(JARCH_IDS)
+    assert dataclasses.asdict(get_config(arch)) == \
+        dataclasses.asdict(jget_config(arch))
+    eng = ServingEngine(get_config(arch).smoke(), ecfg=EngineConfig(
+        max_len=64, governor="defaultnv"), device="cpu")
+    assert len(eng.caches) == len(eng.params["stages"])
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,equivalence,arch
     python3 chip_smoke.py --phases build,kernels,equivalence,arch \
         --archs mamba2-370m,recurrentgemma-9b
+    python3 chip_smoke.py --phases build,cluster
 
 Phases (each raises on failure; nothing is caught):
 
@@ -116,7 +117,7 @@ Phases (each raises on failure; nothing is caught):
    and a 219-page pool serves two waves of 8 greedy requests sharing a
    256-token system prompt; it must preempt, hit the cache and run
    chunk_attention, and no decode kernel but the paged one.  In this phase
-   and in phases 4, 6, 8, 9 and 10, the kernels' launch counts are set to 0
+   and in phases 4, 6, 8, 9, 10 and 11, the kernels' launch counts are set to 0
    just before a path's burst and read just after; each kernel of the path
    must have launched.
 6. serve_q8: phases 4 and 5 again with ``kv_quant`` (int8 K/V caches and
@@ -178,7 +179,25 @@ Phases (each raises on failure; nothing is caught):
    Paths ``arch_<model>[_sampled|_q8|_paged|_long|_reuse]``, launches
    counted as in phase 5; tokens/s, the burst's peak memory (weights
    included) and a digest of the tokens printed.
-11. profile (opt-in, not in the default run): the serve, serve_paged and
+11. cluster: the disaggregated prefill/decode cluster, every replica
+   reading the same weight tensors.  ``cluster_qwen3``: qwen3-14b at full
+   width and depth in bf16 on 2 prefill replicas (one per length class,
+   SM <= 1024 prompt tokens and L above) and 1 decode replica (max_batch
+   8, max_len 4096, dense-equivalent pools, governor greenllm) serves 12
+   requests (prompts 100-2000 tokens, 32-96 new, virtual arrivals 50 ms
+   apart, every odd one seeded nucleus sampling): every stream migrates
+   once, each prefill replica serves only its class, the tokens equal one
+   colocated paged engine's on the same weights, configuration and trace
+   (sha256), and the peak memory stays below two copies of the weights;
+   prints the bytes each handoff moved beside the stream's live K/V, the
+   import retries and each replica's clock.  ``cluster_kill``: qwen2-1.5b
+   at full width and depth in float32 (weights and caches) on 1 prefill
+   and 2 decode replicas serves 8 requests healthy, then with decode0
+   killed mid-decode and one import failed: the greedy rows' and the
+   sampled rows' tokens equal the healthy run's, the dead replica's
+   energy stays frozen at the kill, and at least one stream is recovered
+   (recomputed through chunk_attention).  Launches counted as in phase 5.
+12. profile (opt-in, not in the default run): the serve, serve_paged and
    both serve_q8 bursts, then qwen3-moe-30b-a3b's and recurrentgemma-9b's
    serve bursts at full depth, again under ``torch.profiler`` after a
    warm-up run, printing
@@ -215,7 +234,8 @@ BF16_FLOP_PER_S = 989e12         # dense tensor-core bf16
 L2_FLUSH_BYTES = 100 * 2 ** 20   # > the 50 MB L2
 BF16_ROUNDING = (1e-3, 1e-2)     # atol, rtol: one bf16 rounding apart
 PHASES = ("build", "kernels", "equivalence", "serve", "serve_paged",
-          "serve_q8", "paged_vs_dense", "sampling", "observability", "arch")
+          "serve_q8", "paged_vs_dense", "sampling", "observability", "arch",
+          "cluster")
 # the paths whose launches count
 SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "sampling", "sampling_paged", "observability", "arch_qwen3",
@@ -225,7 +245,8 @@ SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "arch_qwen3moe_paged", "arch_mixtral", "arch_mixtral_q8",
                "arch_musicgen", "arch_llava", "arch_llava_paged",
                "arch_mamba2", "arch_mamba2_sampled", "arch_rgemma",
-               "arch_rgemma_long", "arch_rgemma_reuse", "arch_rgemma_paged")
+               "arch_rgemma_long", "arch_rgemma_reuse", "arch_rgemma_paged",
+               "cluster_qwen3", "cluster_kill")
 
 
 def log(*a):
@@ -2696,6 +2717,270 @@ def _leaves(tree):
         yield tree
 
 
+# -- phase 11: cluster --------------------------------------------------------------------
+
+def _cluster_trace(vocab, n, lens, new, gap, seed):
+    """(arrival, prompt, sampling) of ``n`` requests: prompt lengths spread
+    over ``lens`` and shuffled, 32-96 new tokens (``new``), virtual
+    arrivals ``gap`` seconds apart, every odd request seeded nucleus
+    sampling (``_seeded``)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sizes = np.linspace(*lens, n).astype(int)
+    rng.shuffle(sizes)
+    return [(gap * i, rng.integers(0, vocab, size=int(L)),
+             _seeded(i, int(rng.integers(*new))))
+            for i, L in enumerate(sizes)]
+
+
+def _serve_trace(backend, trace):
+    """Serve ``trace`` through ``Server`` on ``backend`` (an engine or a
+    cluster); returns the handles, the report and the wall seconds."""
+    import torch
+    from repro_torch.serving import Server
+    server = Server(backend)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [server.submit(p, sp, arrival=t) for t, p, sp in trace]
+    rep = server.run()
+    torch.cuda.synchronize()
+    return handles, rep, time.perf_counter() - t0
+
+
+def _count_handoffs(cl):
+    """Wrap every replica's ``export_stream`` to record, per handoff, the
+    payload's bytes (every extracted page and row) and the bytes of the
+    stream's live K/V (its positions times the pools' bytes per token).
+    The payload must stay on the card."""
+    moved = []
+    for r in cl.replicas:
+        eng, export = r.engine, r.engine.export_stream
+        per_tok = _kv_bytes_per_token(eng)
+
+        def wrapped(slot, export=export, per_tok=per_tok):
+            ho = export(slot)
+            leaves = [t for stage in ho.blocks for _, pl in stage
+                      if pl is not None for t in pl.values()]
+            if not all(t.device.type == "cuda" for t in leaves):
+                raise AssertionError("a handoff payload left the card")
+            moved.append((sum(t.numel() * t.element_size() for t in leaves),
+                          ho.pos * per_tok))
+            return ho
+        eng.export_stream = wrapped
+    return moved
+
+
+def _digest(handles, pick=lambda h: True):
+    return _tokens_digest([h for h in handles if pick(h)])
+
+
+def _cluster_qwen3(res):
+    """qwen3-14b at full width and depth in bf16 on 2 prefill replicas (one
+    per length class: SM <= 1024 prompt tokens, L above) and 1 decode
+    replica, every replica reading the same weight tensors: 12 requests,
+    prompts of 100-2000 tokens, 32-96 new tokens, arrivals 50 ms apart,
+    every odd one seeded nucleus sampling.  Every stream must migrate once,
+    each prefill replica serve only its class, the tokens equal those of
+    one colocated paged engine on the same weights, configuration and
+    trace, and the peak memory stay below two copies of the weights."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingCluster, \
+        ServingEngine
+    path = "cluster_qwen3"
+    cfg = get_config("qwen3-14b")
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[cluster] {cfg.name}: {cfg.num_layers} layers, "
+        f"{w_bytes / 2 ** 30:.1f} GiB of bf16 weights built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    trace = _cluster_trace(cfg.vocab_size, 12, (100, 2000), (32, 97), 0.05,
+                           seed=6)
+    torch.cuda.reset_peak_memory_stats()
+    cl = ServingCluster(cfg, n_prefill=2, n_decode=1, params=params,
+                        ecfg=EngineConfig(max_batch=8, max_len=4096,
+                                          governor="greenllm"),
+                        device="cuda")
+    moved = _count_handoffs(cl)
+    _reset_counts()
+    handles, rep, wall = _serve_trace(cl, trace)
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    toks = sum(len(h.request.tokens) for h in handles)
+    rows = {r.name: r for r in rep.replicas}
+    served = {r.name: sorted({q.cls for q in r.engine.requests})
+              for r in cl.replicas if r.role == "prefill"}
+    classes = {r.name: r.classes for r in cl.replicas}
+    digest = _digest(handles)
+    per = [b for b, _ in moved]
+    bound = [b for _, b in moved]
+    res[path] = {
+        "wall_s": wall, "tokens_out": toks, "tokens_per_s": toks / wall,
+        "launches": counts, "completed": rep.completed,
+        "migrated": rep.migrated, "import_retries": cl.import_retries,
+        "handoff_bytes": per, "handoff_bound_bytes": bound,
+        "freq_mhz": {n: w.freq_mhz for n, w in rows.items()},
+        "vtime_s": {n: w.vtime_s for n, w in rows.items()},
+        "served_classes": served, "energy_j": rep.total_energy_j,
+        "peak_mem_gb": peak / 2 ** 30, "weights_gb": w_bytes / 2 ** 30,
+        "prompt_tokens": sum(h.request.prompt_len for h in handles),
+        "tokens_sha256": digest}
+    log(rep.summary())
+    log(f"[cluster] {path}: {len(handles)} requests, "
+        f"{res[path]['prompt_tokens']} prompt tokens, {toks} tokens out in "
+        f"{wall:.2f}s wall = {toks / wall:.1f} tokens/s; handoffs "
+        f"{rep.migrated}, bytes per handoff mean "
+        f"{sum(per) / max(len(per), 1) / 2 ** 20:.2f} MiB against the live "
+        f"K/V's {sum(bound) / max(len(bound), 1) / 2 ** 20:.2f} MiB "
+        f"(total {sum(per) / 2 ** 20:.1f} / {sum(bound) / 2 ** 20:.1f} "
+        f"MiB); import retries {cl.import_retries}; clocks (MHz) "
+        f"{res[path]['freq_mhz']}; virtual s {res[path]['vtime_s']}; "
+        f"classes served {served} of {classes}; peak memory "
+        f"{peak / 2 ** 30:.1f} GiB, weights {w_bytes / 2 ** 30:.1f} GiB; "
+        f"tokens sha256 {digest}; launches {counts}")
+    if rep.completed != len(handles) or rep.migrated != len(handles):
+        raise AssertionError(f"{path}: completed {rep.completed}, migrated "
+                             f"{rep.migrated} of {len(handles)}")
+    _check_outputs(handles, cfg.vocab_size)
+    for r in cl.replicas:
+        if r.role == "prefill" and served[r.name] != list(r.classes):
+            raise AssertionError(f"{path}: {r.name} of class {r.classes} "
+                                 f"served {served[r.name]}")
+    _check_launched(path, counts, ("rmsnorm", "add_rmsnorm",
+                                   "paged_decode_attention",
+                                   "flash_attention"))
+    if counts["decode_attention"]:
+        raise AssertionError(f"{path} ran the dense decode kernel: {counts}")
+    if peak >= 2 * w_bytes:
+        raise AssertionError(f"{path}: peak memory {peak} >= two copies of "
+                             f"the weights ({w_bytes} each)")
+    ecfg = cl.ecfg
+    del cl
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ServingEngine(cfg, params=params, ecfg=ecfg, device="cuda")
+    colo, crep, cwall = _serve_trace(eng, trace)
+    res[path].update(colocated_sha256=_digest(colo),
+                     colocated_wall_s=cwall,
+                     colocated_tokens_per_s=toks / cwall)
+    log(f"[cluster] {path}: one colocated paged engine, the same trace: "
+        f"{cwall:.2f}s wall = {toks / cwall:.1f} tokens/s; tokens sha256 "
+        f"{_digest(colo)}")
+    if _digest(colo) != digest:
+        raise AssertionError(f"{path}: the cluster's tokens differ from "
+                             "the colocated engine's")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _cluster_kill(res):
+    """qwen2-1.5b at full width and depth in float32 (weights and caches)
+    on 1 prefill and 2 decode replicas: 8 requests, prompts of 100-1000
+    tokens, every odd one seeded nucleus sampling, served healthy, then
+    with a ``FaultPlan`` that kills decode0 mid-decode (at 40% of the
+    healthy run's virtual duration) and fails one import.  The killed
+    replica's streams are recomputed through chunked prefill on the
+    survivors: the greedy rows' and the sampled rows' tokens must equal
+    the healthy run's, the dead replica's energy stay frozen at the kill,
+    and at least one stream be recovered."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import (EngineConfig, FaultPlan, HandoffFailure,
+                                     ReplicaKill, ServingCluster)
+    path = "cluster_kill"
+    cfg = get_config("qwen2-1.5b").replace(dtype="float32")
+    params = _to(init_params(torch.Generator(device="cuda").manual_seed(0),
+                             get_config("qwen2-1.5b")), torch.float32)
+    ecfg = EngineConfig(max_batch=8, max_len=2048, governor="greenllm",
+                        cache_dtype="float32")
+    trace = _cluster_trace(cfg.vocab_size, 8, (100, 1000), (32, 97), 0.0,
+                           seed=7)
+
+    def run(faults=None):
+        cl = ServingCluster(cfg, n_prefill=1, n_decode=2, params=params,
+                            ecfg=ecfg, faults=faults, device="cuda")
+        recovered = []
+        requeue = cl._requeue
+
+        def counted(req, t):
+            recovered.append(req.rid)
+            return requeue(req, t)
+        cl._requeue = counted
+        return cl, recovered, *_serve_trace(cl, trace)
+
+    _, _, healthy, hrep, hwall = run()
+    kill_at = 0.4 * hrep.duration_s
+    plan = FaultPlan([ReplicaKill(at=kill_at, replica="decode0"),
+                      HandoffFailure(at=0.0, count=1)])
+    _reset_counts()
+    cl, recovered, handles, rep, wall = run(plan)
+    counts = _launch_counts()
+    greedy = lambda h: not h.request.sampling.temperature
+    sampled = lambda h: bool(h.request.sampling.temperature)
+    digests = {k: (_digest(healthy, f), _digest(handles, f))
+               for k, f in (("greedy", greedy), ("sampled", sampled))}
+    dead = next(w for w in rep.replicas if w.name == "decode0")
+    toks = sum(len(h.request.tokens) for h in handles)
+    res[path] = {
+        "wall_s": wall, "healthy_wall_s": hwall, "tokens_out": toks,
+        "tokens_per_s": toks / wall, "launches": counts,
+        "completed": rep.completed, "migrated": rep.migrated,
+        "import_retries": cl.import_retries, "kill_at_s": kill_at,
+        "kills": cl.kills, "recovered": recovered,
+        "dead_energy_j": dead.energy_j, "digests": digests,
+        "freq_mhz": {w.name: w.freq_mhz for w in rep.replicas},
+        "fault_log": [list(map(str, e)) for e in plan.log]}
+    log(rep.summary())
+    log(f"[cluster] {path}: {cfg.name} float32, {len(handles)} requests, "
+        f"{toks} tokens out in {wall:.2f}s wall (healthy {hwall:.2f}s); "
+        f"decode0 killed at {cl.kills[0][1]:.4f}s (planned {kill_at:.4f}s), "
+        f"energy {dead.energy_j:.3f} J (at the kill {cl.kills[0][2]:.3f} J); "
+        f"recovered streams {recovered}; migrated {rep.migrated}; import "
+        f"retries {cl.import_retries}; clocks (MHz) {res[path]['freq_mhz']}; "
+        f"tokens sha256 healthy / killed {digests}; launches {counts}")
+    if rep.completed != len(handles):
+        raise AssertionError(f"{path}: only {rep.completed}/{len(handles)} "
+                             "completed")
+    _check_outputs(handles, cfg.vocab_size)
+    if not cl.kills or not recovered or cl.import_retries < 1:
+        raise AssertionError(f"{path}: kills {cl.kills}, recovered "
+                             f"{recovered}, retries {cl.import_retries}")
+    if dead.alive or dead.energy_j != cl.kills[0][2]:
+        raise AssertionError(f"{path}: decode0's energy moved after the "
+                             f"kill: {dead.energy_j} != {cl.kills[0][2]}")
+    for kind, (want, got) in digests.items():
+        if got != want:
+            raise AssertionError(f"{path}: the {kind} rows' tokens differ "
+                                 "from the healthy run's")
+    _check_launched(path, counts, ("rmsnorm", "add_rmsnorm",
+                                   "paged_decode_attention",
+                                   "flash_attention", "chunk_attention"))
+    del cl, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_cluster(res):
+    """The disaggregated cluster on the card: ``_cluster_qwen3`` (the
+    paper's model at full width and depth, class-routed prefill replicas,
+    every stream handed off; its tokens == one colocated engine's) and
+    ``_cluster_kill`` (a decode replica killed mid-decode and an import
+    failed; recovery gives the healthy run's tokens)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cluster_qwen3(res)
+    _cluster_kill(res)
+
+
 # -- main ---------------------------------------------------------------------------------
 
 def gpu_name_and_limit():
@@ -2754,7 +3039,8 @@ def main(argv=None):
            "serve_paged": phase_serve_paged, "serve_q8": phase_serve_q8,
            "paged_vs_dense": phase_paged_vs_dense,
            "sampling": phase_sampling, "observability": phase_observability,
-           "arch": phase_arch, "profile": phase_profile}
+           "arch": phase_arch, "cluster": phase_cluster,
+           "profile": phase_profile}
     for p in phases:
         t0 = time.perf_counter()
         fns[p](res)

@@ -5,6 +5,7 @@ from .report import (ReplicaReport, RequestReport, ServingReport,
                      build_report, slo_pass_metrics)
 from .models import QuadraticLatencyModel, CubicPowerModel, TPSFreqTable
 from .router import LengthRouter, make_router, SINGLE_QUEUE
+from .prefill_optimizer import PrefillOptimizer, deadline_from_queue
 from .decode_controller import (DualLoopController, DecodeControllerConfig,
                                 MaxFreqController, FixedFreqController)
 from .telemetry import TPSMeter, TBTMeter, OccupancyMeter, SlidingWindow

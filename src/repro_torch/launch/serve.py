@@ -1,6 +1,7 @@
-"""Serving launcher of the port: drive the slot-native engine through the
-``serving.api.Server`` front door with the reference launcher's synthetic
-burst, and print the typed ``ServingReport``.
+"""Serving launcher of the port: drive the slot-native engine, or the
+disaggregated prefill/decode cluster, through the ``serving.api.Server``
+front door with the reference launcher's synthetic burst, and print the
+typed ``ServingReport``.
 
   python -m repro_torch.launch.serve                    # qwen2-1.5b smoke, CUDA
   python -m repro_torch.launch.serve --full-width       # the full config
@@ -12,6 +13,8 @@ burst, and print the typed ``ServingReport``.
   python -m repro_torch.launch.serve --device cpu --requests 4
   python -m repro_torch.launch.serve --paged            # paged KV pool
   python -m repro_torch.launch.serve --prefix-cache     # + prefix cache
+  # 1 prefill + 1 decode replica, streams handed off between them
+  python -m repro_torch.launch.serve --cluster [--prefix-cache]
   # every second request samples at --temperature (--top-k / --top-p /
   # --seed), the rest stay greedy
   python -m repro_torch.launch.serve --mixed-sampling --temperature 0.8
@@ -26,8 +29,9 @@ implies ``--paged`` and, as in the reference, opens every synthetic prompt
 with one shared 48-token system prompt.  ``--full-width``
 serves ``get_config(arch)`` itself, with random seeded weights, instead of
 its ``.smoke()`` reduction; virtual time and energy are accounted on the
-full config either way.  ``--cluster`` and ``--mesh`` are refused: the
-cluster and serving meshes are not ported yet (ROADMAP A10, A14).
+full config either way.  ``--cluster`` serves a 1 prefill + 1 decode
+cluster on the paged plane and prints one row per replica.  ``--mesh`` is
+refused: serving meshes are not ported yet (ROADMAP A14).
 """
 import argparse
 import json
@@ -39,7 +43,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import (AlertEngine, AlertRule, EnergyLedger,
                               MetricsRegistry, SamplingParams, SLOConfig,
                               Tracer, verify_conservation)
-from repro_torch.serving import EngineConfig, Server, ServingEngine
+from repro_torch.serving import (EngineConfig, Server, ServingCluster,
+                                 ServingEngine)
 
 
 def sampling_for(args, i: int, max_tokens: int) -> SamplingParams:
@@ -174,8 +179,8 @@ def main(argv=None):
     ap.add_argument("--mesh", default="",
                     help="'dp,tp' serving mesh: not ported yet (ROADMAP A14)")
     ap.add_argument("--cluster", action="store_true",
-                    help="disaggregated prefill/decode cluster: not ported "
-                         "yet (ROADMAP A10)")
+                    help="disaggregated 1-prefill + 1-decode cluster with "
+                         "paged-KV handoff instead of one colocated engine")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature for submitted requests "
                          "(0: greedy; per-request, not engine-global)")
@@ -223,9 +228,6 @@ def main(argv=None):
                     help="serve the full config instead of its .smoke() "
                          "reduction")
     args = ap.parse_args(argv)
-    if args.cluster:
-        raise SystemExit("--cluster: the disaggregated cluster is not ported "
-                         "to repro_torch yet (ROADMAP A10)")
     if args.mesh:
         raise SystemExit("--mesh: serving meshes are not ported to "
                          "repro_torch yet (ROADMAP A14)")
@@ -245,8 +247,17 @@ def main(argv=None):
                         paged=args.paged or args.prefix_cache,
                         chunked_prefill=args.chunked,
                         prefix_cache=args.prefix_cache)
-    eng = ServingEngine(served, plant_cfg=full, ecfg=ecfg, device=args.device)
-    server = Server(eng, on_event=on_event, metrics=metrics, tracer=tracer,
+    if args.cluster:
+        # the cluster forces the paged plane (the handoff moves page chains)
+        backend = ServingCluster(served, n_prefill=1, n_decode=1,
+                                 plant_cfg=full, ecfg=ecfg,
+                                 device=args.device)
+        engines = [r.engine for r in backend.replicas]
+    else:
+        backend = ServingEngine(served, plant_cfg=full, ecfg=ecfg,
+                                device=args.device)
+        engines = [backend]
+    server = Server(backend, on_event=on_event, metrics=metrics, tracer=tracer,
                     ledger=ledger, alerts=alerts)
     n = 0
     for arrival, prompt, max_tokens in workload(args, served.vocab_size):
@@ -254,13 +265,25 @@ def main(argv=None):
                       arrival=arrival)
         n += 1
     rep = server.run()
-    plane = "engine/paged" if args.paged else "engine"
+    plane = "cluster(1p+1d)" if args.cluster else \
+        ("engine/paged" if args.paged else "engine")
     print(f"arch={args.arch} governor={args.governor} plane={plane} "
           f"trace={args.trace} requests={n}")
     print(rep.summary())
-    if eng.prefix_cache is not None:
+    for row in rep.replicas:
+        print(f"  {row.name:10s} {row.role:9s} "
+              f"E={row.energy_j / 1e3:6.2f}kJ "
+              f"(pre {row.prefill_energy_j / 1e3:.2f} / "
+              f"dec {row.decode_energy_j / 1e3:.2f} / "
+              f"idle {row.idle_energy_j / 1e3:.2f}) "
+              f"tok {row.prefill_tokens}/{row.decode_tokens} "
+              f"handoffs {row.exported + row.imported} "
+              f"clock {row.freq_mhz:.0f}MHz")
+    for eng in engines:
+        if eng.prefix_cache is None:
+            continue
         st = eng.prefix_cache.stats()
-        print(f"  prefix-cache[engine]: hit_rate="
+        print(f"  prefix-cache[{eng.name}]: hit_rate="
               f"{st['hit_rate'] * 100:.0f}% "
               f"({st['hits']} hits / {st['misses']} misses, "
               f"{st['hit_tokens']} prompt tokens served from cache, "

@@ -330,6 +330,49 @@ def paged_cache_kv_arrays(cache: Dict, page_table, dtype=torch.bfloat16):
     return gather(cache["kp"]).to(dtype), gather(cache["vp"]).to(dtype)
 
 
+def paged_chain_extract(cache: Dict, chain) -> Dict:
+    """Gather one stream's page chain out of stacked paged pools (leaves
+    (n_rep, num_pages, page_size, ...)): a parallel dict of (n_rep,
+    len(chain), page_size, ...) tensors on the pools' device, int8 values
+    and their scales alike.  The stream's live K/V and nothing else, so a
+    handoff moves O(context), never a full-length buffer.  Indexing by a
+    tensor copies: the payload keeps its bits after the exporter frees
+    these pages and writes another stream into them."""
+    idx = torch.as_tensor(chain, dtype=torch.long,
+                          device=next(iter(cache.values())).device)
+    return {k: v[:, idx] for k, v in cache.items()}
+
+
+def paged_chain_insert(cache: Dict, pages: Dict, chain) -> Dict:
+    """Scatter extracted chain pages (``paged_chain_extract`` output) into
+    the physical pages ``chain`` of another (or the same) pool, in place,
+    cast to the destination's dtypes (a handoff between pools of one dtype
+    is bit-exact)."""
+    for k, v in cache.items():
+        idx = torch.as_tensor(chain, dtype=torch.long, device=v.device)
+        v[:, idx] = pages[k].to(v.dtype)
+    return cache
+
+
+def cache_row_extract(cache: Dict, slot: int) -> Dict:
+    """A copy of batch row ``slot`` of a stacked dense cache dict (bounded
+    ring buffers and recurrent SSM / RG-LRU states): leaves (n_rep, B, ...)
+    -> (n_rep, 1, ...).  A copy, not a view, so the row keeps its bits
+    after the exporter reuses the slot.  Ring content is position-aligned
+    (slot = pos % W), so the row reads the same in another engine at the
+    same stream position."""
+    return {k: v[:, slot:slot + 1].clone() for k, v in cache.items()}
+
+
+def cache_row_insert(cache: Dict, row: Dict, slot: int) -> Dict:
+    """Write an extracted row (``cache_row_extract`` output) into batch row
+    ``slot`` of another stacked dense cache dict, in place, cast to each
+    leaf's dtype."""
+    for k, v in cache.items():
+        v[:, slot:slot + 1] = row[k].to(v.dtype)
+    return cache
+
+
 def paged_page_copy(cache: Dict, src: int, dst: int) -> Dict:
     """Copy physical page ``src`` onto ``dst`` in every leaf of a stacked
     paged pool dict (leaves (n_rep, num_pages, page_size, ...)), int8

@@ -58,11 +58,16 @@ Int8 KV (``cfg.kv_quant``): the caches or pools hold int8 K/V with
 float32 scales, whatever ``cache_dtype`` says (as in the reference);
 quantizing happens inside the writes and adds no host sync.
 
+Stream migration (``export_stream`` / ``import_stream``): a decoding
+stream leaves one engine as a ``StreamHandoff`` (copies of its page chain,
+its dense rows and recurrent rows, on the device, with its position, last
+token, resolved sampling config and lane) and joins another engine's decode
+batch; ``serving.cluster`` moves every prefilled stream this way.
+
 Not ported yet, and rejected with ``NotImplementedError`` naming the
 ROADMAP item: the legacy ``slot_native=False`` plane (A7) and its eager
 fallback for prompts longer than a ring buffer (A9.8), and serving meshes
-(A14).  Stream migration (``export_stream`` / ``import_stream``, A10) is
-absent.
+(A14).
 """
 from __future__ import annotations
 
@@ -75,8 +80,9 @@ import torch
 
 from repro_torch.core import (CounterfactualPricer, DualLoopController,
                               MaxFreqController, Request, RequestState,
-                              ServingReport, SLOConfig, StateEvent,
-                              TokenEvent, build_report, make_router)
+                              SamplingParams, ServingReport, SLOConfig,
+                              StateEvent, TokenEvent, build_report,
+                              make_router)
 from repro_torch.core.hardware import HardwareProfile, A100_SXM4_40G
 from repro_torch.core.prng import fold_in, prng_key
 from repro_torch.core.report import slo_pass_metrics
@@ -85,8 +91,10 @@ from repro_torch.models import ModelConfig, decode_step, init_cache, \
     init_params, prefill_chunk_into_slot, prefill_into_slot, \
     sample_tokens_batched
 from repro_torch.models.config import FULL_ATTN, LOCAL_ATTN
-from repro_torch.models.kvcache import (attn_buffer_len, is_paged,
-                                        paged_page_copy)
+from repro_torch.models.kvcache import (attn_buffer_len, cache_row_extract,
+                                        cache_row_insert, is_paged,
+                                        paged_chain_extract,
+                                        paged_chain_insert, paged_page_copy)
 from repro_torch.sim import PlantModel
 from repro_torch.sim.profiling import profile_decode_table
 from .pager import PageAllocator
@@ -261,6 +269,39 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
+@dataclasses.dataclass
+class StreamHandoff:
+    """A stream extracted from one engine for adoption by another (the
+    disaggregated prefill -> decode migration unit).
+
+    ``blocks`` parallels the engine's caches: per stage, a tuple of
+    ``("pages", extracted chain dict | None)`` for paged attention pools
+    (only the live chain's pages) or ``("row", row dict)`` for bounded
+    dense buffers (sliding-window rings) and recurrent SSM / RG-LRU
+    states, all copies on the exporter's device.  With ``pos``,
+    ``last_token``, the sampling config and the lane this is the stream's
+    whole decodable state: import followed by decode gives the tokens of a
+    stream that never migrated, sampled ones included, because draw i is
+    ``fold_in(rng_lane, position i)``.
+    """
+    req: Request
+    pos: int
+    last_token: int
+    n_pages: int                    # chain length to adopt (0 = nothing paged)
+    blocks: List                    # per-stage tuples of (kind, payload)
+    export_time: float              # exporter's vtime at extraction
+    page_size: int = 0              # 0 when the exporter is unpaged
+    cfg_name: str = ""              # guard against cross-model migration
+    sampling: Optional[SamplingParams] = None   # exporter-resolved config
+    rng_lane: Optional[object] = None  # (2,) uint32 base lane (np.ndarray)
+    # the stream's partial energy ledger (core.attribution.LedgerCarry); a
+    # no-op on adoption when both replicas share one ledger (the cluster)
+    ledger_carry: Optional[object] = None
+    # exporter's (data, model) mesh shape: always None here (serving
+    # meshes are not ported, ROADMAP A14); the adopter checks it matches
+    mesh_shape: Optional[tuple] = None
+
+
 class _Stream:
     def __init__(self, req: Request, slot: int, pos: int, order: int = 0):
         self.req = req
@@ -297,11 +338,14 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params=None, *,
                  ecfg: Optional[EngineConfig] = None,
                  hw: HardwareProfile = A100_SXM4_40G, seed: int = 0,
-                 plant_cfg: ModelConfig = None, device="cuda",
+                 plant_cfg: ModelConfig = None, plant: PlantModel = None,
+                 decode_table=None, controller=None, device="cuda",
                  name: str = "engine", metrics=None, tracer=None,
                  ledger=None):
         # plant_cfg: config used for virtual-time/energy accounting (e.g. the
         # FULL model) while `cfg` (possibly reduced) produces real tokens.
+        # plant / decode_table / controller: the cluster's injection points
+        # (one shared profiling pass, each replica its role's controller).
         # name labels this engine's metric series and spans; metrics /
         # tracer / ledger are the observability sinks (None: every emission
         # site is skipped).
@@ -317,11 +361,14 @@ class ServingEngine:
         self.params = params if params is not None else init_params(
             torch.Generator(device=self.device).manual_seed(seed), cfg)
         self.router = make_router(ecfg.governor.lower() != "defaultnv")
-        self.plant = PlantModel(cfg=plant_cfg or cfg, hw=hw, n_chips=1,
-                                seed=seed)
-        if ecfg.governor.lower() == "greenllm":
-            self.controller = DualLoopController(
-                hw, profile_decode_table(self.plant))
+        self.plant = plant if plant is not None else PlantModel(
+            cfg=plant_cfg or cfg, hw=hw, n_chips=1, seed=seed)
+        if controller is not None:
+            self.controller = controller
+        elif ecfg.governor.lower() == "greenllm":
+            table = decode_table if decode_table is not None else \
+                profile_decode_table(self.plant)
+            self.controller = DualLoopController(hw, table)
         else:
             self.controller = MaxFreqController(hw)
 
@@ -367,6 +414,8 @@ class ServingEngine:
         self._cancelled = 0
         self._failed = 0            # given up via fail()
         self._shed = 0              # dropped for a lapsed deadline
+        self._imported = 0          # adopted handoffs (report().migrated);
+        #                             exports are counted by the cluster
         self.requests: List[Request] = []  # everything this engine has seen
         self._events: List = []     # buffered stream events (drain_events)
         # False -> skip event buffering entirely (serving.api.Server clears
@@ -1089,6 +1138,119 @@ class ServingEngine:
             self.tracer.instant("shed", req.rid, self.vtime, self.name,
                                 deadline=req.deadline)
 
+    # -- replica-to-replica migration (disaggregated serving) ------------------
+    def export_stream(self, slot: int) -> StreamHandoff:
+        """Extract an active (decodable) stream for adoption by another
+        engine: copies of its page-chain K/V, bounded dense rows (sliding-
+        window rings) and recurrent row state, on the device, with its
+        position and last token.  The slot, its pages and its batch row are
+        released here, so the stream leaves nothing on this engine; the
+        payload is a copy, so the next stream written into the slot and the
+        pages cannot reach it."""
+        st = self.active.pop(slot)
+        self._active_host[slot] = False
+        self._sampled_host[slot] = False
+        self._sync_active()
+        self.free_slots.append(slot)
+        chain = list(self.pager.chains.get(slot, [])) \
+            if self.pager is not None else []
+        blocks = []
+        for stage in self.caches:
+            sblocks = []
+            for d in stage:
+                if is_paged(d):
+                    sblocks.append(("pages", paged_chain_extract(d, chain)
+                                    if chain else None))
+                else:
+                    sblocks.append(("row", cache_row_extract(d, slot)))
+            blocks.append(tuple(sblocks))
+        if self.pager is not None:
+            self.pager.export_chain(slot)
+        # snapshot the *resolved* sampling config (a None temperature
+        # becomes an explicit 0.0): the adopter never re-resolves anything
+        sp = st.req.sampling
+        if sp is None or sp.temperature is None:
+            temp, top_k, top_p = self._resolve_sampling(st.req)
+            sp = SamplingParams(
+                max_tokens=sp.max_tokens if sp else st.req.output_len,
+                temperature=temp, top_k=top_k, top_p=top_p,
+                seed=sp.seed if sp else None)
+        if self._m is not None:
+            self._m["ev"]["exported"].inc()
+        if self.tracer is not None:
+            self.tracer.instant("handoff_export", st.req.rid, self.vtime,
+                                self.name, pages=len(chain), pos=st.pos)
+        return StreamHandoff(
+            req=st.req, pos=st.pos, last_token=st.req.tokens[-1],
+            n_pages=len(chain), blocks=blocks, export_time=self.vtime,
+            page_size=self.ecfg.page_size if self.pager is not None else 0,
+            cfg_name=self.cfg.name, sampling=sp,
+            rng_lane=self._lane_for(st.req),
+            ledger_carry=self.ledger.export_carry(self.name, st.req.rid)
+            if self.ledger is not None else None,
+            mesh_shape=self.ecfg.mesh)
+
+    def import_stream(self, ho: StreamHandoff) -> bool:
+        """Adopt a migrated stream: take a slot and a page chain of the
+        handed-off length, write the extracted pages and rows into them in
+        place, and join the decode batch at the handed-off position and
+        token.  All or nothing: False, taking nothing, when no slot is free
+        or the pool cannot cover the chain (the caller retries later)."""
+        assert ho.cfg_name == self.cfg.name, (
+            f"cross-model handoff: {ho.cfg_name} -> {self.cfg.name}")
+        assert ho.mesh_shape == self.ecfg.mesh, (
+            f"cross-mesh handoff: exporter mesh {ho.mesh_shape} -> adopter "
+            f"mesh {self.ecfg.mesh}")
+        if ho.n_pages:
+            assert self.pager is not None and \
+                ho.page_size == self.ecfg.page_size, \
+                "handoff requires matching paged layouts on both replicas"
+        if not self.free_slots:
+            return False
+        slot = self.free_slots[0]
+        chain = None
+        if ho.n_pages:
+            chain = self.pager.adopt_chain(slot, ho.n_pages)
+            if chain is None and self._reclaim_cached():
+                chain = self.pager.adopt_chain(slot, ho.n_pages)
+            if chain is None:
+                return False
+        self.free_slots.pop(0)
+        for stage, hstage in zip(self.caches, ho.blocks):
+            for d, (kind, payload) in zip(stage, hstage):
+                if kind == "row":
+                    cache_row_insert(d, payload, slot)
+                elif payload is not None:
+                    paged_chain_insert(d, payload, chain)
+        # in place: the decode block's token and position vectors keep
+        # their storage
+        self._tok[slot] = ho.last_token
+        self._pos[slot] = ho.pos
+        # the lane and the exporter-resolved sampling config travel with
+        # the stream: the adopter continues the exporter's draws
+        if ho.rng_lane is not None:
+            ho.req.rng_lane = np.asarray(ho.rng_lane, np.uint32)
+        if ho.sampling is not None:
+            ho.req.sampling = ho.sampling
+        self._set_slot_sampling(slot, ho.req)
+        # the adopted prompt pages are this pool's bits now: share them
+        self._register_prefix(ho.req, slot, ho.pos)
+        if self.ledger is not None:
+            # a no-op when the exporter billed into this same ledger
+            self.ledger.adopt_carry(ho.ledger_carry, ho.req.rid)
+        self._imported += 1
+        self.requests.append(ho.req)
+        if self._m is not None:
+            self._m["ev"]["imported"].inc()
+        if self.tracer is not None:
+            # the stream's in-flight window between replicas (clamped: the
+            # adopter's clock may lag the exporter's)
+            self.tracer.span("handoff", ho.req.rid, ho.export_time,
+                             max(self.vtime, ho.export_time), self.name,
+                             pages=ho.n_pages, pos=ho.pos)
+        self._start_stream(ho.req, slot, ho.last_token, ho.pos, resumed=True)
+        return True
+
     # -- decode ----------------------------------------------------------------
     def _account_decode_step(self, batch: int, ctx: float, dur=None,
                              rids=None) -> float:
@@ -1371,7 +1533,9 @@ class ServingEngine:
             idle_energy_j=self.idle_energy_j,
             prefill_tokens=self.prefill_tokens,
             decode_tokens=self.decode_tokens,
-            duration_s=self.vtime, preempted=self._preempted, migrated=0,
+            duration_s=self.vtime, preempted=self._preempted,
+            # adopted handoffs only, as the cluster counts them
+            migrated=self._imported,
             page_occupancy_peak=self.page_occupancy_peak(), **led)
 
     def _slo_stats(self) -> Dict:

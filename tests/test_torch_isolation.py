@@ -33,6 +33,8 @@ def test_no_forbidden_import_in_the_port_sources():
     found = []
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
+    assert {PKG / "serving/cluster.py", PKG / "serving/faults.py",
+            PKG / "core/prefill_optimizer.py"} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -66,7 +68,8 @@ def test_cuda_entry_points_raise_without_a_gpu():
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import main
     from repro_torch.models import init_params
-    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving import (EngineConfig, ServingCluster,
+                                     ServingEngine)
     cfg = get_config("qwen2-1.5b").smoke()
     with pytest.raises((RuntimeError, AssertionError)):
         ServingEngine(cfg, ecfg=EngineConfig(max_len=64))       # device="cuda"
@@ -86,6 +89,12 @@ def test_cuda_entry_points_raise_without_a_gpu():
         main(["--requests", "1"])                                # --device cuda
     with pytest.raises((RuntimeError, AssertionError)):
         main(["--requests", "1", "--prefix-cache"])
+    with pytest.raises((RuntimeError, AssertionError)):
+        ServingCluster(cfg, ecfg=EngineConfig(max_len=64))     # device="cuda"
+    with pytest.raises((RuntimeError, AssertionError)):
+        ServingCluster(cfg, params=params, ecfg=EngineConfig(max_len=64))
+    with pytest.raises((RuntimeError, AssertionError)):
+        main(["--requests", "1", "--cluster"])
 
 
 def _counts():

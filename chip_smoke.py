@@ -11,6 +11,10 @@
     python3 chip_smoke.py --phases build,kernels,equivalence,arch \
         --archs mamba2-370m,recurrentgemma-9b
     python3 chip_smoke.py --phases build,cluster
+    python3 chip_smoke.py --phases build,legacy
+    python3 chip_smoke.py --phases build,prefill
+    python3 chip_smoke.py --phases build,mixed_dtype
+    python3 chip_smoke.py --phases build,kernels,equivalence,legacy,prefill,mixed_dtype
 
 Phases (each raises on failure; nothing is caught):
 
@@ -29,11 +33,18 @@ Phases (each raises on failure; nothing is caught):
    followed by the unfused kernel bit for bit.  chunk_attention (a prompt
    chunk against its past, read through the page table, and its raw K/V)
    is held against its plain version on every route (bf16 pool, int8 pool
-   under bf16 and float32 q, float32 pool) and head dim, the float32
+   under bf16 and float32 q, float32 pool under bf16 q (a bf16 model with
+   float32 caches: rounded to bf16 as it is staged, and bit for bit the
+   bf16 route on the cast past), float32 pool) and head dim, the float32
    routes also against the port's attention oracle, bit for bit across
    repeated launches and across two page chains holding the same context,
    and timed at the paged burst's shape (256 queries at position 512)
-   beside SDPA with the same mask and at other key spans.  The decode body
+   beside SDPA with the same mask and at other key spans, and over a
+   float32 chain and a float32 dense row under bf16 q.
+   paged_decode_attention runs on float32 pools under bf16 q too (every
+   PAGED_CASES row), bit for bit the dense bf16 kernel on the cast
+   context, across page orders and across walk lengths, and is timed at
+   qwen2's 128-page shape on float32 pools.  The decode body
    splits keys over
    CTAs in fixed spans, so its determinism is checked bit for bit: two
    launches on the same inputs, and the same context in a 1024-slot view
@@ -90,6 +101,11 @@ Phases (each raises on failure; nothing is caught):
    requests through a paged engine with the prefix cache and a 15-page
    pool (prefix hits, a preemption, chunk_attention) on both: the same
    tokens.  Both checks run again with ``kv_quant`` (int8 caches).
+   Then fault C2's routes: the same model in bf16 with float32 caches,
+   teacher-forced through a prefill into a page chain, chunks over a
+   float32 chain and over a float32 dense row, and 8 paged decode steps
+   over float32 pools, every call's logits CUDA against CPU within 2e-2
+   (the float32-past routes must launch).
    Then qwen3-14b, granite-8b, chatglm3-6b, gemma2-9b, qwen3-moe-30b-a3b,
    mixtral-8x7b, musicgen-large and llava-next-mistral-7b at full width
    and 2 layers (one local + full period for gemma2), float32, CUDA
@@ -108,7 +124,14 @@ Phases (each raises on failure; nothing is caught):
    capacity 1.25): moe_einsum against moe_scatter within 1e-5 in float32,
    the keep mask against the CPU's, and both timed in bf16 (that group
    and an 8-row decode step) beside the layer's bound (every expert's
-   weights read once).
+   weights read once).  Then the unpadded ``prefill`` at full width, 4
+   layers, float32, CUDA against CPU (next_pos P + S, last logits at
+   1e-3): gemma2-9b with a 5000-token prompt into its 4096-slot rings,
+   llava-next-mistral-7b with 2880 seeded prefix embeddings and 256
+   tokens, musicgen-large with 64 conditioning frames and 256 tokens,
+   recurrentgemma-9b and qwen3-moe-30b-a3b with 2 rows of 512 tokens
+   (recurrent rows from zeros; routing over both rows' tokens, compared
+   call by call as above).
 4. serve: full-width, full-depth qwen2-1.5b in bfloat16 with seeded random
    weights serves 8 greedy requests (prompts of 100-1000 tokens, 64-128 new
    tokens) through ``serving.api.Server`` and the slot-native engine
@@ -117,7 +140,7 @@ Phases (each raises on failure; nothing is caught):
    and a 219-page pool serves two waves of 8 greedy requests sharing a
    256-token system prompt; it must preempt, hit the cache and run
    chunk_attention, and no decode kernel but the paged one.  In this phase
-   and in phases 4, 6, 8, 9, 10 and 11, the kernels' launch counts are set to 0
+   and in phases 4, 6, 8-14, the kernels' launch counts are set to 0
    just before a path's burst and read just after; each kernel of the path
    must have launched.
 6. serve_q8: phases 4 and 5 again with ``kv_quant`` (int8 K/V caches and
@@ -197,7 +220,29 @@ Phases (each raises on failure; nothing is caught):
    sampled rows' tokens equal the healthy run's, the dead replica's
    energy stays frozen at the kill, and at least one stream is recovered
    (recomputed through chunk_attention).  Launches counted as in phase 5.
-12. profile (opt-in, not in the default run): the serve, serve_paged and
+12. legacy: the legacy data plane and the eager fallback
+   (``phase_legacy``): qwen2-1.5b on ``slot_native=False`` serves 8
+   lockstep requests (512-token prompts, 64 new) with the slot-native
+   engine's tokens (paths ``legacy_qwen2``, ``legacy_qwen2_slot``,
+   tokens/s of both); gemma2-9b with ``chunked_prefill=False`` admits the
+   long burst's four prompts through the unpadded prefill
+   (``legacy_gemma2_fallback``: 4 legacy prefills, flash 42 x 4, no
+   chunk_attention), its agreement with ``arch_gemma2``'s chunked tokens
+   printed.
+13. prefill: the unpadded ``prefill`` at full width and depth
+   (``phase_prefill``): llava-next-mistral-7b with 2 x 2880 prefix
+   embeddings and 512 tokens then 32 greedy decode steps
+   (``prefill_llava``: next_pos 3392, flash 32, decode 32 x 32);
+   qwen3-14b with ``long_context=True`` (8192-slot rings), a 24576-token
+   prompt and 32 decode steps, against its window-restricted twin on full
+   buffers (``long_qwen3``: prefill logits bitwise; bf16 decode agreement
+   printed, teacher-forced, beside the top-2 gaps), and at 8 layers in
+   float32 (``long_qwen3_f32``: the same tokens, logits within 1e-3).
+14. mixed_dtype: fault C2 end to end (``phase_mixed_dtype``): bf16
+   qwen2-1.5b (the serve burst) and gemma2-9b (the long burst, chunked)
+   with float32 caches on a dense and on a paged engine: paged tokens
+   equal to dense, the float32-past routes launched.
+15. profile (opt-in, not in the default run): the serve, serve_paged and
    both serve_q8 bursts, then qwen3-moe-30b-a3b's and recurrentgemma-9b's
    serve bursts at full depth, again under ``torch.profiler`` after a
    warm-up run, printing
@@ -235,7 +280,7 @@ L2_FLUSH_BYTES = 100 * 2 ** 20   # > the 50 MB L2
 BF16_ROUNDING = (1e-3, 1e-2)     # atol, rtol: one bf16 rounding apart
 PHASES = ("build", "kernels", "equivalence", "serve", "serve_paged",
           "serve_q8", "paged_vs_dense", "sampling", "observability", "arch",
-          "cluster")
+          "cluster", "legacy", "prefill", "mixed_dtype")
 # the paths whose launches count
 SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "sampling", "sampling_paged", "observability", "arch_qwen3",
@@ -246,7 +291,11 @@ SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "arch_musicgen", "arch_llava", "arch_llava_paged",
                "arch_mamba2", "arch_mamba2_sampled", "arch_rgemma",
                "arch_rgemma_long", "arch_rgemma_reuse", "arch_rgemma_paged",
-               "cluster_qwen3", "cluster_kill")
+               "cluster_qwen3", "cluster_kill", "legacy_qwen2",
+               "legacy_qwen2_slot", "legacy_gemma2_fallback", "prefill_llava",
+               "long_qwen3", "long_qwen3_f32", "mixed_dtype_dense",
+               "mixed_dtype_paged",
+               "mixed_dtype_gemma2_dense", "mixed_dtype_gemma2_paged")
 
 
 def log(*a):
@@ -626,15 +675,18 @@ def _flash_cases(res):
     return main
 
 
-def _paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo=None, cover=None):
-    """q (B,1,Hq,hd), pools (P,ps,KH,hd) with P = B*n + 1 (page 0 scratch),
-    a (B,n) page table of distinct shuffled pages with scratch tails, and
-    q_pos inside each chain (``cover`` pages of row b, all n by default)."""
+def _paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo=None, cover=None,
+                  kv_dt=None):
+    """q (B,1,Hq,hd), pools (P,ps,KH,hd) with P = B*n + 1 (page 0 scratch)
+    in ``kv_dt`` (q's dtype by default), a (B,n) page table of distinct
+    shuffled pages with scratch tails, and q_pos inside each chain
+    (``cover`` pages of row b, all n by default)."""
     import torch
     P = B * n + 1
+    kv_dt = kv_dt or dt
     q = torch.randn(B, 1, Hq, hd, generator=g, device="cuda").to(dt)
-    kp = torch.randn(P, ps, KH, hd, generator=g, device="cuda").to(dt)
-    vp = torch.randn(P, ps, KH, hd, generator=g, device="cuda").to(dt)
+    kp = torch.randn(P, ps, KH, hd, generator=g, device="cuda").to(kv_dt)
+    vp = torch.randn(P, ps, KH, hd, generator=g, device="cuda").to(kv_dt)
     perm = torch.randperm(P - 1, generator=g, device="cuda")[:B * n] + 1
     pt = perm.reshape(B, n).to(torch.int32)
     cov = cover if cover is not None else [n] * B
@@ -670,68 +722,109 @@ PAGED_CASES = [
     (3, 16, 1, 16, 40, 256, 2048, 0.0, None, True, None)]
 
 
+# paged decode routes: (q dtype, pool dtype, tolerance); bf16 q over
+# float32 pools is a bf16 model with float32 caches (the rounding route)
+PAGED_ROUTES = (("bfloat16", "bfloat16", 2e-2), ("float32", "float32", 1e-4),
+                ("bfloat16", "float32", 2e-2))
+
+
+def _same_bits(name, a, b, what):
+    import torch
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: {what} differs by {max_err(a, b):.3g} "
+                             "(must be bitwise equal)")
+
+
 def _paged_cases(res):
-    """paged_decode_attention against its plain version at PAGED_CASES and
-    bitwise against decode_attention on the same context laid out densely;
-    the named cases timed beside the dense kernel on the same context.
-    Returns qwen2's 128-page case."""
+    """paged_decode_attention against its plain version at PAGED_CASES on
+    every route (PAGED_ROUTES) and bitwise against decode_attention on the
+    same context laid out densely (in q's dtype: a float32 pool's context
+    cast to bf16); the float32 pools also bitwise across page orders (the
+    chain moved to other page ids) and walk lengths (the table doubled
+    with scratch entries); the named cases timed beside the dense kernel
+    on the same context, qwen2's also on float32 pools.  Returns qwen2's
+    128-page case, its float32-pool route under ``f32_past_route``."""
     import torch
     from repro_torch.kernels import decode_attention as D
     from repro_torch.kernels import paged_decode_attention as K
     g = torch.Generator(device="cuda").manual_seed(4)
-    main = None
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    main = f32_main = None
     for B, Hq, KH, ps, n, hd, window, cap, pos_lo, partial, label in \
             PAGED_CASES:
         kw = dict(window=window, softcap=cap)
-        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for qname, pname, tol in PAGED_ROUTES:
+            dt, kv_dt = dts[qname], dts[pname]
+            rounded = kv_dt != dt
             cover = None
             if partial:
                 cover = [int(torch.randint(1, n + 1, (1,), generator=g,
                                            device="cuda")) for _ in range(B)]
             q, kp, vp, pt, qp = _paged_inputs(g, B, Hq, KH, hd, ps, n, dt,
-                                              pos_lo, cover)
+                                              pos_lo, cover, kv_dt)
             out = K.paged_decode_attention(q, kp, vp, pt, qp, **kw)
             name = (f"paged B={B} {Hq}:{KH} hd={hd} ps={ps} n={n} w={window} "
-                    f"cap={cap} {dt}")
+                    f"cap={cap} {dt}" + (" float32 pools" if rounded else ""))
             err, share = check_close(
                 name, out, K.paged_decode_attention_plain(
                     q, kp, vp, pt, qp, **kw), tol)
-            # the same context laid out densely: bitwise equal
+            # the same context laid out densely (in q's dtype): bitwise
             Sk = n * ps
-            kd = kp[pt.long()].reshape(B, Sk, KH, hd)
-            vd = vp[pt.long()].reshape(B, Sk, KH, hd)
+            kd = kp[pt.long()].reshape(B, Sk, KH, hd).to(dt)
+            vd = vp[pt.long()].reshape(B, Sk, KH, hd).to(dt)
             kpos = torch.arange(Sk, device="cuda", dtype=torch.int32)[None]
             dense = D.decode_attention(q, kd, vd, kpos.repeat(B, 1), qp, **kw)
-            if not torch.equal(out, dense):
-                raise AssertionError(f"{name}: paged and dense kernels differ "
-                                     f"by {max_err(out, dense):.3g} on the "
-                                     "same context (must be bitwise equal)")
+            _same_bits(name, out, dense, "the dense kernel on the same "
+                       "context")
             case = {"shape": [B, Sk, KH, Hq, hd], "page_size": ps,
                     "window": window, "softcap": cap, "dtype": str(dt),
-                    "max_abs_err": err, "bf16_share": share,
-                    "bitwise_equal_dense": True}
-            if dt == torch.bfloat16 and label:
+                    "pool_dtype": str(kv_dt), "max_abs_err": err,
+                    "bf16_share": share, "bitwise_equal_dense": True}
+            if rounded:
+                # other page ids for the same chains, and a walk twice as
+                # long whose extra table entries point at scratch page 0
+                perm = torch.cat([torch.zeros(1, dtype=torch.long,
+                                              device="cuda"),
+                                  torch.randperm(kp.shape[0] - 1, generator=g,
+                                                 device="cuda") + 1])
+                kp2, vp2 = torch.empty_like(kp), torch.empty_like(vp)
+                kp2[perm], vp2[perm] = kp, vp
+                pt2 = perm[pt.long()].to(torch.int32)
+                _same_bits(name, out, K.paged_decode_attention(
+                    q, kp2, vp2, pt2, qp, **kw), "another page order")
+                _same_bits(name, out, K.paged_decode_attention(
+                    q, kp, vp, torch.cat([pt, torch.zeros_like(pt)], 1), qp,
+                    **kw), f"a walk of {2 * Sk}")
+                case["bitwise_page_order_walk"] = True
+            if dt == torch.bfloat16 and label and (
+                    not rounded or label == "paged_decode_attention 128 pages"):
                 nv = int((qp + 1).clamp(max=Sk).sum())
-                nbytes = (nv * 2 * KH * hd * 2 + B * n * 4 + B * 4
-                          + 2 * B * Hq * hd * 2)
-                sets = [_paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo)
+                nbytes = (nv * 2 * KH * hd * kv_dt.itemsize + B * n * 4
+                          + B * 4 + 2 * B * Hq * hd * 2)
+                sets = [_paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo,
+                                      kv_dt=kv_dt)
                         for _ in range(n_sets(nbytes))]
                 sets = [(q_, kp_, vp_, pt_, qp) for q_, kp_, vp_, pt_, _ in sets]
                 # no single PyTorch call attends through a page table
-                _timed(res, label, case,
-                       lambda *a: K.paged_decode_attention(*a, **kw),
+                _timed(res, label + (", float32 pools" if rounded else ""),
+                       case, lambda *a: K.paged_decode_attention(*a, **kw),
                        lambda *a: K.paged_decode_attention_plain(*a, **kw),
                        sets, nbytes, 4 * nv * Hq * hd)
-                dense_sets = [(q_, kp_[pt_.long()].reshape(B, Sk, KH, hd),
-                               vp_[pt_.long()].reshape(B, Sk, KH, hd),
+                dense_sets = [(q_, kp_[pt_.long()].reshape(B, Sk, KH, hd)
+                               .to(dt),
+                               vp_[pt_.long()].reshape(B, Sk, KH, hd).to(dt),
                                kpos.repeat(B, 1), qp_)
                               for q_, kp_, vp_, pt_, qp_ in sets]
                 case["dense_kernel_ms"] = time_ms(
                     lambda *a: D.decode_attention(*a, **kw), dense_sets)
                 if label == "paged_decode_attention 128 pages":
-                    main = case
+                    if rounded:
+                        f32_main = case
+                    else:
+                        main = case
             res["cases"].append({"kernel": "paged_decode_attention", **case})
             log(f"[kernels] paged_decode_attention {case}")
+    main["f32_past_route"] = f32_main
     return main
 
 
@@ -765,6 +858,8 @@ CHUNK_CASES = [
     # hd 256, hd 64
     ChunkCase(256, 512, 200, 12, 2, 128, 16, 64, bitwise=True,
               summary="chunk_attention S=256 at 512"),
+    ChunkCase(256, 512, 200, 12, 2, 128, buf_len=2048, bitwise=True,
+              summary="chunk_attention S=256 at 512, dense row"),
     ChunkCase(256, 512, 256, 12, 2, 128, 16, 48),
     ChunkCase(96, 37, 90, 12, 2, 128, 16, 10, bitwise=True),
     ChunkCase(64, 0, 64, 8, 8, 64, 16, 4),
@@ -811,15 +906,18 @@ CHUNK_CASES = [
               summary="chunk_attention rgemma ring, 2048 at 4096"),
     ChunkCase(256, 512, 200, 16, 1, 256, window=2048, bitwise=True,
               summary="chunk_attention rgemma, paged")]
-# (q dtype, int8 past, tolerance): the bf16 past, kv_quant's int8 past under
-# bf16 and float32 models, the float32 past
-CHUNK_ROUTES = (("bfloat16", False, 2e-2), ("bfloat16", True, 2e-2),
-                ("float32", False, 1e-4), ("float32", True, 1e-4))
+# (q dtype, past dtype (None: q's), tolerance): the bf16 past, kv_quant's
+# int8 past under bf16 and float32 models, a float32 past under bf16 (a bf16
+# model with float32 caches: the rounding route), the float32 past
+CHUNK_ROUTES = (("bfloat16", None, 2e-2), ("bfloat16", "int8", 2e-2),
+                ("bfloat16", "float32", 2e-2), ("float32", None, 1e-4),
+                ("float32", "int8", 1e-4))
 
 
-def _chunk_inputs(g, c, dt, i8, past=None, perm_seed=None):
-    """Case ``c``'s chunk (q, raw k/v in ``dt``) and past, in ``dt`` or
-    int8 with float32 scales (``i8``): a dense row (buf_len, KH, hd), or
+def _chunk_inputs(g, c, dt, past_dt=None, past=None, perm_seed=None):
+    """Case ``c``'s chunk (q, raw k/v in ``dt``) and past, in ``dt``, in
+    float32 (``past_dt`` "float32") or int8 with float32 scales
+    (``past_dt`` "int8"): a dense row (buf_len, KH, hd), or
     pools (P, ps, KH, hd) and a (1, n_pages) table of distinct shuffled
     page ids (from ``perm_seed`` when given) for the chain up to start + S,
     scratch page 0 past it.  ``past``, the (K, V, K scale, V scale) of
@@ -839,8 +937,10 @@ def _chunk_inputs(g, c, dt, i8, past=None, perm_seed=None):
     lead = (c.buf_len,) if c.buf_len else (n + used + 1, ps)
     kf = torch.randn(lead + (KH, hd), generator=g, device="cuda")
     vf = torch.randn(lead + (KH, hd), generator=g, device="cuda")
-    if i8:
+    if past_dt == "int8":
         (kp, ks), (vp, vs) = quantize_kv(kf), quantize_kv(vf)
+    elif past_dt == "float32":
+        kp, vp, ks, vs = kf, vf, None, None
     else:
         kp, vp, ks, vs = kf.to(dt), vf.to(dt), None, None
     kw = {"k_scale": ks, "v_scale": vs}
@@ -880,12 +980,13 @@ def _past_by_position(c, args, kw):
 
 
 def _chunk_context(c, args, kw):
-    """[past | chunk] K and V in position order (past in q's dtype) and
-    their positions: -1 for a chunk pad and for a position the ring no
+    """[past | chunk] K and V in position order (past cast to q's dtype)
+    and their positions: -1 for a chunk pad and for a position the ring no
     longer holds."""
     import torch
     q, k, v = args[:3]
     pk, pv, _, _ = _past_by_position(c, args, kw)
+    pk, pv = pk.to(q.dtype), pv.to(q.dtype)
     j = torch.arange(c.start + c.S, device="cuda", dtype=torch.int32)
     held = j >= c.start - c.buf_len if c.buf_len else j >= 0
     kpos = torch.where(held & (j < c.start + c.length), j, -1)
@@ -922,28 +1023,39 @@ def _chunk_cases(res):
     chain (a dense row's context laid out as a chain); the named cases
     timed (bf16 and int8 pasts) beside their plain version and SDPA with
     the same mask where there is no softcap, qwen2's burst shape also at
-    other key spans.  Returns qwen2's burst case, its int8 route under
-    ``q8_route``."""
+    other key spans.  The float32 past under bf16 q is also held bit for
+    bit to the bf16 route on the past cast to bf16, and timed at qwen2's
+    burst shape over a chain and over a dense row.  Returns qwen2's burst
+    case, its int8 route under ``q8_route``, its float32-past routes under
+    ``f32_past_route`` (chain) and ``f32_past_dense_route``."""
     import torch
     from repro_torch.kernels import chunk_attention as C
     from repro_torch.models.attention import attention
     g = torch.Generator(device="cuda").manual_seed(7)
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     main = q8_main = None
+    f32_main = {}
     bitwise = []
     for ci, c in enumerate(CHUNK_CASES):
         ckw = dict(window=c.window, softcap=c.softcap)
-        for dname, i8, tol in CHUNK_ROUTES:
+        for dname, past_dt, tol in CHUNK_ROUTES:
             dt = dts[dname]
-            args, kw = _chunk_inputs(g, c, dt, i8)
+            i8, rounded = past_dt == "int8", past_dt == "float32"
+            args, kw = _chunk_inputs(g, c, dt, past_dt)
             name = (f"chunk S={c.S} start={c.start} len={c.length} "
                     f"{c.Hq}:{c.KH} hd={c.hd} "
                     + (f"row {c.buf_len}" if c.buf_len else f"ps={c.ps}")
                     + f" window={c.window} softcap={c.softcap} {dname}"
-                    + (" int8 past" if i8 else ""))
+                    + (f" {past_dt} past" if past_dt else ""))
             out = C.chunk_attention(*args, **ckw, **kw)
             plain = C.chunk_attention_plain(*args, **ckw, **kw)
             err, share = check_close(name, out, plain, tol)
+            if rounded:
+                # the bf16 route on the past cast to bf16: the same bits
+                _same_bits(name, out, C.chunk_attention(
+                    *args[:3], args[3].to(dt), args[4].to(dt), *args[5:],
+                    **ckw), "the bf16 route on the cast past")
+                bitwise.append(f"{name} == bf16 route on the cast past")
             if dt == torch.float32 and not i8:
                 kc, vc, kpos = _chunk_context(c, args, kw)
                 qpos = c.start + torch.arange(c.S, device="cuda",
@@ -959,7 +1071,7 @@ def _chunk_cases(res):
                 # (other page ids, other values on every other page)
                 again = C.chunk_attention(*args, **ckw, **kw)
                 args2, kw2 = _chunk_inputs(
-                    g, c._replace(buf_len=0), dt, i8,
+                    g, c._replace(buf_len=0), dt, past_dt,
                     past=_past_by_position(c, args, kw), perm_seed=100 + ci)
                 other = C.chunk_attention(*(args[:3] + args2[3:]), **ckw,
                                           **kw2)
@@ -973,11 +1085,15 @@ def _chunk_cases(res):
                     "page_size": 0 if c.buf_len else c.ps,
                     "n_pages": 0 if c.buf_len else args[5].shape[1],
                     "buf_len": c.buf_len, "window": c.window,
-                    "softcap": c.softcap, "dtype": dname, "int8_past": i8,
-                    "max_abs_err": err, "bf16_share": share}
-            if dt == torch.bfloat16 and c.summary:
-                _time_chunk(res, g, c, i8, case)
-                if ci == 0:
+                    "softcap": c.softcap, "dtype": dname,
+                    "past_dtype": past_dt or dname, "max_abs_err": err,
+                    "bf16_share": share}
+            if dt == torch.bfloat16 and c.summary and (
+                    not rounded or c in CHUNK_CASES[:2]):
+                _time_chunk(res, g, c, past_dt, case)
+                if rounded:
+                    f32_main["dense" if c.buf_len else "paged"] = case
+                elif ci == 0:
                     if i8:
                         q8_main = case
                     else:
@@ -987,21 +1103,26 @@ def _chunk_cases(res):
     res["chunk_bitwise"] = bitwise
     log(f"[kernels] chunk bitwise: {len(bitwise)} checks passed")
     main["q8_route"] = q8_main
+    main["f32_past_route"] = f32_main["paged"]
+    main["f32_past_dense_route"] = f32_main["dense"]
     return main
 
 
-def _time_chunk(res, g, c, i8, case):
-    """Case ``c`` timed into ``case`` with a bf16 q: the kernel, its plain
-    version, SDPA with the same mask on [past | chunk] in position order
-    (a bf16 past without softcap), the float32 scratch the launch
-    allocates, and for the first case the kernel at other key spans
-    (``C.SPAN`` set for the call)."""
+def _time_chunk(res, g, c, past_dt, case):
+    """Case ``c`` timed into ``case`` with a bf16 q and a past of
+    ``past_dt`` (None: bf16): the kernel, its plain version, SDPA with the
+    same mask on [past | chunk] in position order (a bf16 past without
+    softcap; no PyTorch call attends over an int8 past, or a float32 one
+    under a bf16 q), the float32 scratch the launch allocates, and for the
+    first case the kernel at other key spans (``C.SPAN`` set for the
+    call)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import chunk_attention as C
     ckw = dict(window=c.window, softcap=c.softcap)
-    nbytes, flops = _chunk_work(c, 2 * c.hd + 8 if i8 else 4 * c.hd)
-    made = [_chunk_inputs(g, c, torch.bfloat16, i8)
+    past_key_bytes = {"int8": 2 * c.hd + 8, "float32": 8 * c.hd}
+    nbytes, flops = _chunk_work(c, past_key_bytes.get(past_dt, 4 * c.hd))
+    made = [_chunk_inputs(g, c, torch.bfloat16, past_dt)
             for _ in range(n_sets(nbytes))]
     sets = [a + (kw["k_scale"], kw["v_scale"]) for a, kw in made]
 
@@ -1012,7 +1133,7 @@ def _time_chunk(res, g, c, i8, case):
         return C.chunk_attention_plain(*a[:8], **ckw, k_scale=a[8],
                                        v_scale=a[9])
     library = None
-    if not i8 and not c.softcap:
+    if past_dt is None and not c.softcap:
         kpos = _chunk_context(c, *made[0])[2]
         qpos = c.start + torch.arange(c.S, device="cuda")
         valid = (kpos[None] >= 0) & (kpos[None] <= qpos[:, None])  # (S, Sk)
@@ -1023,11 +1144,11 @@ def _time_chunk(res, g, c, i8, case):
             [tuple(t.transpose(1, 2).contiguous()
                    for t in (a[0],) + _chunk_context(c, a, kw)[:2])
              for a, kw in made])
-    name = c.summary + (", int8 past" if i8 else "")
+    name = c.summary + (f", {past_dt} past" if past_dt else "")
     _timed(res, name, case, kern, plain, sets, nbytes, flops, library)
     case["scratch_bytes"] = 4 * C.split_geometry(
         c.start, c.length, c.S, c.KH, c.Hq // c.KH, c.hd)[1]
-    if c is CHUNK_CASES[0] and not i8:
+    if c is CHUNK_CASES[0] and past_dt is None:
         case["span"], case["span_ms"] = C.SPAN, {}
         try:
             for sp in (128, 256, 512, 1024):   # 1024: one span at the burst
@@ -1431,7 +1552,9 @@ def phase_equivalence(res):
             raise AssertionError(f"paged equivalence run {tag} missed a "
                                  f"route: {gpu} {counts}")
         res["equivalence"][tag]["paged"] = {**gpu, "launches": counts}
+    _mixed_dtype_equivalence(res)
     _arch_equivalence(res)
+    _prefill_equivalence(res)
 
 
 # the archs of the equivalence phase beyond qwen2: the dense family (params
@@ -1565,6 +1688,168 @@ def _recurrent_equivalence(res):
                                     "tokens": gtoks, "tokens_cpu": ctoks,
                                     "prompt": 300, "layers": layers,
                                     "launches": counts}
+        del params, gparams
+        torch.cuda.empty_cache()
+
+
+def _mixed_dtype_run(params, cfg, device, cache_dtype):
+    """A bf16 model teacher-forced over caches of ``cache_dtype``: row 0 a
+    300-token prompt prefilled into its page chain, row 1 a 700-token
+    prompt in chunks of 256 over its chain (each chunk reads its past
+    through the page table), then 8 decode steps of both rows over the
+    pools; then the 700-token prompt again in chunks into row 1 of a dense
+    cache (the dense-row past).  Returns every call's logits, on the
+    CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.models import (decode_step, init_cache,
+                                    prefill_chunk_into_slot,
+                                    prefill_into_slot)
+    rng = np.random.default_rng(9)
+    a, b = (torch.as_tensor(rng.integers(0, cfg.vocab_size, size=n),
+                            device=device)[None] for n in (300, 700))
+    steps = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(8, 2, 1)),
+                            device=device)
+    table = torch.arange(1, 129, dtype=torch.int32,
+                         device=device).reshape(2, 64)
+    paged = init_cache(cfg, 2, 1024, dtype=cache_dtype, device=device,
+                       paged_pool=(129, 16))
+    dense = init_cache(cfg, 2, 1024, dtype=cache_dtype, device=device)
+    pad = torch.zeros(1, 512, dtype=a.dtype, device=device)
+    pad[:, :300] = a
+    out = [prefill_into_slot(params, cfg, pad, 300, paged, 0,
+                             page_table=table[:1])[0]]
+    for caches, pt in ((paged, table[1:]), (dense, None)):
+        for start in range(0, 700, 256):
+            chunk = torch.zeros(1, 256, dtype=b.dtype, device=device)
+            m = min(256, 700 - start)
+            chunk[:, :m] = b[:, start:start + m]
+            out.append(prefill_chunk_into_slot(params, cfg, chunk, start, m,
+                                               caches, 1, page_table=pt)[0])
+        if pt is not None:
+            pos = torch.tensor([300, 700], dtype=torch.int32, device=device)
+            for i in range(8):
+                out.append(decode_step(params, cfg, steps[i], paged, pos + i,
+                                       page_table=table)[0])
+    return [o.float().cpu() for o in out]
+
+
+def _mixed_dtype_equivalence(res):
+    """Fault C2's routes in a 4-layer full-width qwen2-1.5b in bf16
+    (``_mixed_dtype_run``).  A bf16 model writes bf16 values, which a
+    float32 cache holds exactly and the float32-past routes round back
+    exactly, so on each device every call's logits over float32 caches
+    must equal those over bf16 caches bit for bit: on the card that holds
+    the float32-past routes of paged decode, the paged chunk and the
+    dense-row chunk (which must launch) to the bf16 routes, on the CPU the
+    plain versions' cast.  CUDA against CPU is printed: a bf16 model's
+    logits move by the two devices' bf16 GEMM rounding (the prefill call,
+    which reads no past, as much as the others), which no kernel route
+    decides."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("qwen2-1.5b").replace(num_layers=4)
+    gparams = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    params = _to(gparams, "cpu")
+    _reset_counts()
+    gpu = _mixed_dtype_run(gparams, cfg, "cuda", torch.float32)
+    counts = _launch_counts()
+    runs = {"cuda bf16 caches": _mixed_dtype_run(gparams, cfg, "cuda",
+                                                 torch.bfloat16),
+            "cpu": _mixed_dtype_run(params, cfg, "cpu", torch.float32),
+            "cpu bf16 caches": _mixed_dtype_run(params, cfg, "cpu",
+                                                torch.bfloat16)}
+    for what, ref, got in (("cuda", runs["cuda bf16 caches"], gpu),
+                           ("cpu", runs["cpu bf16 caches"], runs["cpu"])):
+        for i, (x, y) in enumerate(zip(got, ref)):
+            _same_bits(f"float32 caches under bf16 on {what}, call {i}", x,
+                       y, "the bf16 caches' logits")
+    errs = [max_err(g_, c_) for g_, c_ in zip(gpu, runs["cpu"])]
+    top = max(float(g_.abs().max()) for g_ in gpu)
+    log(f"[equivalence] bf16 qwen2 4 layers: {len(gpu)} calls over float32 "
+        f"caches bitwise equal to bf16 caches on the card and on the CPU; "
+        f"CUDA against CPU logits max |err| per call "
+        f"{[round(e, 4) for e in errs]} (largest |logit| {top:.3g}); "
+        f"launches {counts}")
+    _check_launched("equivalence float32 caches", counts,
+                    ("paged_decode_attention/f32_past",
+                     "chunk_attention/f32_past",
+                     "chunk_attention/dense_f32_past", "flash_attention"))
+    res["equivalence"]["f32_caches_bf16_model"] = {
+        "bitwise_bf16_caches": True, "cuda_vs_cpu_max_abs_err": errs,
+        "max_abs_logit": top, "launches": counts}
+
+
+# the unpadded prefill's cases: (arch, layers, rows, prompt tokens, prefix
+# embeddings): gemma2 past its 4096-slot rings, llava's 2880 image patches,
+# musicgen's 64 conditioning frames, recurrentgemma's recurrent rows and
+# qwen3-moe's routing over every row's tokens
+PREFILL_EQUIV = (("gemma2-9b", 4, 1, 5000, 0),
+                 ("llava-next-mistral-7b", 4, 1, 256, 2880),
+                 ("musicgen-large", 4, 1, 256, 64),
+                 ("recurrentgemma-9b", 4, 2, 512, 0),
+                 ("qwen3-moe-30b-a3b", 4, 2, 512, 0))
+
+
+def _prefill_equivalence(res):
+    """The unpadded ``prefill`` CUDA against CPU at full width, cut to 4
+    layers, in float32 from the same params (drawn on the card): B prompts
+    after seeded prefix embeddings where the model takes them, into fresh
+    caches; ``next_pos`` must be P + S and the last logits allclose at
+    1e-3 (the arch checks' float32 bar).  For qwen3-moe every routing
+    call's experts are compared first, as in ``_arch_equivalence``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params, prefill
+    for arch, layers, B, n, P in PREFILL_EQUIV:
+        if ONLY_ARCHS is not None and arch not in ONLY_ARCHS:
+            continue
+        cfg = get_config(arch).replace(num_layers=layers, dtype="float32")
+        t0 = time.perf_counter()
+        gparams = init_params(torch.Generator(device="cuda").manual_seed(0),
+                              cfg)
+        params = _to(gparams, "cpu")
+        rng = np.random.default_rng(6)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, n)))
+        pe = torch.as_tensor(rng.standard_normal(
+            (B, P, cfg.d_model)).astype(np.float32)) if P else None
+        last, routes, counts = {}, {}, None
+        for dev, p in (("cuda", gparams), ("cpu", params)):
+            caches = init_cache(cfg, B, P + n + 64, dtype=torch.float32,
+                                device=dev)
+            _reset_counts()
+            with _RoutingLog() as routes[dev]:
+                lg, caches, pos = prefill(
+                    p, cfg, tokens.to(dev), caches,
+                    None if pe is None else pe.to(dev))
+            last[dev] = lg.float().cpu()
+            if dev == "cuda":
+                counts = _launch_counts()
+            if pos != P + n:
+                raise AssertionError(f"{arch}: prefill returned next_pos "
+                                     f"{pos}, not {P + n}")
+            del caches
+        err = max_err(last["cuda"], last["cpu"])
+        ties = _routing_ties(routes["cuda"], routes["cpu"], cfg,
+                             arch) if cfg.is_moe else []
+        log(f"[equivalence] prefill {arch} {layers} layers full width f32, "
+            f"B {B}, {P} prefix + {n} tokens: last logits max |err| "
+            f"{err:.3g}; routing calls {len(routes['cuda'])}, narrow ties "
+            f"{ties}; launches {counts} ({time.perf_counter() - t0:.1f}s)")
+        if not ties and not torch.allclose(last["cuda"], last["cpu"],
+                                           atol=1e-3, rtol=1e-3):
+            raise AssertionError(f"prefill {arch}: logits differ by "
+                                 f"{err:.3g} > 1e-3")
+        need = ["flash_attention"] + ["rmsnorm"] * (cfg.norm == "rms")
+        _check_launched(f"equivalence prefill {arch}", counts, need)
+        if counts["chunk_attention"] or counts["chunk_attention/dense"]:
+            raise AssertionError(f"prefill {arch} ran chunk_attention")
+        res["equivalence"][f"prefill_{arch}"] = {
+            "logits_max_abs_err": err, "rows": B, "prompt": n, "prefix": P,
+            "layers": layers, "narrow_ties": ties, "asserted": not ties,
+            "launches": counts}
         del params, gparams
         torch.cuda.empty_cache()
 
@@ -1753,23 +2038,26 @@ def _serve_engine(kv_quant=False, arch="qwen2-1.5b"):
                               seed=0, device="cuda")
 
 
-def _burst(server, vocab, sampling=None):
-    """Submit the 8 requests (prompts 100-1000 tokens, 64-128 new tokens)
-    and serve them to completion; greedy, or request i with
-    ``sampling(i, max_tokens)``."""
+def _serve_requests(vocab):
+    """The serve burst's 8 requests: (prompt of 100-1000 tokens, 64-128
+    new tokens), seeded."""
     import numpy as np
-    from repro_torch.core import SamplingParams
     rng = np.random.default_rng(0)
     lens = np.linspace(100, 1000, 8).astype(int)
     rng.shuffle(lens)
-    handles = []
-    for i, n in enumerate(lens):
-        prompt = rng.integers(0, vocab, size=int(n))
-        m = int(rng.integers(64, 129))
-        handles.append(server.submit(
-            prompt, SamplingParams(max_tokens=m) if sampling is None
-            else sampling(i, m)))
-    return lens, handles, server.run()
+    return [(rng.integers(0, vocab, size=int(n)), int(rng.integers(64, 129)))
+            for n in lens]
+
+
+def _burst(server, vocab, sampling=None):
+    """Submit the serve burst's 8 requests and serve them to completion;
+    greedy, or request i with ``sampling(i, max_tokens)``."""
+    from repro_torch.core import SamplingParams
+    reqs = _serve_requests(vocab)
+    handles = [server.submit(prompt, SamplingParams(max_tokens=m)
+                             if sampling is None else sampling(i, m))
+               for i, (prompt, m) in enumerate(reqs)]
+    return [len(p) for p, _ in reqs], handles, server.run()
 
 
 def _op_count(fn):
@@ -1910,6 +2198,12 @@ def _counters():
             "paged_decode_attention": (paged_decode_attention, "launches"),
             "paged_decode_attention/q8": (paged_decode_attention,
                                           "q8_launches"),
+            "paged_decode_attention/f32_past": (paged_decode_attention,
+                                                "f32_past_launches"),
+            "chunk_attention/f32_past": (chunk_attention,
+                                         "f32_past_launches"),
+            "chunk_attention/dense_f32_past": (chunk_attention,
+                                               "dense_f32_past_launches"),
             "decode_attention_q8": (decode_attention_q8, "launches")}
 
 
@@ -1976,7 +2270,7 @@ def phase_serve(res, kv_quant=False, path="serve"):
     counts = _launch_counts()
     out_toks = sum(len(h.request.tokens) for h in handles)
     log(rep.summary())
-    log(f"[{path}] {len(handles)} requests, prompts {sorted(lens.tolist())}, "
+    log(f"[{path}] {len(handles)} requests, prompts {sorted(lens)}, "
         f"{out_toks} tokens out in {wall:.2f}s wall = {out_toks / wall:.1f} "
         f"tokens/s; host drains {eng._host_drains}; tokens sha256 "
         f"{_tokens_digest(handles)}; launches {counts}")
@@ -2420,8 +2714,10 @@ ARCH_RUNS = (
 ONLY_ARCHS = None
 # every attention kernel route (a model without attention launches none)
 ATTN_ROUTES = ("decode_attention", "flash_attention", "chunk_attention",
-               "chunk_attention/dense", "paged_decode_attention",
-               "paged_decode_attention/q8", "decode_attention_q8")
+               "chunk_attention/dense", "chunk_attention/f32_past",
+               "chunk_attention/dense_f32_past", "paged_decode_attention",
+               "paged_decode_attention/q8", "paged_decode_attention/f32_past",
+               "decode_attention_q8")
 
 
 def _long_burst(server, vocab):
@@ -2474,8 +2770,10 @@ def _arch_burst(res, path, cfg, eng, burst, need, forbid=()):
                  "preempted": eng._preempted, "prefix_cache": pc,
                  "prompt_tokens": sum(h.request.prompt_len for h in handles),
                  "tokens_sha256": digest,
+                 "tokens": [list(map(int, h.request.tokens))
+                            for h in handles],
                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
-    log(f"[arch] {path}: {cfg.name} {cfg.num_layers} layers, "
+    log(f"[{path.split('_')[0]}] {path}: {cfg.name} {cfg.num_layers} layers, "
         f"{len(handles)} requests, {res[path]['prompt_tokens']} prompt "
         f"tokens, {toks} tokens out in {wall:.2f}s wall = "
         f"{toks / wall:.1f} tokens/s; host drains {eng._host_drains}; "
@@ -2983,11 +3281,398 @@ def phase_cluster(res):
 
 # -- main ---------------------------------------------------------------------------------
 
+# -- phase 12: legacy -------------------------------------------------------------------
+
+def _count_calls(obj, name):
+    """Wrap method ``name`` of ``obj`` (on the instance) to count its
+    calls; returns the one-element count list."""
+    n, orig = [0], getattr(obj, name)
+
+    def counted(*a, **k):
+        n[0] += 1
+        return orig(*a, **k)
+    setattr(obj, name, counted)
+    return n
+
+
+def _lockstep_burst(server, vocab):
+    """8 greedy requests at t=0, each a 512-token prompt (a bucket: no
+    pads) and 64 new tokens, so every decode step has all 8 rows at one
+    position."""
+    import numpy as np
+    from repro_torch.core import SamplingParams
+    rng = np.random.default_rng(5)
+    handles = [server.submit(rng.integers(0, vocab, size=512),
+                             SamplingParams(max_tokens=64)) for _ in range(8)]
+    return handles, server.run()
+
+
+def phase_legacy(res):
+    """The legacy data plane and the eager fallback at full width and
+    depth.  ``legacy_qwen2``: qwen2-1.5b on ``slot_native=False`` (max_batch
+    8, max_len 2048) serves the lockstep burst: one unpadded prefill per
+    request (flash 28 x 8), then one decode step of the whole batch per
+    round at max(pos) (decode_attention 28 a step), no chunk and no paged
+    launch; its tokens must equal the slot-native engine's on the same
+    trace (``legacy_qwen2_slot``: the same kernels on the same shapes, and
+    decode's fixed spans make a row's bits independent of the buffer
+    length), tokens/s of both.  ``legacy_gemma2_fallback``: gemma2-9b at
+    full depth, max_batch 4, max_len 16384, ``chunked_prefill=False``: the
+    long burst's four 4500-8000-token prompts each exceed the 4096 bucket,
+    so each goes through ``_admit_legacy`` (flash over the whole prompt at
+    window 4096, the rings keeping the last 4096 positions): 4 legacy
+    prefills, flash 42 x 4, no chunk_attention; the agreement of its greedy
+    tokens with ``arch_gemma2``'s chunked burst (same prompts) is printed,
+    not asserted: bf16 one-shot and chunked prefill are not the same
+    bits."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+    paged_routes = ("chunk_attention", "chunk_attention/dense",
+                    "paged_decode_attention", "paged_decode_attention/q8",
+                    "paged_decode_attention/f32_past", "decode_attention_q8")
+    cfg = get_config("qwen2-1.5b")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    for path, native in (("legacy_qwen2", False), ("legacy_qwen2_slot", True)):
+        eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
+            max_batch=8, max_len=2048, governor="greenllm",
+            slot_native=native), device="cuda")
+        admits = _count_calls(eng, "_admit_legacy")
+        steps = _count_calls(eng, "_step_legacy")
+        r = _arch_burst(res, path, cfg, eng, _lockstep_burst,
+                        ("rmsnorm", "add_rmsnorm", "flash_attention",
+                         "decode_attention"), paged_routes)
+        r["legacy_prefills"], r["legacy_steps"] = admits[0], steps[0]
+        c = r["launches"]
+        if not native and (admits[0] != 8 or steps[0] != 63
+                           or c["flash_attention"] != cfg.num_layers * 8
+                           or c["decode_attention"]
+                           != cfg.num_layers * steps[0]):
+            raise AssertionError(f"{path}: {admits[0]} legacy prefills, "
+                                 f"{steps[0]} steps, launches {c}")
+        if native and admits[0]:
+            raise AssertionError(f"{path}: the slot-native engine took the "
+                                 "legacy admission")
+        del eng
+    a, b = res["legacy_qwen2"], res["legacy_qwen2_slot"]
+    log(f"[legacy] legacy_qwen2 {a['tokens_per_s']:.1f} tokens/s, "
+        f"slot-native {b['tokens_per_s']:.1f} tokens/s on the same trace; "
+        f"digests {a['tokens_sha256']} {b['tokens_sha256']}")
+    if a["tokens_sha256"] != b["tokens_sha256"]:
+        raise AssertionError("legacy_qwen2: the legacy plane's tokens differ "
+                             "from the slot-native engine's")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("gemma2-9b")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
+        max_batch=4, max_len=16384, governor="greenllm",
+        chunked_prefill=False), device="cuda")
+    admits = _count_calls(eng, "_admit_legacy")
+    r = _arch_burst(res, "legacy_gemma2_fallback", cfg, eng, _long_burst,
+                    ("rmsnorm", "add_rmsnorm", "flash_attention",
+                     "decode_attention"), paged_routes)
+    r["legacy_prefills"] = admits[0]
+    if admits[0] != 4 \
+            or r["launches"]["flash_attention"] != cfg.num_layers * 4:
+        raise AssertionError(f"legacy_gemma2_fallback: {admits[0]} legacy "
+                             f"prefills, launches {r['launches']}")
+    chunked = res.get("arch_gemma2", {}).get("tokens")
+    if chunked:
+        agree = []
+        for x, y in zip(r["tokens"], chunked):
+            same = next((i for i, (u, v) in enumerate(zip(x, y)) if u != v),
+                        min(len(x), len(y)))
+            agree.append(f"{same}/{len(x)}")
+        r["agreement_with_arch_gemma2"] = agree
+        log(f"[legacy] legacy_gemma2_fallback against arch_gemma2's chunked "
+            f"tokens: leading tokens equal per request {agree}; digests "
+            f"{r['tokens_sha256']} {res['arch_gemma2']['tokens_sha256']}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# -- phase 13: prefill ------------------------------------------------------------------
+
+def _decode_greedy(params, cfg, logits, caches, pos, steps, feed=None):
+    """``steps`` greedy decode steps after a prefill's last logits, at a
+    scalar position (every row at ``pos`` + i), each fed the previous
+    step's argmax, or with ``feed`` ((B, steps + 1) tokens) teacher-forced
+    with ``feed[:, i]``; returns the (B, steps + 1) argmax tokens on the
+    host and every step's logits (the prefill's first), float32."""
+    import torch
+    from repro_torch.models import decode_step
+    toks, out = [logits.argmax(-1)], [logits.float()]
+    for i in range(steps):
+        tok = toks[-1] if feed is None else feed[:, i].to(logits.device)
+        logits, caches = decode_step(params, cfg, tok[:, None], caches,
+                                     pos + i)
+        toks.append(logits.argmax(-1))
+        out.append(logits.float())
+    return torch.stack(toks, 1).cpu(), out
+
+
+def _finite_tokens(path, toks, logits, vocab):
+    import torch
+    if not bool(torch.isfinite(logits).all()) or int(toks.min()) < 0 \
+            or int(toks.max()) >= vocab:
+        raise AssertionError(f"{path}: non-finite logits or tokens out of "
+                             "the vocabulary")
+
+
+def phase_prefill(res):
+    """The unpadded ``prefill`` at full width and depth.  ``prefill_llava``:
+    llava-next-mistral-7b (32 layers), B 2, 2880 seeded image-patch
+    embeddings through ``prefix_proj`` and a 512-token prompt into
+    ``init_cache(cfg, 2, 4096)``, then 32 greedy decode steps at a scalar
+    position (``tests/test_arch_smoke.py``'s loop): next_pos 3392, flash
+    32, decode_attention 32 x 32.  ``long_qwen3``: qwen3-14b (40 layers)
+    with ``long_context=True``: every layer a ring of 8192 slots, fed a
+    24576-token prompt (three rings) by one prefill, then 32 greedy decode
+    steps that read and wrap the rings; against its window-restricted twin
+    on the same weights (LOCAL layers, window 8192, in full-length
+    buffers): the prefill logits bit for bit; the twin's free-running
+    tokens and, teacher-forced on the ring's tokens, its logits and argmax
+    per step are printed beside the ring's top-2 logit gap, not asserted:
+    the two decode the same keys in another order, which moves bf16
+    logits by up to ~0.1, and bf16 logits tie exactly at some steps.  Then
+    ``long_qwen3_f32``: the same at 8 layers in float32, where the tokens
+    must be equal and every step's logits within 1e-3.  Prefill and decode
+    times, tokens/s and peak memory printed."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def timed_prefill(path, params, cfg, tokens, caches, pe=None,
+                      feed=None):
+        _reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, caches, pos = prefill(params, cfg, tokens, caches, pe)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, steps = _decode_greedy(params, cfg, logits, caches, pos, 32,
+                                     feed)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = _launch_counts()
+        _finite_tokens(path, toks, steps[-1], cfg.vocab_size)
+        r = {"next_pos": pos, "prefill_s": t1 - t0, "decode_s": t2 - t1,
+             "decode_tokens_per_s": toks.shape[0] * 32 / (t2 - t1),
+             "launches": counts, "tokens": toks.tolist(),
+             "tokens_sha256": hashlib.sha256(json.dumps(
+                 toks.tolist()).encode()).hexdigest()[:16],
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        res[path] = r
+        log(f"[prefill] {path}: {cfg.num_layers} layers, B "
+            f"{tokens.shape[0]}, next_pos {pos}, prefill "
+            f"{r['prefill_s']:.3f}s, 32 decode steps {r['decode_s']:.3f}s "
+            f"= {r['decode_tokens_per_s']:.1f} tokens/s, peak "
+            f"{r['peak_mem_gb']:.1f} GiB, tokens sha256 "
+            f"{r['tokens_sha256']}; launches {counts}")
+        return steps, r
+
+    cfg = get_config("llava-next-mistral-7b")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    P = cfg.num_prefix_embeds
+    pe = torch.randn(2, P, cfg.d_model, generator=g, device="cuda").to(
+        torch.bfloat16)
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 512)), device="cuda")
+    caches = init_cache(cfg, 2, 4096, device="cuda")
+    _, r = timed_prefill("prefill_llava", params, cfg, tokens, caches, pe)
+    c = r["launches"]
+    if r["next_pos"] != P + 512 or c["flash_attention"] != cfg.num_layers \
+            or c["decode_attention"] != 32 * cfg.num_layers \
+            or c["chunk_attention"] or c["chunk_attention/dense"]:
+        raise AssertionError(f"prefill_llava: next_pos {r['next_pos']}, "
+                             f"launches {c}")
+    del params, caches, pe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("qwen3-14b")
+    lcw = cfg.long_context_window
+    n = 3 * lcw
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (1, n)), device="cuda")
+    ring = init_cache(cfg, 1, n + 64, long_context=True, device="cuda")
+    if ring[0][0]["k"].shape[2] != lcw:
+        raise AssertionError(f"long_qwen3: a ring of "
+                             f"{ring[0][0]['k'].shape[2]} slots")
+    steps, r = timed_prefill("long_qwen3", params, cfg, tokens, ring)
+    del ring
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = cfg.replace(block_pattern=("local",), window=lcw)
+    free, tr = timed_prefill("long_qwen3_twin", params, twin, tokens,
+                             init_cache(cfg, 1, n + 64, device="cuda"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    feed = torch.tensor(r["tokens"])
+    forced, _ = timed_prefill("long_qwen3_twin_forced", params, twin, tokens,
+                              init_cache(cfg, 1, n + 64, device="cuda"),
+                              feed=feed)
+    errs = [max_err(a, b) for a, b in zip(steps, forced)]
+    gaps = [float(x.topk(2, dim=-1).values.diff(dim=-1).abs().min())
+            for x in steps]
+    flips = [i for i, (a, b) in enumerate(zip(steps, forced))
+             if not torch.equal(a.argmax(-1), b.argmax(-1))]
+    same = next((i for i, (a, b) in enumerate(zip(r["tokens"][0],
+                                                  tr["tokens"][0]))
+                 if a != b), len(r["tokens"][0]))
+    r["twin_logits_max_abs_err"], r["top2_gaps"] = errs, gaps
+    r["teacher_forced_flips"], r["free_running_equal_prefix"] = flips, same
+    log(f"[prefill] long_qwen3 against its window-{lcw} twin on full "
+        f"buffers: free-running tokens equal for {same} of "
+        f"{len(r['tokens'][0])}; teacher-forced with the ring's tokens, "
+        f"per-step logits max |err| {[round(e, 4) for e in errs]}, argmax "
+        f"differs at steps {flips}; the ring's top-2 logit gap per step "
+        f"{[round(g, 4) for g in gaps]}")
+    _same_bits("long_qwen3", steps[0], forced[0], "the twin's prefill logits")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same comparison in float32 at 8 layers: the rings wrap as at full
+    # depth, and a float32 model's logits move by ~1e-5 with the key order
+    # of a reduction, far below any top-2 gap, so the tokens must be equal
+    cfg = cfg.replace(num_layers=8, dtype="float32")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    f32 = torch.float32
+    steps, r = timed_prefill("long_qwen3_f32", params, cfg, tokens,
+                             init_cache(cfg, 1, n + 64, long_context=True,
+                                        dtype=f32, device="cuda"))
+    gc.collect()
+    tsteps, tr = timed_prefill("long_qwen3_f32_twin", params,
+                               cfg.replace(block_pattern=("local",),
+                                           window=lcw), tokens,
+                               init_cache(cfg, 1, n + 64, dtype=f32,
+                                          device="cuda"))
+    errs = [max_err(a, b) for a, b in zip(steps, tsteps)]
+    r["twin_logits_max_abs_err"] = errs
+    log(f"[prefill] long_qwen3_f32 (8 layers, float32) against its twin: "
+        f"tokens equal {r['tokens'] == tr['tokens']}, per-step logits max "
+        f"|err| {max(errs):.3g}")
+    if r["tokens"] != tr["tokens"]:
+        raise AssertionError("long_qwen3_f32: the ring's tokens differ from "
+                             "the window-restricted twin's")
+    for i, (a, b) in enumerate(zip(steps, tsteps)):
+        if not torch.allclose(a, b, atol=1e-3, rtol=1e-3):
+            raise AssertionError(f"long_qwen3_f32: step {i}'s logits differ "
+                                 f"from the twin's by {errs[i]:.3g} > 1e-3")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# -- phase 14: mixed_dtype ----------------------------------------------------------------
+
+def phase_mixed_dtype(res):
+    """Fault C2 end to end: bf16 models with ``cache_dtype="float32"``,
+    greedy, each burst on the dense engine and on the paged engine with a
+    dense-equivalent pool and no prefix cache (it never preempts); the
+    paged tokens must equal the dense ones (decode and chunk keep fixed key
+    spans, and the float32 past rounds to the same bf16 in both).
+    ``mixed_dtype_dense`` / ``_paged``: qwen2-1.5b at full width and depth
+    (max_batch 8, max_len 2048) serves the serve burst: dense decode casts
+    the float32 rows, paged decode reads the float32 pool through its
+    float32-past route.  qwen2's prompts never chunk there (a prompt is cut
+    to max_len / 2, the largest bucket), so ``mixed_dtype_gemma2_dense`` /
+    ``_paged``: gemma2-9b at full width and depth (max_batch 4, max_len
+    16384) serves the long burst, whose prompts chunk into the 4096-slot
+    rings through chunk_attention's float32 dense-row route and, on the
+    paged engine, into the pooled full layers through its float32 chain
+    route.  Tokens/s of each."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig, ServingEngine
+    bf16_routes = ("paged_decode_attention", "chunk_attention",
+                   "chunk_attention/dense")
+    for arch, tag, ekw, burst in (
+            ("qwen2-1.5b", "mixed_dtype", dict(max_batch=8, max_len=2048),
+             _burst),
+            ("gemma2-9b", "mixed_dtype_gemma2",
+             dict(max_batch=4, max_len=16384), _long_burst)):
+        cfg = get_config(arch)
+        params = init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+        chunks = arch == "gemma2-9b"
+        for paged in (False, True):
+            path = f"{tag}_paged" if paged else f"{tag}_dense"
+            eng = ServingEngine(cfg, params=params, ecfg=EngineConfig(
+                governor="greenllm", cache_dtype="float32", paged=paged,
+                **ekw), device="cuda")
+            need = ["rmsnorm", "add_rmsnorm"]
+            if paged:
+                need += ["paged_decode_attention/f32_past"]
+                need += ["chunk_attention/f32_past", "decode_attention",
+                         "chunk_attention/dense_f32_past"] * chunks
+                need += ["flash_attention"] * (not chunks)
+            else:
+                need += ["decode_attention"]
+                need += (["chunk_attention/dense_f32_past"] if chunks
+                         else ["flash_attention"])
+            r = _arch_burst(res, path, cfg, eng, burst, need,
+                            bf16_routes + ("decode_attention",)
+                            * (paged and not chunks))
+            if r["preempted"]:
+                raise AssertionError(f"{path}: preempted {r['preempted']}")
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = res[f"{tag}_dense"], res[f"{tag}_paged"]
+        log(f"[mixed_dtype] {arch} float32 caches under bf16: dense "
+            f"{a['tokens_sha256']} ({a['tokens_per_s']:.1f} tokens/s), paged "
+            f"{b['tokens_sha256']} ({b['tokens_per_s']:.1f} tokens/s)")
+        if a["tokens_sha256"] != b["tokens_sha256"]:
+            diff = [i for i, (x, y) in enumerate(zip(a["tokens"],
+                                                     b["tokens"])) if x != y]
+            raise AssertionError(f"{tag}: paged and dense engines differ on "
+                                 f"requests {diff}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def gpu_name_and_limit():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+# the keys of a kernel's entry in the printed line; the per-path launches
+# and the other routes' cases stay in chip_smoke.json, keeping the line short
+LINE_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+
+
+def _line_entry(k):
+    """A kernel's entry of the printed line: LINE_KEYS, its launches summed
+    by route, and the ms of each other route's timed case."""
+    by_route = {}
+    for counts in k["launches_by_path"].values():
+        for r, n in counts.items():
+            by_route[r] = by_route.get(r, 0) + n
+    routes = {r: k[r]["ms"] for r in ("q8_route", "f32_past_route",
+                                      "f32_past_dense_route") if k.get(r)}
+    return {**{key: k[key] for key in LINE_KEYS},
+            "launches_by_route": by_route, "routes_ms": routes}
 
 
 def main(argv=None):
@@ -3040,7 +3725,8 @@ def main(argv=None):
            "paged_vs_dense": phase_paged_vs_dense,
            "sampling": phase_sampling, "observability": phase_observability,
            "arch": phase_arch, "cluster": phase_cluster,
-           "profile": phase_profile}
+           "legacy": phase_legacy, "prefill": phase_prefill,
+           "mixed_dtype": phase_mixed_dtype, "profile": phase_profile}
     for p in phases:
         t0 = time.perf_counter()
         fns[p](res)
@@ -3068,14 +3754,18 @@ def main(argv=None):
             "library_ms": c.get("library_ms"), "shape": c.get("shape"),
             "dense_kernel_ms": c.get("dense_kernel_ms"),
             "bf16_kernel_ms": c.get("bf16_kernel_ms"),
-            "q8_route": c.get("q8_route"), "span_ms": c.get("span_ms"),
+            "q8_route": c.get("q8_route"),
+            "f32_past_route": c.get("f32_past_route"),
+            "f32_past_dense_route": c.get("f32_past_dense_route"),
+            "span_ms": c.get("span_ms"),
             "library": c.get("library")})
     out_dir = ROOT / args.out
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {**res, "kernels": kernels}, indent=1, default=str))
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels, "card": card}), flush=True)
+    print(json.dumps({"kernels": [_line_entry(k) for k in kernels],
+                      "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

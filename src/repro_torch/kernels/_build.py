@@ -29,8 +29,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
-# element-type codes understood by every C entry point (csrc/common.cuh)
+# element-type codes understood by every C entry point (csrc/common.cuh);
+# a stored K/V past may also be int8 (kI8)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+PAST_CODES = {**DTYPE_CODES, torch.int8: 2}
+# a past of another float type than q's that a kernel reads as it is,
+# rounding each loaded row to q's dtype: float32 caches under a bf16 model
+ROUNDED_PAST = {torch.bfloat16: (torch.float32,)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -12,9 +12,11 @@ the pool and dequantized to q's dtype), or its row of a dense cache
 (``cache_row_kv_arrays``; a ring buffer when shorter than the context, its
 positions from ``ring_slot_positions``).  The kernel reads the past where
 it lives: through the page-table row, or at the row's ring slots; nothing
-is gathered and nothing is concatenated.  On CPU tensors the wrapper
-computes the plain version; on CUDA tensors it launches the kernel or
-raises.
+is gathered and nothing is concatenated.  A float32 past under a bfloat16
+q (a bf16 model with float32 caches) is rounded to bf16 row by row as the
+kernel loads it, the bits of the reference's cast, without a copy.  On CPU
+tensors the wrapper computes the plain version; on CUDA tensors it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -26,9 +28,12 @@ from . import _build
 from .ref import reference_chunk_attention
 
 # kernel launches by ``chunk_attention`` over a page chain and over a dense
-# row (plain-version calls not counted)
+# row, each with a past of q's dtype (or int8), or float32 under a bf16 q
+# (plain-version calls not counted)
 launches = 0
 dense_launches = 0
+f32_past_launches = 0
+dense_f32_past_launches = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = ((_P,) * 10 + (_I,) * 10 + (_L,) * 12 + (_F, _F, _I, _I, _I, _I,
@@ -94,11 +99,12 @@ def chunk_attention(q, k, v, k_past, v_past, page_table, start: int,
     The past: with ``page_table`` (1,n_pages) int32 covering positions
     below start, pools k_past, v_past (P,ps,KH,hd); with ``page_table``
     None, the stream's dense rows k_past, v_past (buf_len,KH,hd), position
-    p at slot p % buf_len.  Either in q's dtype, or int8 with k_scale,
-    v_scale (...,KH,1) float32.  ``window`` > 0 bounds each query's
+    p at slot p % buf_len.  Either in q's dtype (or float32 under a bf16
+    q), or int8 with k_scale, v_scale (...,KH,1) float32.  ``window`` > 0 bounds each query's
     lookback, ``softcap`` > 0 caps the logits -> (1,S,Hq,hd).  bf16 splits
     the keys in spans of ``SPAN``."""
-    global launches, dense_launches
+    global launches, dense_launches, f32_past_launches, \
+        dense_f32_past_launches
     start, length = int(start), int(length)
     if q.device.type == "cpu":
         return chunk_attention_plain(q, k, v, k_past, v_past, page_table,
@@ -132,11 +138,14 @@ def chunk_attention(q, k, v, k_past, v_past, page_table, start: int,
                 or k_scale.stride() != v_scale.stride():
             raise TypeError("chunk_attention: an int8 past needs both "
                             "scales, float32 (..., KH, 1) with one layout")
-    elif k_past.dtype != q.dtype or v_past.dtype != q.dtype:
-        raise TypeError(f"chunk_attention: q {q.dtype} and past "
-                        f"{k_past.dtype} {v_past.dtype} differ (an int8 past "
-                        "needs k_scale and v_scale)")
+    elif v_past.dtype != k_past.dtype or k_past.dtype not in (
+            q.dtype, *_build.ROUNDED_PAST.get(q.dtype, ())):
+        raise TypeError(f"chunk_attention: past {k_past.dtype} "
+                        f"{v_past.dtype} under q {q.dtype} (a past of q's "
+                        "dtype, float32 under bfloat16, or int8 with k_scale "
+                        "and v_scale)")
     code = _build.dtype_code(q)
+    rounded = not q8 and k_past.dtype != q.dtype
     if Hq % KH or hd not in HEAD_DIMS:
         raise ValueError(f"chunk_attention: Hq={Hq}, KH={KH}, hd={hd} not "
                          f"supported (hd in {HEAD_DIMS})")
@@ -180,10 +189,14 @@ def chunk_attention(q, k, v, k_past, v_past, page_table, start: int,
              KH, G, hd, span, spans, q.stride(1), q.stride(2), k.stride(1),
              k.stride(2), v.stride(1), v.stride(2), *p_st, *s_st,
              float(scale), float(softcap), int(window), buf_len, code,
-             int(q8), _build.stream_handle())
+             _build.PAST_CODES[k_past.dtype], _build.stream_handle())
     _build.raise_on_error("chunk_attention", err)
-    if dense:
+    if dense and rounded:
+        dense_f32_past_launches += 1
+    elif dense:
         dense_launches += 1
+    elif rounded:
+        f32_past_launches += 1
     else:
         launches += 1
     return out

@@ -61,6 +61,11 @@
 //   int8, multiplied by its scale in float32 and rounded to bf16, which is
 //   dequantize_kv (models/kvcache.py) exactly, then stored into the stage;
 //   the raw chunk stays bf16, as in the reference.
+// - float32 past (a bf16 model with float32 caches): a past row is loaded
+//   as float32 and rounded to bf16 on its way into the stage, which is the
+//   reference's cast of the gathered chain or row to q's dtype without a
+//   copy of the pool; every later step is the bf16 route's, so a launch
+//   equals the bf16 route on the cast past, bit for bit.
 //
 // float32 q (`fma` below): the FMA step of flash_tile.cuh with the same
 // rows, sources and bounds (an int8 past dequantized to float32), one span.
@@ -126,8 +131,9 @@ namespace tc {
 using namespace rt::flash::tc;
 
 // 16-byte chunk ch (8 elements) of a past key row into shared memory: a
-// cp.async of bf16, or int8 dequantized as dequantize_kv does (float32
-// product with the scale, rounded once to bf16).
+// cp.async of bf16, int8 dequantized as dequantize_kv does (float32
+// product with the scale, rounded once to bf16), or float32 rounded to
+// bf16 (a cast).
 template <typename E>
 __device__ __forceinline__ void stage_past(bf16* dst, const void* pool,
                                            const float* scales, long long ro,
@@ -146,6 +152,8 @@ __device__ __forceinline__ void stage_past(bf16* dst, const void* pool,
       w[i] = *reinterpret_cast<const uint32_t*>(&h);
     }
     *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (std::is_same<E, float>::value) {
+    round8_bf16(dst, static_cast<const float*>(pool) + ro + ch * 8);
   } else {
     cp_async16(dst, static_cast<const bf16*>(pool) + ro + ch * 8);
   }
@@ -487,8 +495,9 @@ int dispatch_hd(int hd, const Args& a, cudaStream_t s) {
 
 // q: (S, Hq, hd) with strides (q_ss, q_sh, 1); k, v: the raw chunk (S, KH,
 // hd) with strides (k_ss, k_sh, 1), (v_ss, v_sh, 1), in q's dtype.  The
-// past, in q's dtype or, with pool_i8, int8 with k_scale, v_scale float32
-// (..., KH, 1) with strides (s_sp, s_ss, s_sh, 1):
+// past, of element type `past` (a dtype code): q's; float32 under a
+// bfloat16 q (rounded to bf16 as it is staged); or kI8, int8 with k_scale,
+// v_scale float32 (..., KH, 1) with strides (s_sp, s_ss, s_sh, 1):
 // - buf_len 0: k_pool, v_pool (P, ps, KH, hd) with strides (p_sp, p_ss,
 //   p_sh, 1), read through table, the stream's page ids, int32,
 //   contiguous, covering positions 0 .. start-1 (n_pages of them);
@@ -511,7 +520,7 @@ extern "C" int chunk_attention_launch(
     long long v_ss, long long v_sh, long long p_sp, long long p_ss,
     long long p_sh, long long s_sp, long long s_ss, long long s_sh,
     float scale, float softcap, int window, int buf_len, int dtype,
-    int pool_i8, void* stream) {
+    int past, void* stream) {
   const bool dense = buf_len > 0;
   const int n_past_pages = dense ? 0 : ps > 0 ? (start + ps - 1) / ps : -1;
   const bool split = dtype == kBF16;
@@ -520,7 +529,7 @@ extern "C" int chunk_attention_launch(
       window < 0 || buf_len < 0 || (!dense && (ps < 1 || !table)) ||
       n_past_pages > n_pages || (split ? span < 64 || span % 64 || !part
                                        : span != 0) ||
-      spans != want || (pool_i8 && (!k_scale || !v_scale)))
+      spans != want || (past == kI8 && (!k_scale || !v_scale)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Bounds bd{start, length, window,
                   dense && start > buf_len ? start - buf_len : 0};
@@ -532,11 +541,13 @@ extern "C" int chunk_attention_launch(
                S, bd, n_past_pages, KH, G, span, spans,
                q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, scale, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    return pool_i8 ? dispatch_hd<__nv_bfloat16, int8_t>(hd, a, s)
-                   : dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, a, s);
-  if (dtype == kF32)
-    return pool_i8 ? dispatch_hd<float, int8_t>(hd, a, s)
-                   : dispatch_hd<float, float>(hd, a, s);
+  if (dtype == kBF16) {
+    if (past == kBF16) return dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, a, s);
+    if (past == kF32) return dispatch_hd<__nv_bfloat16, float>(hd, a, s);
+    if (past == kI8) return dispatch_hd<__nv_bfloat16, int8_t>(hd, a, s);
+  } else if (dtype == kF32) {
+    if (past == kF32) return dispatch_hd<float, float>(hd, a, s);
+    if (past == kI8) return dispatch_hd<float, int8_t>(hd, a, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

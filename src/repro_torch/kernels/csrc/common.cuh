@@ -14,8 +14,9 @@
 
 namespace rt {
 
-// dtype codes, mirrored by repro_torch.kernels._build.DTYPE_CODES
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// dtype codes, mirrored by repro_torch.kernels._build.DTYPE_CODES; int8
+// only for a stored K/V past (_build.PAST_CODES)
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 // masked logit, the same constant the Pallas kernels use
 constexpr float kNegInf = -1e30f;
@@ -46,6 +47,24 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
     out[2 * i] = __uint_as_float(w[i] << 16);
     out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
+}
+
+// Eight float32 values at src (16-byte aligned) rounded to bfloat16 to
+// nearest even, the bits of a float32 -> bfloat16 cast, and stored as one
+// 16-byte vector at dst: a float32 K/V past read under a bfloat16 query
+// (the reference casts the gathered past to q's dtype) without a copy.
+__device__ __forceinline__ void round8_bf16(__nv_bfloat16* dst,
+                                            const float* src) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 b = *reinterpret_cast<const float4*>(src + 4);
+  const __nv_bfloat162 h[4] = {
+      __floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
+      __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(*reinterpret_cast<const uint32_t*>(&h[0]),
+                 *reinterpret_cast<const uint32_t*>(&h[1]),
+                 *reinterpret_cast<const uint32_t*>(&h[2]),
+                 *reinterpret_cast<const uint32_t*>(&h[3]));
 }
 
 // int8 values widened to float32 (exact): 16 from a 16-byte vector, 8 from

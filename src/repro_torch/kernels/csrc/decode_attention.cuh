@@ -49,8 +49,14 @@
 // of 1024 or 2048 slots (the extra spans are empty and skipped), and in a
 // dense cache or a page chain (both walk key index = position).
 //
-// Stored keys (Keys::Elem) are float32, bfloat16 or int8; q and the output
-// are float32 or bfloat16 (T).  Int8 keys (Keys::kScaled) carry one float32
+// Staged keys (Keys::Elem) are float32, bfloat16 or int8; q and the output
+// are float32 or bfloat16 (T).  A float32 past under a bfloat16 query
+// (Keys::Src float, Elem bfloat16: a bf16 model with float32 caches) is
+// loaded through registers and rounded to bf16 on its way into the stage,
+// which gives the bits of the reference's cast of the gathered past to q's
+// dtype without a copy of the pool; everything after the stage is the
+// bf16 route's, so such a launch equals the bf16 kernel on the cast past,
+// bit for bit.  Int8 keys (Keys::kScaled) carry one float32
 // scale per (key, kv head) for K and for V, staged into shared memory in the
 // same cp.async group as their rows.  The scales are factored out of the
 // sums: a score is (sum_d q_d * k_d) * k_scale * softmax_scale over the raw
@@ -63,12 +69,15 @@
 // is decided; spans, chunking, staging and arithmetic are this one body.
 //
 // A policy provides, for batch row b with query position qp:
-//   Elem, kScaled         the stored element type; int8 with scales or not
+//   Elem, kScaled         the staged element type; int8 with scales or not
+//   Src, kRound           the stored element type; float32 rounded to bf16
 //   int  len()            the walk: key indices 0 .. len() - 1
 //   bool valid(b, qp, j)  key j is attended
-//   const Elem* k_row(b, kh, j), v_row(b, kh, j)   16-byte aligned rows
+//   const Src* k_row(b, kh, j), v_row(b, kh, j)   16-byte aligned rows
 //   const float* k_scale(b, kh, j), v_scale(b, kh, j)   (kScaled only)
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -165,16 +174,22 @@ struct PagedRows {
   }
 };
 
-// The Keys policy of the body: K/V rows of element type S found through
-// Rows, and with Scaled their float32 scales (..., KH, 1), found the same
-// way with their own strides.
-template <typename S, class Rows, bool Scaled = false>
+// The Keys policy of the body: K/V rows of element type Src found through
+// Rows and staged as S (Src float and S bfloat16: rounded on load), and
+// with Scaled their float32 scales (..., KH, 1), found the same way with
+// their own strides.
+template <typename S, class Rows, bool Scaled = false, typename Src = S>
 struct Cache {
   using Elem = S;
+  using Source = Src;
   static constexpr bool kScaled = Scaled;
+  static constexpr bool kRound = !std::is_same<S, Src>::value;
+  static_assert(!kRound || (std::is_same<S, __nv_bfloat16>::value &&
+                            std::is_same<Src, float>::value && !Scaled),
+                "only a float32 past is rounded, to bfloat16");
   Rows rows;
-  const S* k;
-  const S* v;
+  const Src* k;
+  const Src* v;
   Strides k_st, v_st;
   const float* k_s = nullptr;
   const float* v_s = nullptr;
@@ -184,10 +199,10 @@ struct Cache {
   __device__ __forceinline__ bool valid(int b, int qp, int j) const {
     return rows.valid(b, qp, j);
   }
-  __device__ __forceinline__ const S* k_row(int b, int kh, int j) const {
+  __device__ __forceinline__ const Src* k_row(int b, int kh, int j) const {
     return k + rows.at(b, kh, j, k_st);
   }
-  __device__ __forceinline__ const S* v_row(int b, int kh, int j) const {
+  __device__ __forceinline__ const Src* v_row(int b, int kh, int j) const {
     return v + rows.at(b, kh, j, v_st);
   }
   __device__ __forceinline__ const float* k_scale(int b, int kh, int j) const {
@@ -273,8 +288,17 @@ decode_kernel(const T* __restrict__ q, const int* __restrict__ q_pos,
     for (int idx = t; idx < CK * VPR; idx += kThreads) {
       const int j = idx / VPR, s = idx % VPR;
       if (c0 + j >= first && c0 + j <= last) {
-        cp_async16(kd + j * HD + (s ^ C::swz(j)) * N, keys.k_row(b, kh, c0 + j) + s * N);
-        cp_async16(vd + j * HD + s * N, keys.v_row(b, kh, c0 + j) + s * N);
+        S* kdst = kd + j * HD + (s ^ C::swz(j)) * N;
+        S* vdst = vd + j * HD + s * N;
+        if constexpr (Keys::kRound) {
+          // float32 through registers: a plain store, visible after the
+          // block sync that precedes the chunk's use, as the copies are
+          round8_bf16(kdst, keys.k_row(b, kh, c0 + j) + s * N);
+          round8_bf16(vdst, keys.v_row(b, kh, c0 + j) + s * N);
+        } else {
+          cp_async16(kdst, keys.k_row(b, kh, c0 + j) + s * N);
+          cp_async16(vdst, keys.v_row(b, kh, c0 + j) + s * N);
+        }
       }
     }
     if constexpr (kScaled) {

@@ -18,8 +18,12 @@
 //
 // Bound, design and arithmetic: decode_attention.cuh, the body shared with
 // the dense kernel, so a context laid out as a page chain gives outputs
-// bitwise equal to the same context in a dense cache.  The pool must have
-// q's dtype (the wrapper raises otherwise): no per-step cast of the pool.
+// bitwise equal to the same context in a dense cache.  The pool has q's
+// dtype, or is float32 under a bfloat16 q (a bf16 model with float32
+// caches): its rows are rounded to bf16 as they are staged, which is the
+// reference's cast of the gathered chain to q's dtype
+// (transformer.py::_apply_attn, paged decode) without a per-step copy of
+// the pool, and gives the bf16 route's bits on the cast pool.
 // An int8 pool with its scales (kv_quant) takes the int8 route below, the
 // body of decode_attention_q8.cu; the reference has no paged int8 kernel
 // (XLA gathers and dequantizes, models/kvcache.py::paged_cache_kv_arrays).
@@ -34,15 +38,18 @@ using namespace rt;
 // int32 with strides (pt_sb, 1); q_pos: (B,) int32 contiguous; out:
 // (B, Hq, hd) contiguous; part: float32 scratch of B*KH*spans*G*(hd+2)
 // elements, spans = decode::n_spans(n_pages*ps).  Strides are in elements.
-// Requires G = Hq/KH <= 16, hd in {64, 128, 256} and 16-byte aligned pool
-// rows.  Returns the CUDA error code.
+// dtype is q's and the output's code, kv_dtype the pools' (kv_dtype kF32
+// under dtype kBF16: the rounding route).  Requires G = Hq/KH <= 16, hd in
+// {64, 128, 256} and 16-byte aligned pool rows.  Returns the CUDA error
+// code.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* q_pos, void* out, void* part,
     int spans, int B, int n_pages, int ps, int KH, int G, int hd,
     long long q_sb, long long q_sh,
     long long pt_sb, long long p_sp, long long p_ss, long long p_sh,
-    int window, float scale, float softcap, int dtype, void* stream) {
+    int window, float scale, float softcap, int dtype, int kv_dtype,
+    void* stream) {
   if (G < 1 || G > decode::kMaxG || ps < 1 ||
       spans != decode::n_spans((long long)n_pages * ps))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -50,6 +57,15 @@ extern "C" int paged_decode_attention_launch(
   const decode::PagedRows rows{static_cast<const int*>(page_table), n_pages,
                                ps, window, pt_sb};
   const decode::Strides st{p_sp, p_ss, p_sh};
+  if (dtype == kBF16 && kv_dtype == kF32) {
+    using T = __nv_bfloat16;
+    const decode::Cache<T, decode::PagedRows, false, float> keys{
+        rows, static_cast<const float*>(k_pool),
+        static_cast<const float*>(v_pool), st, st};
+    return decode::dispatch_hd<T>(hd, q, q_pos, out, part, spans, B, KH, G,
+                                  q_sb, q_sh, scale, softcap, keys, s);
+  }
+  if (kv_dtype != dtype) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBF16) {
     using T = __nv_bfloat16;
     const decode::Cache<T, decode::PagedRows> keys{

@@ -10,6 +10,13 @@ valid when j <= q_pos and inside the window.  On CPU tensors the wrapper
 computes the plain version; on CUDA tensors it launches the kernel or
 raises.
 
+Float pools have q's dtype, or are float32 under a bfloat16 q (a bf16
+model with float32 caches): the kernel then rounds each row it loads to
+bf16, which is the reference's cast of the gathered chain to q's dtype
+(``paged_cache_kv_arrays(..., q.dtype)``) without a copy of the pool, and
+gives the bf16 route's bits on the cast pool.  Those launches are counted
+apart (``f32_past_launches``).
+
 Int8 pools (``kv_quant``) come with their float32 scales k_scale, v_scale
 (P, ps, KH, 1); the kernel then runs its int8 route, the body of
 ``decode_attention_q8`` with page-table addressing, so a context laid out
@@ -28,13 +35,15 @@ from . import _build
 from .decode_attention import scratch
 from .ref import paged_decode_attention_ref
 
-# kernel launches by ``paged_decode_attention`` over float pools and over
-# int8 pools (plain-version calls not counted)
+# kernel launches by ``paged_decode_attention`` over pools of q's dtype,
+# over float32 pools under a bf16 q and over int8 pools (plain-version
+# calls not counted)
 launches = 0
+f32_past_launches = 0
 q8_launches = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = ((_P,) * 7 + (_I,) * 7 + (_L,) * 6 + (_I, _F, _F, _I, _P))
+_ARGTYPES = ((_P,) * 7 + (_I,) * 7 + (_L,) * 6 + (_I, _F, _F, _I, _I, _P))
 _Q8_ARGTYPES = ((_P,) * 9 + (_I,) * 7 + (_L,) * 9 + (_I, _F, _F, _I, _P))
 MAX_GROUP = 16      # query heads per kv head the kernel holds
 HEAD_DIMS = (64, 128, 256)
@@ -62,11 +71,12 @@ def paged_decode_attention_plain(q, k_pool, v_pool, page_table, q_pos, *,
 def paged_decode_attention(q, k_pool, v_pool, page_table, q_pos, *,
                            window: int = 0, softcap: float = 0.0, scale=None,
                            k_scale=None, v_scale=None):
-    """q (B,1,Hq,hd); k_pool, v_pool (P,ps,KH,hd) contiguous, in q's dtype,
-    or int8 with k_scale, v_scale (P,ps,KH,1) float32 contiguous;
+    """q (B,1,Hq,hd); k_pool, v_pool (P,ps,KH,hd) contiguous, in q's dtype
+    (or float32 under a bf16 q), or int8 with k_scale, v_scale (P,ps,KH,1)
+    float32 contiguous;
     page_table (B,n_pages) int32; q_pos (B,) int32 -> (B,1,Hq,hd).
     ``softcap`` > 0 caps the logits."""
-    global launches, q8_launches
+    global launches, f32_past_launches, q8_launches
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pool, v_pool, page_table, q_pos, window=window,
@@ -82,9 +92,10 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, q_pos, *,
         raise ValueError(f"paged_decode_attention: shapes q {tuple(q.shape)} "
                          f"pools {tuple(k_pool.shape)} {tuple(v_pool.shape)} "
                          f"page_table {tuple(page_table.shape)}")
-    # the kernel reads the pool as it is: a pool of another dtype would need
-    # a cast of the whole pool on every step, so it is refused; int8 pools
-    # only with both their float32 scales
+    # the kernel reads the pool as it is (a float32 pool under a bf16 q is
+    # rounded as it is loaded): any other pair would need a cast of the
+    # whole pool on every step, so it is refused; int8 pools only with
+    # both their float32 scales
     if q8:
         if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8 \
                 or any(s is None or s.dtype != torch.float32
@@ -94,11 +105,14 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, q_pos, *,
                             "int8 pools and both scales, float32 (P, ps, KH, "
                             f"1) contiguous; got pools {k_pool.dtype} "
                             f"{v_pool.dtype}")
-    elif k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"paged_decode_attention: q {q.dtype} and pools "
-                        f"{k_pool.dtype} {v_pool.dtype} differ (int8 pools "
-                        "need k_scale and v_scale)")
+    elif v_pool.dtype != k_pool.dtype or k_pool.dtype not in (
+            q.dtype, *_build.ROUNDED_PAST.get(q.dtype, ())):
+        raise TypeError(f"paged_decode_attention: pools {k_pool.dtype} "
+                        f"{v_pool.dtype} under q {q.dtype} (pools of q's "
+                        "dtype, float32 under bfloat16, or int8 with "
+                        "k_scale and v_scale)")
     code = _build.dtype_code(q)
+    rounded = not q8 and k_pool.dtype != q.dtype
     if Hq % KH or Hq // KH > MAX_GROUP or hd not in HEAD_DIMS:
         raise ValueError(f"paged_decode_attention: Hq={Hq}, KH={KH}, hd={hd} "
                          f"not supported (Hq/KH <= {MAX_GROUP}, hd in "
@@ -122,24 +136,27 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, q_pos, *,
     geom = (part.data_ptr(), spans, B, n_pages, ps, KH, Hq // KH, hd,
             q.stride(0), q.stride(2), page_table.stride(0), k_pool.stride(0),
             k_pool.stride(1), k_pool.stride(2))
-    tail = (int(window), float(scale), float(softcap), code,
-            _build.stream_handle())
+    tail = (int(window), float(scale), float(softcap), code)
     if q8:
         fn = _build.function("paged_decode_attention",
                              "paged_decode_attention_q8_launch", _Q8_ARGTYPES)
         err = fn(q.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(),
                  v_pool.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
                  q_pos.data_ptr(), out.data_ptr(), *geom, k_scale.stride(0),
-                 k_scale.stride(1), k_scale.stride(2), *tail)
+                 k_scale.stride(1), k_scale.stride(2), *tail,
+                 _build.stream_handle())
     else:
         fn = _build.function("paged_decode_attention",
                              "paged_decode_attention_launch", _ARGTYPES)
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  page_table.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
-                 *geom, *tail)
+                 *geom, *tail, _build.dtype_code(k_pool),
+                 _build.stream_handle())
     _build.raise_on_error("paged_decode_attention", err)
     if q8:
         q8_launches += 1
+    elif rounded:
+        f32_past_launches += 1
     else:
         launches += 1
     return out[:, None]

@@ -10,8 +10,8 @@ entries at ``slot = position % buf_len`` and reconstruct absolute positions
 arithmetically for masking.  Where the JAX reference returns updated
 buffers (and the serving engine donates the old ones so XLA updates them in
 place), the port writes into the given buffers in place: ``index_put_`` for
-per-row decode writes and a chunk's ring slots, slice assignment for a
-prefill row.  The write lands
+per-row decode writes and the ring slots of a chunk or a prompt, slice
+assignment for a prefill row.  The write lands
 in the base tensor even when the leaf is a view (a layer of a stacked cache,
 or the ``[:, :ctx]`` slice of a decode block).
 
@@ -109,11 +109,13 @@ def state_row_slot(batch_cache: Dict, slot: int) -> Dict:
     return {k: v[slot:slot + 1] for k, v in batch_cache.items()}
 
 
-def state_write_slot(batch_cache: Dict, one_cache: Dict, slot: int) -> Dict:
+def state_write_slot(batch_cache: Dict, one_cache: Dict, slot) -> Dict:
     """Copy a one-row recurrent state into row ``slot`` of the batch state,
-    in place, cast to each leaf's dtype."""
+    or, with ``slot`` None, a whole batch's state into every row, in place,
+    cast to each leaf's dtype."""
+    rows = slice(None) if slot is None else slice(slot, slot + 1)
     for k, v in batch_cache.items():
-        v[slot:slot + 1] = one_cache[k].to(v.dtype)
+        v[rows] = one_cache[k].to(v.dtype)
     return batch_cache
 
 
@@ -178,6 +180,22 @@ def cache_kv_arrays(cache: Dict, dtype=torch.bfloat16):
         return (dequantize_kv(cache["k"], cache["k_s"], dtype),
                 dequantize_kv(cache["v"], cache["v_s"], dtype))
     return cache["k"].to(dtype), cache["v"].to(dtype)
+
+
+def cache_write_prefill(cache: Dict, k_seq, v_seq) -> Dict:
+    """Write a prefill sequence (B, S, KH, hd) into a fresh batch buffer
+    (B, buf_len, KH, hd), in place (quantized first in an int8 cache).
+    Position p lands at slot p % buf_len: the prompt's slots 0..S-1, or,
+    when S > buf_len (a ring shorter than the prompt), only the last
+    buf_len positions at their ring slots, as the reference keeps them."""
+    S = k_seq.shape[1]
+    buf_len = cache["k"].shape[1]
+    first = max(0, S - buf_len)
+    slots = torch.remainder(torch.arange(first, S, device=k_seq.device),
+                            buf_len)
+    for name, val in _writes(cache, k_seq[:, first:], v_seq[:, first:]):
+        cache[name][:, slots] = val.to(cache[name].dtype)
+    return cache
 
 
 def cache_write_prefill_slot(cache: Dict, k_seq, v_seq, slot: int) -> Dict:

@@ -197,8 +197,8 @@ def init_embed(gen, cfg: ModelConfig, dtype):
         p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                   cfg.d_model, dtype)
     if cfg.num_prefix_embeds:
-        # the reference's tree; the slot-native engine takes no prefix
-        # embeddings, so nothing reads it yet (ROADMAP A9.8)
+        # projects prefix embeddings (image patches, conditioning frames)
+        # into the residual stream; only the unpadded ``prefill`` takes them
         p["prefix_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model),
                                       cfg.d_model, dtype)
     return p

@@ -15,14 +15,17 @@ stacked over its repeat count, plus a tail when the depth is not a
 multiple of it, every parameter and cache leaf with a leading ``n_rep``
 axis.  The reference's ``lax.scan`` over that axis is a loop over the
 stacked slices here.  Entry
-points: ``prefill_into_slot`` (one bucket-padded prompt written into one
+points: ``prefill`` (B unpadded prompts, after their prefix embeddings
+when the model has them, into fresh batch caches), ``prefill_into_slot``
+(one bucket-padded prompt written into one
 row of the batch cache, or into its page chain), ``prefill_chunk_into_slot``
 (one chunk of a chunked prefill into a page chain or a dense row, ring
 buffers included) and ``decode_step`` (one token per row at per-row
 positions, dense or through a page table).  Caches are updated in place
 and returned for parity with the reference.  ``sample_tokens_batched``
 draws one token per row with per-row sampling lanes, as the reference's
-does with the same keys; it is PyTorch operators, as it is XLA there.
+does with the same keys, and ``sample_tokens`` one batch with one key; they
+are PyTorch operators, as they are XLA there.
 
 A LOCAL layer attends within ``cfg.window``; a FULL layer whose dense
 buffer is shorter than ``cfg.max_seq`` (a long-context ring) within the
@@ -292,12 +295,17 @@ def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
     elif mode == "prefill":
         # slot-native: this prompt's K/V go into one row of the batch cache
         # (pads included, hidden by the position mask) or into its page
-        # chain (pads dropped: their pages may not be allocated); attention
-        # reads the fresh K/V, not the cache
+        # chain (pads dropped: their pages may not be allocated); unpadded
+        # (``slot`` None): B prompts into a fresh batch cache, a ring
+        # keeping the last buf_len positions.  Attention reads the fresh
+        # K/V, not the cache
         if KV.is_paged(cache):
             KV.paged_cache_write_chunk(cache, k, v, page_table[0], 0, length)
         else:
-            KV.cache_write_prefill_slot(cache, k, v, slot)
+            if slot is None:
+                KV.cache_write_prefill(cache, k, v)
+            else:
+                KV.cache_write_prefill_slot(cache, k, v, slot)
             buf_len = cache["k"].shape[1]
             if window == 0 and buf_len < S:
                 window = buf_len
@@ -324,7 +332,8 @@ def _freeze_inactive(cache: Dict, new: Dict, active) -> None:
 def _apply_recurrent(cfg: ModelConfig, kind: str, p, x, *, mode, cache,
                      pos, slot=None, length=None, active=None, **_):
     """The SSM or RG-LRU mixer over its row state: decode advances the
-    active rows; prefill writes row ``slot`` from a zero state; a chunk
+    active rows; prefill writes row ``slot`` (every row when ``slot`` is
+    None) from a zero state; a chunk
     resumes from row ``slot``, or from zeros when it is a stream's first
     (``pos`` == 0: the row may hold an earlier stream's state)."""
     if kind == SSM:
@@ -402,10 +411,12 @@ def _run_stages(cfg: ModelConfig, params, x, *, caches, **kw):
 
 def _last_row_norm(cfg: ModelConfig, params, x, delta, length: int):
     """The final norm of row ``length - 1`` only: the last residual add
-    stays a plain add (the fused kernel would normalise every row).  An
-    empty prompt reads row 0, as the reference's clamped slice does."""
+    stays a plain add of that row (the fused kernel would normalise every
+    row), contiguous for B rows too.  An empty prompt reads row 0, as the
+    reference's clamped slice does."""
     row = max(length, 1) - 1
-    return L.apply_norm(cfg, params["final_norm"], (x + delta)[:, row:row + 1])
+    return L.apply_norm(cfg, params["final_norm"],
+                        x[:, row:row + 1] + delta[:, row:row + 1])
 
 
 def _add_positions(cfg: ModelConfig, x, positions):
@@ -416,7 +427,44 @@ def _add_positions(cfg: ModelConfig, x, positions):
     return x
 
 
+def _embed_inputs(cfg: ModelConfig, params, tokens, prefix_embeds=None,
+                  start_pos: int = 0):
+    """(embeddings (B, P+S, d), positions (B, P+S)): ``prefix_embeds`` (B,
+    P, d) projected by ``prefix_proj`` (llava's image patches, musicgen's
+    conditioning frames) in front of the token embeddings, positions
+    ``start_pos ..`` over the concatenation, sincos positions added after
+    it."""
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    if prefix_embeds is not None:
+        pe = prefix_embeds.to(x.dtype) @ params["embed"]["prefix_proj"]
+        x = torch.cat([pe, x], dim=1)
+    B, S, _ = x.shape
+    positions = start_pos + torch.arange(S, dtype=torch.int32,
+                                         device=x.device)[None].expand(B, S)
+    return _add_positions(cfg, x, positions), positions
+
+
 # -- public API ------------------------------------------------------------------------
+
+def prefill(params, cfg: ModelConfig, tokens, caches, prefix_embeds=None):
+    """The unpadded prefill: B prompts of one length, ``tokens`` (B, S),
+    after ``prefix_embeds`` (B, P, d) when given, into fresh batch caches
+    (``init_cache(cfg, B, ...)``, dense: no page pool), every row from
+    position 0.  K/V of positions 0..P+S-1 are written in place (a ring
+    shorter than that keeps the last positions), recurrent rows start from
+    zeros, and an MoE FFN routes all B*(P+S) tokens.
+
+    Returns (last_logits (B, vocab), caches, next_pos == P + S).
+    """
+    x, positions = _embed_inputs(cfg, params, tokens, prefix_embeds)
+    S = x.shape[1]
+    x, delta = _run_stages(cfg, params, x, caches=caches, mode="prefill",
+                           positions=positions,
+                           rope=L.rope_freqs(cfg, x.device), pos=None)
+    last = _last_row_norm(cfg, params, x, delta, S)
+    logits = L.unembed(cfg, params["embed"], last)[:, 0]
+    return logits, caches, S
+
 
 def prefill_into_slot(params, cfg: ModelConfig, tokens, length: int, caches,
                       slot: int, page_table=None):
@@ -435,11 +483,7 @@ def prefill_into_slot(params, cfg: ModelConfig, tokens, length: int, caches,
     Returns (last_logits (1, vocab), caches, next_pos == length).
     """
     length = int(length)
-    x = L.embed_tokens(cfg, params["embed"], tokens)
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None].expand(B, S)
-    x = _add_positions(cfg, x, positions)
+    x, positions = _embed_inputs(cfg, params, tokens)
     x, delta = _run_stages(cfg, params, x, caches=caches, mode="prefill",
                            positions=positions,
                            rope=L.rope_freqs(cfg, x.device), pos=None,
@@ -468,11 +512,7 @@ def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens, start: int,
     ``start+length-1``; only the final chunk's seed decoding.
     """
     start, length = int(start), int(length)
-    x = L.embed_tokens(cfg, params["embed"], tokens)
-    B, S = tokens.shape
-    positions = start + torch.arange(S, dtype=torch.int32,
-                                     device=x.device)[None].expand(B, S)
-    x = _add_positions(cfg, x, positions)
+    x, positions = _embed_inputs(cfg, params, tokens, start_pos=start)
     x, delta = _run_stages(cfg, params, x, caches=caches, mode="chunk",
                            positions=positions,
                            rope=L.rope_freqs(cfg, x.device), pos=start,
@@ -480,6 +520,20 @@ def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens, start: int,
     last = _last_row_norm(cfg, params, x, delta, length)
     logits = L.unembed(cfg, params["embed"], last)[:, 0]
     return logits, caches
+
+
+def sample_tokens(logits, temperature: float = 0.0, key=None):
+    """The scalar (batch-wide) sampler: (B, vocab) logits -> (B,) int32.
+    ``temperature <= 0`` (or no key) is the argmax; otherwise one threefry
+    key (2,) for the whole batch draws as ``jax.random.categorical`` does:
+    the argmax of logits / temperature plus Gumbel noise over the
+    flattened (B, vocab) counters."""
+    if temperature > 0.0 and key is not None:
+        lg = logits.float() / temperature
+        B, V = lg.shape
+        noise = gumbel(key.to(lg.device), B * V).reshape(B, V)
+        return (noise + lg).argmax(dim=-1).to(torch.int32)
+    return logits.argmax(dim=-1).to(torch.int32)
 
 
 def sample_tokens_batched(logits, temps, top_k, top_p, keys):

@@ -64,10 +64,18 @@ its dense rows and recurrent rows, on the device, with its position, last
 token, resolved sampling config and lane) and joins another engine's decode
 batch; ``serving.cluster`` moves every prefilled stream this way.
 
+The legacy plane (``EngineConfig(slot_native=False)``), ported as the
+reference keeps it, as a benchmark baseline: each prompt through the
+unpadded ``models.prefill`` into a fresh one-row cache spliced into the
+batch cache, then one decode step of the whole batch per round at the
+batch-wide ``max(pos)`` with a host argmax (greedy only; wrong for
+mixed-position batches, as in the reference).  With
+``chunked_prefill=False`` the slot-native engine admits a prompt longer
+than the largest bucket the same way (the eager fallback) and decodes it
+in its blocks.
+
 Not ported yet, and rejected with ``NotImplementedError`` naming the
-ROADMAP item: the legacy ``slot_native=False`` plane (A7) and its eager
-fallback for prompts longer than a ring buffer (A9.8), and serving meshes
-(A14).
+ROADMAP item: serving meshes (A14).
 """
 from __future__ import annotations
 
@@ -88,7 +96,7 @@ from repro_torch.core.prng import fold_in, prng_key
 from repro_torch.core.report import slo_pass_metrics
 from repro_torch.core.telemetry import OccupancyMeter, TBTMeter
 from repro_torch.models import ModelConfig, decode_step, init_cache, \
-    init_params, prefill_chunk_into_slot, prefill_into_slot, \
+    init_params, prefill, prefill_chunk_into_slot, prefill_into_slot, \
     sample_tokens_batched
 from repro_torch.models.config import FULL_ATTN, LOCAL_ATTN
 from repro_torch.models.kvcache import (attn_buffer_len, cache_row_extract,
@@ -264,11 +272,6 @@ class EngineConfig:
                 f"got {self.prefix_cache_pages}")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
-
-
 @dataclasses.dataclass
 class StreamHandoff:
     """A stream extracted from one engine for adoption by another (the
@@ -351,12 +354,9 @@ class ServingEngine:
         # site is skipped).
         self.cfg = cfg
         self.ecfg = ecfg = ecfg if ecfg is not None else EngineConfig()
-        for flag, what, item in (
-                (ecfg.mesh is not None, "mesh serving", "A14"),
-                (not ecfg.slot_native, "the legacy slot_native=False plane",
-                 "A7")):
-            if flag:
-                raise _not_ported(what, item)
+        if ecfg.mesh is not None:
+            raise NotImplementedError("mesh serving is not ported to "
+                                      "repro_torch yet (ROADMAP A14)")
         self.device = torch.device(device)
         self.params = params if params is not None else init_params(
             torch.Generator(device=self.device).manual_seed(seed), cfg)
@@ -720,6 +720,13 @@ class ServingEngine:
 
     # -- request intake --------------------------------------------------------
     def submit(self, req: Request, prompt_tokens: Optional[np.ndarray] = None):
+        if not self.ecfg.slot_native and self._resolve_sampling(req)[0] > 0.0:
+            # the legacy plane decodes with a host argmax: a sampled request
+            # is refused, never silently served greedily
+            raise ValueError(
+                "per-request sampling (temperature > 0) requires the "
+                "slot-native data plane; the legacy slot_native=False "
+                "baseline decodes greedily")
         if not req.cls:
             req.cls = self.router.class_names[
                 self.router.classify(req.prompt_len)]
@@ -866,6 +873,35 @@ class ServingEngine:
         # one tiny host read per admission (the first token id)
         self._start_stream(req, slot, int(self._tok[slot]), L)
 
+    def _admit_legacy(self, req: Request, slot: int):
+        """The reference path: the unpadded prefill of the prompt into a
+        fresh one-row cache, spliced into row ``slot`` of every batch cache
+        leaf (each (n_rep, B, ...)) in place.  Taken by every prompt of
+        ``slot_native=False`` and, with chunked prefill off, by a prompt
+        longer than the largest bucket (a ring shorter than the prompt
+        keeps its last positions)."""
+        L = len(req.prompt)
+        caches = init_cache(self.cfg, 1, self.ecfg.max_len,
+                            dtype=getattr(torch, self.ecfg.cache_dtype),
+                            device=self.device)
+        logits, caches, _ = prefill(
+            self.params, self.cfg,
+            self._upload(np.asarray(req.prompt, np.int64)[None]), caches)
+        for stage, one_stage in zip(self.caches, caches):
+            for d, one in zip(stage, one_stage):
+                for name, leaf in d.items():
+                    leaf[:, slot:slot + 1] = one[name]
+        self._set_slot_sampling(slot, req)
+        self._tok[slot] = self._draw_first(slot, logits, L)
+        self._pos[slot] = L
+        t0 = self.vtime
+        self._account_prefill(req)
+        if self.tracer is not None:
+            self.tracer.span("prefill", req.rid, t0, self.vtime, self.name,
+                             tokens=L, legacy=True)
+        self._publish_metrics()
+        self._start_stream(req, slot, int(self._tok[slot]), L)
+
     def _admit(self):
         while self.pending and self.free_slots:
             req = self.pending[0]
@@ -886,11 +922,6 @@ class ServingEngine:
                 if not (self._reclaim_cached()
                         and self.pager.can_admit(need)):
                     break                    # head-of-line: wait for pages
-            if (resume or len(ctx_toks) > self.buckets[-1]) \
-                    and not self._chunked:
-                raise _not_ported(
-                    "the eager prefill fallback for a prompt longer than "
-                    "the largest bucket (chunked_prefill=False)", "A9.8")
             self.pending.pop(0)
             slot = self.free_slots.pop(0)
             # longest cached prefix (after the admission gates: a lookup
@@ -904,9 +935,14 @@ class ServingEngine:
                                  max(req.arrival, req.not_before),
                                  self.vtime, self.name, slot=slot,
                                  resume=resume)
-            if hit_tok or resume or len(ctx_toks) > self.buckets[-1]:
-                self._start_chunked(req, slot, ctx_toks, resume, hit_pages,
-                                    hit_tok)
+            if not self.ecfg.slot_native:
+                self._admit_legacy(req, slot)
+            elif hit_tok or resume or len(ctx_toks) > self.buckets[-1]:
+                if self._chunked:
+                    self._start_chunked(req, slot, ctx_toks, resume,
+                                        hit_pages, hit_tok)
+                else:
+                    self._admit_legacy(req, slot)
             else:
                 self._admit_slot(req, slot)
 
@@ -1440,6 +1476,40 @@ class ServingEngine:
         self._publish_metrics()
         return k
 
+    def _step_legacy(self) -> int:
+        """One decode step of the legacy plane (the reference's
+        ``_step_legacy``), kept only as the benchmark baseline: the batch's
+        last tokens from the host, the batch-wide max(pos) as every row's
+        position, a host argmax, one decode accounting.  Wrong for
+        mixed-position batches, as in the reference (ROADMAP §C)."""
+        B = self.ecfg.max_batch
+        tok = np.zeros((B, 1), np.int32)
+        for slot, st in self.active.items():
+            tok[slot, 0] = st.req.tokens[-1]
+        pos = max(st.pos for st in self.active.values())
+        logits, _ = decode_step(self.params, self.cfg, self._upload(tok),
+                                self.caches, pos)
+        nxt = logits.argmax(dim=-1).cpu().numpy()
+        batch = len(self.active)
+        ctx = float(np.mean([st.pos for st in self.active.values()]))
+        rids = None if self.ledger is None else \
+            [st.req.rid for st in self.active.values()]
+        dur = self._account_decode_step(batch, ctx, rids=rids)
+        done = []
+        for slot, st in self.active.items():
+            t = int(nxt[slot])
+            st.req.tokens.append(t)
+            st.pos += 1
+            st.req.tokens_emitted += 1
+            self._tbt.setdefault(st.req.rid, []).append(dur)
+            self._emit(TokenEvent(st.req.rid, self.vtime, (t,), 1))
+            if self._finish_check(st):
+                self._emit(StateEvent(st.req.rid, self.vtime,
+                                      RequestState.FINISHED))
+                done.append(slot)
+        self._retire(done)
+        return batch
+
     # -- Backend protocol --------------------------------------------------------
     def has_work(self) -> bool:
         """Anything queued, mid-prefill or decoding."""
@@ -1475,7 +1545,7 @@ class ServingEngine:
         executed."""
         self._evict_lapsed()
         self._admit()
-        progressed = self._advance_chunks()
+        progressed = self.ecfg.slot_native and self._advance_chunks()
         if not self.active:
             if progressed or self._advance_idle():
                 return 0
@@ -1484,6 +1554,9 @@ class ServingEngine:
                     "serving stalled: pending/prefilling streams cannot "
                     "obtain pages or slots and nothing is decoding")
             return 0
+        if not self.ecfg.slot_native:
+            self._step_legacy()
+            return 1
         horizon = self._horizon()
         return self._decode_block(max(min(k, horizon) if k is not None
                                       else horizon, 1))

@@ -337,7 +337,8 @@ def test_launch_geometry_follows_the_chunk_only(record_launches,
             assert args[10:20] == (S, start, length, n, 16, 2, 6, 128, span,
                                    spans)
             assert args[-3] == (1 if dt == torch.bfloat16 else 0)
-            assert args[-2] == int(i8pool)
+            # the past's own code: float32 0, bfloat16 1, int8 2
+            assert args[-2] == (2 if i8pool else args[-3])
             assert (args[9] is None) == (span == 0)
             assert C.split_geometry(start, length, S, 2, 6, 128) == (
                 -(-(start + length) // C.SPAN),
@@ -356,8 +357,12 @@ def test_launch_geometry_follows_the_chunk_only(record_launches,
     with pytest.raises(ValueError):                       # table too short
         C.chunk_attention(*ok[:5], _meta(1, 2, dt=i32), 64, 8)
     with pytest.raises(TypeError):                        # pool of another type
-        C.chunk_attention(*ok[:3], _meta(9, 16, 2, 128, dt=f32),
-                          _meta(9, 16, 2, 128, dt=f32), ok[5], 64, 8)
+        C.chunk_attention(_meta(1, 64, 12, 128, dt=f32),
+                          _meta(1, 64, 2, 128, dt=f32),
+                          _meta(1, 64, 2, 128, dt=f32), *ok[3:], 64, 8)
+    with pytest.raises(TypeError):                        # K and V pools differ
+        C.chunk_attention(*ok[:3], _meta(9, 16, 2, 128, dt=f32), ok[4],
+                          ok[5], 64, 8)
     with pytest.raises(ValueError):                       # hd 96
         C.chunk_attention(_meta(1, 64, 12, 96), _meta(1, 64, 2, 96),
                           _meta(1, 64, 2, 96), _meta(9, 16, 2, 96),
@@ -499,8 +504,9 @@ def test_dense_route_launch_arguments(record_launches):
                                -(-333 // C.SPAN))
         assert args[26:29] == (0, 256, 128)           # row strides
         assert args[29:32] == ((0, 2, 1) if i8row else (0, 0, 0))
-        # scale, softcap, window, buf_len, dtype, int8 past
-        assert args[32:38] == (128 ** -0.5, 50.0, 96, 96, 1, int(i8row))
+        # scale, softcap, window, buf_len, dtype, the past's code
+        assert args[32:38] == (128 ** -0.5, 50.0, 96, 96, 1,
+                               2 if i8row else 1)
     with pytest.raises(ValueError):                   # a row is 3-d
         C.chunk_attention(_meta(1, 40, 12, 128), _meta(1, 40, 2, 128),
                           _meta(1, 40, 2, 128), cache, cache, None, 300, 33)

@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases build,prefill
     python3 chip_smoke.py --phases build,mixed_dtype
     python3 chip_smoke.py --phases build,kernels,equivalence,legacy,prefill,mixed_dtype
+    python3 chip_smoke.py --phases build,controller,replay
 
 Phases (each raises on failure; nothing is caught):
 
@@ -140,7 +141,7 @@ Phases (each raises on failure; nothing is caught):
    and a 219-page pool serves two waves of 8 greedy requests sharing a
    256-token system prompt; it must preempt, hit the cache and run
    chunk_attention, and no decode kernel but the paged one.  In this phase
-   and in phases 4, 6, 8-14, the kernels' launch counts are set to 0
+   and in phases 4, 6, 8-14 and 16, the kernels' launch counts are set to 0
    just before a path's burst and read just after; each kernel of the path
    must have launched.
 6. serve_q8: phases 4 and 5 again with ``kv_quant`` (int8 K/V caches and
@@ -242,7 +243,25 @@ Phases (each raises on failure; nothing is caught):
    qwen2-1.5b (the serve burst) and gemma2-9b (the long burst, chunked)
    with float32 caches on a dense and on a paged engine: paged tokens
    equal to dense, the float32-past routes launched.
-15. profile (opt-in, not in the default run): the serve, serve_paged and
+15. controller: the batched dual-loop controller
+   (``core/controller_torch.py``): 4096 controllers (16 SLOs x 4 up
+   margins x 4 down margins x 16 telemetry traces drawn from ``--seed``
+   over qwen3-14b's decode table) over 3000 ticks of 20 ms on the card,
+   every tick's clock and the final states bit for bit the same sweep on
+   the CPU; wall ms, controller-ticks per second, peak memory and the
+   PyTorch operators a tick.
+16. replay: the trace-replay example
+   (``repro_torch.examples.serve_trace_replay``) at ``--duration 30
+   --cluster --prefix-cache --kill-replica decode0 --handoff-failures 3``
+   on the card (``replay_example``: the governor table printed, every
+   burst completed, warm == cold tokens, decode0's streams recovered, the
+   replicas' energy summing to the total); fault C3 (``replay_c3``: a
+   float32 model over bf16 pages, cold and warm, tokens equal to the
+   CPU's on the same weights); then the example's dense burst and
+   ``run_cluster`` with qwen3-14b at full width in bf16, the burst at full
+   depth and the cluster at 20 of its 40 layers (``replay_qwen3_dense``,
+   ``replay_qwen3_cluster``).  Launches counted as in phase 5.
+17. profile (opt-in, not in the default run): the serve, serve_paged and
    both serve_q8 bursts, then qwen3-moe-30b-a3b's and recurrentgemma-9b's
    serve bursts at full depth, again under ``torch.profiler`` after a
    warm-up run, printing
@@ -261,6 +280,7 @@ repository.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import math
@@ -280,7 +300,8 @@ L2_FLUSH_BYTES = 100 * 2 ** 20   # > the 50 MB L2
 BF16_ROUNDING = (1e-3, 1e-2)     # atol, rtol: one bf16 rounding apart
 PHASES = ("build", "kernels", "equivalence", "serve", "serve_paged",
           "serve_q8", "paged_vs_dense", "sampling", "observability", "arch",
-          "cluster", "legacy", "prefill", "mixed_dtype")
+          "cluster", "legacy", "prefill", "mixed_dtype", "controller",
+          "replay")
 # the paths whose launches count
 SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "sampling", "sampling_paged", "observability", "arch_qwen3",
@@ -295,7 +316,9 @@ SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "legacy_qwen2_slot", "legacy_gemma2_fallback", "prefill_llava",
                "long_qwen3", "long_qwen3_f32", "mixed_dtype_dense",
                "mixed_dtype_paged",
-               "mixed_dtype_gemma2_dense", "mixed_dtype_gemma2_paged")
+               "mixed_dtype_gemma2_dense", "mixed_dtype_gemma2_paged",
+               "replay_example", "replay_c3", "replay_qwen3_dense",
+               "replay_qwen3_cluster")
 
 
 def log(*a):
@@ -3649,6 +3672,331 @@ def phase_mixed_dtype(res):
         torch.cuda.empty_cache()
 
 
+# -- phase 15: controller ---------------------------------------------------------------
+
+# the fleet: tbt_slo x up_margin x down_margin x telemetry traces, 20 ms ticks
+CTL_FLEET = (16, 4, 4, 16)
+CTL_TICKS = 3000
+# the seed of the controller phase's telemetry (``--seed``)
+SEED = 0
+
+
+def _ctl_inputs(seed):
+    """The controller phase's fleet as numpy: qwen3-14b's decode table
+    (profiled on the port's plant), each controller's (tbt_slo, up_margin,
+    down_margin) and its telemetry (tokens and p95 TBT per tick).  A trace
+    holds a TPS level for 0.5-3 s, the levels drawn over 0-125% of the
+    table's top bucket, so the fleet crosses every bucket; the p95 grows
+    with the load around 30-150 ms with 5% empty windows (0: no sample)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import A100_SXM4_40G as HW
+    from repro_torch.sim import PlantModel, profile_decode_table
+    table = profile_decode_table(PlantModel(
+        cfg=get_config("qwen3-14b"), hw=HW, n_chips=1, seed=seed))
+    n_slo, n_up, n_down, n_tr = CTL_FLEET
+    grid = np.stack(np.meshgrid(np.linspace(0.04, 0.2, n_slo),
+                                np.linspace(0.9, 1.2, n_up),
+                                np.linspace(0.5, 0.8, n_down),
+                                np.arange(n_tr), indexing="ij"),
+                    -1).reshape(-1, 4)
+    rng = np.random.default_rng(seed)
+    top = 1.25 * float(table.tps_grid[-1])
+    tps = np.empty((n_tr, CTL_TICKS))
+    for i in range(n_tr):
+        t = 0
+        while t < CTL_TICKS:
+            n = int(rng.integers(25, 151))
+            tps[i, t:t + n] = rng.uniform(0.0, top)
+            t += n
+    tokens = rng.poisson(tps * 0.020).astype(np.float64)
+    p95 = 0.1 * (0.3 + 1.2 * tps / top) * rng.lognormal(0.0, 0.15, tps.shape)
+    p95[rng.random(tps.shape) < 0.05] = 0.0
+    idx = grid[:, 3].astype(int)
+    return (HW, table, grid[:, 0], grid[:, 1], grid[:, 2], tokens[idx],
+            p95[idx])
+
+
+def phase_controller(res):
+    """The batched dual-loop controller (``core/controller_torch.py``) on
+    the card: 4096 controllers (16 SLOs x 4 up margins x 4 down margins x
+    16 seeded telemetry traces) over 3000 ticks of 20 ms, held bit for bit
+    (every tick's frequency and every field of the final state) to the
+    same sweep on the CPU.  Prints the wall time, controller-ticks per
+    second, the peak memory and the PyTorch operators per tick (each a
+    launch on the card whatever the fleet size)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import controller_torch as C
+    hw, table, slo, up, down, tokens, p95 = _ctl_inputs(SEED)
+    n, T = tokens.shape
+
+    def params(device):
+        return C.make_params(hw, table, tbt_slo=slo, device=device)._replace(
+            up_margin=torch.as_tensor(up, dtype=torch.float32, device=device),
+            down_margin=torch.as_tensor(down, dtype=torch.float32,
+                                        device=device))
+
+    t0 = time.perf_counter()
+    cpu_state, cpu_freqs = C.simulate(params("cpu"), tokens, p95)
+    cpu_wall = time.perf_counter() - t0
+    p = params("cuda")
+    tok, q = (torch.as_tensor(x, dtype=torch.float32, device="cuda")
+              for x in (tokens, p95))
+    C.simulate(p, tok[:, :20], q[:, :20])                     # warm-up
+    fleet = C.broadcast_params(p, (n,))
+    s0 = C.init_state(fleet)
+    n_ops, by_op = _op_count(lambda: C.controller_step(fleet, s0, tok[:, 0],
+                                                       q[:, 0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state, freqs = C.simulate(p, tok, q)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    same = torch.equal(freqs.cpu(), cpu_freqs) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(state, cpu_state))
+    f = cpu_freqs.numpy()
+    buckets = np.unique(cpu_state.bucket.numpy())
+    res["controller"] = {
+        "controllers": n, "ticks": T, "wall_ms": wall * 1e3,
+        "cpu_wall_ms": cpu_wall * 1e3,
+        "controller_ticks_per_s": n * T / wall,
+        "peak_mem_mb": peak / 2 ** 20, "ops_per_tick": n_ops,
+        "ops_by_name": dict(by_op), "bitwise_cuda_eq_cpu": same,
+        "final_buckets": buckets.tolist(),
+        "distinct_freqs": int(np.unique(f).size)}
+    log(f"[controller] {n} controllers x {T} ticks on the card in "
+        f"{wall * 1e3:.1f} ms = {n * T / wall:.4g} controller-ticks/s "
+        f"({T / wall:.0f} ticks/s, {n_ops} PyTorch operators a tick); "
+        f"peak memory above the inputs {peak / 2 ** 20:.1f} MiB; the CPU's "
+        f"run {cpu_wall * 1e3:.1f} ms; CUDA == CPU bitwise: {same}; final "
+        f"buckets {buckets.tolist()}, {np.unique(f).size} distinct clocks")
+    if not same:
+        raise AssertionError("controller: the card's sweep differs from the "
+                             "CPU's")
+    if f.min() < hw.f_min or f.max() > hw.f_max or len(buckets) < 2:
+        raise AssertionError(f"controller: clocks {f.min()}-{f.max()} MHz, "
+                             f"final buckets {buckets.tolist()}")
+
+
+# -- phase 16: replay -------------------------------------------------------------------
+
+# the example's flags in the replay phase (its defaults otherwise)
+REPLAY_ARGS = ("--duration", "30", "--cluster", "--prefix-cache",
+               "--kill-replica", "decode0", "--handoff-failures", "3")
+# qwen3-14b's depth in the replay phase's full-width cluster run (the dense
+# burst runs all 40): at 40 layers its two runs took 49-69 s and the phase
+# 69-97 s, which left the default run 790 s of its 800 on a slow host
+REPLAY_CLUSTER_LAYERS = 20
+
+
+def _check_cluster_run(path, cl, rep, base, failures):
+    """``run_cluster``'s result: every request of both runs completed, the
+    kill fired on decode0 with streams on it that were recovered, the
+    failed imports retried, and the replicas' energy sums to the total."""
+    kills = cl.tracer.spans("replica_kill")
+    victims = sum(k.attrs["victims"] for k in kills)
+    e_sum = sum(r.energy_j for r in rep.replicas)
+    log(f"[replay] {path}: completed {rep.completed}/{rep.n_requests} "
+        f"(baseline {base.completed}), migrated {rep.migrated}, kills "
+        f"{[(n, round(t, 4)) for n, t, _ in cl.kills]} with {victims} "
+        f"streams recovered, import retries {cl.import_retries}, replica "
+        f"energy {e_sum:.6f} J of {rep.total_energy_j:.6f} J")
+    if not rep.completed == base.completed == rep.n_requests:
+        raise AssertionError(f"{path}: {rep.completed}/{rep.n_requests} "
+                             f"completed, baseline {base.completed}")
+    if [k for k, _, _ in cl.kills] != ["decode0"] or victims < 1:
+        raise AssertionError(f"{path}: kills {cl.kills}, victims {victims}")
+    if cl.import_retries < failures:
+        raise AssertionError(f"{path}: {cl.import_retries} import retries "
+                             f"for {failures} failures")
+    if abs(e_sum - rep.total_energy_j) > 1e-6 * max(rep.total_energy_j, 1):
+        raise AssertionError(f"{path}: replica energy {e_sum} != "
+                             f"{rep.total_energy_j}")
+    return {"completed": rep.completed, "migrated": rep.migrated,
+            "victims": victims, "import_retries": cl.import_retries,
+            "kills": cl.kills, "energy_j": rep.total_energy_j,
+            "baseline_energy_j": base.total_energy_j}
+
+
+def phase_replay(res):
+    """The trace-replay example (``repro_torch.examples.serve_trace_replay``)
+    on the card.  ``replay_example``: its main at ``REPLAY_ARGS`` (qwen3-14b's
+    plant; the governor table from the simulator, then the real-execution
+    bursts on qwen3-14b's ``.smoke()`` model: dense, paged at half the K/V
+    memory, prefix cache cold against warm, the cluster with decode0
+    killed and 3 imports failed).  The example asserts warm == cold tokens,
+    the kill and the retries; here every burst must complete, killed
+    streams be recovered and the replicas' energy sum to the total.  Then
+    the dense burst (``replay_qwen3_dense``, 40 layers) and ``run_cluster``
+    (``replay_qwen3_cluster``, the same faults, ``REPLAY_CLUSTER_LAYERS``
+    layers on the 40-layer plant) with qwen3-14b itself at full width in
+    bf16.  Launch counts per path."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import get_trace
+    from repro_torch.core import SamplingParams
+    from repro_torch.examples import serve_trace_replay as S
+    from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.serving import EngineConfig, Server, ServingEngine
+    failures = int(REPLAY_ARGS[REPLAY_ARGS.index("--handoff-failures") + 1])
+
+    path = "replay_example"
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = S.main(["--device", "cuda", *REPLAY_ARGS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    table = {g: dataclasses.asdict(m) for g, m in out["governors"].items()}
+    base_j = out["governors"]["defaultNV"].total_energy_j
+    log("[replay] governor table (simulator, qwen3-14b plant, chat_5qps "
+        f"{REPLAY_ARGS[1]} s): " + "; ".join(
+            f"{g} TTFT {m.ttft_pass * 100:.1f}% TBT {m.tbt_pass * 100:.1f}% "
+            f"E {m.total_energy_j / 1e3:.3f} kJ "
+            f"(dE {100 * (1 - m.total_energy_j / base_j):.2f}%)"
+            for g, m in out["governors"].items()))
+    cold, warm = out["prefix"]
+    for name, rep in (("burst", out["burst"]), ("paged", out["paged"]),
+                      ("cold", cold), ("warm", warm)):
+        if rep.completed != rep.n_requests:
+            raise AssertionError(f"{path}: {name} burst "
+                                 f"{rep.completed}/{rep.n_requests}")
+    if warm.prefill_tokens >= cold.prefill_tokens:
+        raise AssertionError(f"{path}: warm prefill {warm.prefill_tokens} "
+                             f">= cold {cold.prefill_tokens}")
+    res[path] = {"wall_s": wall, "launches": counts, "governors": table,
+                 "cluster": _check_cluster_run(path, *out["cluster"],
+                                               failures),
+                 "prefix_tokens": (cold.prefill_tokens, warm.prefill_tokens)}
+    log(f"[replay] {path}: {wall:.1f}s wall; launches {counts}")
+    _check_launched(path, counts, ("rmsnorm", "add_rmsnorm",
+                                   "decode_attention", "flash_attention",
+                                   "paged_decode_attention",
+                                   "chunk_attention"))
+    del out
+    gc.collect()
+
+    # fault C3: a float32 model over bf16 pages (the engine's default cache
+    # dtype) widens its past before paged decode and chunk_attention, which
+    # take no bf16 past under a float32 q.  The example's prefix burst over
+    # bf16 pages, on the example's own weights (drawn on the card), cold
+    # and warm on each device: the tokens equal the CPU's.  Warm against
+    # cold is printed with each first flip's top-2 logit gap (float32,
+    # one-shot prefill on the CPU): a hit reads bf16-rounded K/V where the
+    # cold run attends to float32 ones, so a near tie may flip
+    path = "replay_c3"
+    cfg = get_config("qwen3-14b")
+    pc_cfg = cfg.smoke().replace(dtype="float32")
+    cpu_params = _to(init_params(torch.Generator(device="cuda").manual_seed(0),
+                                 pc_cfg), "cpu")
+    toks = {}
+    for dev, on in (("cpu", False), ("cpu", True), ("cuda", False),
+                    ("cuda", True)):
+        if dev == "cuda" and on:
+            _reset_counts()
+        eng = ServingEngine(pc_cfg, _to(cpu_params, dev), plant_cfg=cfg,
+                            ecfg=EngineConfig(max_batch=8, max_len=192,
+                                              paged=True, prefix_cache=on),
+                            device=dev)
+        srv = Server(eng)
+        prng = np.random.default_rng(7)           # the example's prompts
+        head = prng.integers(0, pc_cfg.vocab_size, size=80)
+        for _ in range(12):
+            tail = prng.integers(0, pc_cfg.vocab_size,
+                                 size=int(prng.integers(4, 16)))
+            srv.submit(np.concatenate([head, tail]),
+                       SamplingParams(max_tokens=16))
+        rep = srv.run()
+        toks[dev, on] = [list(map(int, q.tokens)) for q in eng.requests]
+        if rep.completed != rep.n_requests:
+            raise AssertionError(f"{path}: {dev} {rep.completed}/"
+                                 f"{rep.n_requests}")
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    hits = eng.prefix_cache.stats()["hits"]
+    same = {on: toks["cuda", on] == toks["cpu", on] for on in (False, True)}
+    flips = []
+    for i, (c, w) in enumerate(zip(toks["cpu", False], toks["cpu", True])):
+        j = next((j for j, (a, b) in enumerate(zip(c, w)) if a != b), None)
+        if j is None:
+            continue
+        ids = torch.as_tensor(np.concatenate([eng.requests[i].prompt,
+                                              c[:j]]))[None]
+        logits = prefill(cpu_params, pc_cfg, ids, init_cache(
+            pc_cfg, 1, ids.shape[1], dtype=torch.float32, device="cpu"))[0]
+        top = torch.topk(logits[0], 2).values
+        flips.append({"request": i, "token": j, "cold": c[j], "warm": w[j],
+                      "top2_gap": float(top[0] - top[1])})
+    res[path] = {"launches": counts, "cuda_eq_cpu": same, "hits": hits,
+                 "flips": flips}
+    log(f"[replay] {path}: float32 model over bf16 pages, cold and warm "
+        f"(hits {hits}): CUDA == CPU {same}; warm != cold at {flips}; "
+        f"launches {counts}")
+    if not all(same.values()) or not hits:
+        raise AssertionError(f"{path}: CUDA == CPU {same}, hits {hits}")
+    _check_launched(path, counts, ("rmsnorm", "add_rmsnorm",
+                                   "paged_decode_attention",
+                                   "chunk_attention"))
+
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    path = "replay_qwen3_dense"
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles, rep = S.dense_burst(cfg, cfg, device="cuda", params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    if rep.completed != len(handles):
+        raise AssertionError(f"{path}: {rep.completed}/{len(handles)}")
+    _check_outputs(handles, cfg.vocab_size)
+    toks = sum(len(h.request.tokens) for h in handles)
+    res[path] = {"wall_s": wall, "launches": counts, "tokens_out": toks,
+                 "tokens_per_s": toks / wall, "layers": cfg.num_layers,
+                 "tokens_sha256": _tokens_digest(handles)}
+    log(f"[replay] {path}: {cfg.name} {cfg.num_layers} layers bf16, "
+        f"{len(handles)} requests, {toks} tokens in {wall:.2f}s wall = "
+        f"{toks / wall:.1f} tokens/s; tokens sha256 "
+        f"{res[path]['tokens_sha256']}; launches {counts}")
+    _check_launched(path, counts, ("rmsnorm", "add_rmsnorm",
+                                   "decode_attention", "flash_attention"))
+
+    path = "replay_qwen3_cluster"
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ccfg = cfg.replace(num_layers=REPLAY_CLUSTER_LAYERS)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), ccfg)
+    trace = get_trace("azure_code8", duration=float(REPLAY_ARGS[1]))[:16]
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cl, rep, base = S.run_cluster(cfg, ccfg, trace, kill_replica="decode0",
+                                  handoff_failures=failures, device="cuda",
+                                  params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    res[path] = {"wall_s": wall, "launches": counts,
+                 "layers": ccfg.num_layers,
+                 **_check_cluster_run(path, cl, rep, base, failures)}
+    log(f"[replay] {path}: {cfg.name} {ccfg.num_layers} of "
+        f"{cfg.num_layers} layers bf16 ({cfg.num_layers}-layer plant), "
+        f"{wall:.2f}s wall (baseline and faulted runs); launches {counts}")
+    _check_launched(path, counts, ("rmsnorm", "add_rmsnorm",
+                                   "paged_decode_attention",
+                                   "flash_attention", "chunk_attention"))
+    del cl, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def gpu_name_and_limit():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3692,7 +4040,11 @@ def main(argv=None):
                          "the checkout's src/; another tree's, e.g. an earlier "
                          "commit unpacked under build/, runs this script's "
                          "cases against that version's kernels)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the controller phase's telemetry")
     args = ap.parse_args(argv)
+    global SEED
+    SEED = args.seed
     phases = [p for p in args.phases.split(",") if p]
     if args.archs:
         keep = set(args.archs.split(","))
@@ -3726,7 +4078,8 @@ def main(argv=None):
            "sampling": phase_sampling, "observability": phase_observability,
            "arch": phase_arch, "cluster": phase_cluster,
            "legacy": phase_legacy, "prefill": phase_prefill,
-           "mixed_dtype": phase_mixed_dtype, "profile": phase_profile}
+           "mixed_dtype": phase_mixed_dtype, "controller": phase_controller,
+           "replay": phase_replay, "profile": phase_profile}
     for p in phases:
         t0 = time.perf_counter()
         fns[p](res)

@@ -16,3 +16,4 @@ from .tracing import DvfsDecision, Span, Tracer, read_jsonl as read_trace_jsonl
 from .attribution import (CounterfactualPricer, EnergyLedger, LedgerCarry,
                           verify_conservation)
 from .alerts import Alert, AlertEngine, AlertRule
+from . import controller_torch

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.prng import gumbel
+from repro_torch.kernels._build import ROUNDED_PAST
 from repro_torch.kernels.chunk_attention import chunk_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention_q8 import decode_attention_q8
@@ -245,8 +246,9 @@ def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
     cap = cfg.attn_softcap
     if mode == "decode" and KV.is_paged(cache):
         KV.paged_cache_write_decode(cache, k, v, pos, page_table)
-        out = paged_decode_attention(q, cache["kp"], cache["vp"], page_table,
-                                     pos, window=window, softcap=cap,
+        kp, vp, pt = _past_for(q, cache["kp"], cache["vp"], page_table)
+        out = paged_decode_attention(q, kp, vp, pt, pos,
+                                     window=window, softcap=cap,
                                      scale=cfg.attn_scale,
                                      k_scale=cache.get("kp_s"),
                                      v_scale=cache.get("vp_s"))
@@ -284,8 +286,9 @@ def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
             past = (cache["k"][slot], cache["v"][slot], None,
                     cache["k_s"][slot] if "k_s" in cache else None,
                     cache["v_s"][slot] if "v_s" in cache else None)
-        out = chunk_attention(q, k, v, *past[:3], pos, length, window=window,
-                              softcap=cap, scale=cfg.attn_scale,
+        out = chunk_attention(q, k, v, *_past_for(q, *past[:3]), pos,
+                              length, window=window, softcap=cap,
+                              scale=cfg.attn_scale,
                               k_scale=past[3], v_scale=past[4])
         if KV.is_paged(cache):
             KV.paged_cache_write_chunk(cache, k, v, page_table[0], pos,
@@ -314,6 +317,27 @@ def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
     else:
         raise ValueError(mode)
     return out.reshape(B, S, cfg.q_dim) @ a["o"]
+
+
+def _past_for(q, k, v, page_table=None):
+    """A K/V past (pool, or dense row) as the attention kernels take it
+    under ``q``: as it is when its dtype is q's, int8 (dequantized in the
+    kernel), or one the kernel rounds as it loads (a float32 past under a
+    bf16 q).  Otherwise (a bf16 past under a float32 model) it is cast to
+    q's dtype, exactly, as the reference casts the gathered past: a row as
+    a whole, a pool only in the pages ``page_table`` names, gathered into
+    a pool of their own with the table that reads them there (a copy the
+    size of the context, not of the pool).  Returns ``(k, v, table)``."""
+    if k.dtype in (q.dtype, torch.int8, *ROUNDED_PAST.get(q.dtype, ())):
+        return k, v, page_table
+    if page_table is None:
+        return k.to(q.dtype), v.to(q.dtype), None
+    B, n = page_table.shape
+    idx = page_table.reshape(-1).long()
+    table = torch.arange(B * n, dtype=torch.int32,
+                         device=idx.device).view(B, n)
+    return (k.index_select(0, idx).to(q.dtype),
+            v.index_select(0, idx).to(q.dtype), table)
 
 
 def _freeze_inactive(cache: Dict, new: Dict, active) -> None:

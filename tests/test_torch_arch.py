@@ -41,10 +41,9 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
-from repro.models import (decode_step as jdecode, init_cache as jinit_cache,
-                          init_params as jinit_params,
-                          prefill_chunk_into_slot as jchunk,
-                          prefill_into_slot as jprefill)
+import repro.models as J
+from repro.models import init_cache as jinit_cache
+from repro.models import init_params as jinit_params
 from repro.models import layers as JL
 
 from repro_torch.configs import get_config
@@ -53,6 +52,13 @@ from repro_torch.models import (decode_step, init_cache, init_params,
                                 params_from_numpy, prefill_chunk_into_slot,
                                 prefill_into_slot)
 from repro_torch.models import layers as TL
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
+
+# the reference's entry points jitted (static config), as its engine runs
+# them: the same values, a fraction of the eager dispatch time
+jdecode = jax.jit(J.decode_step, static_argnums=1)
+jchunk = jax.jit(J.prefill_chunk_into_slot, static_argnums=1)
+jprefill = jax.jit(J.prefill_into_slot, static_argnums=1)
 
 ARCHS = ["qwen3-14b", "granite-8b", "chatglm3-6b", "gemma2-9b",
          "qwen3-moe-30b-a3b", "mixtral-8x7b", "musicgen-large",

@@ -47,6 +47,7 @@ from repro_torch.serving import EngineConfig, Server, ServingEngine
 
 from test_torch_paged_engine import (CANCEL_RID, ECFG as PAGED_ECFG, TRACE,
                                      _drive, _force_chunk, _norm)
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 MAXLEN = 192
 # (arrival, prompt length, max_tokens): prompts past the 64-slot rings (the

@@ -34,6 +34,7 @@ from repro.models import kvcache as JKV
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import chunk_attention as C
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 NEG = -1e30
 LOG2E = 1.4426950408889634

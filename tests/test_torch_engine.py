@@ -33,6 +33,7 @@ from repro_torch.core import Request, SamplingParams
 from repro_torch.launch.serve import main as serve_main, workload
 from repro_torch.models import params_from_numpy
 from repro_torch.serving import EngineConfig, Server, ServingEngine
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 MAXLEN = 96          # prefill buckets 16, 32, 48; ctx buckets 32, 64, 96
 # (arrival, prompt length, max_tokens, deadline)

@@ -12,6 +12,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -34,7 +35,10 @@ def test_no_forbidden_import_in_the_port_sources():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
     assert {PKG / "serving/cluster.py", PKG / "serving/faults.py",
-            PKG / "core/prefill_optimizer.py"} <= set(files)
+            PKG / "core/prefill_optimizer.py", PKG / "sim/engine.py",
+            PKG / "sim/replay.py", PKG / "core/controller_torch.py",
+            PKG / "examples/quickstart.py",
+            PKG / "examples/serve_trace_replay.py"} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -55,7 +59,10 @@ def test_importing_the_port_loads_no_jax_or_reference():
             f"bad = sorted(m for m in sys.modules if any(m == f or "
             f"m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
             "assert not bad, bad\n"
-            "assert 'repro_torch.launch.serve' in sys.modules\n")
+            "assert {'repro_torch.launch.serve', 'repro_torch.sim.engine', "
+            "'repro_torch.sim.replay', 'repro_torch.core.controller_torch', "
+            "'repro_torch.examples.quickstart', "
+            "'repro_torch.examples.serve_trace_replay'} <= set(sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)

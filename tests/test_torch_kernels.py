@@ -33,6 +33,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm
 from repro_torch.models import attention as tattn
 from repro_torch.models.kvcache import ring_slot_positions as tring
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

@@ -36,10 +36,9 @@ from repro.kernels import paged_decode_attention as pallas_paged
 from repro.kernels import paged_decode_attention_ref as jpaged_ref
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention_q8 import decode_attention_q8 as pallas_q8
-from repro.models import decode_step as jdecode
+import repro.models as J
 from repro.models import init_cache as jinit_cache
 from repro.models import init_params as jinit_params
-from repro.models import prefill_into_slot as jprefill
 from repro.models import kvcache as JKV
 
 from repro_torch.configs import get_config
@@ -48,6 +47,12 @@ from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.models import (FULL_ATTN, decode_step, init_cache,
                                 params_from_numpy, prefill_into_slot)
 from repro_torch.models import kvcache as TKV
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
+
+# the reference's entry points jitted (static config), as its engine runs
+# them: the same values, a fraction of the eager dispatch time
+jdecode = jax.jit(J.decode_step, static_argnums=1)
+jprefill = jax.jit(J.prefill_into_slot, static_argnums=1)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 3e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

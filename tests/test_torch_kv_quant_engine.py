@@ -26,10 +26,9 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.core import Request as JRequest
 from repro.core import SamplingParams as JSamplingParams
-from repro.models import decode_step as jdecode
+import repro.models as J
 from repro.models import init_cache as jinit_cache
 from repro.models import init_params as jinit_params
-from repro.models import prefill as jprefill
 from repro.serving import EngineConfig as JEngineConfig
 from repro.serving import Server as JServer
 from repro.serving import ServingEngine as JServingEngine
@@ -41,6 +40,12 @@ from repro_torch.serving import EngineConfig, Server, ServingEngine
 
 from test_torch_paged_engine import (CANCEL_RID, ECFG, TRACE, _drive,
                                      _force_chunk, _norm)
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
+
+# the reference's entry points jitted (static config), as its engine runs
+# them: the same values, a fraction of the eager dispatch time
+jdecode = jax.jit(J.decode_step, static_argnums=1)
+jprefill = jax.jit(J.prefill, static_argnums=1)
 
 MAXLEN = 96
 

@@ -24,6 +24,7 @@ from repro.models import kvcache as JKV
 from repro_torch.kernels import _build
 from repro_torch.kernels import chunk_attention as C
 from repro_torch.kernels import paged_decode_attention as P
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 BF16, F32, I32 = torch.bfloat16, torch.float32, torch.int32
 TOL = 2e-2           # bf16: the two frameworks round at different points
@@ -214,3 +215,44 @@ def test_chunk_plain_equals_the_reference_cast_then_attend(dense):
     np.testing.assert_allclose(
         got.float().numpy()[:, :length],
         np.asarray(want.astype(jnp.float32))[:, :length], atol=TOL, rtol=TOL)
+
+
+def test_a_bf16_past_under_a_float32_model_reaches_the_kernels_widened(
+        monkeypatch):
+    """Fault C3: a float32 model over bf16 caches (``cache_dtype`` left at
+    the engine's default, bfloat16).  The kernels
+    take no bf16 past under a float32 q, so the model widens that past to
+    float32 first (exact, as the reference's cast of the gathered past):
+    every paged decode and chunk call of a paged engine with prefix hits
+    gets a float32 past, which the CUDA routes accept."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import SamplingParams
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import EngineConfig, Server, ServingEngine
+    seen = []
+
+    def spy(name, fn, at):
+        def wrapped(q, *a, **k):
+            seen.append((name, q.dtype, a[at].dtype, a[at + 1].dtype))
+            return fn(q, *a, **k)
+        return wrapped
+    monkeypatch.setattr(T, "paged_decode_attention",
+                        spy("paged", T.paged_decode_attention, 0))
+    monkeypatch.setattr(T, "chunk_attention", spy("chunk", T.chunk_attention,
+                                                  2))
+    cfg = get_config("qwen3-14b").smoke().replace(dtype="float32")
+    eng = ServingEngine(cfg, ecfg=EngineConfig(
+        max_batch=4, max_len=192, paged=True, prefix_cache=True),
+        device="cpu")
+    assert eng.caches[0][0]["kp"].dtype == BF16
+    srv = Server(eng)
+    rng = np.random.default_rng(7)
+    head = rng.integers(0, cfg.vocab_size, size=80)
+    for _ in range(4):
+        srv.submit(np.concatenate([head, rng.integers(0, cfg.vocab_size,
+                                                      size=8)]),
+                   SamplingParams(max_tokens=6))
+    rep = srv.run()
+    assert rep.completed == 4 and eng.prefix_cache.stats()["hits"] > 0
+    assert {n for n, *_ in seen} == {"paged", "chunk"}
+    assert {t[1:] for t in seen} == {(F32, F32, F32)}, seen

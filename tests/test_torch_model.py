@@ -19,14 +19,20 @@ import pytest
 import torch
 
 from repro.configs import ARCH_IDS as JARCH_IDS, get_config as jget_config
-from repro.models import (decode_step as jdecode, init_cache as jinit_cache,
-                          init_params as jinit_params,
-                          prefill_into_slot as jprefill)
+import repro.models as J
+from repro.models import init_cache as jinit_cache
+from repro.models import init_params as jinit_params
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import (decode_step, init_cache, init_params,
                                 params_from_numpy, prefill_into_slot)
 from repro_torch.serving import EngineConfig, ServingEngine
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
+
+# the reference's entry points jitted (static config), as its engine runs
+# them: the same values, a fraction of the eager dispatch time
+jdecode = jax.jit(J.decode_step, static_argnums=1)
+jprefill = jax.jit(J.prefill_into_slot, static_argnums=1)
 
 TOL = 1e-4
 

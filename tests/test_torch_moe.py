@@ -32,11 +32,9 @@ import numpy as np
 import pytest
 import torch
 
+import repro.models as J
 from repro.models import init_cache as jinit_cache
 from repro.models import init_params as jinit_params
-from repro.models import prefill as jprefill_unpadded
-from repro.models import prefill_chunk_into_slot as jchunk
-from repro.models import prefill_into_slot as jprefill
 from repro.models import moe as JM
 from repro.models.config import ModelConfig as JModelConfig
 
@@ -45,6 +43,13 @@ from repro_torch.models import (init_cache, params_from_numpy,
 from repro_torch.models import layers as TL
 from repro_torch.models import moe as TM
 from repro_torch.models.config import ModelConfig
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
+
+# the reference's entry points jitted (static config), as its engine runs
+# them: the same values, a fraction of the eager dispatch time
+jprefill_unpadded = jax.jit(J.prefill, static_argnums=1)
+jchunk = jax.jit(J.prefill_chunk_into_slot, static_argnums=1)
+jprefill = jax.jit(J.prefill_into_slot, static_argnums=1)
 
 CFG = dict(name="t", arch_type="moe", num_layers=2, d_model=64, num_heads=2,
            num_kv_heads=1, head_dim=32, d_ff=128, vocab_size=64,

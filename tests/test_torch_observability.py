@@ -44,6 +44,7 @@ from repro_torch.core import (EnergyLedger, MetricsRegistry, SamplingParams,
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import params_from_numpy
 from repro_torch.serving import EngineConfig, Server, ServingEngine
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MAXLEN = 96

@@ -29,11 +29,9 @@ from repro.configs import get_config as jget_config
 from repro.kernels import paged_decode_attention as pallas_paged
 from repro.kernels import paged_decode_attention_ref as jpaged_ref
 from repro.models import attention as jattn
-from repro.models import decode_step as jdecode
+import repro.models as J
 from repro.models import init_cache as jinit_cache
 from repro.models import init_params as jinit_params
-from repro.models import prefill_chunk_into_slot as jchunk
-from repro.models import prefill_into_slot as jprefill
 from repro.models import kvcache as JKV
 from repro.serving import pager as jpager
 from repro.serving import prefix_cache as jprefix
@@ -48,6 +46,13 @@ from repro_torch.models import (decode_step, init_cache, params_from_numpy,
 from repro_torch.models import kvcache as TKV
 from repro_torch.serving import pager as tpager
 from repro_torch.serving import prefix_cache as tprefix
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
+
+# the reference's entry points jitted (static config), as its engine runs
+# them: the same values, a fraction of the eager dispatch time
+jdecode = jax.jit(J.decode_step, static_argnums=1)
+jchunk = jax.jit(J.prefill_chunk_into_slot, static_argnums=1)
+jprefill = jax.jit(J.prefill_into_slot, static_argnums=1)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

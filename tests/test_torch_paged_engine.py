@@ -10,7 +10,9 @@ time and energy come from the numpy plant model, so identical tokens must
 give identical stream events, ``ServingReport`` fields (floats compared
 exactly), energy, ``_host_drains`` and prefix-cache counters.
 
-Inside the port: paged == dense tokens, and prefix hit == miss tokens.
+The same trace over bf16 pages under the float32 model (the engines'
+default ``cache_dtype``) against the reference too.  Inside the port:
+paged == dense tokens, and prefix hit == miss tokens.
 """
 import argparse
 import dataclasses
@@ -34,6 +36,7 @@ from repro_torch.core import SamplingParams
 from repro_torch.launch.serve import main as serve_main, workload
 from repro_torch.models import params_from_numpy
 from repro_torch.serving import EngineConfig, Server, ServingEngine
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 MAXLEN, PS = 96, 16
 HEAD = 32                            # shared prompt head: two pages
@@ -161,6 +164,31 @@ def test_effective_prefill_tokens_and_evict(runs):
     rid = treq.rid
     assert port.evict(rid) == ref.evict(rid) is True
     assert all(r.rid != rid for r in port.requests)
+
+
+def test_bf16_pages_under_a_float32_model_match_the_reference(model):
+    """The same trace over bf16 pages (``cache_dtype`` left at the
+    engines' default) under the float32 model: paged decode and the chunk
+    route read a bf16 past under a float32 query, which the port widens
+    (exactly, the pages its table names) as the reference casts its
+    gathered past.  Tokens, prefix-cache counters, preemptions, the report
+    and the stream events equal the reference's."""
+    jcfg, cfg, jp, _ = model
+    ecfg = {k: v for k, v in ECFG.items() if k != "cache_dtype"}
+    ref = JServingEngine(jcfg, params=jp, ecfg=JEngineConfig(**ecfg),
+                         plant_cfg=jget_config("qwen2-1.5b"))
+    _force_chunk(ref)
+    port = _port(model, cache_dtype="bfloat16")
+    assert ref.ecfg.cache_dtype == "bfloat16"
+    assert port.caches[0][0]["kp"].dtype == torch.bfloat16
+    jrep, jtoks, jev = _drive(JServer(ref), JSamplingParams, cfg.vocab_size)
+    trep, ttoks, tev = _drive(Server(port), SamplingParams, cfg.vocab_size)
+    assert ttoks == jtoks
+    assert port.prefix_cache.stats() == ref.prefix_cache.stats()
+    assert ref.prefix_cache.stats()["hits"] > 0
+    assert port._preempted == ref._preempted > 0
+    assert _norm(trep) == _norm(jrep)
+    assert tev == jev
 
 
 def test_paged_equals_dense_and_hit_equals_miss_in_the_port(model):

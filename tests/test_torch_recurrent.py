@@ -45,6 +45,7 @@ from repro_torch.models import prefill_into_slot as tprefill
 from repro_torch.models import kvcache as KV
 from repro_torch.models import rglru as TR
 from repro_torch.models import ssm as TS
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 TOL = 2e-5
 # the reference's entry points, one compile per shape (cfg static)

@@ -48,6 +48,7 @@ from test_paging import KEY, MAXLEN
 from test_torch_arch_engine import (GEMMA_ECFG, GEMMA_TRACE, _both,
                                     _sampling, _same)
 from test_torch_paged_engine import _norm
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 ECFG = dict(max_len=MAXLEN, governor="defaultnv", cache_dtype="float32",
             decode_block=4)

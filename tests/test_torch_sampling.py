@@ -42,6 +42,7 @@ from repro_torch.models.transformer import sampling_filter
 from repro_torch.serving import EngineConfig, Server, ServingEngine
 
 from test_properties import _keep_mask, _sampler_case
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 SEEDS = [0, 1, 2 ** 31 - 1, -5]
 MAXLEN = 96

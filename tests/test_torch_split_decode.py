@@ -32,6 +32,7 @@ from repro_torch.models import kvcache as TKV
 
 from test_torch_kernels import (DECODE_CASES, DTYPES, FLASH_CASES, _both,
                                 _close, _decode_inputs, _np)
+from torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 NEG = -1e30
 LOG2E = 1.4426950408889634

@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phases build,mixed_dtype
     python3 chip_smoke.py --phases build,kernels,equivalence,legacy,prefill,mixed_dtype
     python3 chip_smoke.py --phases build,controller,replay
+    python3 chip_smoke.py --phases build,kernels,train
 
 Phases (each raises on failure; nothing is caught):
 
@@ -94,7 +95,15 @@ Phases (each raises on failure; nothing is caught):
    CHUNK_CASES, Q8_CASES); a named row is timed in bf16 and gets a
    "[summary]" line (chunk_attention's with its float32 scratch bytes);
    with a softcap no PyTorch call computes the function, so library_ms is
-   none.
+   none.  Then the training kernels: flash's LSE route (its output bit
+   for bit the serve route's, its lse within 1e-4 of the plain one) and
+   flash_attention_bwd at every FLASH_CASES row and at the train shape
+   (FLASH_BWD_MAIN), and rmsnorm_bwd at every NORM_SHAPES row without and
+   with the sum's gradient ds, bf16 and float32, against their plain
+   versions (the FlashAttention-2 formula from the stored out and lse;
+   the norm gradient in float32) at the forward's tolerances (dw within
+   1e-4), bit for bit across two launches; timed beside SDPA's backward
+   alone and beside F.rms_norm's autograd backward.
 3. equivalence: a 4-layer, full-width qwen2-1.5b in float32 runs one
    300-token prompt and 16 greedy decode steps on the card (kernels) and on
    the CPU (plain versions) from the same params: first-token logits
@@ -141,7 +150,7 @@ Phases (each raises on failure; nothing is caught):
    and a 219-page pool serves two waves of 8 greedy requests sharing a
    256-token system prompt; it must preempt, hit the cache and run
    chunk_attention, and no decode kernel but the paged one.  In this phase
-   and in phases 4, 6, 8-14 and 16, the kernels' launch counts are set to 0
+   and in phases 4, 6, 8-14, 16 and 17, the kernels' launch counts are set to 0
    just before a path's burst and read just after; each kernel of the path
    must have launched.
 6. serve_q8: phases 4 and 5 again with ``kv_quant`` (int8 K/V caches and
@@ -261,7 +270,22 @@ Phases (each raises on failure; nothing is caught):
    ``run_cluster`` with qwen3-14b at full width in bf16, the burst at full
    depth and the cluster at 20 of its 40 layers (``replay_qwen3_dense``,
    ``replay_qwen3_cluster``).  Launches counted as in phase 5.
-17. profile (opt-in, not in the default run): the serve, serve_paged and
+17. train: training through the backward kernels (``phase_train``):
+   ``train_qwen2``, qwen2-1.5b at full width and depth in bf16, B 4 x S
+   2048, remat on, the cross-entropy in chunks of 1024, 10 AdamW steps
+   (lr 1e-3, warmup 2) on one fixed batch: every loss and grad norm
+   finite, the loss below 0.9x its first value, one step's launches
+   asserted (flash LSE route 56, flash backward 28, rmsnorm 2,
+   add_rmsnorm 111, norm backward 2 + 55 with ds) and every step's the
+   same; step ms, tokens/s, peak memory against params + grads + m + v;
+   then its params through save_checkpoint / load_checkpoint, bit for
+   bit.  ``train_gemma2``, gemma2-9b at full width and 4 layers, B 1 x S
+   5120 (the local layers' 4096 window masks; hd 256, both softcaps,
+   sandwich norms), 3 steps, the loss falling.  ``train_arch``: every
+   arch's ``.smoke()`` in float32 at S 96, the loss, every gradient and
+   one step on CUDA against the CPU from the same weights.  Launches
+   counted as in phase 5.
+18. profile (opt-in, not in the default run): the serve, serve_paged and
    both serve_q8 bursts, then qwen3-moe-30b-a3b's and recurrentgemma-9b's
    serve bursts at full depth, again under ``torch.profiler`` after a
    warm-up run, printing
@@ -301,7 +325,7 @@ BF16_ROUNDING = (1e-3, 1e-2)     # atol, rtol: one bf16 rounding apart
 PHASES = ("build", "kernels", "equivalence", "serve", "serve_paged",
           "serve_q8", "paged_vs_dense", "sampling", "observability", "arch",
           "cluster", "legacy", "prefill", "mixed_dtype", "controller",
-          "replay")
+          "replay", "train")
 # the paths whose launches count
 SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "sampling", "sampling_paged", "observability", "arch_qwen3",
@@ -318,7 +342,8 @@ SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "mixed_dtype_paged",
                "mixed_dtype_gemma2_dense", "mixed_dtype_gemma2_paged",
                "replay_example", "replay_c3", "replay_qwen3_dense",
-               "replay_qwen3_cluster")
+               "replay_qwen3_cluster", "train_qwen2", "train_gemma2",
+               "train_arch")
 
 
 def log(*a):
@@ -372,9 +397,10 @@ def max_err(out, want):
     return float((out.float() - want.float()).abs().max())
 
 
-def check_close(name, out, want, tol):
+def check_close(name, out, want, tol, one_rounding=True):
     """Hold a kernel's output against its plain version at atol = rtol =
-    ``tol``.  A bfloat16 output must also pass ``BF16_ROUNDING``: kernel
+    ``tol``.  A bfloat16 output must also pass ``BF16_ROUNDING`` (unless
+    ``one_rounding`` is false: ``want`` is not the same arithmetic): kernel
     and plain version both compute in float32 from the same bf16 inputs and
     round once, so they may differ by one bf16 ulp (<= 2**-7 relative) and
     no more.  2e-2 alone is ~60% of a typical decode output at Sk 2048
@@ -385,7 +411,7 @@ def check_close(name, out, want, tol):
     if not torch.allclose(out.float(), want.float(), atol=tol, rtol=tol):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version, max |err| {err:.3g} > tol {tol}")
-    if out.dtype != torch.bfloat16:
+    if out.dtype != torch.bfloat16 or not one_rounding:
         return err, None
     atol, rtol = BF16_ROUNDING
     share = float(((out.float() - want.float()).abs()
@@ -459,7 +485,9 @@ NORM_SHAPES = ((8, 1536), (256, 1536), (1024, 1536), (4, 10008),
                # recurrentgemma's 2048-token chunk, mamba2's d_model and its
                # SSD gated norm (float32 rows of 2048 in the model)
                (2048, 4096), (8, 1024), (1024, 1024), (8, 2048),
-               (1024, 2048))
+               (1024, 2048),
+               # the train phase's qwen2 rows (B 4 x S 2048 of 1536)
+               (8192, 1536))
 
 
 def _rmsnorm_cases(res):
@@ -654,10 +682,23 @@ FLASH_CASES = [(96, 12, 2, 128, 0, 0.0, "flash_attention Sq=Sk=96"),
                (2304, 16, 1, 256, 2048, 0.0, None)]
 
 
+def _sdpa_mask(S, window):
+    """SDPA's keywords for causal attention over the last ``window`` keys
+    (0: all): ``is_causal`` where the window masks nothing, else a boolean
+    (S, S) mask on the card."""
+    import torch
+    if not window or window >= S:
+        return {"is_causal": True}
+    i = torch.arange(S, device="cuda")
+    return {"attn_mask": (i[None, :] <= i[:, None])
+            & (i[None, :] > i[:, None] - window)}
+
+
 def _flash_cases(res):
     """flash_attention against its plain version at FLASH_CASES, bf16 and
-    float32; the named cases timed in bf16 beside SDPA (causal) where there
-    is neither window nor softcap.  Returns qwen2's 1024-query case."""
+    float32; the named cases timed in bf16 beside SDPA (causal, with the
+    window's mask where it masks) where there is no softcap.  Returns
+    qwen2's 1024-query case."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as K
@@ -682,9 +723,10 @@ def _flash_cases(res):
                 nbytes = 2 * S * Hq * hd * 2 + 2 * S * KH * hd * 2
                 pairs = sum(min(i + 1, window or S) for i in range(S))
                 sets = [mk() for _ in range(n_sets(nbytes))]
-                library = None if cap or window else (
+                sdpa_kw = _sdpa_mask(S, window)
+                library = None if cap else (
                     lambda q_, k_, v_: F.scaled_dot_product_attention(
-                        q_, k_, v_, is_causal=True, enable_gqa=True),
+                        q_, k_, v_, enable_gqa=True, **sdpa_kw),
                     [tuple(t.transpose(1, 2).contiguous() for t in s)
                      for s in sets])
                 _timed(res, name, case,
@@ -696,6 +738,201 @@ def _flash_cases(res):
             res["cases"].append({"kernel": "flash_attention", **case})
             log(f"[kernels] flash_attention {case}")
     return main
+
+
+# the flash backward's timed train shape: qwen2's layer at the train phase's
+# B 4 x S 2048 (12:2 heads, hd 128)
+FLASH_BWD_MAIN = (4, 2048, 12, 2, 128)
+
+
+def _flash_bwd_cases(res, fwd_main):
+    """The forward's LSE route and ``flash_attention_bwd`` against their
+    plain versions at every FLASH_CASES geometry, bf16 and float32: the
+    route's output bit for bit the serve route's, its lse within 1e-4 of
+    the plain log-sum-exp; dq, dk, dv within the forward's tolerances of
+    the plain backward (the same FlashAttention-2 formula from the same
+    out and lse; bf16 also within one bf16 rounding: the kernel keeps P and
+    dS in float32) and of autograd through the plain forward (the true
+    gradient; a bf16 out rounded before D = rowsum(dO o O) puts it past
+    one rounding), and bit for bit across two launches.  Timed in bf16 at
+    the named cases and at FLASH_BWD_MAIN beside SDPA's backward alone
+    (causal, with the window's mask where it masks; none with a softcap),
+    bound by operations at 2.5x the forward's FLOP; the LSE route timed
+    beside the serve route at the forward's main case.  Returns the main
+    case."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as K
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def mk(B, S, Hq, KH, hd, dt):
+        q, k, v, dout = (torch.randn(B, S, h, hd, generator=g,
+                                     device="cuda").to(dt)
+                         for h in (Hq, KH, KH, Hq))
+        return q, k, v, dout
+
+    def bwd_args(q, k, v, dout, kw):
+        out, lse = K.flash_attention(q, k, v, return_lse=True, **kw)
+        return q, k, v, out, lse, dout
+
+    main = None
+    cases = [(1,) + c for c in FLASH_CASES] + [
+        FLASH_BWD_MAIN + (0, 0.0, "flash_attention_bwd train")]
+    for B, S, Hq, KH, hd, window, cap, name in cases:
+        kw = dict(causal=True, window=window, softcap=cap)
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            what = f"S={S} B={B} {Hq}:{KH} hd={hd} window={window} " \
+                   f"softcap={cap} {dt}"
+            q, k, v, dout = mk(B, S, Hq, KH, hd, dt)
+            args = bwd_args(q, k, v, dout, kw)
+            if not torch.equal(args[3], K.flash_attention(q, k, v, **kw)):
+                raise AssertionError(f"flash LSE route {what}: output not "
+                                     "bitwise the serve route's")
+            _, lse_plain = K.flash_attention_plain(q, k, v, return_lse=True,
+                                                   **kw)
+            lse_err, _ = check_close(f"flash lse {what}", args[4], lse_plain,
+                                     1e-4)
+            got = K.flash_attention_bwd(*args, **kw)
+            again = K.flash_attention_bwd(*args, **kw)
+            want = K.flash_attention_bwd_plain(*args, **kw)
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            true = torch.autograd.grad(
+                K.flash_attention_plain(*leaves, **kw), leaves, dout)
+            errs, shares, true_errs = [], [], []
+            for gname, a, b, w, t in zip(("dq", "dk", "dv"), got, again, want,
+                                         true):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"flash_attention_bwd {what}: {gname}"
+                                         " differs between two launches")
+                e, sh = check_close(f"flash_attention_bwd {gname} {what}", a,
+                                    w, tol)
+                errs.append(e)
+                shares.append(sh)
+                true_errs.append(check_close(
+                    f"flash_attention_bwd {gname} {what} against autograd "
+                    "through the plain forward", a, t, tol,
+                    one_rounding=False)[0])
+            del leaves, true
+            case = {"shape": [B, S, KH, Hq, hd], "window": window,
+                    "softcap": cap, "dtype": str(dt), "max_abs_err": max(errs),
+                    "grad_errs": errs, "autograd_errs": true_errs,
+                    "lse_err": lse_err,
+                    "bf16_share": None if shares[0] is None else max(shares),
+                    "bitwise_repeat": True}
+            if dt == torch.bfloat16 and name:
+                es = 2
+                nbytes = es * (4 * B * S * Hq * hd + 4 * B * S * KH * hd) \
+                    + 4 * B * S * Hq
+                pairs = sum(min(i + 1, window or S) for i in range(S))
+                sets = [bwd_args(*mk(B, S, Hq, KH, hd, dt), kw)
+                        for _ in range(n_sets(nbytes))]
+                library = None
+                if not cap:
+                    sdpa_kw = _sdpa_mask(S, window)
+
+                    def lib_set(q_, k_, v_, _o, _l, g_):
+                        leaves = [t.transpose(1, 2).contiguous()
+                                  .requires_grad_(True) for t in (q_, k_, v_)]
+                        o = F.scaled_dot_product_attention(
+                            *leaves, enable_gqa=True, **sdpa_kw)
+                        return o, leaves, g_.transpose(1, 2).contiguous()
+                    library = (lambda o, leaves, g_: torch.autograd.grad(
+                        o, leaves, g_, retain_graph=True),
+                        [lib_set(*a) for a in sets])
+                    case["library"] = "SDPA backward (" + (
+                        "is_causal" if "is_causal" in sdpa_kw
+                        else "causal + window mask") + "), alone"
+                _timed(res, name.replace("flash_attention ",
+                                         "flash_attention_bwd "), case,
+                       lambda *a: K.flash_attention_bwd(*a, **kw),
+                       lambda *a: K.flash_attention_bwd_plain(*a, **kw),
+                       sets, nbytes, 2.5 * 4 * B * Hq * hd * pairs, library)
+                del sets, library
+                if name == "flash_attention_bwd train":
+                    main = case
+            res["cases"].append({"kernel": "flash_attention_bwd", **case})
+            log(f"[kernels] flash_attention_bwd {case}")
+            del q, k, v, dout, args, got, again, want
+        torch.cuda.empty_cache()
+    # the LSE route's time at the forward's main case, beside the serve
+    # route's (the same launch plus one float32 store a row)
+    S, Hq, KH, hd = 1024, 12, 2, 128
+    nbytes = 2 * S * Hq * hd * 2 + 2 * S * KH * hd * 2 + 4 * S * Hq
+    sets = [mk(1, S, Hq, KH, hd, torch.bfloat16)[:3]
+            for _ in range(n_sets(nbytes))]
+    fwd_main["lse_route"] = {
+        "ms": time_ms(lambda *a: K.flash_attention(*a, return_lse=True), sets),
+        "serve_route_ms": time_ms(lambda *a: K.flash_attention(*a), sets),
+        "plain_ms": time_ms(lambda *a: K.flash_attention_plain(
+            *a, return_lse=True), sets)}
+    log(f"[kernels] flash_attention LSE route Sq=Sk=1024 {fwd_main['lse_route']}")
+    return main
+
+
+def _norm_bwd_cases(res):
+    """``rmsnorm_bwd`` against its plain version at NORM_SHAPES, without
+    and with the sum's gradient ``ds`` (add_rmsnorm's backward), bf16 and
+    float32: dx within the forward's tolerances (2e-2, 2e-5), dw (float32
+    column sums over every row) within 1e-4, both bit for bit across two
+    launches.  Timed in bf16 at the train rows (8192 x 1536) beside
+    ``F.rms_norm``'s autograd backward, bound by bytes.  Returns (the
+    case without ds, the case with it) at 8192 x 1536."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as K
+    g = torch.Generator(device="cuda").manual_seed(4)
+    mains = {}
+    for rows, d in NORM_SHAPES:
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+            def mk():
+                return tuple(torch.randn(rows, d, generator=g,
+                                         device="cuda").to(dt)
+                             for _ in range(3))
+            x, dy, ds = mk()
+            w = torch.randn(d, generator=g, device="cuda") + 1.0
+            for with_ds in (False, True):
+                what = f"{rows}x{d} {dt} ds={with_ds}"
+                extra = (ds,) if with_ds else ()
+                dx, dw = K.rmsnorm_bwd(x, w, dy, 1e-6, *extra)
+                dx2, dw2 = K.rmsnorm_bwd(x, w, dy, 1e-6, *extra)
+                if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+                    raise AssertionError(f"rmsnorm_bwd {what}: differs "
+                                         "between two launches")
+                want = K.rmsnorm_bwd_plain(x, w, dy, 1e-6, *extra)
+                err, share = check_close(f"rmsnorm_bwd dx {what}", dx,
+                                         want[0], tol)
+                werr, _ = check_close(f"rmsnorm_bwd dw {what}", dw, want[1],
+                                      1e-4)
+                case = {"shape": [rows, d], "dtype": str(dt), "ds": with_ds,
+                        "max_abs_err": err, "dw_err": werr,
+                        "bf16_share": share, "bitwise_repeat": True,
+                        "rows_per_block": K.bwd_rows_per_block(rows)}
+                if dt == torch.bfloat16 and (rows, d) == (8192, 1536):
+                    es = x.element_size()
+                    nbytes = (4 if with_ds else 3) * rows * d * es + 8 * d
+                    sets = [mk() + (w,) for _ in range(n_sets(nbytes))]
+                    wl = w.to(dt)
+
+                    def lib_set(x_, dy_, _ds, _w):
+                        leaves = [x_.clone().requires_grad_(True),
+                                  wl.clone().requires_grad_(True)]
+                        return (F.rms_norm(leaves[0], (d,), leaves[1], 1e-6),
+                                leaves, dy_)
+                    case["library"] = "F.rms_norm autograd backward"
+                    _timed(res, f"rmsnorm_bwd {rows}x{d}"
+                           + (" ds" if with_ds else ""), case,
+                           lambda x_, dy_, ds_, w_: K.rmsnorm_bwd(
+                               x_, w_, dy_, 1e-6, *((ds_,) if with_ds else ())),
+                           lambda x_, dy_, ds_, w_: K.rmsnorm_bwd_plain(
+                               x_, w_, dy_, 1e-6, *((ds_,) if with_ds else ())),
+                           sets, nbytes, 8 * rows * d,
+                           (lambda y, leaves, dy_: torch.autograd.grad(
+                               y, leaves, dy_, retain_graph=True),
+                            [lib_set(*a) for a in sets]))
+                    mains[with_ds] = case
+                res["cases"].append({"kernel": "rmsnorm_bwd", **case})
+                log(f"[kernels] rmsnorm_bwd {case}")
+    return mains[False], mains[True]
 
 
 def _paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo=None, cover=None,
@@ -1460,6 +1697,12 @@ KERNELS = {
         "src/repro/kernels/decode_attention_q8.py:63"),
     "chunk_attention": ("src/repro_torch/kernels/csrc/chunk_attention.cu",
                         "src/repro/models/transformer.py:311"),
+    # the gradients the JAX package takes with jax.grad (no Pallas VJP)
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/attention.py:52"),
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/models/layers.py:22"),
 }
 
 
@@ -1478,6 +1721,11 @@ def phase_kernels(res):
     res["main_case"]["paged_decode_attention"]["q8_route"] = paged_q8
     _geometry_cases(res)
     _decode_bitwise(res)
+    res["main_case"]["flash_attention_bwd"] = _flash_bwd_cases(
+        res, res["main_case"]["flash_attention"])
+    nb, nb_ds = _norm_bwd_cases(res)
+    nb["ds_route"] = nb_ds
+    res["main_case"]["rmsnorm_bwd"] = nb
     for name, c in res["timed"]:
         lib = c["library_ms"]
         ref = (f"library_ms {lib:.5f} ({c['ms'] / lib:.2f}x)" if lib else
@@ -2227,7 +2475,11 @@ def _counters():
                                          "f32_past_launches"),
             "chunk_attention/dense_f32_past": (chunk_attention,
                                                "dense_f32_past_launches"),
-            "decode_attention_q8": (decode_attention_q8, "launches")}
+            "decode_attention_q8": (decode_attention_q8, "launches"),
+            "flash_attention/lse": (flash_attention, "lse_launches"),
+            "flash_attention_bwd": (flash_attention, "bwd_launches"),
+            "rmsnorm_bwd": (rmsnorm, "bwd_launches"),
+            "rmsnorm_bwd/ds": (rmsnorm, "bwd_ds_launches")}
 
 
 def _reset_counts():
@@ -3997,6 +4249,267 @@ def phase_replay(res):
     torch.cuda.empty_cache()
 
 
+# -- phase 17: train ---------------------------------------------------------------
+
+TRAIN_QWEN2 = (4, 2048, 10)          # batch, sequence, AdamW steps
+TRAIN_GEMMA2 = (4, 1, 5120, 3)       # layers, batch, sequence, steps
+TRAIN_ARCH_S = 96                    # past the smoke window of 64
+TRAIN_ARCH_OPT = dict(lr=1e-2, warmup_steps=0)   # first update ~1e-2
+TRAIN_ARCH_TOL = 1e-5                # atol of the step's update (see there)
+
+
+def _tree_bytes(tree, per_elem=None):
+    from repro_torch.training.pytree import leaves
+    return sum(t.numel() * (per_elem or t.element_size())
+               for t in leaves(tree))
+
+
+def _train_steps(res, path, cfg, batch, steps, opt_cfg, seed):
+    """``steps`` AdamW steps of ``make_train_step`` on one fixed batch from
+    fresh random weights, every count set to 0 just before the first step
+    and read after it (one step's launches) and after the last (the
+    path's).  Earlier phases' garbage is collected first, so the peak is
+    this path's; ``base_gib`` is what was still allocated then.  Returns
+    (state, result)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.training import init_train_state, make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(seed),
+                             cfg)
+    step_fn = make_train_step(cfg, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, ms = [], [], []
+    _reset_counts()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if i == 0:
+            per_step = _launch_counts()
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    params = state["params"]
+    p_bytes = _tree_bytes(params)
+    # params, their gradients (the params' dtype), AdamW's m and v (float32)
+    state_bytes = 2 * p_bytes + 2 * _tree_bytes(params, 4)
+    tokens = batch["tokens"].numel()
+    step_ms = statistics.median(ms[1:]) if steps > 1 else ms[0]
+    out = {"losses": losses, "grad_norms": gnorms, "step_ms": ms,
+           "median_step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "peak_gib": peak / 2 ** 30, "base_gib": base / 2 ** 30,
+           "params_grads_opt_gib": state_bytes / 2 ** 30,
+           "launches_per_step": per_step, "launches": counts}
+    log(f"[{path}] {cfg.name} {cfg.num_layers} layers {cfg.dtype}, batch "
+        f"{tuple(batch['tokens'].shape)}: losses {losses}, grad norms "
+        f"{gnorms}; step ms {[round(x, 1) for x in ms]} (median after the "
+        f"first {step_ms:.1f}), {out['tokens_per_s']:.0f} tokens/s; peak "
+        f"{out['peak_gib']:.2f} GiB (of which {out['base_gib']:.2f} resident "
+        f"before) against params + grads + m + v "
+        f"{out['params_grads_opt_gib']:.2f} GiB; launches a step "
+        f"{ {k: v for k, v in per_step.items() if v} }")
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(gnorms))):
+        raise AssertionError(f"{path}: a loss or grad norm is not finite")
+    if any(counts[k] != steps * per_step[k] for k in counts):
+        raise AssertionError(f"{path}: launches {counts} are not {steps} x "
+                             f"one step's {per_step}")
+    res[path] = out
+    return state, out
+
+
+def _train_qwen2(res):
+    """qwen2-1.5b at full width and depth in bf16, B 4 x S 2048, remat on,
+    the cross-entropy in chunks of 1024: 10 AdamW steps (lr 1e-3, warmup
+    2) on one fixed batch; the loss must fall below 0.9x its first value.
+    With remat each layer's flash forward runs twice (forward and
+    recompute) and its backward once; every norm forward runs twice but
+    the final norm's (outside the checkpoints), every norm backward once,
+    with the sum's gradient ds but for layer 0's pre-norm and the final
+    norm.  Then its params through ``save_checkpoint`` /
+    ``load_checkpoint``, bit for bit."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.training import (AdamWConfig, load_checkpoint,
+                                      save_checkpoint)
+    from repro_torch.training.pytree import leaves
+    B, S, steps = TRAIN_QWEN2
+    cfg = get_config("qwen2-1.5b")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    import gc
+    import os
+    state, out = _train_steps(
+        res, "train_qwen2", cfg, batch, steps,
+        AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps), seed=0)
+    L = cfg.num_layers
+    want = {"flash_attention/lse": 2 * L, "flash_attention_bwd": L,
+            "rmsnorm": 2, "add_rmsnorm": 4 * L - 1, "rmsnorm_bwd": 2,
+            "rmsnorm_bwd/ds": 2 * L - 1}
+    per_step = out["launches_per_step"]
+    got = {k: v for k, v in per_step.items() if v}
+    if got != want:
+        raise AssertionError(f"train_qwen2: launches a step {got}, want "
+                             f"{want}")
+    if not out["losses"][-1] < 0.9 * out["losses"][0]:
+        raise AssertionError(f"train_qwen2: loss {out['losses']} did not "
+                             "fall below 0.9x its first value")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        path = os.path.join(d, "qwen2.msgpack")
+        save_checkpoint(path, state["params"])
+        size = os.path.getsize(path)
+        back = load_checkpoint(path, state["params"])
+    for a, b in zip(leaves(state["params"]), leaves(back)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError("train_qwen2: checkpoint round trip is not "
+                                 "bitwise")
+    out["checkpoint"] = {"bytes": size, "s": time.perf_counter() - t0}
+    log(f"[train_qwen2] checkpoint round trip bitwise: {size} bytes in "
+        f"{out['checkpoint']['s']:.1f}s")
+    del state, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_gemma2(res):
+    """gemma2-9b at full width, 4 layers (local, full, local, full), bf16,
+    B 1 x S 5120: the local layers' 4096 window masks; hd 256, the
+    attention and final softcaps, sandwich norms.  3 steps, the loss
+    finite and falling."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.training import AdamWConfig
+    import gc
+    layers, B, S, steps = TRAIN_GEMMA2
+    cfg = get_config("gemma2-9b").replace(num_layers=layers)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    state, out = _train_steps(
+        res, "train_gemma2", cfg, batch, steps,
+        AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps), seed=0)
+    _check_launched("train_gemma2", out["launches"],
+                    ("flash_attention/lse", "flash_attention_bwd", "rmsnorm",
+                     "add_rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd/ds"))
+    if not out["losses"][-1] < out["losses"][0]:
+        raise AssertionError(f"train_gemma2: loss {out['losses']} did not "
+                             "fall")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_arch(res):
+    """Every architecture's ``.smoke()`` in float32 at S 96 (B 2, prefix
+    embeddings where the model takes them): the loss, every gradient leaf
+    and one ``make_train_step`` step (TRAIN_ARCH_OPT: lr 1e-2, no warmup)
+    on CUDA against the CPU from the same weights and batch.  Loss and
+    grad norm within rtol 1e-4; each gradient within lim = 1e-5 + 1e-3 x
+    its leaf's largest |value| (summation order).  The step's m and v
+    within what that gradient tolerance allows (m = 0.1 s g and v = 0.05
+    (s g)^2 after one step, s the clip scale); its update (new - old
+    params, about lr x sign(g) = 1e-2 per element) within TRAIN_ARCH_TOL on
+    every element whose CPU gradient is over 2 lim with s |g| >= 1e-5 (no
+    sign can turn, and Adam's eps 1e-8 moves the update by < 5e-6), or
+    zero on both devices; at least 80% of the elements are so held."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import loss_fn
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+    from repro_torch.training.pytree import leaves, unflatten
+    rows = {}
+    _reset_counts()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).smoke().replace(dtype="float32")
+        cpu = init_train_state(torch.Generator().manual_seed(5), cfg)
+        old = [p.clone() for p in leaves(cpu["params"])]
+        rng = np.random.default_rng(6)
+        nb = {"tokens": rng.integers(0, cfg.vocab_size, (2, TRAIN_ARCH_S))
+              .astype(np.int32)}
+        if cfg.num_prefix_embeds:
+            nb["prefix_embeds"] = rng.standard_normal(
+                (2, cfg.num_prefix_embeds, cfg.d_model)).astype(np.float32)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            state = _to(cpu, dev)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+            flat = [p.detach().requires_grad_(True)
+                    for p in leaves(state["params"])]
+            loss, _ = loss_fn(unflatten(state["params"], flat), cfg, batch,
+                              ce_chunk=40)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            new, m = make_train_step(cfg, AdamWConfig(**TRAIN_ARCH_OPT))(
+                state, batch)
+            got[dev] = (float(loss.detach()), [None if x is None else x.cpu()
+                                               for x in grads],
+                        float(m["grad_norm"]),
+                        [[x.cpu() for x in leaves(t)] for t in
+                         (new["params"], new["opt"]["m"], new["opt"]["v"])])
+        (lc, gc_, nc, sc), (lh, gh, nh, sh) = got["cuda"], got["cpu"]
+        s = min(1.0, 1.0 / (nh + 1e-9))
+        gerr = merr = verr = uerr = 0.0
+        held = total = 0
+        for i, (a, b) in enumerate(zip(gc_, gh)):
+            if (a is None) != (b is None):
+                raise AssertionError(f"train_arch {arch}: a gradient is "
+                                     "missing on one device")
+            p0, (pc, mc, vc), (ph, mh, vh) = old[i], \
+                [x[i] for x in sc], [x[i] for x in sh]
+            if a is None or not a.numel():
+                continue
+            gmax = float(b.abs().max())
+            lim = 1e-5 + 1e-3 * gmax
+            gerr = max(gerr, float((a - b).abs().max()) / lim)
+            mlim = 0.1 * s * 1.1 * lim
+            vlim = 0.05 * s * s * (2 * gmax + 1.1 * lim) * 1.1 * lim
+            merr = max(merr, float((mc - mh).abs().max()) / mlim)
+            verr = max(verr, float((vc - vh).abs().max()) / vlim)
+            keep = ((b.abs() > 2 * lim) & (s * b.abs() >= 1e-5)) \
+                | ((a == 0) & (b == 0))
+            if keep.any():
+                uerr = max(uerr, float(((pc - p0) - (ph - p0))[keep]
+                                       .abs().max()))
+            held += int(keep.sum())
+            total += keep.numel()
+        row = {"loss_cuda": lc, "loss_cpu": lh, "grad_norm_cuda": nc,
+               "grad_norm_cpu": nh, "grad_err_share": gerr,
+               "m_err_share": merr, "v_err_share": verr,
+               "update_max_err": uerr, "update_held_share": held / total}
+        log(f"[train_arch] {arch}: {row}")
+        if abs(lc - lh) > 1e-4 * abs(lh) or abs(nc - nh) > 1e-4 * abs(nh) \
+                or max(gerr, merr, verr) > 1 or uerr > TRAIN_ARCH_TOL \
+                or held < 0.8 * total:
+            raise AssertionError(f"train_arch {arch}: CUDA and CPU differ: "
+                                 f"{row}")
+        rows[arch] = row
+    counts = _launch_counts()
+    _check_launched("train_arch", counts,
+                    ("flash_attention/lse", "flash_attention_bwd", "rmsnorm",
+                     "add_rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd/ds"))
+    res["train_arch"] = {"archs": rows, "launches": counts}
+
+
+def phase_train(res):
+    """Training on the card (``src/repro_torch/training``): ``_train_qwen2``
+    (full width and depth, launch counts asserted, checkpoint round trip),
+    ``_train_gemma2`` (full width, 4 layers, window and softcaps) and
+    ``_train_arch`` (every arch's smoke step, CUDA against CPU)."""
+    _train_qwen2(res)
+    _train_gemma2(res)
+    _train_arch(res)
+
+
 def gpu_name_and_limit():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4018,7 +4531,8 @@ def _line_entry(k):
         for r, n in counts.items():
             by_route[r] = by_route.get(r, 0) + n
     routes = {r: k[r]["ms"] for r in ("q8_route", "f32_past_route",
-                                      "f32_past_dense_route") if k.get(r)}
+                                      "f32_past_dense_route", "lse_route",
+                                      "ds_route") if k.get(r)}
     return {**{key: k[key] for key in LINE_KEYS},
             "launches_by_route": by_route, "routes_ms": routes}
 
@@ -4079,7 +4593,8 @@ def main(argv=None):
            "arch": phase_arch, "cluster": phase_cluster,
            "legacy": phase_legacy, "prefill": phase_prefill,
            "mixed_dtype": phase_mixed_dtype, "controller": phase_controller,
-           "replay": phase_replay, "profile": phase_profile}
+           "replay": phase_replay, "train": phase_train,
+           "profile": phase_profile}
     for p in phases:
         t0 = time.perf_counter()
         fns[p](res)
@@ -4110,6 +4625,7 @@ def main(argv=None):
             "q8_route": c.get("q8_route"),
             "f32_past_route": c.get("f32_past_route"),
             "f32_past_dense_route": c.get("f32_past_dense_route"),
+            "lse_route": c.get("lse_route"), "ds_route": c.get("ds_route"),
             "span_ms": c.get("span_ms"),
             "library": c.get("library")})
     out_dir = ROOT / args.out

@@ -32,6 +32,15 @@
 //
 // float32 (`fma` below): one CTA per (q tile, query head, batch row), the
 // FMA step of flash_tile.cuh.  bfloat16 never takes this body.
+//
+// LSE route (the train mode's forward): with a non-null `lse` (B, Hq, Sq)
+// float32, both bodies also write each row's log-sum-exp of its visible
+// logits, in natural-log units: the tc body keeps its running max m in
+// log2 units (logits prescaled by log2(e), fast_exp2), so it writes
+// (m + log2(l)) * ln(2); the fma body writes m + log(l).  A row that sees
+// no key gets +inf, so that the backward's exp(s - lse) is 0 there.  The
+// backward (flash_attention_bwd.cu) recomputes P = exp(s - lse) in the
+// same natural base.  Every serve path passes null.
 #include <type_traits>
 
 #include "flash_tile.cuh"
@@ -45,6 +54,8 @@ using namespace rt::flash;
 namespace tc {
 
 using namespace rt::flash::tc;
+
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Copy rows r0 .. r0 + R - 1 of a (rows, HD) bf16 matrix with row stride
 // ss into a swizzled tile, thread t of n; rows at or past `limit` are
@@ -65,7 +76,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 template <int HD>
 __global__ void __launch_bounds__(Tiles<HD>::kThreads)
 flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
+             const bf16* __restrict__ v, bf16* __restrict__ out,
+             float* __restrict__ lse, int Sq,
              int Sk, int G, long long q_sb, long long q_ss, long long q_sh,
              long long k_sb, long long k_ss, long long k_sh, long long v_sb,
              long long v_ss, long long v_sh, long long o_sb, long long o_ss,
@@ -176,6 +188,15 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     if (!merge_groups<HD>(st, reinterpret_cast<float*>(Qs + BQ * HD), grp, gt))
       continue;
+    if (lse && w.tq == 0 && w.d0 == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = q0 + w.rw * 16 + w.gq + 8 * i;
+        if (r < Sq)
+          lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + r] =
+              st.l[i] > 0.f ? (st.m[i] + log2f(st.l[i])) * kLn2 : INFINITY;
+      }
+    }
     bf16* ob = out + b * o_sb + h * o_sh + w.d0;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -202,7 +223,7 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out,
-             int Sq, int Sk, int G,
+             float* __restrict__ lse, int Sq, int Sk, int G,
              long long q_sb, long long q_ss, long long q_sh,
              long long k_sb, long long k_ss, long long k_sh,
              long long v_sb, long long v_ss, long long v_sh,
@@ -255,6 +276,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + st.rg * 4 + i;
     if (r >= Sq) continue;
+    if (lse && st.cg == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + r] =
+          st.l[i] > 0.f ? st.m[i] + logf(st.l[i]) : INFINITY;
 #pragma unroll
     for (int d = 0; d < State<HD>::DPT; ++d) {
       const float o = st.l[i] > 0.f ? st.acc[i][d] / st.l[i] : 0.f;
@@ -266,9 +290,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace fma
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int Hq, int G, const long long* st, int causal,
-           int window, float softcap, float scale, cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int Sq, int Sk, int Hq, int G, const long long* st,
+           int causal, int window, float softcap, float scale,
+           cudaStream_t s) {
   constexpr bool kTC = std::is_same<T, __nv_bfloat16>::value;
   constexpr int bytes = kTC ? tc::Tiles<HD>::bytes : fma::smem_bytes<HD>();
   constexpr int threads = kTC ? tc::Tiles<HD>::kThreads : fma::kThreads;
@@ -285,12 +310,12 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   T* ot = static_cast<T*>(out);
   if constexpr (kTC) {
     tc::flash_kernel<HD><<<grid, threads, bytes, s>>>(
-        qt, kt, vt, ot, Sq, Sk, G, st[0], st[1], st[2], st[3], st[4], st[5],
+        qt, kt, vt, ot, lse, Sq, Sk, G, st[0], st[1], st[2], st[3], st[4], st[5],
         st[6], st[7], st[8], st[9], st[10], st[11], causal, window, softcap,
         scale);
   } else {
     fma::flash_kernel<HD><<<grid, threads, bytes, s>>>(
-        qt, kt, vt, ot, Sq, Sk, G, st[0], st[1], st[2], st[3], st[4], st[5],
+        qt, kt, vt, ot, lse, Sq, Sk, G, st[0], st[1], st[2], st[3], st[4], st[5],
         st[6], st[7], st[8], st[9], st[10], st[11], causal, window, softcap,
         scale);
   }
@@ -299,16 +324,16 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* out,
-                int B, int Sq, int Sk, int Hq, int G, const long long* st,
-                int causal, int window, float softcap, float scale,
-                cudaStream_t s) {
+                float* lse, int B, int Sq, int Sk, int Hq, int G,
+                const long long* st, int causal, int window, float softcap,
+                float scale, cudaStream_t s) {
   switch (hd) {
     case 64:
-      return launch<T, 64>(q, k, v, out, B, Sq, Sk, Hq, G, st, causal, window, softcap, scale, s);
+      return launch<T, 64>(q, k, v, out, lse, B, Sq, Sk, Hq, G, st, causal, window, softcap, scale, s);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, Sq, Sk, Hq, G, st, causal, window, softcap, scale, s);
+      return launch<T, 128>(q, k, v, out, lse, B, Sq, Sk, Hq, G, st, causal, window, softcap, scale, s);
     case 256:
-      return launch<T, 256>(q, k, v, out, B, Sq, Sk, Hq, G, st, causal, window, softcap, scale, s);
+      return launch<T, 256>(q, k, v, out, lse, B, Sq, Sk, Hq, G, st, causal, window, softcap, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -319,9 +344,12 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* out,
 // q: (B, Sq, Hq, hd), k, v: (B, Sk, KH, hd), out: (B, Sq, Hq, hd), each with
 // its own element strides (batch, sequence, head; the last dim contiguous,
 // 16-byte aligned rows).  hd in {64, 128, 256}.  bfloat16 runs the tensor-
-// core body, float32 the FMA body.  Returns the CUDA error code.
+// core body, float32 the FMA body.  lse: null, or (B, Hq, Sq) float32
+// contiguous, each row's natural-log log-sum-exp.  Returns the CUDA error
+// code.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int Sq,
+    const void* q, const void* k, const void* v, void* out, void* lse, int B,
+    int Sq,
     int Sk, int Hq, int KH, int hd, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
@@ -332,11 +360,12 @@ extern "C" int flash_attention_launch(
                             v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = Hq / KH;
+  float* l = static_cast<float*>(lse);
   if (dtype == kBF16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, Sq, Sk, Hq, G, st,
-                                      causal, window, softcap, scale, s);
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, l, B, Sq, Sk, Hq, G,
+                                      st, causal, window, softcap, scale, s);
   if (dtype == kF32)
-    return dispatch_hd<float>(hd, q, k, v, out, B, Sq, Sk, Hq, G, st, causal,
-                              window, softcap, scale, s);
+    return dispatch_hd<float>(hd, q, k, v, out, l, B, Sq, Sk, Hq, G, st,
+                              causal, window, softcap, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

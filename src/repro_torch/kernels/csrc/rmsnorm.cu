@@ -31,6 +31,21 @@
 // the same on every run, whatever the row count, and the fused and the
 // unfused kernel agree bit for bit.
 // No row padding (the Pallas `block_rows` padding is a TPU tiling artefact).
+//
+// Backward (rmsnorm_bwd_launch; the JAX package takes this gradient of
+// src/repro/models/layers.py:22 with jax.grad, no kernel): for a row x,
+// the output gradient dy and g = w * dy, in float32,
+//   dx = (g - x_hat * mean(x_hat * g)) * inv,  inv = rsqrt(mean(x^2) + eps),
+// plus ds when given (add_rmsnorm: its sum s feeds the residual stream too,
+// and dx and ddelta are both ds + that), cast once to x's type; and
+//   dw = sum over rows of dy * x_hat (float32).
+// Two launches, no atomics: the row kernel takes one CTA per block of
+// `rpb` rows (a function of the row count alone, fixed by the wrapper),
+// reads each row twice (the sums, then dx; the second read hits L1/L2),
+// and sums its rows' dy * x_hat per column in shared memory, in row order,
+// into one float32 partial row per block; the second kernel adds the
+// partial rows per column in block order.  Bound by bytes, as the forward:
+// x, dy (and ds) read, dx written, the partials small beside them.
 #include "common.cuh"
 
 using namespace rt;
@@ -181,6 +196,99 @@ add_norm_kernel(const T* x, const T* __restrict__ delta,
   norm_row<T, true>(x, delta, w, s, out, d, eps);
 }
 
+// The backward of one block of rows: dx for every row, and the block's
+// partial dw (float32, one row of d) into part[blockIdx.x].  Each thread
+// owns the same vectors (tid, tid + nt, ...) of every row, so its columns
+// of the shared dw accumulator are its own.
+template <typename T, bool kDs>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                const T* __restrict__ dy, const T* __restrict__ ds,
+                T* __restrict__ dx, float* __restrict__ part, int rows, int d,
+                int rpb, float eps) {
+  constexpr int N = Vec<T>::N;
+  extern __shared__ float4 smem4[];
+  float* wacc = reinterpret_cast<float*>(smem4);   // [d]
+  __shared__ float red[2][kMaxWarps];
+  const int nv = d / N, tid = threadIdx.x, nt = blockDim.x;
+  auto load_w = [&](int c, float* e) {
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      const float4 f = reinterpret_cast<const float4*>(w)[(c * N + j) / 4];
+      e[j] = f.x; e[j + 1] = f.y; e[j + 2] = f.z; e[j + 3] = f.w;
+    }
+  };
+  for (int c = tid; c < nv; c += nt)
+#pragma unroll
+    for (int j = 0; j < N; ++j) wacc[c * N + j] = 0.f;
+  const int r0 = blockIdx.x * rpb, r1 = min(rows, r0 + rpb);
+  for (int row = r0; row < r1; ++row) {
+    const long long off = static_cast<long long>(row) * nv;
+    const uint4* xr = reinterpret_cast<const uint4*>(x) + off;
+    const uint4* gr = reinterpret_cast<const uint4*>(dy) + off;
+    // the sum of squares and of x * w * dy, each thread's vectors in order,
+    // then the warp butterfly, then the warps in order
+    float ss = 0.f, sg = 0.f;
+    for (int c = tid; c < nv; c += nt) {
+      float e[N], g[N], f[N];
+      unpack<T>(xr[c], e);
+      unpack<T>(gr[c], g);
+      load_w(c, f);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        ss += e[j] * e[j];
+        sg += e[j] * (g[j] * f[j]);
+      }
+    }
+    ss = warp_sum(ss);
+    sg = warp_sum(sg);
+    if (nt > 32) {
+      if ((tid & 31) == 0) {
+        red[0][tid >> 5] = ss;
+        red[1][tid >> 5] = sg;
+      }
+      __syncthreads();
+      ss = sg = 0.f;
+      for (int i = 0; i < nt / 32; ++i) {
+        ss += red[0][i];
+        sg += red[1][i];
+      }
+      __syncthreads();   // red is free for the next row
+    }
+    const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
+    const float m = inv * sg / static_cast<float>(d);   // mean(x_hat * g)
+    for (int c = tid; c < nv; c += nt) {
+      float e[N], g[N], f[N], o[N];
+      unpack<T>(xr[c], e);
+      unpack<T>(gr[c], g);
+      load_w(c, f);
+      if constexpr (kDs) unpack<T>((reinterpret_cast<const uint4*>(ds) + off)[c], o);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xh = e[j] * inv;
+        const float v = (g[j] * f[j] - xh * m) * inv;
+        o[j] = kDs ? o[j] + v : v;
+        wacc[c * N + j] += g[j] * xh;
+      }
+      (reinterpret_cast<uint4*>(dx) + off)[c] = pack<T>(o);
+    }
+  }
+  float* pr = part + static_cast<long long>(blockIdx.x) * d;
+  for (int c = tid; c < nv; c += nt)
+#pragma unroll
+    for (int j = 0; j < N; ++j) pr[c * N + j] = wacc[c * N + j];
+}
+
+// dw[col] = the partial rows' sum at col, in block order.
+__global__ void dw_sum_kernel(const float* __restrict__ part,
+                              float* __restrict__ dw, int nblk, int d) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= d) return;
+  float acc = 0.f;
+  for (int b = 0; b < nblk; ++b) acc += part[static_cast<long long>(b) * d + col];
+  dw[col] = acc;
+}
+
 // Threads per row for d elements of T (0: d not supported).
 template <typename T>
 int row_threads(int d) {
@@ -216,6 +324,29 @@ int dispatch(const void* x, const void* delta, const void* w, void* s,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T>
+int launch_bwd(const void* x, const void* w, const void* dy, const void* ds,
+               void* dx, void* part, void* dw, int rows, int d, float eps,
+               int rpb, cudaStream_t st) {
+  const int nt = row_threads<T>(d);
+  if (!nt || rpb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int nblk = (rows + rpb - 1) / rpb;
+  const int bytes = d * static_cast<int>(sizeof(float));
+  auto kern = ds ? norm_bwd_kernel<T, true> : norm_bwd_kernel<T, false>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kern<<<nblk, nt, bytes, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const T*>(dy), static_cast<const T*>(ds),
+      static_cast<T*>(dx), static_cast<float*>(part), rows, d, rpb, eps);
+  dw_sum_kernel<<<(d + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(dw), nblk, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, out: (rows, d) contiguous, float32 or bfloat16 (dtype code); w: (d,)
@@ -234,4 +365,22 @@ extern "C" int add_rmsnorm_launch(const void* x, const void* delta,
                                   int d, float eps, int dtype, void* stream) {
   if (!delta || !s) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(x, delta, w, s, out, rows, d, eps, dtype, stream);
+}
+
+// The backward of rmsnorm(x, w, eps) for the output gradient dy: x, dy, ds
+// (null, or the gradient of add_rmsnorm's sum, added to dx), dx (rows, d)
+// contiguous of one dtype; w, dw (d,) float32; part (ceil(rows / rpb), d)
+// float32 scratch for the per-block partial sums of dw.  Returns
+// cudaGetLastError().
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* w, const void* dy,
+                                  const void* ds, void* dx, void* part,
+                                  void* dw, int rows, int d, float eps,
+                                  int rpb, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)
+    return launch_bwd<__nv_bfloat16>(x, w, dy, ds, dx, part, dw, rows, d, eps,
+                                     rpb, st);
+  if (dtype == kF32)
+    return launch_bwd<float>(x, w, dy, ds, dx, part, dw, rows, d, eps, rpb, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,7 +4,8 @@ kernel wrapper and the version each kernel is held against on the card.
 Counterparts of ``src/repro/kernels/ref.py`` (attention, in the Pallas
 layout (B, H, S, hd)), of
 ``src/repro/kernels/paged_decode_attention.py::paged_decode_attention_ref``
-and of ``src/repro/models/layers.py::rmsnorm``.
+and of ``src/repro/models/layers.py::rmsnorm``; and the gradients of
+attention and of the RMSNorm, which the reference takes with ``jax.grad``.
 """
 from __future__ import annotations
 
@@ -14,8 +15,11 @@ NEG_INF = -1e30
 
 
 def reference_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
-                        scale=None):
-    """q (B,Hq,Sq,hd); k,v (B,KH,Sk,hd) -> (B,Hq,Sq,hd)."""
+                        scale=None, return_lse=False):
+    """q (B,Hq,Sq,hd); k,v (B,KH,Sk,hd) -> (B,Hq,Sq,hd); with
+    ``return_lse`` also the float32 log-sum-exp (natural log) of each row's
+    visible logits, (B,Hq,Sq), +inf for a row that sees no key (so that
+    exp(s - lse) is 0 there)."""
     B, Hq, Sq, hd = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
@@ -36,7 +40,52 @@ def reference_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask.any(-1, keepdim=True), p, 0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(mask.any(-1), torch.logsumexp(s, dim=-1), torch.inf)
+    return out, lse
+
+
+def reference_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
+                            window=0, softcap=0.0, scale=None):
+    """(dq, dk, dv) of ``reference_attention`` (same layout and keywords)
+    for the output gradient ``dout``, by the FlashAttention-2 formula from
+    the forward's ``out`` and ``lse`` (natural log, (B,Hq,Sq)), in float32:
+    P = exp(s - lse) on the visible keys, D = rowsum(dout * out),
+    dS = P * (dout V^T - D) times the softcap's 1 - tanh^2, times scale;
+    dq = dS K, dk = dS^T q, dv = P^T dout, a group's query heads summed
+    into their kv head; each cast once to its input's dtype.  D reads
+    ``out`` as stored (a bf16 out is rounded), as the kernel does."""
+    B, Hq, Sq, hd = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    rep = Hq // KH
+    scale = hd ** -0.5 if scale is None else scale
+    qf, gf = q.float(), dout.float()
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    x = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    dx = torch.full_like(x, scale)
+    if softcap:
+        t = torch.tanh(x / softcap)
+        x = t * softcap
+        dx = scale * (1 - t * t)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    p = torch.where(mask, torch.exp(x - lse[..., None]), 0.0)
+    D = (gf * out.float()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gf, vf) - D) * dx
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dk = dk.reshape(B, KH, rep, Sk, hd).sum(2)
+    dv = dv.reshape(B, KH, rep, Sk, hd).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def reference_decode_attention(q, k, v, k_pos, q_pos, *, window=0,
@@ -145,3 +194,22 @@ def rmsnorm_ref(x, w, eps=1e-6):
     var = x.square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps) * w.float()
     return y.to(dt)
+
+
+def rmsnorm_bwd_ref(x, w, dy, eps=1e-6, ds=None):
+    """The gradient of ``rmsnorm_ref`` at x for the output gradient dy:
+    (dx in x's dtype, dw float32 (d,)).  With g = w * dy, x_hat = x * inv
+    and inv = rsqrt(mean(x^2) + eps), all float32:
+    dx = (g - x_hat * mean(x_hat * g)) * inv, plus ``ds`` when given (the
+    gradient reaching x from its other uses: add_rmsnorm's sum s), cast
+    once; dw = the sum over rows of dy * x_hat."""
+    d = x.shape[-1]
+    xf = x.float()
+    g = dy.float() * w.float()
+    inv = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    xh = xf * inv
+    dx = (g - xh * (xh * g).mean(dim=-1, keepdim=True)) * inv
+    if ds is not None:
+        dx = dx + ds.float()
+    dw = (dy.float() * xh).reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dw

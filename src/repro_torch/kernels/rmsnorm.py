@@ -1,10 +1,12 @@
-"""Row RMSNorm, alone and fused with the residual add before it: the
-wrappers of the CUDA kernels in ``csrc/rmsnorm.cu``, their plain versions,
-and launch counts.
+"""Row RMSNorm, alone and fused with the residual add before it, and its
+backward: the wrappers of the CUDA kernels in ``csrc/rmsnorm.cu``, their
+plain versions, launch counts, and ``RMSNormFn`` / ``AddRMSNormFn``, the
+autograd Functions of the model's train mode.
 
-Replaces ``src/repro/kernels/rmsnorm.py::rmsnorm`` (Pallas).  On CPU tensors
-the wrappers compute the plain versions; on CUDA tensors they launch the
-kernels or raise.
+Replaces ``src/repro/kernels/rmsnorm.py::rmsnorm`` (Pallas); the backward
+is the gradient the JAX package takes of ``src/repro/models/layers.py:22``
+(it has no gradient kernel).  On CPU tensors the wrappers compute the plain
+versions; on CUDA tensors they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -13,19 +15,32 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import rmsnorm_ref
+from .ref import rmsnorm_bwd_ref, rmsnorm_ref
 
-# kernel launches by ``rmsnorm`` and by ``add_rmsnorm`` (plain-version calls
-# are not counted)
+# kernel launches by ``rmsnorm``, by ``add_rmsnorm``, and by ``rmsnorm_bwd``
+# without and with the gradient ``ds`` of add_rmsnorm's sum (plain-version
+# calls are not counted)
 launches = 0
 add_launches = 0
+bwd_launches = 0
+bwd_ds_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (_P, _P, _P, _I, _I, _F, _I, _P)
 _ADD_ARGTYPES = (_P,) * 5 + (_I, _I, _F, _I, _P)
+_BWD_ARGTYPES = (_P,) * 7 + (_I, _I, _F, _I, _I, _P)
+# the backward's dw: rows are summed in blocks of ``bwd_rows_per_block``
+# rows (a function of the row count alone, never of the SM count), each
+# block's float32 partial row written out, then summed in block order
+MIN_ROWS_PER_BLOCK, MAX_BLOCKS = 8, 2048
 
 
 rmsnorm_plain = rmsnorm_ref      # the plain version (kernels/ref.py)
+rmsnorm_bwd_plain = rmsnorm_bwd_ref
+
+
+def bwd_rows_per_block(rows: int) -> int:
+    return max(MIN_ROWS_PER_BLOCK, -(-rows // MAX_BLOCKS))
 
 
 def add_rmsnorm_plain(x, delta, w, eps: float = 1e-6):
@@ -76,17 +91,105 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, w: torch.Tensor,
     into x in place and returned (the model's residual stream, whose old
     value nothing reads again: no allocation, no operator); h =
     rmsnorm(s, w, eps) (bitwise what ``rmsnorm`` gives on s)."""
-    global add_launches
     if x.device.type == "cpu":
         return add_rmsnorm_plain(x, delta, w, eps)
+    return _add_rmsnorm_into(x, x, delta, w, eps)
+
+
+def _add_rmsnorm_into(s, x, delta, w, eps):
+    """``add_rmsnorm``'s launch with the sum written into ``s`` (x itself,
+    or a new tensor like x) -> (s, h)."""
+    global add_launches
     code, rows, d = _check("add_rmsnorm", w, x, delta)
     out = torch.empty_like(x)
     if rows == 0 or d == 0:
-        return x, out
+        return s, out
     fn = _build.function("rmsnorm", "add_rmsnorm_launch", _ADD_ARGTYPES)
-    err = fn(x.data_ptr(), delta.data_ptr(), w.data_ptr(), x.data_ptr(),
+    err = fn(x.data_ptr(), delta.data_ptr(), w.data_ptr(), s.data_ptr(),
              out.data_ptr(), rows, d, float(eps), code,
              _build.stream_handle())
     _build.raise_on_error("add_rmsnorm", err)
     add_launches += 1
-    return x, out
+    return s, out
+
+
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-6, ds=None):
+    """The gradient of ``rmsnorm(x, w, eps)`` for the output gradient dy:
+    (dx like x, dw float32 (d,)); ``ds`` (like x), when given, is added to
+    dx in the same launch (add_rmsnorm's sum s feeds the residual stream
+    too, and its gradient is that of both inputs of the add).  Two
+    launches: the rows (dx, and dw's partial sums over fixed blocks of
+    rows), then dw's sum over the blocks in order; no atomics."""
+    global bwd_launches, bwd_ds_launches
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_plain(x, w, dy, eps, ds)
+    code, rows, d = _check("rmsnorm_bwd", w, x, dy,
+                           *(() if ds is None else (ds,)))
+    dx = torch.empty_like(x)
+    dw = torch.zeros((d,), dtype=torch.float32, device=x.device)
+    if rows == 0 or d == 0:
+        return dx, dw
+    rpb = bwd_rows_per_block(rows)
+    part = torch.empty((-(-rows // rpb), d), dtype=torch.float32,
+                       device=x.device)
+    fn = _build.function("rmsnorm", "rmsnorm_bwd_launch", _BWD_ARGTYPES)
+    err = fn(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+             None if ds is None else ds.data_ptr(), dx.data_ptr(),
+             part.data_ptr(), dw.data_ptr(), rows, d, float(eps), rpb, code,
+             _build.stream_handle())
+    _build.raise_on_error("rmsnorm_bwd", err)
+    if ds is None:
+        bwd_launches += 1
+    else:
+        bwd_ds_launches += 1
+    return dx, dw
+
+
+class RMSNormFn(torch.autograd.Function):
+    """``rmsnorm`` with its gradient, for the model's train mode:
+    ``RMSNormFn.apply(x, w, eps)``.  Saves x and w (``save_for_backward``
+    only); the backward is ``rmsnorm_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps=1e-6):
+        x = x.contiguous()
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, dy.contiguous(), ctx.eps)
+        return dx, dw.to(w.dtype), None
+
+
+class AddRMSNormFn(torch.autograd.Function):
+    """``add_rmsnorm`` with its gradient, for the model's train mode:
+    ``AddRMSNormFn.apply(x, delta, w, eps)`` -> (s, h), the sum written
+    out of place (x may be saved by another Function).  Saves s and w; the
+    backward is ``rmsnorm_bwd`` on s with s's own gradient as ``ds``
+    (None when s is not used again: the final norm), which is the gradient
+    of x and of delta alike.  h is always used (it feeds the next
+    mixer or the unembedding), so its gradient is never None."""
+
+    @staticmethod
+    def forward(ctx, x, delta, w, eps=1e-6):
+        ctx.set_materialize_grads(False)
+        x, delta = x.contiguous(), delta.contiguous()
+        if x.device.type == "cpu":
+            s = x + delta
+            h = rmsnorm_plain(s, w, eps)
+        else:
+            s, h = _add_rmsnorm_into(torch.empty_like(x), x, delta, w, eps)
+        ctx.save_for_backward(s, w)
+        ctx.eps = eps
+        return s, h
+
+    @staticmethod
+    def backward(ctx, ds, dh):
+        s, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(s, w, dh.contiguous(), ctx.eps,
+                             None if ds is None else ds.contiguous())
+        return dx, dx, dw.to(w.dtype), None

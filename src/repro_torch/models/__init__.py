@@ -3,7 +3,7 @@ from .moe import apply_moe, capacity, init_moe, moe_einsum, moe_scatter
 from .transformer import (init_params, params_from_numpy, init_cache,
                           prefill, prefill_into_slot, prefill_chunk_into_slot,
                           decode_step, sample_tokens, sample_tokens_batched,
-                          stages_of)
+                          stages_of, forward_train, loss_fn)
 
 __all__ = [
     "ModelConfig", "FULL_ATTN", "LOCAL_ATTN", "SSM", "RGLRU",
@@ -11,4 +11,5 @@ __all__ = [
     "init_params", "params_from_numpy", "init_cache", "prefill",
     "prefill_into_slot", "prefill_chunk_into_slot", "decode_step",
     "sample_tokens", "sample_tokens_batched", "stages_of",
+    "forward_train", "loss_fn",
 ]

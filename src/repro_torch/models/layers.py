@@ -41,6 +41,11 @@ def rmsnorm(x, scale, eps=1e-6):
     return _rmsnorm_kernel.rmsnorm(x, scale, eps)
 
 
+def rmsnorm_train(x, scale, eps=1e-6):
+    """``rmsnorm`` through ``RMSNormFn``, which has the backward kernel."""
+    return _rmsnorm_kernel.RMSNormFn.apply(x, scale, eps)
+
+
 def layernorm(x, scale, bias, eps=1e-5):
     """Layer norm in float32 (biased variance, as ``jnp.var``), cast back."""
     dt = x.dtype
@@ -65,6 +70,23 @@ def apply_norm(cfg: ModelConfig, p, x):
     if cfg.norm == "rms":
         return rmsnorm(x, p["scale"], cfg.norm_eps)
     return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
+
+
+def apply_norm_train(cfg: ModelConfig, p, x):
+    """``apply_norm`` with RMSNorm through ``RMSNormFn``."""
+    if cfg.norm == "rms":
+        return rmsnorm_train(x, p["scale"], cfg.norm_eps)
+    return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
+
+
+def apply_add_norm_train(cfg: ModelConfig, p, x, delta):
+    """``apply_add_norm`` for training: the sum written out of place
+    (autograd may have saved x), RMSNorm through ``AddRMSNormFn``."""
+    if cfg.norm == "rms":
+        return _rmsnorm_kernel.AddRMSNormFn.apply(x, delta, p["scale"],
+                                                  cfg.norm_eps)
+    x = x + delta
+    return x, layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
 
 
 def apply_add_norm(cfg: ModelConfig, p, x, delta):

@@ -70,21 +70,23 @@ def _split(cfg: ModelConfig, zxbcdt):
             zxbcdt[..., 2 * di + 2 * st:])
 
 
-def _gated_out(cfg: ModelConfig, p, y, z, dtype):
-    """out_proj(rmsnorm(y * silu(z))) with y float32 (..., di)."""
+def _gated_out(cfg: ModelConfig, p, y, z, dtype, norm=rmsnorm):
+    """out_proj(norm(y * silu(z))) with y float32 (..., di)."""
     g = (y * F.silu(z.float())).contiguous()
-    return rmsnorm(g, p["norm"], cfg.norm_eps).to(dtype) @ p["out_proj"]
+    return norm(g, p["norm"], cfg.norm_eps).to(dtype) @ p["out_proj"]
 
 
 def ssm_forward(cfg: ModelConfig, p, x, *, return_state: bool = False,
-                cache: Optional[Dict] = None, length: Optional[int] = None):
+                cache: Optional[Dict] = None, length: Optional[int] = None,
+                norm=rmsnorm):
     """Chunked SSD over a sequence: x (B,S,d) -> (B,S,d) [, final caches].
 
     ``cache`` ({"state", "conv"}, one row each) resumes the recurrence and
     the conv window from an earlier segment; ``length`` (a host int) marks
     positions >= length as bucket pads: their dt is 0, so their update is
     the identity, and the returned conv window ends at the last real
-    token."""
+    token.  ``norm`` is the gated norm's function (train mode passes
+    ``layers.rmsnorm_train``)."""
     B_, S, _ = x.shape
     di, st, nh, hd = (cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads,
                       cfg.ssm_headdim)
@@ -136,7 +138,7 @@ def ssm_forward(cfg: ModelConfig, p, x, *, return_state: bool = False,
 
     y = (y_diag + y_off).permute(0, 1, 3, 2, 4).reshape(B_, S, nh, hd)
     y = y + xs * p["D"][None, None, :, None]
-    out = _gated_out(cfg, p, y.reshape(B_, S, di), z, x.dtype)
+    out = _gated_out(cfg, p, y.reshape(B_, S, di), z, x.dtype, norm)
     if not return_state:
         return out
     end = S if length is None else int(length)

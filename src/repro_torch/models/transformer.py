@@ -50,6 +50,14 @@ caches hold int8 K/V with float32 scales: writes quantize, dense decode
 runs decode_attention_q8 on the int8 views, paged decode the int8 route of
 paged_decode_attention, and chunk_attention reads the past dequantized to
 q's dtype, as the reference does.
+
+Training (``forward_train``, ``loss_fn``) runs mode "train": no caches,
+causal attention over the whole sequence through ``FlashAttentionFn`` and
+every RMSNorm through ``RMSNormFn`` / ``AddRMSNormFn`` (the kernels' autograd
+Functions, with backward kernels), residual sums out of place, the MoE aux
+loss summed, and with ``remat`` one non-reentrant ``torch.utils.checkpoint``
+per group (pattern repeat), as the reference's ``jax.checkpoint(group_fn)``.
+The serve entry points above call the wrappers as before, in place.
 """
 from __future__ import annotations
 
@@ -57,13 +65,15 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.prng import gumbel
 from repro_torch.kernels._build import ROUNDED_PAST
 from repro_torch.kernels.chunk_attention import chunk_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention_q8 import decode_attention_q8
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention)
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from . import kvcache as KV
 from . import layers as L
@@ -232,8 +242,9 @@ def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
     v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         # the rmsnorm kernel over rows of head_dim
-        q = L.rmsnorm(q, a["q_norm"], cfg.norm_eps)
-        k = L.rmsnorm(k, a["k_norm"], cfg.norm_eps)
+        norm = L.rmsnorm_train if mode == "train" else L.rmsnorm
+        q = norm(q, a["q_norm"], cfg.norm_eps)
+        k = norm(k, a["k_norm"], cfg.norm_eps)
     if cfg.pos_embedding == "rope":
         inv, rot = rope
         q = L.apply_rope(q, positions, inv, rot)
@@ -314,6 +325,10 @@ def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
                 window = buf_len
         out = flash_attention(q, k, v, causal=True, window=window,
                               softcap=cap, scale=cfg.attn_scale)
+    elif mode == "train":
+        # the whole sequence, no cache: the reference's window rule alone
+        out = FlashAttentionFn.apply(q, k, v, True, window, cap,
+                                     cfg.attn_scale)
     else:
         raise ValueError(mode)
     return out.reshape(B, S, cfg.q_dim) @ a["o"]
@@ -359,7 +374,12 @@ def _apply_recurrent(cfg: ModelConfig, kind: str, p, x, *, mode, cache,
     active rows; prefill writes row ``slot`` (every row when ``slot`` is
     None) from a zero state; a chunk
     resumes from row ``slot``, or from zeros when it is a stream's first
-    (``pos`` == 0: the row may hold an earlier stream's state)."""
+    (``pos`` == 0: the row may hold an earlier stream's state); train mode
+    runs the sequence from zeros and keeps no state."""
+    if mode == "train":
+        if kind == SSM:
+            return ssm_forward(cfg, p["ssm"], x, norm=L.rmsnorm_train)
+        return rglru_forward(cfg, p["rglru"], x)
     if kind == SSM:
         fwd, step, bp = ssm_forward, ssm_decode_step, p["ssm"]
     else:
@@ -380,36 +400,41 @@ def _apply_block(cfg: ModelConfig, kind: str, p, x, delta, active=None,
     """One pre-norm block on the residual stream ``x + delta`` (``delta``
     the previous block's output, not yet added; None before the first
     block).  Returns (stream, this block's output: its MLP's, or an SSM
-    block's mixer's): the caller adds it where the sum feeds the next
-    norm, so every such add shares its launch with that norm
-    (``add_rmsnorm``).  Sandwich norms (``post_block_norm``) normalise the
-    attention and MLP outputs before their residual adds.  An MoE FFN
-    routes the prompt's real tokens only: in prefill and chunk modes the
-    first ``length`` tokens of the (single) row are real, the rest bucket
-    pads; in decode every row is one real token.  ``active`` freezes the
-    inactive rows' recurrent state in decode."""
-    if delta is None:
-        h = L.apply_norm(cfg, p["norm"], x)
+    block's mixer's, its MoE aux loss or None): the caller adds the output
+    where the sum feeds the next norm, so every such add shares its launch
+    with that norm (``add_rmsnorm``).  Sandwich norms (``post_block_norm``)
+    normalise the attention and MLP outputs before their residual adds.
+    An MoE FFN routes the prompt's real tokens only: in prefill and chunk
+    modes the first ``length`` tokens of the (single) row are real, the
+    rest bucket pads; in decode and train every row's tokens are real.
+    ``active`` freezes the inactive rows' recurrent state in decode."""
+    if kw["mode"] == "train":
+        norm, add_norm = L.apply_norm_train, L.apply_add_norm_train
     else:
-        x, h = L.apply_add_norm(cfg, p["norm"], x, delta)
+        norm, add_norm = L.apply_norm, L.apply_add_norm
+    if delta is None:
+        h = norm(cfg, p["norm"], x)
+    else:
+        x, h = add_norm(cfg, p["norm"], x, delta)
     if kind in (SSM, RGLRU):
         mix = _apply_recurrent(cfg, kind, p, h, active=active, **kw)
     else:
         mix = _apply_attn(cfg, p, h, kind, **kw)
     if cfg.post_block_norm:
-        mix = L.apply_norm(cfg, p["post_norm"], mix)
+        mix = norm(cfg, p["post_norm"], mix)
     if not _has_mlp(cfg, kind):
-        return x, mix
-    x, h = L.apply_add_norm(cfg, p["mlp_norm"], x, mix)
+        return x, mix, None
+    x, h = add_norm(cfg, p["mlp_norm"], x, mix)
+    aux = None
     if cfg.is_moe:
         length = kw.get("length")
-        m, _ = moe.apply_moe(cfg, p["moe"], h, None if length is None
-                             else [length] * h.shape[0])
+        m, aux = moe.apply_moe(cfg, p["moe"], h, None if length is None
+                               else [length] * h.shape[0])
     else:
         m = L.apply_mlp(cfg, p["mlp"], h)
     if cfg.post_block_norm:
-        m = L.apply_norm(cfg, p["post_mlp_norm"], m)
-    return x, m
+        m = norm(cfg, p["post_mlp_norm"], m)
+    return x, m, aux
 
 
 def _layer(tree, r: int):
@@ -428,9 +453,45 @@ def _run_stages(cfg: ModelConfig, params, x, *, caches, **kw):
                                       caches):
         for r in range(n_rep):
             for j, kind in enumerate(kinds):
-                x, delta = _apply_block(cfg, kind, _layer(sp["blocks"][j], r),
-                                        x, delta, cache=_layer(sc[j], r), **kw)
+                x, delta, _ = _apply_block(cfg, kind,
+                                           _layer(sp["blocks"][j], r), x,
+                                           delta, cache=_layer(sc[j], r),
+                                           **kw)
     return x, delta
+
+
+def _train_group(cfg: ModelConfig, kinds, blocks, x, delta, positions, rope):
+    """One group (a repeat of the block pattern) in train mode: (stream,
+    last output, the group's aux loss summed in block order)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, p in zip(kinds, blocks):
+        x, delta, a = _apply_block(cfg, kind, p, x, delta, mode="train",
+                                   positions=positions, rope=rope,
+                                   cache=None, pos=None)
+        if a is not None:
+            aux = aux + a
+    return x, delta, aux
+
+
+def _run_stages_train(cfg: ModelConfig, params, x, *, positions, remat):
+    """Train mode over every stage, no caches: (stream, last output, aux
+    loss summed over the groups in order).  With ``remat`` each group runs
+    under a non-reentrant ``torch.utils.checkpoint``: only its inputs are
+    kept, and its forward runs again in the backward."""
+    rope = L.rope_freqs(cfg, x.device)
+    delta, aux = None, torch.zeros((), dtype=torch.float32, device=x.device)
+    for (kinds, n_rep), sp in zip(stages_of(cfg), params["stages"]):
+        for r in range(n_rep):
+            blocks = [_layer(b, r) for b in sp["blocks"]]
+            if remat:
+                x, delta, a = torch.utils.checkpoint.checkpoint(
+                    _train_group, cfg, kinds, blocks, x, delta, positions,
+                    rope, use_reentrant=False)
+            else:
+                x, delta, a = _train_group(cfg, kinds, blocks, x, delta,
+                                           positions, rope)
+            aux = aux + a
+    return x, delta, aux
 
 
 def _last_row_norm(cfg: ModelConfig, params, x, delta, length: int):
@@ -544,6 +605,74 @@ def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens, start: int,
     last = _last_row_norm(cfg, params, x, delta, length)
     logits = L.unembed(cfg, params["embed"], last)[:, 0]
     return logits, caches
+
+
+def forward_train(params, cfg: ModelConfig, tokens, prefix_embeds=None,
+                  remat: bool = True):
+    """tokens (B,S) [, prefix_embeds (B,P,d)] -> (logits (B,P+S,vocab),
+    aux_loss), with autograd through the kernels' Functions."""
+    h, aux = _hidden_train(params, cfg, tokens, prefix_embeds, remat)
+    return L.unembed(cfg, params["embed"], h), aux
+
+
+def _hidden_train(params, cfg: ModelConfig, tokens, prefix_embeds, remat):
+    """(final-normed hidden states (B,P+S,d), aux loss): the last residual
+    add shares its launch with the final norm."""
+    x, positions = _embed_inputs(cfg, params, tokens, prefix_embeds)
+    x, delta, aux = _run_stages_train(cfg, params, x, positions=positions,
+                                      remat=remat)
+    _, h = L.apply_add_norm_train(cfg, params["final_norm"], x, delta)
+    return h, aux
+
+
+def _ce_block(cfg: ModelConfig, params, h, tgt, valid=None):
+    """h (B,T,d), tgt (B,T) -> (sum of the cross-entropy, count): float32
+    logits of this block only, log-sum-exp minus the target's logit,
+    times ``valid`` (float32 (B,T)) when given."""
+    pred = L.unembed(cfg, params["embed"], h).float()
+    lse = torch.logsumexp(pred, dim=-1)
+    gold = pred.gather(-1, tgt[..., None].long())[..., 0]
+    ce = lse - gold
+    if valid is not None:
+        ce = ce * valid
+    return ce.sum(), lse.numel()
+
+
+def loss_fn(params, cfg: ModelConfig, batch, remat: bool = True,
+            ce_chunk: int = 1024):
+    """batch: {tokens (B,S), [prefix_embeds (B,P,d)]} -> (loss, {"ce",
+    "aux"}): next-token cross-entropy over the token span plus
+    ``cfg.router_aux_loss`` times the MoE aux loss.  Past ``ce_chunk``
+    targets the unembed and the cross-entropy run in chunks of
+    ``ce_chunk`` (T padded to a multiple and the pads masked), each under
+    ``torch.utils.checkpoint``, so the (B, T, vocab) logits are never
+    whole; the chunks' sums are added in order, as the reference's scan."""
+    tokens = batch["tokens"]
+    h, aux = _hidden_train(params, cfg, tokens, batch.get("prefix_embeds"),
+                           remat)
+    Pn = h.shape[1] - tokens.shape[1]
+    h = h[:, Pn:-1]
+    tgt = tokens[:, 1:]
+    B, T = tgt.shape
+    if T <= ce_chunk:
+        ce_sum, n = _ce_block(cfg, params, h, tgt)
+        ce = ce_sum / n
+    else:
+        nc = -(-T // ce_chunk)
+        pad = nc * ce_chunk - T
+        hp = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        tp = torch.nn.functional.pad(tgt, (0, pad))
+        vp = torch.nn.functional.pad(
+            torch.ones((B, T), dtype=torch.float32, device=h.device),
+            (0, pad))
+        ce_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c in range(nc):
+            sl = slice(c * ce_chunk, (c + 1) * ce_chunk)
+            ce_sum = ce_sum + torch.utils.checkpoint.checkpoint(
+                _ce_block, cfg, params, hp[:, sl], tp[:, sl], vp[:, sl],
+                use_reentrant=False)[0]
+        ce = ce_sum / (T * B)
+    return ce + cfg.router_aux_loss * aux, {"ce": ce, "aux": aux}
 
 
 def sample_tokens(logits, temperature: float = 0.0, key=None):

@@ -1,6 +1,6 @@
 """The port stands alone: ``src/repro_torch`` imports no JAX, no
-``ml_dtypes`` and nothing of the JAX package ``repro`` (the GPU machine has
-none of them), and an entry point asked for CUDA runs on CUDA or raises,
+``ml_dtypes``, no ``msgpack`` and nothing of the JAX package ``repro`` (the
+GPU machine has none of them), and an entry point asked for CUDA runs on CUDA or raises,
 never quietly on the CPU.  ``chip_smoke.py`` refuses to run without a GPU
 or outside a checkout."""
 import ast
@@ -16,7 +16,7 @@ from torch_threads import one_thread  # noqa: F401  (autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "msgpack", "repro")
 
 
 def _forbidden(module: str) -> bool:
@@ -38,7 +38,10 @@ def test_no_forbidden_import_in_the_port_sources():
             PKG / "core/prefill_optimizer.py", PKG / "sim/engine.py",
             PKG / "sim/replay.py", PKG / "core/controller_torch.py",
             PKG / "examples/quickstart.py",
-            PKG / "examples/serve_trace_replay.py"} <= set(files)
+            PKG / "examples/serve_trace_replay.py",
+            PKG / "training/optimizer.py", PKG / "training/train_loop.py",
+            PKG / "training/checkpoint.py", PKG / "launch/train.py",
+            PKG / "examples/train_small.py"} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -62,7 +65,11 @@ def test_importing_the_port_loads_no_jax_or_reference():
             "assert {'repro_torch.launch.serve', 'repro_torch.sim.engine', "
             "'repro_torch.sim.replay', 'repro_torch.core.controller_torch', "
             "'repro_torch.examples.quickstart', "
-            "'repro_torch.examples.serve_trace_replay'} <= set(sys.modules)\n")
+            "'repro_torch.examples.serve_trace_replay', "
+            "'repro_torch.training.optimizer', "
+            "'repro_torch.training.train_loop', "
+            "'repro_torch.training.checkpoint', 'repro_torch.launch.train', "
+            "'repro_torch.examples.train_small'} <= set(sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)
@@ -102,6 +109,15 @@ def test_cuda_entry_points_raise_without_a_gpu():
         ServingCluster(cfg, params=params, ecfg=EngineConfig(max_len=64))
     with pytest.raises((RuntimeError, AssertionError)):
         main(["--requests", "1", "--cluster"])
+    from repro_torch.examples import train_small
+    from repro_torch.launch import train
+    from repro_torch.training import init_train_state
+    with pytest.raises((RuntimeError, AssertionError)):
+        train.main(["--arch", "qwen2-1.5b", "--steps", "1"])    # --device cuda
+    with pytest.raises((RuntimeError, AssertionError)):
+        train_small.main(["--steps", "1"])                      # --device cuda
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_train_state(torch.Generator(device="cuda"), cfg)
 
 
 def _counts():

@@ -102,8 +102,10 @@ Phases (each raises on failure; nothing is caught):
    with the sum's gradient ds, bf16 and float32, against their plain
    versions (the FlashAttention-2 formula from the stored out and lse;
    the norm gradient in float32) at the forward's tolerances (dw within
-   1e-4), bit for bit across two launches; timed beside SDPA's backward
-   alone and beside F.rms_norm's autograd backward.
+   1e-4), bit for bit across two launches (the flash backward also bit
+   for bit between batch row 0 alone and in the batch, with its grids'
+   CTAs and scratch bytes on a "[kernels]" line); timed beside SDPA's
+   backward alone and beside F.rms_norm's autograd backward.
 3. equivalence: a 4-layer, full-width qwen2-1.5b in float32 runs one
    300-token prompt and 16 greedy decode steps on the card (kernels) and on
    the CPU (plain versions) from the same params: first-token logits
@@ -745,19 +747,44 @@ def _flash_cases(res):
 FLASH_BWD_MAIN = (4, 2048, 12, 2, 128)
 
 
+def _bwd_launch_ms(call, n=5):
+    """Device ms a call of the flash backward spends in each of its
+    launches (the D pre-pass, dK / dV, the reduce, dQ), over ``n`` calls
+    under ``torch.profiler`` after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        for part in ("delta_kernel", "dkdv_kernel", "reduce_kernel",
+                     "dq_kernel"):
+            if part in e.key and us > 0:
+                out[part] = out.get(part, 0.0) + us / 1e3 / n
+    return out
+
+
 def _flash_bwd_cases(res, fwd_main):
     """The forward's LSE route and ``flash_attention_bwd`` against their
     plain versions at every FLASH_CASES geometry, bf16 and float32: the
     route's output bit for bit the serve route's, its lse within 1e-4 of
     the plain log-sum-exp; dq, dk, dv within the forward's tolerances of
     the plain backward (the same FlashAttention-2 formula from the same
-    out and lse; bf16 also within one bf16 rounding: the kernel keeps P and
-    dS in float32) and of autograd through the plain forward (the true
+    out and lse; bf16 also within one bf16 rounding: the kernel takes P and
+    dS hi + lo in bf16) and of autograd through the plain forward (the true
     gradient; a bf16 out rounded before D = rowsum(dO o O) puts it past
-    one rounding), and bit for bit across two launches.  Timed in bf16 at
-    the named cases and at FLASH_BWD_MAIN beside SDPA's backward alone
-    (causal, with the window's mask where it masks; none with a softcap),
-    bound by operations at 2.5x the forward's FLOP; the LSE route timed
+    one rounding), bit for bit across two launches, and batch row 0 bit
+    for bit alone and in the batch (a B 1 case gains a second row); each
+    case logs its grids' CTAs and scratch bytes.  Timed in bf16 at the
+    named cases (with the device ms of each launch) and at FLASH_BWD_MAIN
+    beside SDPA's backward alone (causal, with the window's mask where it
+    masks; none with a softcap), bound by operations at 2.5x the forward's
+    FLOP; the LSE route timed
     beside the serve route at the forward's main case.  Returns the main
     case."""
     import torch
@@ -813,12 +840,32 @@ def _flash_bwd_cases(res, fwd_main):
                     "through the plain forward", a, t, tol,
                     one_rounding=False)[0])
             del leaves, true
+            # batch row 0 alone == row 0 of a batched launch
+            if B == 1:
+                other = bwd_args(*mk(1, S, Hq, KH, hd, dt), kw)
+                batched = K.flash_attention_bwd(
+                    *(torch.cat([a, o]) for a, o in zip(args, other)), **kw)
+                alone = got
+                del other
+            else:
+                batched = got
+                alone = K.flash_attention_bwd(
+                    *(t[:1].contiguous() for t in args), **kw)
+            for gname, a, bt in zip(("dq", "dk", "dv"), alone, batched):
+                if not torch.equal(a[0], bt[0]):
+                    raise AssertionError(
+                        f"flash_attention_bwd {what}: {gname} of batch row 0"
+                        " differs alone and in the batch")
+            del alone, batched
+            geo = K.bwd_geometry(B, S, S, Hq, KH, hd, dt)
+            log(f"[kernels] flash_attention_bwd grids {what}: {geo}")
             case = {"shape": [B, S, KH, Hq, hd], "window": window,
                     "softcap": cap, "dtype": str(dt), "max_abs_err": max(errs),
                     "grad_errs": errs, "autograd_errs": true_errs,
                     "lse_err": lse_err,
                     "bf16_share": None if shares[0] is None else max(shares),
-                    "bitwise_repeat": True}
+                    "bitwise_repeat": True, "bitwise_batch_row": True,
+                    "grids": geo}
             if dt == torch.bfloat16 and name:
                 es = 2
                 nbytes = es * (4 * B * S * Hq * hd + 4 * B * S * KH * hd) \
@@ -847,6 +894,10 @@ def _flash_bwd_cases(res, fwd_main):
                        lambda *a: K.flash_attention_bwd(*a, **kw),
                        lambda *a: K.flash_attention_bwd_plain(*a, **kw),
                        sets, nbytes, 2.5 * 4 * B * Hq * hd * pairs, library)
+                case["launch_ms"] = _bwd_launch_ms(
+                    lambda: K.flash_attention_bwd(*sets[0], **kw))
+                log(f"[kernels] flash_attention_bwd device ms by launch "
+                    f"{what}: {case['launch_ms']}")
                 del sets, library
                 if name == "flash_attention_bwd train":
                     main = case

@@ -35,8 +35,12 @@ bwd_launches = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = ((_P,) * 5 + (_I,) * 6 + (_L,) * 12 + (_I, _I, _F, _F, _I, _P))
-_BWD_ARGTYPES = ((_P,) * 10 + (_I,) * 6 + (_I, _I, _F, _F, _I, _P))
+_BWD_ARGTYPES = ((_P,) * 11 + (_I,) * 6 + (_I, _I, _F, _F, _I, _P))
 HEAD_DIMS = (64, 128, 256)
+# the bf16 backward's tiles (csrc/flash_attention_bwd.cu, tc::Geo): a dK/dV
+# CTA holds BWD_KEY_ROWS[hd] keys, a dQ CTA BWD_TILE queries
+BWD_TILE = 64
+BWD_KEY_ROWS = {64: 64, 128: 64, 256: 32}
 
 
 def _heads_first(*ts):
@@ -127,12 +131,31 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
+def bwd_geometry(B, Sq, Sk, Hq, KH, hd, dtype):
+    """The backward's launches at these shapes: CTAs of each grid and the
+    float32 scratch bytes (D, and the bf16 route's per-head partial dK and
+    dV when Hq > KH, which the reduce launch sums)."""
+    tc = dtype == torch.bfloat16
+    fma_rows = 32 if hd == 256 else 64   # the float32 route's tiles
+    reduce = tc and Hq > KH
+    return {"delta_ctas": -(-B * Sq * Hq // 8),
+            "dkdv_ctas": (-(-Sk // BWD_KEY_ROWS[hd]) * Hq if tc
+                          else -(-Sk // fma_rows) * KH) * B,
+            "dq_ctas": -(-Sq // (BWD_TILE if tc else fma_rows)) * Hq * B,
+            "reduce_ctas": 2 * -(-B * Sk * KH * hd // 1024) if reduce else 0,
+            "scratch_bytes": 4 * B * Hq * Sq
+            + (8 * B * Hq * Sk * hd if reduce else 0)}
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         window: int = 0, softcap: float = 0.0, scale=None):
     """The backward of ``flash_attention``: q, out, dout (B,Sq,Hq,hd), k, v
     (B,Sk,KH,hd) of one dtype, lse (B,Hq,Sq) float32 from the forward's
-    LSE route -> (dq, dk, dv) like q, k, v.  Float32 accumulation; no
-    atomics, so the result is the same bits on every launch."""
+    LSE route -> (dq, dk, dv) like q, k, v.  Float32 accumulation.  Scratch
+    from ``torch.empty``: D (B,Hq,Sq) float32 and, for bf16 with Hq > KH,
+    each query head's float32 partial dK and dV (2,B,Hq,Sk,hd), which a
+    reduce launch sums in head order.  No atomics: the result is the same
+    bits on every launch and for a batch row alone or in a batch."""
     global bwd_launches
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
@@ -154,13 +177,17 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    part = torch.empty((2, B, Hq, Sk, hd), dtype=torch.float32,
+                       device=q.device) \
+        if q.dtype == torch.bfloat16 and Hq > KH else None
     fn = _build.function("flash_attention_bwd", "flash_attention_bwd_launch",
                          _BWD_ARGTYPES)
     scale = hd ** -0.5 if scale is None else scale
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), delta.data_ptr(), B, Sq, Sk, Hq, KH, hd,
-             int(bool(causal)), int(window), float(softcap), float(scale),
+             dv.data_ptr(), delta.data_ptr(),
+             None if part is None else part.data_ptr(), B, Sq, Sk, Hq, KH,
+             hd, int(bool(causal)), int(window), float(softcap), float(scale),
              code, _build.stream_handle())
     _build.raise_on_error("flash_attention_bwd", err)
     bwd_launches += 1

@@ -102,10 +102,12 @@ Phases (each raises on failure; nothing is caught):
    with the sum's gradient ds, bf16 and float32, against their plain
    versions (the FlashAttention-2 formula from the stored out and lse;
    the norm gradient in float32) at the forward's tolerances (dw within
-   1e-4), bit for bit across two launches (the flash backward also bit
-   for bit between batch row 0 alone and in the batch, with its grids'
-   CTAs and scratch bytes on a "[kernels]" line); timed beside SDPA's
-   backward alone and beside F.rms_norm's autograd backward.
+   1e-4), bit for bit across two launches and between batch row 0 alone
+   and in the batch (the flash backward's grids' CTAs and scratch bytes,
+   and the norm backward's geometry, on "[kernels]" lines); timed beside
+   SDPA's backward alone and beside F.rms_norm's autograd backward (the
+   norm backward at qwen2's and gemma2's train rows), each timed case
+   with the device ms of each launch.
 3. equivalence: a 4-layer, full-width qwen2-1.5b in float32 runs one
    300-token prompt and 16 greedy decode steps on the card (kernels) and on
    the CPU (plain versions) from the same params: first-token logits
@@ -280,8 +282,11 @@ Phases (each raises on failure; nothing is caught):
    asserted (flash LSE route 56, flash backward 28, rmsnorm 2,
    add_rmsnorm 111, norm backward 2 + 55 with ds) and every step's the
    same; step ms, tokens/s, peak memory against params + grads + m + v;
-   then its params through save_checkpoint / load_checkpoint, bit for
-   bit.  ``train_gemma2``, gemma2-9b at full width and 4 layers, B 1 x S
+   one more step under torch.profiler, its device ms by kernel family
+   (GEMMs, flash forward and backward, norm forward and backward, CE,
+   AdamW, other elementwise) and the device's idle share; then its
+   params through save_checkpoint / load_checkpoint, bit for bit.
+   ``train_gemma2``, gemma2-9b at full width and 4 layers, B 1 x S
    5120 (the local layers' 4096 window masks; hd 256, both softcaps,
    sandwich norms), 3 steps, the loss falling.  ``train_arch``: every
    arch's ``.smoke()`` in float32 at S 96, the loss, every gradient and
@@ -488,8 +493,9 @@ NORM_SHAPES = ((8, 1536), (256, 1536), (1024, 1536), (4, 10008),
                # SSD gated norm (float32 rows of 2048 in the model)
                (2048, 4096), (8, 1024), (1024, 1024), (8, 2048),
                (1024, 2048),
-               # the train phase's qwen2 rows (B 4 x S 2048 of 1536)
-               (8192, 1536))
+               # the train phase's rows: qwen2's (B 4 x S 2048 of 1536)
+               # and gemma2's (S 5120 of 3584)
+               (8192, 1536), (5120, 3584))
 
 
 def _rmsnorm_cases(res):
@@ -747,10 +753,18 @@ def _flash_cases(res):
 FLASH_BWD_MAIN = (4, 2048, 12, 2, 128)
 
 
-def _bwd_launch_ms(call, n=5):
-    """Device ms a call of the flash backward spends in each of its
-    launches (the D pre-pass, dK / dV, the reduce, dQ), over ``n`` calls
-    under ``torch.profiler`` after a warm-up call."""
+# a kernel's launches in a profile, by a substring of their names: the
+# flash backward's D pre-pass, dK / dV, the reduce and dQ; the norm
+# backward's rows and dw's column sums (and a fill, where a wrapper zeroes
+# dw before the rows launch)
+FLASH_BWD_LAUNCHES = ("delta_kernel", "dkdv_kernel", "reduce_kernel",
+                      "dq_kernel")
+NORM_BWD_LAUNCHES = ("norm_bwd", "dw_sum_kernel", "FillFunctor")
+
+
+def _launch_ms(call, parts, n=5):
+    """Device ms a call spends in each of its launches (``parts``), over
+    ``n`` calls under ``torch.profiler`` after a warm-up call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     call()
@@ -762,8 +776,7 @@ def _bwd_launch_ms(call, n=5):
     out = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
-        for part in ("delta_kernel", "dkdv_kernel", "reduce_kernel",
-                     "dq_kernel"):
+        for part in parts:
             if part in e.key and us > 0:
                 out[part] = out.get(part, 0.0) + us / 1e3 / n
     return out
@@ -894,8 +907,9 @@ def _flash_bwd_cases(res, fwd_main):
                        lambda *a: K.flash_attention_bwd(*a, **kw),
                        lambda *a: K.flash_attention_bwd_plain(*a, **kw),
                        sets, nbytes, 2.5 * 4 * B * Hq * hd * pairs, library)
-                case["launch_ms"] = _bwd_launch_ms(
-                    lambda: K.flash_attention_bwd(*sets[0], **kw))
+                case["launch_ms"] = _launch_ms(
+                    lambda: K.flash_attention_bwd(*sets[0], **kw),
+                    FLASH_BWD_LAUNCHES)
                 log(f"[kernels] flash_attention_bwd device ms by launch "
                     f"{what}: {case['launch_ms']}")
                 del sets, library
@@ -920,14 +934,24 @@ def _flash_bwd_cases(res, fwd_main):
     return main
 
 
+# rmsnorm_bwd's timed cases, bf16, by (rows, d, ds): qwen2's train rows
+# (B 4 x S 2048 of 1536) without and with ds, gemma2's (S 5120 of 3584)
+# with ds
+NORM_BWD_TIMED = {(8192, 1536, False): "rmsnorm_bwd 8192x1536",
+                  (8192, 1536, True): "rmsnorm_bwd 8192x1536 ds",
+                  (5120, 3584, True): "rmsnorm_bwd gemma2 5120x3584 ds"}
+
+
 def _norm_bwd_cases(res):
     """``rmsnorm_bwd`` against its plain version at NORM_SHAPES, without
     and with the sum's gradient ``ds`` (add_rmsnorm's backward), bf16 and
     float32: dx within the forward's tolerances (2e-2, 2e-5), dw (float32
     column sums over every row) within 1e-4, both bit for bit across two
-    launches.  Timed in bf16 at the train rows (8192 x 1536) beside
-    ``F.rms_norm``'s autograd backward, bound by bytes.  Returns (the
-    case without ds, the case with it) at 8192 x 1536."""
+    launches, and row 0's dx alone bit for bit row 0 of the batch; each
+    case logs the wrapper's geometry (``bwd_geometry``: CTAs, threads,
+    partial rows, scratch bytes).  Timed in bf16 at NORM_BWD_TIMED beside
+    ``F.rms_norm``'s autograd backward, bound by bytes, with the device ms
+    of each launch.  Returns {(rows, d, ds): timed case}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as K
@@ -941,6 +965,9 @@ def _norm_bwd_cases(res):
                              for _ in range(3))
             x, dy, ds = mk()
             w = torch.randn(d, generator=g, device="cuda") + 1.0
+            # the geometry (None for a source tree from before it: --src)
+            geo = (K.bwd_geometry(rows, d, dt)._asdict()
+                   if hasattr(K, "bwd_geometry") else None)
             for with_ds in (False, True):
                 what = f"{rows}x{d} {dt} ds={with_ds}"
                 extra = (ds,) if with_ds else ()
@@ -949,6 +976,11 @@ def _norm_bwd_cases(res):
                 if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
                     raise AssertionError(f"rmsnorm_bwd {what}: differs "
                                          "between two launches")
+                alone, _ = K.rmsnorm_bwd(x[:1], w, dy[:1], 1e-6,
+                                         *(t[:1] for t in extra))
+                if not torch.equal(alone[0], dx[0]):
+                    raise AssertionError(f"rmsnorm_bwd {what}: dx of row 0 "
+                                         "differs alone and in the batch")
                 want = K.rmsnorm_bwd_plain(x, w, dy, 1e-6, *extra)
                 err, share = check_close(f"rmsnorm_bwd dx {what}", dx,
                                          want[0], tol)
@@ -957,12 +989,18 @@ def _norm_bwd_cases(res):
                 case = {"shape": [rows, d], "dtype": str(dt), "ds": with_ds,
                         "max_abs_err": err, "dw_err": werr,
                         "bf16_share": share, "bitwise_repeat": True,
-                        "rows_per_block": K.bwd_rows_per_block(rows)}
-                if dt == torch.bfloat16 and (rows, d) == (8192, 1536):
+                        "bitwise_batch_row": True, "geometry": geo}
+                name = NORM_BWD_TIMED.get((rows, d, with_ds))
+                if dt == torch.bfloat16 and name:
                     es = x.element_size()
                     nbytes = (4 if with_ds else 3) * rows * d * es + 8 * d
                     sets = [mk() + (w,) for _ in range(n_sets(nbytes))]
                     wl = w.to(dt)
+
+                    def call(x_, dy_, ds_, w_, plain=False):
+                        fn = K.rmsnorm_bwd_plain if plain else K.rmsnorm_bwd
+                        return fn(x_, w_, dy_, 1e-6,
+                                  *((ds_,) if with_ds else ()))
 
                     def lib_set(x_, dy_, _ds, _w):
                         leaves = [x_.clone().requires_grad_(True),
@@ -970,20 +1008,21 @@ def _norm_bwd_cases(res):
                         return (F.rms_norm(leaves[0], (d,), leaves[1], 1e-6),
                                 leaves, dy_)
                     case["library"] = "F.rms_norm autograd backward"
-                    _timed(res, f"rmsnorm_bwd {rows}x{d}"
-                           + (" ds" if with_ds else ""), case,
-                           lambda x_, dy_, ds_, w_: K.rmsnorm_bwd(
-                               x_, w_, dy_, 1e-6, *((ds_,) if with_ds else ())),
-                           lambda x_, dy_, ds_, w_: K.rmsnorm_bwd_plain(
-                               x_, w_, dy_, 1e-6, *((ds_,) if with_ds else ())),
-                           sets, nbytes, 8 * rows * d,
+                    _timed(res, name, case, call,
+                           lambda *a: call(*a, plain=True), sets, nbytes,
+                           8 * rows * d,
                            (lambda y, leaves, dy_: torch.autograd.grad(
                                y, leaves, dy_, retain_graph=True),
                             [lib_set(*a) for a in sets]))
-                    mains[with_ds] = case
+                    case["launch_ms"] = _launch_ms(lambda: call(*sets[0]),
+                                                   NORM_BWD_LAUNCHES)
+                    log(f"[kernels] rmsnorm_bwd {what}: geometry {geo}, "
+                        f"device ms by launch {case['launch_ms']}")
+                    del sets
+                    mains[rows, d, with_ds] = case
                 res["cases"].append({"kernel": "rmsnorm_bwd", **case})
                 log(f"[kernels] rmsnorm_bwd {case}")
-    return mains[False], mains[True]
+    return mains
 
 
 def _paged_inputs(g, B, Hq, KH, hd, ps, n, dt, pos_lo=None, cover=None,
@@ -1774,9 +1813,11 @@ def phase_kernels(res):
     _decode_bitwise(res)
     res["main_case"]["flash_attention_bwd"] = _flash_bwd_cases(
         res, res["main_case"]["flash_attention"])
-    nb, nb_ds = _norm_bwd_cases(res)
-    nb["ds_route"] = nb_ds
-    res["main_case"]["rmsnorm_bwd"] = nb
+    nb = _norm_bwd_cases(res)
+    main = nb[8192, 1536, False]
+    main["ds_route"] = nb[8192, 1536, True]
+    main["gemma2_ds_route"] = nb[5120, 3584, True]
+    res["main_case"]["rmsnorm_bwd"] = main
     for name, c in res["timed"]:
         lib = c["library_ms"]
         ref = (f"library_ms {lib:.5f} ({c['ms'] / lib:.2f}x)" if lib else
@@ -4375,6 +4416,130 @@ def _train_steps(res, path, cfg, batch, steps, opt_cfg, seed):
     return state, out
 
 
+# a train step's kernels by family: a substring of the kernel's name
+# (cuBLAS's GEMMs and the port's kernels), then, for the rest, the
+# enclosing range: the norms' autograd nodes (a fill or cast of their
+# backward), AdamW (``adamw_update``), the cross-entropy (``_ce_block``,
+# forward and the checkpoint's recompute, and the autograd nodes of its
+# logsumexp and gather), everything else elementwise
+TRAIN_FAMILIES = (
+    ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+    ("flash forward", ("flash_kernel",)),
+    ("flash backward", ("delta_kernel", "dkdv_kernel", "dq_kernel",
+                        "tc::reduce_kernel")),
+    ("norm forward", ("rmsnorm_kernel", "add_norm_kernel")),
+    ("norm backward", ("norm_bwd", "dw_sum_kernel")))
+TRAIN_RANGES = (("norm backward", ("RMSNormFnBackward",)),
+                ("AdamW", ("adamw_update",)),
+                ("CE", ("ce_block", "LogsumexpBackward0", "GatherBackward0")))
+
+
+def _profiled_step(path, cfg, opt_cfg, state, batch):
+    """One more step of ``make_train_step`` under ``torch.profiler`` (CPU
+    and CUDA activity), ``adamw_update`` and ``_ce_block`` wrapped in
+    ranges for it: the step's wall ms, the device's busy time (the union
+    of its events' intervals) and idle share, its device ms by family
+    (TRAIN_FAMILIES, TRAIN_RANGES; a kernel no CPU op lists is
+    "unattributed") and its largest kernels.  Returns (state, the
+    profile)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import transformer
+    from repro_torch.training import make_train_step, train_loop
+
+    def ranged(fn, name):
+        def wrapped(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return wrapped
+    ranges = ("adamw_update", "ce_block")
+    saved = train_loop.adamw_update, transformer._ce_block
+    train_loop.adamw_update = ranged(saved[0], ranges[0])
+    transformer._ce_block = ranged(saved[1], ranges[1])
+    try:
+        step_fn = make_train_step(cfg, opt_cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        train_loop.adamw_update, transformer._ce_block = saved
+    # every device event once (not the ranges' own spans on the device's
+    # timeline): the CPU ops list the kernels they launched, by name and
+    # duration; where the profiler lists one kernel under two ops, the
+    # first op in time takes it and the time listed twice is logged as
+    # "ambiguous"
+    events = prof.events()
+    dev = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                  and e.name not in ranges
+                  and not getattr(e, "is_user_annotation", False)),
+                 key=lambda e: e.time_range.start)
+    busy, end = 0.0, -math.inf
+    for e in dev:
+        busy += max(0.0, e.time_range.end - max(e.time_range.start, end))
+        end = max(end, e.time_range.end)
+    busy /= 1e3
+    if busy <= 0:
+        raise AssertionError(f"{path}: the profiler recorded no device time")
+    avail = {}
+    for e in dev:
+        key = (e.name, e.time_range.end - e.time_range.start)
+        avail[key] = avail.get(key, 0) + 1
+    fams = {f: 0.0 for f, _ in TRAIN_FAMILIES + TRAIN_RANGES}
+    fams["other elementwise"] = fams["unattributed"] = 0.0
+    by_kernel, twice = {}, [0.0]
+
+    def add(fam, name, us):
+        fams[fam] += us / 1e3
+        by_kernel[fam, name[:80]] = by_kernel.get((fam, name[:80]), 0.0) \
+            + us / 1e3
+
+    def named(name):
+        return next((f for f, keys in TRAIN_FAMILIES
+                     if any(key in name for key in keys)), None)
+
+    def walk(e, ctx):
+        ctx = ctx + (e.name,)
+        # the op's kernels (not its own device time, named as the op)
+        for k in e.kernels:
+            key = (k.name, k.duration)
+            if k.name == e.name:
+                continue
+            if not avail.get(key):
+                twice[0] += k.duration / 1e3
+                continue
+            avail[key] -= 1
+            add(named(k.name) or next(
+                (f for f, keys in TRAIN_RANGES
+                 if any(r in c for c in ctx for r in keys)),
+                "other elementwise"), k.name, k.duration)
+        for c in e.cpu_children:
+            walk(c, ctx)
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.cpu_parent is None:
+            walk(e, ())
+    for (name, us), n in avail.items():
+        for _ in range(n):
+            add(named(name) or "unattributed", name, us)
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+           "idle_share": 1 - busy / (wall * 1e3), "family_ms": fams,
+           "ambiguous_ms": twice[0]}
+    log(f"[{path}] profiled step: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy:.1f} ms (idle {100 * out['idle_share']:.1f}%); kernel time "
+        f"listed under two ops {twice[0]:.2f} ms (ambiguous)")
+    for f, ms in fams.items():
+        log(f"[{path}]   {f}: {ms:.2f} ms = {100 * ms / busy:.1f}% of busy")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    out["top_ms"] = {f"{f}: {n}": ms for (f, n), ms in top}
+    for (f, n), ms in top:
+        log(f"[{path}]   top {ms:8.2f} ms  {f}: {n}")
+    return state, out
+
+
 def _train_qwen2(res):
     """qwen2-1.5b at full width and depth in bf16, B 4 x S 2048, remat on,
     the cross-entropy in chunks of 1024: 10 AdamW steps (lr 1e-3, warmup
@@ -4383,8 +4548,9 @@ def _train_qwen2(res):
     recompute) and its backward once; every norm forward runs twice but
     the final norm's (outside the checkpoints), every norm backward once,
     with the sum's gradient ds but for layer 0's pre-norm and the final
-    norm.  Then its params through ``save_checkpoint`` /
-    ``load_checkpoint``, bit for bit."""
+    norm.  Then one more step under the profiler (``_profiled_step``) and
+    its params through ``save_checkpoint`` / ``load_checkpoint``, bit for
+    bit."""
     import tempfile
     import torch
     from repro_torch.configs import get_config
@@ -4413,6 +4579,9 @@ def _train_qwen2(res):
     if not out["losses"][-1] < 0.9 * out["losses"][0]:
         raise AssertionError(f"train_qwen2: loss {out['losses']} did not "
                              "fall below 0.9x its first value")
+    state, out["profile"] = _profiled_step(
+        "train_qwen2", cfg,
+        AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps), state, batch)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
         path = os.path.join(d, "qwen2.msgpack")

@@ -39,13 +39,25 @@
 // plus ds when given (add_rmsnorm: its sum s feeds the residual stream too,
 // and dx and ddelta are both ds + that), cast once to x's type; and
 //   dw = sum over rows of dy * x_hat (float32).
-// Two launches, no atomics: the row kernel takes one CTA per block of
-// `rpb` rows (a function of the row count alone, fixed by the wrapper),
-// reads each row twice (the sums, then dx; the second read hits L1/L2),
-// and sums its rows' dy * x_hat per column in shared memory, in row order,
-// into one float32 partial row per block; the second kernel adds the
-// partial rows per column in block order.  Bound by bytes, as the forward:
-// x, dy (and ds) read, dx written, the partials small beside them.
+// Bound by bytes: x, dy (and ds) read once, dx written once.  Two launches,
+// no atomics, every order fixed by the indices; the geometry is the
+// wrapper's (kernels/rmsnorm.py::bwd_geometry), a function of (rows, d,
+// dtype) alone.  The rows kernel takes a row with a group of L threads, the
+// fewest that hold its 16-byte vectors in registers (V each: vectors t,
+// t + L, ...; L a power of two up to a warp, or whole warps), so each row
+// is read once: x, dy (and ds) loaded together, kept for the two sums
+// (sum x^2, sum x * g) and for dx.  A thread loads its slice of w once per
+// CTA.  The sums: each thread's vectors and elements in order, an xor
+// butterfly over the group's lanes, then (L > 32) its warps' sums in warp
+// order through shared memory behind a named barrier of the group alone;
+// so a row's dx depends on that row alone.  A CTA holds G groups (several
+// rows in flight) over a contiguous block of rows, group j taking rows j,
+// j + G, ...; each thread adds dy * x_hat for its columns in registers
+// across its rows, and the groups' sums are combined in group order into
+// one float32 partial row per CTA (at most 256 rows of scratch).  The
+// second kernel sums the partial rows per column: strips of 32 columns,
+// each warp of a strip a contiguous group of partial rows in order, the
+// warps' sums then in warp order.
 #include "common.cuh"
 
 using namespace rt;
@@ -196,97 +208,175 @@ add_norm_kernel(const T* x, const T* __restrict__ delta,
   norm_row<T, true>(x, delta, w, s, out, d, eps);
 }
 
-// The backward of one block of rows: dx for every row, and the block's
-// partial dw (float32, one row of d) into part[blockIdx.x].  Each thread
-// owns the same vectors (tid, tid + nt, ...) of every row, so its columns
-// of the shared dw accumulator are its own.
-template <typename T, bool kDs>
-__global__ void __launch_bounds__(32 * kMaxWarps)
+// The backward's geometry limits (mirrored by kernels/rmsnorm.py): threads
+// of a rows CTA (the launch bound asks for one CTA an SM at least, which
+// leaves a thread 255 registers and ptxas spills none), the row groups of
+// a CTA whose groups span warps (named barriers 1 ..), and dw's sum's
+// warps a strip of 32 columns.  A thread holds at most 6 (bf16) or 10
+// (float32) vectors of its row: up to 200 registers of x, dy, ds, w and
+// dw's sums.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWideGroups = 4;
+constexpr int kDwWarps = 8;
+template <typename T> constexpr int kBwdMaxVpt = sizeof(T) == 2 ? 6 : 10;
+
+__device__ __forceinline__ void group_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The rows of CTA blockIdx.x, [rpc * blockIdx.x, +rpc): dx of every row,
+// and the CTA's partial dw (float32, one row of d) into part[blockIdx.x].
+// Groups of `lanes` threads take a row each; every group runs the same
+// number of steps (an idle group sums zeros), so the warp shuffles and the
+// barriers are uniform.
+template <typename T, bool kDs, int V>
+__global__ void __launch_bounds__(kBwdThreads, 1)
 norm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                 const T* __restrict__ dy, const T* __restrict__ ds,
                 T* __restrict__ dx, float* __restrict__ part, int rows, int d,
-                int rpb, float eps) {
+                int lanes, int rpc, float eps) {
   constexpr int N = Vec<T>::N;
   extern __shared__ float4 smem4[];
-  float* wacc = reinterpret_cast<float*>(smem4);   // [d]
-  __shared__ float red[2][kMaxWarps];
-  const int nv = d / N, tid = threadIdx.x, nt = blockDim.x;
-  auto load_w = [&](int c, float* e) {
+  float* comb = reinterpret_cast<float*>(smem4);   // [d], when G > 1
+  __shared__ float red[2][kBwdWideGroups][kBwdThreads / 32][2];
+  const int nv = d / N, tid = threadIdx.x, groups = blockDim.x / lanes;
+  const int grp = tid / lanes, t = tid - grp * lanes;
+  float wv[V][N], acc[V][N];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = t + i * lanes;
 #pragma unroll
     for (int j = 0; j < N; j += 4) {
-      const float4 f = reinterpret_cast<const float4*>(w)[(c * N + j) / 4];
-      e[j] = f.x; e[j + 1] = f.y; e[j + 2] = f.z; e[j + 3] = f.w;
+      const float4 f = c < nv ? reinterpret_cast<const float4*>(w)[(c * N + j) / 4]
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      wv[i][j] = f.x; wv[i][j + 1] = f.y; wv[i][j + 2] = f.z; wv[i][j + 3] = f.w;
     }
-  };
-  for (int c = tid; c < nv; c += nt)
 #pragma unroll
-    for (int j = 0; j < N; ++j) wacc[c * N + j] = 0.f;
-  const int r0 = blockIdx.x * rpb, r1 = min(rows, r0 + rpb);
-  for (int row = r0; row < r1; ++row) {
-    const long long off = static_cast<long long>(row) * nv;
+    for (int j = 0; j < N; ++j) acc[i][j] = 0.f;
+  }
+  const int r0 = blockIdx.x * rpc, n = min(rpc, rows - r0);
+  const int steps = (n + groups - 1) / groups;
+  for (int k = 0; k < steps; ++k) {
+    const int rr = k * groups + grp;
+    const bool on = rr < n;
+    const long long off = static_cast<long long>(on ? r0 + rr : r0) * nv;
     const uint4* xr = reinterpret_cast<const uint4*>(x) + off;
     const uint4* gr = reinterpret_cast<const uint4*>(dy) + off;
-    // the sum of squares and of x * w * dy, each thread's vectors in order,
-    // then the warp butterfly, then the warps in order
-    float ss = 0.f, sg = 0.f;
-    for (int c = tid; c < nv; c += nt) {
-      float e[N], g[N], f[N];
-      unpack<T>(xr[c], e);
-      unpack<T>(gr[c], g);
-      load_w(c, f);
+    uint4 xv[V], gv[V], sv[V];
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        ss += e[j] * e[j];
-        sg += e[j] * (g[j] * f[j]);
+    for (int i = 0; i < V; ++i) {
+      const int c = t + i * lanes;
+      if (on && c < nv) {
+        xv[i] = xr[c];
+        gv[i] = gr[c];
+        if constexpr (kDs) sv[i] = (reinterpret_cast<const uint4*>(ds) + off)[c];
       }
     }
-    ss = warp_sum(ss);
-    sg = warp_sum(sg);
-    if (nt > 32) {
-      if ((tid & 31) == 0) {
-        red[0][tid >> 5] = ss;
-        red[1][tid >> 5] = sg;
+    float ss = 0.f, sg = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (on && t + i * lanes < nv) {
+        float e[N], g[N];
+        unpack<T>(xv[i], e);
+        unpack<T>(gv[i], g);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          ss += e[j] * e[j];
+          sg += e[j] * (g[j] * wv[i][j]);
+        }
       }
-      __syncthreads();
+    }
+    for (int o = min(lanes, 32) / 2; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      sg += __shfl_xor_sync(0xffffffffu, sg, o);
+    }
+    if (lanes > 32) {   // the group's warps in order; red alternates by step
+      float (*r)[2] = red[k & 1][grp];
+      if ((t & 31) == 0) {
+        r[t >> 5][0] = ss;
+        r[t >> 5][1] = sg;
+      }
+      group_barrier(1 + grp, lanes);
       ss = sg = 0.f;
-      for (int i = 0; i < nt / 32; ++i) {
-        ss += red[0][i];
-        sg += red[1][i];
+      for (int i = 0; i < lanes / 32; ++i) {
+        ss += r[i][0];
+        sg += r[i][1];
       }
-      __syncthreads();   // red is free for the next row
     }
+    if (!on) continue;
     const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
     const float m = inv * sg / static_cast<float>(d);   // mean(x_hat * g)
-    for (int c = tid; c < nv; c += nt) {
-      float e[N], g[N], f[N], o[N];
-      unpack<T>(xr[c], e);
-      unpack<T>(gr[c], g);
-      load_w(c, f);
-      if constexpr (kDs) unpack<T>((reinterpret_cast<const uint4*>(ds) + off)[c], o);
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float xh = e[j] * inv;
-        const float v = (g[j] * f[j] - xh * m) * inv;
-        o[j] = kDs ? o[j] + v : v;
-        wacc[c * N + j] += g[j] * xh;
+    for (int i = 0; i < V; ++i) {
+      const int c = t + i * lanes;
+      if (c < nv) {
+        float e[N], g[N], o[N];
+        unpack<T>(xv[i], e);
+        unpack<T>(gv[i], g);
+        if constexpr (kDs) unpack<T>(sv[i], o);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const float xh = e[j] * inv;
+          const float v = (g[j] * wv[i][j] - xh * m) * inv;
+          o[j] = kDs ? o[j] + v : v;
+          acc[i][j] += g[j] * xh;
+        }
+        (reinterpret_cast<uint4*>(dx) + off)[c] = pack<T>(o);
       }
-      (reinterpret_cast<uint4*>(dx) + off)[c] = pack<T>(o);
     }
   }
+  // the groups' sums in group order; the last group writes the partial row
   float* pr = part + static_cast<long long>(blockIdx.x) * d;
-  for (int c = tid; c < nv; c += nt)
+  for (int j = 0; j < groups; ++j) {
+    if (grp == j) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) pr[c * N + j] = wacc[c * N + j];
+      for (int i = 0; i < V; ++i) {
+        const int c = t + i * lanes;
+        if (c < nv) {
+#pragma unroll
+          for (int q = 0; q < N; q += 4) {
+            float4 v = make_float4(acc[i][q], acc[i][q + 1], acc[i][q + 2],
+                                   acc[i][q + 3]);
+            float4* cv = reinterpret_cast<float4*>(comb + c * N + q);
+            if (j > 0) {
+              const float4 b = *cv;
+              v = make_float4(b.x + v.x, b.y + v.y, b.z + v.z, b.w + v.w);
+            }
+            if (j == groups - 1)
+              *reinterpret_cast<float4*>(pr + c * N + q) = v;
+            else
+              *cv = v;
+          }
+        }
+      }
+    }
+    if (j < groups - 1) __syncthreads();
+  }
 }
 
-// dw[col] = the partial rows' sum at col, in block order.
-__global__ void dw_sum_kernel(const float* __restrict__ part,
-                              float* __restrict__ dw, int nblk, int d) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= d) return;
+// dw over a strip of 32 columns (blockIdx.x): warp k sums the partial rows
+// [k q, (k + 1) q) in order (q = ceil(nparts / warps)), then the warps'
+// sums are added in warp order.
+__global__ void __launch_bounds__(32 * kDwWarps)
+dw_sum_kernel(const float* __restrict__ part, float* __restrict__ dw,
+              int nparts, int d) {
+  __shared__ float red[kDwWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5, col = blockIdx.x * 32 + lane;
+  const int q = (nparts + nw - 1) / nw, p1 = min(nparts, (warp + 1) * q);
   float acc = 0.f;
-  for (int b = 0; b < nblk; ++b) acc += part[static_cast<long long>(b) * d + col];
-  dw[col] = acc;
+  if (col < d) {
+#pragma unroll 8
+    for (int p = warp * q; p < p1; ++p)
+      acc += part[static_cast<long long>(p) * d + col];
+  }
+  red[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && col < d) {
+    float s = 0.f;
+    for (int k = 0; k < nw; ++k) s += red[k][lane];
+    dw[col] = s;
+  }
 }
 
 // Threads per row for d elements of T (0: d not supported).
@@ -324,27 +414,48 @@ int dispatch(const void* x, const void* delta, const void* w, void* s,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
-int launch_bwd(const void* x, const void* w, const void* dy, const void* ds,
-               void* dx, void* part, void* dw, int rows, int d, float eps,
-               int rpb, cudaStream_t st) {
-  const int nt = row_threads<T>(d);
-  if (!nt || rpb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int nblk = (rows + rpb - 1) / rpb;
-  const int bytes = d * static_cast<int>(sizeof(float));
-  auto kern = ds ? norm_bwd_kernel<T, true> : norm_bwd_kernel<T, false>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
+// The backward's launch arguments, the geometry's as the wrapper gives it.
+struct BwdArgs {
+  const void *x, *w, *dy, *ds;
+  void *dx, *part, *dw;
+  int rows, d, lanes, vpt, groups, rpc, sum_warps;
+  float eps;
+};
+
+// The rows kernel for vpt == V (tried from 1 up), then dw's sum.
+template <typename T, bool kDs, int V = 1>
+int launch_bwd_rows(const BwdArgs& a, cudaStream_t st) {
+  if constexpr (V > kBwdMaxVpt<T>) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (a.vpt != V) return launch_bwd_rows<T, kDs, V + 1>(a, st);
+    const int ctas = (a.rows + a.rpc - 1) / a.rpc;
+    const int bytes = a.groups > 1 ? a.d * static_cast<int>(sizeof(float)) : 0;
+    if (bytes > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+    norm_bwd_kernel<T, kDs, V><<<ctas, a.groups * a.lanes, bytes, st>>>(
+        static_cast<const T*>(a.x), static_cast<const float*>(a.w),
+        static_cast<const T*>(a.dy), static_cast<const T*>(a.ds),
+        static_cast<T*>(a.dx), static_cast<float*>(a.part), a.rows, a.d,
+        a.lanes, a.rpc, a.eps);
+    dw_sum_kernel<<<(a.d + 31) / 32, 32 * a.sum_warps, 0, st>>>(
+        static_cast<const float*>(a.part), static_cast<float*>(a.dw), ctas,
+        a.d);
+    return static_cast<int>(cudaGetLastError());
   }
-  kern<<<nblk, nt, bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const T*>(dy), static_cast<const T*>(ds),
-      static_cast<T*>(dx), static_cast<float*>(part), rows, d, rpb, eps);
-  dw_sum_kernel<<<(d + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(dw), nblk, d);
-  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const BwdArgs& a, cudaStream_t st) {
+  constexpr int N = Vec<T>::N;
+  const int L = a.lanes, nv = a.d / N;
+  const bool shape_ok =
+      a.d > 0 && a.d % N == 0 && a.rows > 0 && a.rpc > 0 && L > 0 &&
+      (L <= 32 ? (L & (L - 1)) == 0 : L % 32 == 0) &&
+      static_cast<long long>(L) * a.vpt >= nv && a.groups > 0 &&
+      a.groups * L <= kBwdThreads && (L <= 32 || a.groups <= kBwdWideGroups) &&
+      a.sum_warps > 0 && a.sum_warps <= kDwWarps;
+  if (!shape_ok) return static_cast<int>(cudaErrorInvalidValue);
+  return a.ds ? launch_bwd_rows<T, true>(a, st) : launch_bwd_rows<T, false>(a, st);
 }
 
 }  // namespace
@@ -369,18 +480,19 @@ extern "C" int add_rmsnorm_launch(const void* x, const void* delta,
 
 // The backward of rmsnorm(x, w, eps) for the output gradient dy: x, dy, ds
 // (null, or the gradient of add_rmsnorm's sum, added to dx), dx (rows, d)
-// contiguous of one dtype; w, dw (d,) float32; part (ceil(rows / rpb), d)
-// float32 scratch for the per-block partial sums of dw.  Returns
-// cudaGetLastError().
+// contiguous of one dtype; w, dw (d,) float32; part (ceil(rows / rpc), d)
+// float32 scratch for the CTAs' partial sums of dw.  The geometry (lanes a
+// row, vectors a thread, row groups a CTA, rows a CTA, warps of dw's sum) is
+// kernels/rmsnorm.py::bwd_geometry's.  Returns cudaGetLastError().
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* w, const void* dy,
                                   const void* ds, void* dx, void* part,
                                   void* dw, int rows, int d, float eps,
-                                  int rpb, int dtype, void* stream) {
+                                  int lanes, int vpt, int groups, int rpc,
+                                  int sum_warps, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    return launch_bwd<__nv_bfloat16>(x, w, dy, ds, dx, part, dw, rows, d, eps,
-                                     rpb, st);
-  if (dtype == kF32)
-    return launch_bwd<float>(x, w, dy, ds, dx, part, dw, rows, d, eps, rpb, st);
+  const BwdArgs a{x, w, dy, ds, dx, part, dw, rows, d, lanes, vpt, groups,
+                  rpc, sum_warps, eps};
+  if (dtype == kBF16) return launch_bwd<__nv_bfloat16>(a, st);
+  if (dtype == kF32) return launch_bwd<float>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,6 +11,7 @@ versions; on CUDA tensors they launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,19 +29,58 @@ bwd_ds_launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = (_P, _P, _P, _I, _I, _F, _I, _P)
 _ADD_ARGTYPES = (_P,) * 5 + (_I, _I, _F, _I, _P)
-_BWD_ARGTYPES = (_P,) * 7 + (_I, _I, _F, _I, _I, _P)
-# the backward's dw: rows are summed in blocks of ``bwd_rows_per_block``
-# rows (a function of the row count alone, never of the SM count), each
-# block's float32 partial row written out, then summed in block order
-MIN_ROWS_PER_BLOCK, MAX_BLOCKS = 8, 2048
+_BWD_ARGTYPES = (_P,) * 7 + (_I, _I, _F) + (_I,) * 6 + (_P,)
+# the backward's geometry (``bwd_geometry``; mirrored by the limits of
+# csrc/rmsnorm.cu): a thread holds at most BWD_VPT 16-byte vectors of its
+# row, a CTA at most BWD_MAX_THREADS threads, its row groups fill
+# BWD_CTA_THREADS, dw's partial rows are at most BWD_MAX_PARTS, and dw's
+# sum takes strips of DW_STRIP columns, up to DW_WARPS warps a strip
+BWD_VPT = {torch.bfloat16: 6, torch.float32: 10}
+BWD_MAX_THREADS, BWD_CTA_THREADS, BWD_MAX_PARTS = 256, 128, 256
+DW_STRIP, DW_WARPS = 32, 8
 
 
 rmsnorm_plain = rmsnorm_ref      # the plain version (kernels/ref.py)
 rmsnorm_bwd_plain = rmsnorm_bwd_ref
 
 
-def bwd_rows_per_block(rows: int) -> int:
-    return max(MIN_ROWS_PER_BLOCK, -(-rows // MAX_BLOCKS))
+class BwdGeometry(NamedTuple):
+    lanes: int          # threads that take a row (a power of two up to 32,
+                        # or whole warps)
+    vpt: int            # vectors of the row a thread holds (t, t + lanes..)
+    groups: int         # row groups of a CTA (rows in flight)
+    rows_per_cta: int   # a CTA's contiguous rows; group j takes j, j + G..
+    ctas: int           # CTAs of the rows launch = dw's partial rows
+    threads: int        # threads of a rows CTA
+    sum_ctas: int       # CTAs of dw's sum (strips of DW_STRIP columns)
+    sum_warps: int      # warps of a strip, each a contiguous run of parts
+    scratch_bytes: int  # the float32 partial rows
+
+
+def bwd_geometry(rows: int, d: int, dtype) -> BwdGeometry:
+    """The launches of ``rmsnorm_bwd`` for ``rows`` rows of ``d`` elements
+    of ``dtype``: a function of these alone, never of the device.  The
+    lanes and vectors of a row depend on (d, dtype) only, so a row's dx is
+    the same bits in any batch; the CTAs take fixed row blocks, so dw's
+    order is fixed.  Raises ValueError for a d the kernel does not take (not
+    a whole number of vectors, or wider than BWD_MAX_THREADS threads hold)."""
+    n = 16 // dtype.itemsize
+    if d <= 0 or d % n:
+        raise ValueError(f"rmsnorm_bwd: d {d} is not a multiple of {n}")
+    nv, vmax = d // n, BWD_VPT[dtype]
+    if nv <= 32:
+        lanes, vpt = 1 << (nv - 1).bit_length(), 1
+    else:
+        lanes = 32 * -(-nv // (32 * vmax))
+        vpt = -(-nv // lanes)
+    if lanes > BWD_MAX_THREADS:
+        raise ValueError(f"rmsnorm_bwd: d {d} of {dtype} is wider than "
+                         f"{BWD_MAX_THREADS} threads x {vmax} vectors")
+    groups = max(1, BWD_CTA_THREADS // lanes)
+    rpc = groups * max(1, -(-rows // (BWD_MAX_PARTS * groups)))
+    ctas = -(-rows // rpc)
+    return BwdGeometry(lanes, vpt, groups, rpc, ctas, groups * lanes,
+                       -(-d // DW_STRIP), min(DW_WARPS, ctas), 4 * ctas * d)
 
 
 def add_rmsnorm_plain(x, delta, w, eps: float = 1e-6):
@@ -119,24 +159,25 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     (dx like x, dw float32 (d,)); ``ds`` (like x), when given, is added to
     dx in the same launch (add_rmsnorm's sum s feeds the residual stream
     too, and its gradient is that of both inputs of the add).  Two
-    launches: the rows (dx, and dw's partial sums over fixed blocks of
-    rows), then dw's sum over the blocks in order; no atomics."""
+    launches (``bwd_geometry``): the rows (dx, and dw's partial sums over
+    fixed blocks of rows, one float32 row a CTA), then dw's sum over the
+    partial rows in a fixed order, written whole; no atomics."""
     global bwd_launches, bwd_ds_launches
     if x.device.type == "cpu":
         return rmsnorm_bwd_plain(x, w, dy, eps, ds)
     code, rows, d = _check("rmsnorm_bwd", w, x, dy,
                            *(() if ds is None else (ds,)))
     dx = torch.empty_like(x)
-    dw = torch.zeros((d,), dtype=torch.float32, device=x.device)
     if rows == 0 or d == 0:
-        return dx, dw
-    rpb = bwd_rows_per_block(rows)
-    part = torch.empty((-(-rows // rpb), d), dtype=torch.float32,
-                       device=x.device)
+        return dx, torch.zeros((d,), dtype=torch.float32, device=x.device)
+    geo = bwd_geometry(rows, d, x.dtype)
+    dw = torch.empty((d,), dtype=torch.float32, device=x.device)
+    part = torch.empty((geo.ctas, d), dtype=torch.float32, device=x.device)
     fn = _build.function("rmsnorm", "rmsnorm_bwd_launch", _BWD_ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
              None if ds is None else ds.data_ptr(), dx.data_ptr(),
-             part.data_ptr(), dw.data_ptr(), rows, d, float(eps), rpb, code,
+             part.data_ptr(), dw.data_ptr(), rows, d, float(eps), geo.lanes,
+             geo.vpt, geo.groups, geo.rows_per_cta, geo.sum_warps, code,
              _build.stream_handle())
     _build.raise_on_error("rmsnorm_bwd", err)
     if ds is None:

@@ -17,6 +17,7 @@
     python3 chip_smoke.py --phases build,kernels,equivalence,legacy,prefill,mixed_dtype
     python3 chip_smoke.py --phases build,controller,replay
     python3 chip_smoke.py --phases build,kernels,train
+    python3 chip_smoke.py --phases build,mesh
 
 Phases (each raises on failure; nothing is caught):
 
@@ -292,7 +293,18 @@ Phases (each raises on failure; nothing is caught):
    arch's ``.smoke()`` in float32 at S 96, the loss, every gradient and
    one step on CUDA against the CPU from the same weights.  Launches
    counted as in phase 5.
-18. profile (opt-in, not in the default run): the serve, serve_paged and
+18. mesh: serving on the (1,1) serving mesh (``phase_mesh``), a
+   world-size-1 NCCL group (``launch.mesh.init_single_rank``), against
+   ``mesh=None``: qwen2-1.5b at full width and depth in bf16, seed-0
+   weights, a burst of 4 greedy requests (100-400-token prompts, 32-64 new
+   tokens) on the dense engine (``mesh_dense``) and, with a shared
+   128-token system prompt, on the paged engine with the prefix cache
+   (``mesh_paged``), each served once to warm up with ``mesh=None``, then
+   with ``mesh=None``, ``(1,1)``, ``(1,1)``, ``None``: tokens, ServingReport
+   floats, energy, host drains, prefix-cache stats and every kernel's
+   launch count equal in all five runs, bit for bit; tokens/s of each.  The group is destroyed at the end; a failing NCCL
+   init fails the run.  Launches counted as in phase 5.
+19. profile (opt-in, not in the default run): the serve, serve_paged and
    both serve_q8 bursts, then qwen3-moe-30b-a3b's and recurrentgemma-9b's
    serve bursts at full depth, again under ``torch.profiler`` after a
    warm-up run, printing
@@ -332,7 +344,7 @@ BF16_ROUNDING = (1e-3, 1e-2)     # atol, rtol: one bf16 rounding apart
 PHASES = ("build", "kernels", "equivalence", "serve", "serve_paged",
           "serve_q8", "paged_vs_dense", "sampling", "observability", "arch",
           "cluster", "legacy", "prefill", "mixed_dtype", "controller",
-          "replay", "train")
+          "replay", "train", "mesh")
 # the paths whose launches count
 SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "sampling", "sampling_paged", "observability", "arch_qwen3",
@@ -350,7 +362,7 @@ SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "mixed_dtype_gemma2_dense", "mixed_dtype_gemma2_paged",
                "replay_example", "replay_c3", "replay_qwen3_dense",
                "replay_qwen3_cluster", "train_qwen2", "train_gemma2",
-               "train_arch")
+               "train_arch", "mesh_dense", "mesh_paged")
 
 
 def log(*a):
@@ -4730,6 +4742,112 @@ def phase_train(res):
     _train_arch(res)
 
 
+def _mesh_burst(server, vocab, shared):
+    """4 greedy requests, 100-400-token prompts (after a ``shared`` system
+    prompt, when given), 32-64 new tokens, served to completion."""
+    import numpy as np
+    from repro_torch.core import SamplingParams
+    rng = np.random.default_rng(5)
+    lens = np.linspace(100, 400, 4).astype(int)
+    rng.shuffle(lens)
+    handles = [server.submit(
+        np.concatenate([shared, rng.integers(0, vocab, size=int(n))]),
+        SamplingParams(max_tokens=int(rng.integers(32, 65)))) for n in lens]
+    return handles, server.run()
+
+
+def _mesh_run(cfg, params, ecfg):
+    """One burst through a fresh engine: its digest (tokens, report
+    floats, energy, host drains, prefix-cache stats, launch counts) and
+    tokens/s."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import Server, ServingEngine
+    eng = ServingEngine(cfg, params=params, ecfg=ecfg, seed=0,
+                        device="cuda")
+    shared = np.random.default_rng(6).integers(0, cfg.vocab_size, size=128) \
+        if ecfg.prefix_cache else np.zeros(0, np.int64)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles, rep = _mesh_burst(Server(eng), cfg.vocab_size, shared)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    _check_outputs(handles, cfg.vocab_size)
+    out_toks = sum(len(h.request.tokens) for h in handles)
+    digest = {
+        "tokens": [list(map(int, h.request.tokens)) for h in handles],
+        "report": {f.name: repr(getattr(rep, f.name))   # NaN == NaN
+                   for f in dataclasses.fields(rep)
+                   if isinstance(getattr(rep, f.name), (int, float))},
+        "energy_j": repr(eng.energy_j), "host_drains": eng._host_drains,
+        "prefix_cache": eng.prefix_cache.stats()
+        if eng.prefix_cache is not None else None,
+        "launches": counts}
+    del eng
+    torch.cuda.empty_cache()
+    return digest, out_toks / wall, _tokens_digest(handles)
+
+
+def phase_mesh(res):
+    """The (1,1) serving mesh on a world-size-1 NCCL group against
+    mesh=None, dense and paged with the prefix cache: every digest field
+    bitwise equal (see phase 18 in the module docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_single_rank, shutdown
+    from repro_torch.models import init_params
+    from repro_torch.serving import EngineConfig
+    cfg = get_config("qwen2-1.5b")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    init_single_rank("cuda")
+    try:
+        for path, kw, need in (
+                ("mesh_dense", {}, ("rmsnorm", "add_rmsnorm",
+                                    "decode_attention", "flash_attention")),
+                ("mesh_paged", dict(paged=True, page_size=16,
+                                    num_pages=160, prefix_cache=True),
+                 ("rmsnorm", "add_rmsnorm", "paged_decode_attention",
+                  "flash_attention", "chunk_attention"))):
+            runs = []
+            # a warm-up run, then None, (1,1), (1,1), None: tokens/s of a
+            # pair taken in turns, after the first run's one-time costs
+            for mesh in (None, None, (1, 1), (1, 1), None):
+                ecfg = EngineConfig(max_batch=8, max_len=2048,
+                                    governor="greenllm", mesh=mesh, **kw)
+                runs.append((mesh, *_mesh_run(cfg, params, ecfg)))
+            _, base, _, sha = runs[0]
+            for mesh, got, _, got_sha in runs[1:]:
+                for key in base:
+                    if got[key] != base[key]:
+                        raise AssertionError(
+                            f"{path}: mesh={mesh} differs from the first "
+                            f"mesh=None run in {key}: {got[key]} != "
+                            f"{base[key]}")
+            tps = [t for m, _, t, _ in runs[1:] if m is not None]
+            base_tps = [t for m, _, t, _ in runs[1:] if m is None]
+            got = runs[-2][1]
+            log(f"[{path}] tokens sha256 {sha}, the same in all 5 runs; "
+                f"tokens/s mesh=None {base_tps[0]:.1f}, {base_tps[1]:.1f}; "
+                f"mesh=(1,1) {tps[0]:.1f}, {tps[1]:.1f} (warm-up "
+                f"{runs[0][2]:.1f}) on {res['card']}; host drains "
+                f"{got['host_drains']}; prefix cache {got['prefix_cache']}; "
+                f"launches {got['launches']}")
+            _check_launched(path, got["launches"], need)
+            if kw.get("prefix_cache") and not got["prefix_cache"]["hits"]:
+                raise AssertionError(f"{path}: no prefix hit")
+            res[path] = {"launches": got["launches"],
+                         "tokens_per_s": tps, "tokens_per_s_none": base_tps,
+                         "tokens_per_s_warmup": runs[0][2],
+                         "tokens_sha256": sha,
+                         "host_drains": got["host_drains"],
+                         "energy_j": got["energy_j"],
+                         "prefix_cache": got["prefix_cache"]}
+    finally:
+        shutdown()
+
+
 def gpu_name_and_limit():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4814,7 +4932,7 @@ def main(argv=None):
            "legacy": phase_legacy, "prefill": phase_prefill,
            "mixed_dtype": phase_mixed_dtype, "controller": phase_controller,
            "replay": phase_replay, "train": phase_train,
-           "profile": phase_profile}
+           "mesh": phase_mesh, "profile": phase_profile}
     for p in phases:
         t0 = time.perf_counter()
         fns[p](res)

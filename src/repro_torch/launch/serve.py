@@ -22,6 +22,11 @@ typed ``ServingReport``.
   # per-request energy attribution, SLO alert rules
   python -m repro_torch.launch.serve --metrics-out m.prom \
       --trace-out trace.jsonl --attribution-out energy.jsonl --alerts
+  # a (data, model) serving mesh: (1,1) in this process, a larger one as
+  # that many ranks (gloo on the CPU, NCCL on GPUs); only rank 0 prints
+  python -m repro_torch.launch.serve --mesh 1,1
+  python -m torch.distributed.run --nproc-per-node 8 \
+      -m repro_torch.launch.serve --device cpu --mesh 2,4
 
 Defaults match ``python -m repro.launch.serve`` (qwen2-1.5b, governor
 greenllm, unpaged, greedy, max_batch 8, max_len 192).  ``--prefix-cache``
@@ -30,11 +35,15 @@ with one shared 48-token system prompt.  ``--full-width``
 serves ``get_config(arch)`` itself, with random seeded weights, instead of
 its ``.smoke()`` reduction; virtual time and energy are accounted on the
 full config either way.  ``--cluster`` serves a 1 prefill + 1 decode
-cluster on the paged plane and prints one row per replica.  ``--mesh`` is
-refused: serving meshes are not ported yet (ROADMAP A14).
+cluster on the paged plane and prints one row per replica.  ``--mesh dp,tp``
+serves on a (data, model) mesh (``serving.engine``'s mesh path) of
+``dp * tp`` ranks, bit-identically to no mesh: under
+``torch.distributed.run`` every rank runs this launcher (on GPUs each on
+``cuda:<local rank>``); without it only (1,1) can start, in this process.
 """
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -177,7 +186,9 @@ def main(argv=None):
                     default=True,
                     help="chunked prefill admission (always on when paged)")
     ap.add_argument("--mesh", default="",
-                    help="'dp,tp' serving mesh: not ported yet (ROADMAP A14)")
+                    help="'dp,tp' serving mesh (data x model): dp*tp ranks, "
+                         "one process for 1,1, else under "
+                         "torch.distributed.run")
     ap.add_argument("--cluster", action="store_true",
                     help="disaggregated 1-prefill + 1-decode cluster with "
                          "paged-KV handoff instead of one colocated engine")
@@ -228,10 +239,47 @@ def main(argv=None):
                     help="serve the full config instead of its .smoke() "
                          "reduction")
     args = ap.parse_args(argv)
+    mesh = None
     if args.mesh:
-        raise SystemExit("--mesh: serving meshes are not ported to "
-                         "repro_torch yet (ROADMAP A14)")
+        try:
+            mesh = tuple(int(v) for v in args.mesh.split(","))
+        except ValueError:
+            raise SystemExit(f"--mesh expects 'dp,tp', got {args.mesh!r}")
+    started = _start_ranks(args, mesh)
+    try:
+        return _serve(args, mesh)
+    finally:
+        if started:
+            from repro_torch.launch.mesh import shutdown
+            shutdown()
 
+
+def _start_ranks(args, mesh) -> bool:
+    """Start the default process group a mesh serves on, when nobody has:
+    from ``torch.distributed.run``'s environment (each rank on its own GPU
+    for CUDA), or, for (1,1), as one rank in this process.  Any other mesh
+    is left without ranks, and the engine refuses it.  True if a group was
+    started here."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import backend_for, init_single_rank
+    if mesh is None or dist.is_initialized():
+        return False
+    if "WORLD_SIZE" in os.environ:
+        if args.device == "cuda":
+            import torch
+            args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+            torch.cuda.set_device(args.device)
+        dist.init_process_group(backend_for(args.device))
+        return True
+    if mesh[0] * mesh[1] == 1:
+        init_single_rank(args.device)
+        return True
+    return False
+
+
+def _serve(args, mesh):
+    import torch.distributed as dist
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     full = get_config(args.arch)
     served = full if args.full_width else full.smoke()
     metrics = MetricsRegistry(snapshot_min_dt=0.005) \
@@ -241,12 +289,12 @@ def main(argv=None):
     alerts = AlertEngine(metrics, default_alert_rules(SLOConfig()),
                          tracer=tracer) if args.alerts else None
     on_event = Dashboard(args.dashboard, metrics, alerts=alerts) \
-        if args.dashboard > 0 else None
+        if args.dashboard > 0 and lead else None
     ecfg = EngineConfig(max_batch=args.max_batch, max_len=args.max_len,
                         governor=args.governor,
                         paged=args.paged or args.prefix_cache,
                         chunked_prefill=args.chunked,
-                        prefix_cache=args.prefix_cache)
+                        prefix_cache=args.prefix_cache, mesh=mesh)
     if args.cluster:
         # the cluster forces the paged plane (the handoff moves page chains)
         backend = ServingCluster(served, n_prefill=1, n_decode=1,
@@ -265,6 +313,8 @@ def main(argv=None):
                       arrival=arrival)
         n += 1
     rep = server.run()
+    if not lead:
+        return rep          # every rank served the same stream; rank 0 prints
     plane = "cluster(1p+1d)" if args.cluster else \
         ("engine/paged" if args.paged else "engine")
     print(f"arch={args.arch} governor={args.governor} plane={plane} "

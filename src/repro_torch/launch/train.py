@@ -4,9 +4,10 @@ variant (port of ``src/repro/launch/train.py``'s default mode).
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --device cpu
 
-``--dry-run`` (lowering the full config's step against the production
-mesh) and ``--multi-pod`` / ``--strategy`` are mesh work, refused until the
-port's multi-device support (ROADMAP A14).
+``--multi-pod`` and ``--strategy`` (default ``tp``) only shape the
+dry-run, so the default mode accepts and ignores them, as the reference's
+does.  ``--dry-run`` (lowering the full config's step against the
+production mesh) is refused until the port's dry-run (ROADMAP A14).
 """
 import argparse
 
@@ -25,14 +26,14 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--dry-run", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--strategy", default=None, choices=["tp", "fsdp"])
+    ap.add_argument("--strategy", default="tp", choices=["tp", "fsdp"])
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda: the port's kernels; cpu: "
                          "their plain versions)")
     args = ap.parse_args(argv)
-    if args.dry_run or args.multi_pod or args.strategy:
-        raise SystemExit("--dry-run / --multi-pod / --strategy: meshes are "
-                         "not ported to repro_torch yet (ROADMAP A14)")
+    if args.dry_run:
+        raise SystemExit("--dry-run: the dry-run is not ported to "
+                         "repro_torch yet (ROADMAP A14)")
 
     cfg = get_config(args.arch).smoke()
     gen = torch.Generator(device=args.device).manual_seed(0)

@@ -259,6 +259,15 @@ def cache_key_positions(cache: Dict, pos, batch: int):
 # position == logical index.  Writes go in place into the pool.
 
 
+# Capacity axis of a *stacked* cache leaf ((n_rep,) + leaf shape, see
+# transformer.init_cache): batch rows for dense/ring/recurrent leaves, the
+# page axis for paged pool leaves.  The serving mesh shards exactly this
+# axis along 'data' (launch.shardings.serving_cache_specs) — both are
+# capacity, neither participates in a cross-row reduction, so sharding it
+# is placement only and the bits cannot move.
+STACKED_CAPACITY_AXIS = 1
+
+
 def is_paged(cache: Dict) -> bool:
     return "kp" in cache
 

@@ -44,6 +44,21 @@ def init_moe(gen, cfg: ModelConfig, dtype, lead=()):
 EXPERT_LEAVES = ("down", "gate", "up")
 
 
+def is_expert_leaf(cfg: ModelConfig, path, shape) -> bool:
+    """Is this param-tree leaf a per-expert weight stack?
+
+    ``path`` is the leaf's key path into the stacked params tree (dict keys
+    and sequence indices, e.g. ``("stages", 0, "blocks", 0, "moe",
+    "up")``); expert leaves live under a ``"moe"`` dict with a stacked shape
+    of ``(n_rep, num_experts, ...)``.  ``launch.shardings.
+    serving_param_specs`` uses this to shard the expert axis over the
+    'model' mesh axis so each expert's weights live on exactly one model
+    shard."""
+    keys = list(path)
+    return ("moe" in keys and keys[-1] in EXPERT_LEAVES
+            and len(shape) >= 2 and shape[1] == cfg.num_experts)
+
+
 def capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
     c = int(cfg.capacity_factor * tokens_per_group * cfg.experts_per_token
             / cfg.num_experts)

@@ -244,8 +244,10 @@ class ServingCluster:
         base = ecfg if ecfg is not None else EngineConfig()
         greenllm = base.governor.lower() == "greenllm"
         # handoff moves page chains: force the paged slot-native plane.
-        # ``base.mesh`` rides this single ecfg into every replica (a mesh
-        # is refused by the engine: ROADMAP A14).
+        # ``base.mesh`` (if any) rides this single ecfg into every replica,
+        # so all replicas serve on one mesh shape and stream handoffs never
+        # cross meshes — ``import_stream`` asserts the shape match anyway,
+        # making a mixed-mesh cluster fail loudly at the first migration.
         self.ecfg = dataclasses.replace(base, paged=True,
                                         chunked_prefill=True, slo=self.slo)
         if params is None:

@@ -74,8 +74,20 @@ mixed-position batches, as in the reference).  With
 than the largest bucket the same way (the eager fallback) and decodes it
 in its blocks.
 
-Not ported yet, and rejected with ``NotImplementedError`` naming the
-ROADMAP item: serving meshes (A14).
+Serving mesh (``EngineConfig.mesh = (dp, tp)``): the engine's stored
+tensors live on a ``torch.distributed`` (data, model) mesh of ``dp * tp``
+ranks, each rank running this same engine (``launch.mesh``).  Params are
+stored by ``launch.shardings.serving_param_specs``; per-slot vectors, the
+page table, and the page axis of a pool (or the rows of a dense cache)
+along 'data'.  Every kernel entry (prefill, chunk, decode block) gathers
+what it reads to replicated plain tensors in one all-gather, computes the
+*whole* batch on every rank (a GEMM over a subset of rows can round
+differently from the full batch's, ROADMAP §C), and each rank keeps its
+own shard of what the entry wrote.  The host scheduler runs identically on
+every rank and per-row sampling lanes make every rank draw the same
+tokens, so each mesh shape serves bit-identically to ``mesh=None``.  At
+(1,1) nothing is sharded, and neither the gather nor the write-back
+copies: the path is the single-device one.
 """
 from __future__ import annotations
 
@@ -95,6 +107,11 @@ from repro_torch.core.hardware import HardwareProfile, A100_SXM4_40G
 from repro_torch.core.prng import fold_in, prng_key
 from repro_torch.core.report import slo_pass_metrics
 from repro_torch.core.telemetry import OccupancyMeter, TBTMeter
+from repro_torch.launch.shardings import (gather_replicated, keep_shards,
+                                          local_row, make_serving_shard_ctx,
+                                          place, place_tree,
+                                          serving_param_specs,
+                                          shard_serving_caches)
 from repro_torch.models import ModelConfig, decode_step, init_cache, \
     init_params, prefill, prefill_chunk_into_slot, prefill_into_slot, \
     sample_tokens_batched
@@ -300,8 +317,9 @@ class StreamHandoff:
     # the stream's partial energy ledger (core.attribution.LedgerCarry); a
     # no-op on adoption when both replicas share one ledger (the cluster)
     ledger_carry: Optional[object] = None
-    # exporter's (data, model) mesh shape: always None here (serving
-    # meshes are not ported, ROADMAP A14); the adopter checks it matches
+    # exporter's (data, model) mesh shape (None = unsharded): the adopter
+    # refuses a stream from another mesh shape — adopting across meshes
+    # would silently reshard mid-stream
     mesh_shape: Optional[tuple] = None
 
 
@@ -328,6 +346,7 @@ class _ChunkState:
         self.start = 0
         self.resume_tok = resume_tok
         self.order = order
+        self.last_tok = None        # the last chunk's draw (device scalar)
         self.billed = False         # the first *computed* chunk sets
         #                             prefill_start (a prefix hit starts at
         #                             start > 0)
@@ -355,11 +374,21 @@ class ServingEngine:
         self.cfg = cfg
         self.ecfg = ecfg = ecfg if ecfg is not None else EngineConfig()
         if ecfg.mesh is not None:
-            raise NotImplementedError("mesh serving is not ported to "
-                                      "repro_torch yet (ROADMAP A14)")
+            self._validate_mesh(cfg, ecfg)
         self.device = torch.device(device)
-        self.params = params if params is not None else init_params(
+        params = params if params is not None else init_params(
             torch.Generator(device=self.device).manual_seed(seed), cfg)
+        # serving mesh (None = the single-device plane).  Built before any
+        # other device allocation so caches and slot vectors land sharded.
+        self.mesh = None
+        self._shd = None
+        if ecfg.mesh is not None:
+            from repro_torch.launch.mesh import make_serving_mesh
+            self.mesh = make_serving_mesh(*ecfg.mesh, device=self.device)
+            self._shd = make_serving_shard_ctx(self.mesh)
+            specs, _ = serving_param_specs(cfg, self.mesh)
+            params = place_tree(params, specs, self.mesh)
+        self.params = params
         self.router = make_router(ecfg.governor.lower() != "defaultnv")
         self.plant = plant if plant is not None else PlantModel(
             cfg=plant_cfg or cfg, hw=hw, n_chips=1, seed=seed)
@@ -380,7 +409,14 @@ class ServingEngine:
             ps = ecfg.page_size
             self._max_pages = -(-ecfg.max_len // ps)
             n_pages = ecfg.num_pages or (B * self._max_pages + 1)
+            if self.mesh is not None:
+                # auto-sized pools round up so the page axis stays divisible
+                dp = ecfg.mesh[0]
+                n_pages = -(-n_pages // dp) * dp
             self.pager = PageAllocator(n_pages, ps, B, self._max_pages)
+            if self.mesh is not None:
+                # (max_streams, max_pages) table rows shard along 'data'
+                self.pager.place = self._row_pin
             pool = (n_pages, ps)
         else:
             self.pager = None
@@ -388,6 +424,8 @@ class ServingEngine:
         self.caches = init_cache(cfg, B, ecfg.max_len,
                                  dtype=getattr(torch, ecfg.cache_dtype),
                                  device=self.device, paged_pool=pool)
+        if self.mesh is not None:
+            self.caches = shard_serving_caches(self.caches, self.mesh)
         # prefix sharing is sound only when every cache leaf is a page pool
         self._cacheable = ecfg.prefix_cache and all(
             is_paged(d) for stage in self.caches for d in stage)
@@ -433,19 +471,23 @@ class ServingEngine:
             self.install_observability(metrics, tracer, ledger)
 
         # device-resident decode state
-        self._tok = torch.zeros((B,), dtype=torch.int32, device=self.device)
-        self._pos = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        self._tok = self._row_pin(
+            torch.zeros((B,), dtype=torch.int32, device=self.device))
+        self._pos = self._row_pin(
+            torch.zeros((B,), dtype=torch.int32, device=self.device))
         self._active_host = np.zeros(B, bool)
         self._sync_active()
         # per-slot sampling lanes: temperature / top-k / top-p and each row's
         # threefry base key (two 32-bit words in int64), written only at
         # slot assignment and read only by the draws
-        self._temps = torch.zeros((B,), dtype=torch.float32,
-                                  device=self.device)
-        self._topk = torch.zeros((B,), dtype=torch.int32, device=self.device)
-        self._topp = torch.ones((B,), dtype=torch.float32, device=self.device)
-        self._keys = torch.zeros((B, 2), dtype=torch.int64,
-                                 device=self.device)
+        self._temps = self._row_pin(
+            torch.zeros((B,), dtype=torch.float32, device=self.device))
+        self._topk = self._row_pin(
+            torch.zeros((B,), dtype=torch.int32, device=self.device))
+        self._topp = self._row_pin(
+            torch.ones((B,), dtype=torch.float32, device=self.device))
+        self._keys = self._row_pin(
+            torch.zeros((B, 2), dtype=torch.int64, device=self.device))
         self._sampled_host = np.zeros(B, bool)  # host mirror of temps > 0
         self._base_key = prng_key(seed + 1)     # unseeded-lane source
 
@@ -493,6 +535,74 @@ class ServingEngine:
         # shape's first block to the plant model (it includes the one-time
         # kernel build), as the reference does for its jit compiles
         self._warmed: set = set()
+
+    # -- serving mesh ----------------------------------------------------------
+    @staticmethod
+    def _validate_mesh(cfg: ModelConfig, ecfg: "EngineConfig") -> None:
+        """Model-dependent mesh divisibility, rejected with an actionable
+        message before any process group is needed.  (Model-independent
+        checks — max_batch/num_pages vs dp — live in
+        ``EngineConfig.__post_init__``.)"""
+        dp, tp = ecfg.mesh
+        if tp > 1 and cfg.num_heads % tp:
+            raise ValueError(
+                f"model '{cfg.name}' has num_heads={cfg.num_heads}, not "
+                f"divisible by the model axis tp={tp}: attention heads "
+                "partition over 'model' — pick tp from the divisors of "
+                "num_heads (or tp=1)")
+        if tp > 1 and cfg.is_moe and cfg.num_experts % tp:
+            raise ValueError(
+                f"MoE model '{cfg.name}' has num_experts={cfg.num_experts}, "
+                f"not divisible by the model axis tp={tp}: expert weights "
+                "place each expert on exactly one model shard — pick tp "
+                "from the divisors of num_experts (or tp=1)")
+
+    def _row_pin(self, x):
+        """Store a per-slot device tensor (leading dim max_batch) along
+        'data': this rank keeps its rows.  Identity off mesh, and no copy
+        where 'data' has one rank."""
+        if self.mesh is None:
+            return x
+        return place(x, self._shd.row_spec(x.ndim), self.mesh)
+
+    def _put_row(self, vec, slot: int, value) -> None:
+        """Write row ``slot`` of a per-slot tensor in place; on a mesh into
+        the shard that holds it (every rank computed ``value`` itself)."""
+        if self.mesh is None:
+            vec[slot] = value
+            return
+        i = local_row(vec, slot)
+        if i is not None:
+            vec.to_local()[i] = value
+
+    def _replicated(self, table: bool = False):
+        """What a kernel entry reads, as replicated plain tensors gathered
+        in one collective: {"params", "caches", "rows" (the per-slot
+        vectors by name), "table" (the page table, when asked)}.  Off mesh,
+        and for every unsharded leaf, the stored tensors themselves."""
+        rows = {"tok": self._tok, "pos": self._pos, "active": self._active,
+                "temps": self._temps, "topk": self._topk,
+                "topp": self._topp, "keys": self._keys}
+        tree = {"params": self.params, "caches": self.caches, "rows": rows,
+                "table": self.pager.table_device(self.device)
+                if table else None}
+        return gather_replicated(tree, self.mesh)
+
+    def _caches_full(self):
+        """The caches gathered to replicated (themselves off mesh); after
+        writing into them, ``keep_shards(self.caches, full, self.mesh)``."""
+        return gather_replicated(self.caches, self.mesh)
+
+    def _agree(self, value: float) -> float:
+        """Rank 0's ``value`` on every rank of a multi-rank mesh (a measured
+        wall-clock time, so that every rank's scheduler takes the same
+        decisions); ``value`` itself otherwise."""
+        if self.mesh is None or self.mesh.size() == 1:
+            return value
+        import torch.distributed as dist
+        t = torch.tensor([value], dtype=torch.float64, device=self.device)
+        dist.broadcast(t, src=0)
+        return float(t[0])
 
     def install_observability(self, metrics=None, tracer=None,
                               ledger=None) -> None:
@@ -702,8 +812,8 @@ class ServingEngine:
 
     def _sync_active(self) -> None:
         """Re-upload the host active mask (one small transfer per stream
-        join/leave)."""
-        self._active = self._upload(self._active_host)
+        join/leave; sharded along 'data' on a mesh)."""
+        self._active = self._row_pin(self._upload(self._active_host))
 
     def evict(self, rid: int) -> bool:
         """Drop a *terminal* request's bookkeeping (its report row and TBT
@@ -777,23 +887,25 @@ class ServingEngine:
         (admission-time work; the decode loop never touches them from the
         host)."""
         temp, top_k, top_p = self._resolve_sampling(req)
-        self._temps[slot] = temp
-        self._topk[slot] = top_k
-        self._topp[slot] = top_p
-        self._keys[slot] = self._upload(
-            self._lane_for(req).astype(np.int64))
+        self._put_row(self._temps, slot, temp)
+        self._put_row(self._topk, slot, top_k)
+        self._put_row(self._topp, slot, top_p)
+        self._put_row(self._keys, slot, self._upload(
+            self._lane_for(req).astype(np.int64)))
         self._sampled_host[slot] = temp > 0.0
 
-    def _draw_first(self, slot: int, logits: torch.Tensor,
+    def _draw_first(self, rows, slot: int, logits: torch.Tensor,
                     pos: int) -> torch.Tensor:
         """The token drawn from a prefill's last logits (1, V) for the
-        stream in ``slot``; it lands at position ``pos``, so its key is
-        the lane folded with ``pos``."""
+        stream in ``slot`` (``rows``: the gathered per-slot vectors); it
+        lands at position ``pos``, so its key is the lane folded with
+        ``pos``."""
         s = slice(slot, slot + 1)
         return _sample_rows(
             bool(self._sampled_host[slot]), logits,
             torch.full((1,), pos, dtype=torch.int64, device=self.device),
-            self._keys[s], self._temps[s], self._topk[s], self._topp[s])[0]
+            rows["keys"][s], rows["temps"][s], rows["topk"][s],
+            rows["topp"][s])[0]
 
     def _account_prefill_tokens(self, n_tokens: int, first: bool,
                                 req: Request):
@@ -834,13 +946,13 @@ class ServingEngine:
         self._active_host[slot] = True
         self._sync_active()
 
-    def _pt_rows(self, slot: int, upto: int) -> torch.Tensor:
-        """(1, n_ctx) page-table row covering the positions below the
-        smallest ctx bucket >= ``upto``."""
+    def _pt_rows(self, table, slot: int, upto: int) -> torch.Tensor:
+        """(1, n_ctx) row of the (gathered) page table covering the
+        positions below the smallest ctx bucket >= ``upto``."""
         ctx = next((c for c in self.ctx_buckets if c >= upto),
                    self.ctx_buckets[-1])
         n_ctx = min(-(-ctx // self.ecfg.page_size), self._max_pages)
-        return self.pager.table_device(self.device)[slot:slot + 1, :n_ctx]
+        return table[slot:slot + 1, :n_ctx]
 
     def _padded(self, toks: np.ndarray) -> torch.Tensor:
         """(1, bucket) tokens right-padded to the smallest bucket."""
@@ -852,17 +964,20 @@ class ServingEngine:
     def _admit_slot(self, req: Request, slot: int):
         L = len(req.prompt)
         padded = self._padded(req.prompt)
-        pt_row = None
         if self.pager is not None:
             ok = self.pager.ensure(slot, L)      # gated by _admit
             assert ok, "admission gate let an unallocatable prompt through"
-            pt_row = self._pt_rows(slot, padded.shape[1])
         self._set_slot_sampling(slot, req)
-        logits, self.caches, _ = prefill_into_slot(
-            self.params, self.cfg, padded, L, self.caches, slot,
+        g = self._replicated(table=self.pager is not None)
+        pt_row = None if self.pager is None else \
+            self._pt_rows(g["table"], slot, padded.shape[1])
+        logits, _, _ = prefill_into_slot(
+            g["params"], self.cfg, padded, L, g["caches"], slot,
             page_table=pt_row)
-        self._tok[slot] = self._draw_first(slot, logits, L)
-        self._pos[slot] = L
+        tok = self._draw_first(g["rows"], slot, logits, L)
+        keep_shards(self.caches, g["caches"], self.mesh)
+        self._put_row(self._tok, slot, tok)
+        self._put_row(self._pos, slot, L)
         t0 = self.vtime
         self._account_prefill(req)
         if self.tracer is not None:
@@ -871,7 +986,7 @@ class ServingEngine:
         self._register_prefix(req, slot, L)
         self._publish_metrics()
         # one tiny host read per admission (the first token id)
-        self._start_stream(req, slot, int(self._tok[slot]), L)
+        self._start_stream(req, slot, int(tok), L)
 
     def _admit_legacy(self, req: Request, slot: int):
         """The reference path: the unpadded prefill of the prompt into a
@@ -884,23 +999,26 @@ class ServingEngine:
         caches = init_cache(self.cfg, 1, self.ecfg.max_len,
                             dtype=getattr(torch, self.ecfg.cache_dtype),
                             device=self.device)
+        self._set_slot_sampling(slot, req)
+        g = self._replicated()
         logits, caches, _ = prefill(
-            self.params, self.cfg,
+            g["params"], self.cfg,
             self._upload(np.asarray(req.prompt, np.int64)[None]), caches)
-        for stage, one_stage in zip(self.caches, caches):
+        for stage, one_stage in zip(g["caches"], caches):
             for d, one in zip(stage, one_stage):
                 for name, leaf in d.items():
                     leaf[:, slot:slot + 1] = one[name]
-        self._set_slot_sampling(slot, req)
-        self._tok[slot] = self._draw_first(slot, logits, L)
-        self._pos[slot] = L
+        tok = self._draw_first(g["rows"], slot, logits, L)
+        keep_shards(self.caches, g["caches"], self.mesh)
+        self._put_row(self._tok, slot, tok)
+        self._put_row(self._pos, slot, L)
         t0 = self.vtime
         self._account_prefill(req)
         if self.tracer is not None:
             self.tracer.span("prefill", req.rid, t0, self.vtime, self.name,
                              tokens=L, legacy=True)
         self._publish_metrics()
-        self._start_stream(req, slot, int(self._tok[slot]), L)
+        self._start_stream(req, slot, int(tok), L)
 
     def _admit(self):
         while self.pending and self.free_slots:
@@ -983,10 +1101,12 @@ class ServingEngine:
                 self.pager.free_chain(slot)     # roll back: admit as a miss
                 return 0
             if new != old:
-                for stage in self.caches:
+                full = self._caches_full()
+                for stage in full:
                     for d in stage:
                         paged_page_copy(d, old, new)
-        self._pos[slot] = hit_tok
+                keep_shards(self.caches, full, self.mesh)
+        self._put_row(self._pos, slot, hit_tok)
         if self.tracer is not None:
             self.tracer.instant("prefix_hit", -1, self.vtime, self.name,
                                 pages=len(pages), tokens=hit_tok)
@@ -1027,17 +1147,19 @@ class ServingEngine:
                 if not ok:
                     continue             # stall this chunk; retry next round
             padded = self._padded(chunk)
-            pt_row = None
-            if self.pager is not None:
-                pt_row = self._pt_rows(slot, cs.start + padded.shape[1])
-            logits, self.caches = prefill_chunk_into_slot(
-                self.params, self.cfg, padded, cs.start, len(chunk),
-                self.caches, slot, page_table=pt_row)
+            g = self._replicated(table=self.pager is not None)
+            pt_row = None if self.pager is None else \
+                self._pt_rows(g["table"], slot, cs.start + padded.shape[1])
+            logits, _ = prefill_chunk_into_slot(
+                g["params"], self.cfg, padded, cs.start, len(chunk),
+                g["caches"], slot, page_table=pt_row)
             # every chunk draws at its end position; only the final chunk's
             # token survives to seed decoding (the draws touch no lane state)
             end = cs.start + len(chunk)
-            self._tok[slot] = self._draw_first(slot, logits, end)
-            self._pos[slot] = end
+            cs.last_tok = self._draw_first(g["rows"], slot, logits, end)
+            keep_shards(self.caches, g["caches"], self.mesh)
+            self._put_row(self._tok, slot, cs.last_tok)
+            self._put_row(self._pos, slot, end)
             # resumed streams keep their original prefill_start/first_token
             t0 = self.vtime
             self._account_prefill_tokens(
@@ -1059,12 +1181,12 @@ class ServingEngine:
             if cs.resume_tok is not None:
                 # recomputed stream: its next token was emitted before the
                 # preemption; restore it instead of the chunk's
-                self._tok[slot] = cs.resume_tok
+                self._put_row(self._tok, slot, cs.resume_tok)
                 self._start_stream(cs.req, slot, cs.resume_tok,
                                    len(cs.tokens), resumed=True)
             else:
                 cs.req.first_token = self.vtime
-                self._start_stream(cs.req, slot, int(self._tok[slot]),
+                self._start_stream(cs.req, slot, int(cs.last_tok),
                                    len(cs.tokens))
         if progressed:
             self._publish_metrics()
@@ -1191,7 +1313,7 @@ class ServingEngine:
         chain = list(self.pager.chains.get(slot, [])) \
             if self.pager is not None else []
         blocks = []
-        for stage in self.caches:
+        for stage in self._caches_full():
             sblocks = []
             for d in stage:
                 if is_paged(d):
@@ -1236,7 +1358,9 @@ class ServingEngine:
             f"cross-model handoff: {ho.cfg_name} -> {self.cfg.name}")
         assert ho.mesh_shape == self.ecfg.mesh, (
             f"cross-mesh handoff: exporter mesh {ho.mesh_shape} -> adopter "
-            f"mesh {self.ecfg.mesh}")
+            f"mesh {self.ecfg.mesh}; replicas in one cluster must share a "
+            "mesh shape (handoff blocks are extracted per-shard-agnostic, "
+            "but mixed shapes break the bit-exactness contract)")
         if ho.n_pages:
             assert self.pager is not None and \
                 ho.page_size == self.ecfg.page_size, \
@@ -1252,16 +1376,18 @@ class ServingEngine:
             if chain is None:
                 return False
         self.free_slots.pop(0)
-        for stage, hstage in zip(self.caches, ho.blocks):
+        full = self._caches_full()
+        for stage, hstage in zip(full, ho.blocks):
             for d, (kind, payload) in zip(stage, hstage):
                 if kind == "row":
                     cache_row_insert(d, payload, slot)
                 elif payload is not None:
                     paged_chain_insert(d, payload, chain)
+        keep_shards(self.caches, full, self.mesh)
         # in place: the decode block's token and position vectors keep
         # their storage
-        self._tok[slot] = ho.last_token
-        self._pos[slot] = ho.pos
+        self._put_row(self._tok, slot, ho.last_token)
+        self._put_row(self._pos, slot, ho.pos)
         # the lane and the exporter-resolved sampling config travel with
         # the stream: the adopter continues the exporter's draws
         if ho.rng_lane is not None:
@@ -1353,25 +1479,28 @@ class ServingEngine:
         page table cut to its pages when paged); returns the (kb, B) tokens,
         still on the device.  The token drawn at row r lands at position
         ``pos[r] + 1``, so that is the position its key folds in."""
+        g = self._replicated(table=self.pager is not None)
+        rows = g["rows"]
         pt = None
         if self.pager is not None:
             n_ctx = min(ctx // self.ecfg.page_size, self._max_pages)
-            pt = self.pager.table_device(self.device)[:, :n_ctx]
-            caches = self.caches
+            pt = g["table"][:, :n_ctx]
+            caches = g["caches"]
         else:
-            caches = _slice_caches(self.caches, ctx, self.ecfg.max_len)
-        tok, pos, active = self._tok, self._pos, self._active
+            caches = _slice_caches(g["caches"], ctx, self.ecfg.max_len)
+        tok, pos, active = rows["tok"], rows["pos"], rows["active"]
         out = []
         for _ in range(kb):
-            logits, _ = decode_step(self.params, self.cfg, tok[:, None],
+            logits, _ = decode_step(g["params"], self.cfg, tok[:, None],
                                     caches, pos, page_table=pt,
                                     active=active)
-            nxt = _sample_rows(sampled, logits, pos + 1, self._keys,
-                               self._temps, self._topk, self._topp)
+            nxt = _sample_rows(sampled, logits, pos + 1, rows["keys"],
+                               rows["temps"], rows["topk"], rows["topp"])
             tok = torch.where(active, nxt, tok)
             pos = pos + active.to(torch.int32)
             out.append(tok)
-        self._tok, self._pos = tok, pos
+        keep_shards(self.caches, g["caches"], self.mesh)
+        self._tok, self._pos = self._row_pin(tok), self._row_pin(pos)
         return torch.stack(out)
 
     def _decode_block(self, k: int) -> int:
@@ -1413,7 +1542,7 @@ class ServingEngine:
                     torch.cuda.synchronize(self.device)
                 seen = (ctx, kb) in self._warmed
                 self._warmed.add((ctx, kb))
-                dt = (time.perf_counter() - t0) / kb
+                dt = self._agree((time.perf_counter() - t0) / kb)
                 durs.extend([dt if seen else None] * kb)
             else:
                 durs.extend([None] * kb)

@@ -86,6 +86,9 @@ class PageAllocator:
                              SCRATCH_PAGE, np.int32)
         self._dev = None          # cached device copy, refreshed when dirty
         self._dirty = True
+        # optional placement applied at upload (mesh serving stores the
+        # table's rows along the data axis); None -> the plain tensor
+        self.place = None
 
     # -- capacity queries -----------------------------------------------------
     def pages_for(self, n_tokens: int) -> int:
@@ -291,12 +294,15 @@ class PageAllocator:
     def table_device(self, device):
         """torch copy of the table on ``device``; re-uploaded only after host
         mutations.  On a GPU the upload goes through pinned memory without
-        blocking the host (no drain of the work already queued)."""
+        blocking the host (no drain of the work already queued).  With
+        ``place`` set, the copy is stored through it."""
         if self._dirty or self._dev is None:
             host = torch.from_numpy(self.table.copy())
             if device.type == "cuda":
                 host = host.pin_memory()
             self._dev = host.to(device, non_blocking=True)
+            if self.place is not None:
+                self._dev = self.place(self._dev)
             self._dirty = False
         return self._dev
 

@@ -528,8 +528,8 @@ def test_no_request_prefills_before_its_arrival(weights):
                                        "{tmp}/a.jsonl")])
 def test_serve_cli_cluster_matches_the_reference(extra, tmp_path, capsys):
     """``--cluster`` prints the reference's header, summary, replica rows
-    and per-replica prefix-cache footers; ``--mesh`` still exits naming
-    A14."""
+    and per-replica prefix-cache footers, with ``--mesh 1,1`` too; a mesh
+    without its ranks raises the reference's "needs 8" error."""
     extra = [a.format(tmp=tmp_path) for a in extra]
     args = ["--cluster", "--requests", "4", "--max-len", "64", *extra]
     jrep = jserve_main(args)
@@ -541,5 +541,8 @@ def test_serve_cli_cluster_matches_the_reference(extra, tmp_path, capsys):
     assert "plane=cluster(1p+1d)" in out and "  decode0    decode " in out
     if "--prefix-cache" in extra:
         assert "prefix-cache[prefill0]" in out
-    with pytest.raises(SystemExit, match="A14"):
+    with pytest.raises(RuntimeError, match="needs 8"):
         serve_main(["--device", "cpu", "--cluster", "--mesh", "2,4"])
+    mesh_rep = serve_main(["--device", "cpu", *args, "--mesh", "1,1"])
+    assert capsys.readouterr().out == out
+    assert mesh_rep.completed == 4 and mesh_rep.migrated == 4

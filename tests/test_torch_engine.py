@@ -147,12 +147,20 @@ def test_wall_clock_accounting_serves_the_same_tokens(runs):
             assert mine == ref, i
 
 
-def test_requests_are_refused_outside_the_slice(runs):
+def test_requests_are_refused_outside_the_slice(runs, capsys):
     port = runs[2]
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        ServingEngine(port.cfg, params=port.params,
-                      ecfg=EngineConfig(max_len=MAXLEN, mesh=(1, 1)),
-                      device="cpu")
+    # a (1,1) mesh serves, as in the reference
+    # (tests/test_torch_mesh_serving.py holds it to mesh=None bitwise)
+    from repro_torch.launch.mesh import init_single_rank, shutdown
+    init_single_rank("cpu")
+    try:
+        eng = ServingEngine(port.cfg, params=port.params,
+                            ecfg=EngineConfig(max_len=MAXLEN, mesh=(1, 1)),
+                            device="cpu")
+        eng.submit(Request(rid=0, arrival=0.0, prompt_len=20, output_len=4))
+        assert Server(eng).run().completed == 1
+    finally:
+        shutdown()
     # the legacy plane and the eager fallback for a prompt past the
     # largest bucket (here a 16-slot ring's) when chunked prefill is off
     # are served (tests/test_torch_legacy.py holds them to the reference)
@@ -164,11 +172,15 @@ def test_requests_are_refused_outside_the_slice(runs):
                             device="cpu")
         eng.submit(Request(rid=0, arrival=0.0, prompt_len=20, output_len=4))
         assert Server(eng).run().completed == 1
-    # the cluster is served (tests/test_torch_cluster.py); a mesh is not,
-    # with or without it
-    for flag in (["--mesh", "1,1"], ["--cluster", "--mesh", "1,1"]):
-        with pytest.raises(SystemExit, match="ROADMAP A14"):
-            serve_main(["--device", "cpu", *flag])
+    # the cluster is served (tests/test_torch_cluster.py), and so is a
+    # (1,1) mesh, with or without it: the same summary as no mesh
+    for flag in ([], ["--cluster"]):
+        args = ["--device", "cpu", "--requests", "2", "--max-len", "64", *flag]
+        capsys.readouterr()
+        assert serve_main(args).completed == 2
+        plain = capsys.readouterr().out
+        assert serve_main([*args, "--mesh", "1,1"]).completed == 2
+        assert capsys.readouterr().out == plain
 
 
 def test_serve_cli_workload_and_summary(capsys):

@@ -330,9 +330,15 @@ def test_launch_train_runs_on_cpu(capsys):
           "--batch", "2", "--seq", "16"])
     out = capsys.readouterr().out
     assert "step   0 loss" in out and "step   1 loss" in out
-    for flag in (["--dry-run"], ["--multi-pod"], ["--strategy", "fsdp"]):
-        with pytest.raises(SystemExit, match="A14"):
-            main(["--arch", "qwen2-1.5b", "--device", "cpu", *flag])
+    # the reference's default mode reads --multi-pod and --strategy only
+    # under --dry-run: it trains with them, ignoring them
+    for flag in (["--multi-pod"], ["--strategy", "fsdp"]):
+        main(["--arch", "qwen2-1.5b", "--device", "cpu", "--steps", "2",
+              "--batch", "2", "--seq", "16", *flag])
+        again = capsys.readouterr().out
+        assert again == out, flag
+    with pytest.raises(SystemExit, match="A14"):
+        main(["--arch", "qwen2-1.5b", "--device", "cpu", "--dry-run"])
 
 
 def test_train_small_example_checkpoint_loads_in_reference(tmp_path, capsys):

@@ -18,6 +18,7 @@
     python3 chip_smoke.py --phases build,controller,replay
     python3 chip_smoke.py --phases build,kernels,train
     python3 chip_smoke.py --phases build,mesh
+    python3 chip_smoke.py --phases build,train_mesh,dryrun
 
 Phases (each raises on failure; nothing is caught):
 
@@ -187,12 +188,13 @@ Phases (each raises on failure; nothing is caught):
    virtual time and energy, and the ledger conserves bitwise (path
    ``observability``, its launches counted).
 10. arch: the attention-only architectures served on the card, one model
-   at a time: qwen3-14b (the paper's model) and qwen3-moe-30b-a3b (48
-   layers, 128 experts, top 8) at full width and depth, the serve burst
+   at a time, each at full width (depths in ``ARCH_RUNS``): qwen3-14b (the
+   paper's model) and qwen3-moe-30b-a3b (128 experts, top 8) at 8 of
+   their 40 / 48 layers, the serve burst
    on the dense engine, greedy and with every odd request seeded nucleus
    sampling, and the serve_paged waves on the paged engine with the
-   prefix cache (hits and a preemption); gemma2-9b at full width and
-   depth, max_len 16384, max_batch 4, 4 prompts of 4500-8000 tokens (past
+   prefix cache (hits and a preemption); gemma2-9b at 8 of its 42
+   layers, max_len 16384, max_batch 4, 4 prompts of 4500-8000 tokens (past
    the 4096 window: chunked through chunk_attention's dense-ring route;
    decode wraps the rings; softcaps everywhere) on the dense engine with
    bf16 and with int8 caches, and on the paged one (full layers pooled and
@@ -201,11 +203,11 @@ Phases (each raises on failure; nothing is caught):
    full width and 4 layers, the same long burst dense with bf16 and int8
    caches; granite-8b and chatglm3-6b at full width and 4 layers,
    musicgen-large (layer norm, sincos, MHA at hd 64: no rmsnorm launch)
-   at full width and depth, the serve burst; llava-next-mistral-7b (text
-   only) at full width and depth, the serve burst and the paged waves;
-   mamba2-370m (48 SSM blocks: the norms are its only kernels) at full
-   width and depth, the serve burst greedy and sampled; recurrentgemma-9b
-   at full width and depth (26 RG-LRU blocks, 12 local MQA layers) the
+   at full depth, the serve burst; llava-next-mistral-7b (text only) at 8
+   of its 32 layers, the serve burst and the paged waves; mamba2-370m (12
+   of its 48 SSM blocks: the norms are its only kernels), the serve burst
+   greedy and sampled; recurrentgemma-9b at 9 of its 38 layers (6 RG-LRU
+   blocks, 3 local MQA layers) the
    serve burst, the long burst (chunks into its 2048-slot rings, decode
    wraps them; ``arch_rgemma_long``), the reuse burst in float32 (a stream
    chunked into a slot an earlier stream left gives the tokens it gives
@@ -273,7 +275,7 @@ Phases (each raises on failure; nothing is caught):
    float32 model over bf16 pages, cold and warm, tokens equal to the
    CPU's on the same weights); then the example's dense burst and
    ``run_cluster`` with qwen3-14b at full width in bf16, the burst at full
-   depth and the cluster at 20 of its 40 layers (``replay_qwen3_dense``,
+   depth and the cluster at 10 of its 40 layers (``replay_qwen3_dense``,
    ``replay_qwen3_cluster``).  Launches counted as in phase 5.
 17. train: training through the backward kernels (``phase_train``):
    ``train_qwen2``, qwen2-1.5b at full width and depth in bf16, B 4 x S
@@ -304,7 +306,28 @@ Phases (each raises on failure; nothing is caught):
    floats, energy, host drains, prefix-cache stats and every kernel's
    launch count equal in all five runs, bit for bit; tokens/s of each.  The group is destroyed at the end; a failing NCCL
    init fails the run.  Launches counted as in phase 5.
-19. profile (opt-in, not in the default run): the serve, serve_paged and
+19. train_mesh: sharded training on the (1,1) mesh (``phase_train_mesh``),
+   a world-size-1 NCCL group: qwen2-1.5b at full width and depth in bf16,
+   B 4 x S 2048 (the microbatches ``launch.specs.microbatches_for`` gives:
+   2), 3 AdamW steps (lr 1e-3, warmup 2) from one seed-0 state under
+   ``mesh=None``, then through ``launch.specs.build_train`` under ``tp``
+   and under ``fsdp``: every loss and grad norm, every leaf of p, m and v
+   after the steps, and every kernel's launch count equal to
+   ``mesh=None``'s, bit for bit (at (1,1) every spec sanitizes to
+   replicated); step ms of each beside ``mesh=None``'s, and peak GiB.
+   Launches counted as in phase 5 (path ``train_mesh``, the tp run).
+20. dryrun: the train dry-run (``launch.dryrun.run_one``) on the fake
+   16x16 mesh of 256 ranks: qwen2-1.5b ``train_4k`` under ``tp`` and
+   ``fsdp`` and mixtral-8x7b ``train_4k`` under ``tp``, each traced on fake
+   CUDA tensors and on fake CPU tensors, the six traces in processes of
+   their own (``--dryrun-one``), in parallel on every host core, after
+   the device phases (so no timed phase shares the host with them): the
+   reference's ``[dryrun]`` line of each;
+   each CUDA record equal to its CPU twin in every field but the times;
+   and ``torch.cuda.max_memory_allocated()`` of each CUDA trace's process
+   unmoved by it (after torch's fake-tensor machinery has made the one
+   1-element tensor that initializes the CUDA context).
+21. profile (opt-in, not in the default run): the serve, serve_paged and
    both serve_q8 bursts, then qwen3-moe-30b-a3b's and recurrentgemma-9b's
    serve bursts at full depth, again under ``torch.profiler`` after a
    warm-up run, printing
@@ -344,7 +367,7 @@ BF16_ROUNDING = (1e-3, 1e-2)     # atol, rtol: one bf16 rounding apart
 PHASES = ("build", "kernels", "equivalence", "serve", "serve_paged",
           "serve_q8", "paged_vs_dense", "sampling", "observability", "arch",
           "cluster", "legacy", "prefill", "mixed_dtype", "controller",
-          "replay", "train", "mesh")
+          "replay", "train", "mesh", "train_mesh", "dryrun")
 # the paths whose launches count
 SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "sampling", "sampling_paged", "observability", "arch_qwen3",
@@ -362,7 +385,7 @@ SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "mixed_dtype_gemma2_dense", "mixed_dtype_gemma2_paged",
                "replay_example", "replay_c3", "replay_qwen3_dense",
                "replay_qwen3_cluster", "train_qwen2", "train_gemma2",
-               "train_arch", "mesh_dense", "mesh_paged")
+               "train_arch", "mesh_dense", "mesh_paged", "train_mesh")
 
 
 def log(*a):
@@ -2532,9 +2555,10 @@ def phase_profile(res):
     """Opt-in (``--phases ...,profile``): the serve, serve_paged and
     serve_q8 bursts under ``torch.profiler``, each after a warm-up run of
     itself (a paged one then starts with a warm prefix cache); then the
-    serve burst on qwen3-moe-30b-a3b at full width and depth (the arch
-    phase's ``arch_qwen3moe``), whose decode reads every expert, and on
-    recurrentgemma-9b at full width and depth (``arch_rgemma``: 26 RG-LRU
+    serve burst on qwen3-moe-30b-a3b at full width and depth (the path of
+    the arch phase's, there at 8 layers, ``arch_qwen3moe``), whose decode
+    reads every expert, and on recurrentgemma-9b at full width and depth
+    (``arch_rgemma``: 26 RG-LRU
     blocks of PyTorch operators beside 12 local attention layers).  With
     ``--archs``, only the named models' bursts."""
     import gc
@@ -3066,29 +3090,32 @@ def phase_observability(res):
 # "waves" (the serve_paged waves on a paged engine with the prefix cache,
 # which must hit and preempt), "long" / "long_q8" / "long_paged" (4
 # prompts of 4500-8000 tokens past a 4096 window at max_len 16384: dense
-# with bf16 and int8 caches, and paged, which must preempt).  qwen3-14b,
-# gemma2-9b, qwen3-moe-30b-a3b, musicgen-large and llava-next-mistral-7b at
-# full width and depth; granite-8b, chatglm3-6b and mixtral-8x7b (93 GB of
-# bf16 weights at its 32 layers) at full width and 4 layers.  The recurrent
-# models at full width and depth: mamba2-370m (48 SSM blocks, no attention)
-# the serve burst greedy and sampled; recurrentgemma-9b (38 layers: 26
-# RG-LRU, 12 local MQA 16:1 at hd 256, window 2048) the serve burst, the
+# with bf16 and int8 caches, and paged, which must preempt).  Every model
+# at full width; at full depth musicgen-large (48 layers); at 8 layers
+# qwen3-14b, gemma2-9b (4 local + full pairs), qwen3-moe-30b-a3b and
+# llava-next-mistral-7b (at full depth the phase took 224-318 s of a
+# default run that reached 1285 s of its 1200 on a slow host);
+# granite-8b, chatglm3-6b and mixtral-8x7b (93 GB of bf16 weights at its
+# 32 layers) at 4 layers.  The recurrent models: mamba2-370m (12 of its 48
+# SSM blocks, no attention) the serve burst greedy and sampled;
+# recurrentgemma-9b (9 of its 38 layers: 6 RG-LRU, 3 local MQA 16:1 at hd
+# 256, window 2048) the serve burst, the
 # long burst on the dense engine ("long": its 2048-slot rings; the path is
 # ``arch_rgemma_long`` beside the serve burst's ``arch_rgemma``), "reuse"
 # (a stream chunked into a slot an earlier stream left, float32) and the
 # paged waves (its local layers pooled at max_len 2048; never a prefix hit)
 ARCH_RUNS = (
-    ("qwen3-14b", None, "qwen3", ("serve", "sampled", "waves")),
-    ("gemma2-9b", None, "gemma2", ("long", "long_q8", "long_paged")),
+    ("qwen3-14b", 8, "qwen3", ("serve", "sampled", "waves")),
+    ("gemma2-9b", 8, "gemma2", ("long", "long_q8", "long_paged")),
     ("granite-8b", 4, "granite", ("serve",)),
     ("chatglm3-6b", 4, "chatglm3", ("serve",)),
-    ("qwen3-moe-30b-a3b", None, "qwen3moe", ("serve", "sampled", "waves")),
+    ("qwen3-moe-30b-a3b", 8, "qwen3moe", ("serve", "sampled", "waves")),
     ("mixtral-8x7b", 4, "mixtral", ("long", "long_q8")),
     ("musicgen-large", None, "musicgen", ("serve",)),
-    ("llava-next-mistral-7b", None, "llava", ("serve", "waves")),
-    ("mamba2-370m", None, "mamba2", ("serve", "sampled")),
-    ("recurrentgemma-9b", None, "rgemma", ("serve", "long", "reuse",
-                                           "waves")))
+    ("llava-next-mistral-7b", 8, "llava", ("serve", "waves")),
+    ("mamba2-370m", 12, "mamba2", ("serve", "sampled")),
+    ("recurrentgemma-9b", 9, "rgemma", ("serve", "long", "reuse",
+                                        "waves")))
 # the archs ``--archs`` keeps (None: every one)
 ONLY_ARCHS = None
 # every attention kernel route (a model without attention launches none)
@@ -3165,21 +3192,20 @@ def _arch_burst(res, path, cfg, eng, burst, need, forbid=()):
 def phase_arch(res):
     """Every architecture beyond qwen2 on the card, one model at a time
     (its weights freed before the next), each burst of ``ARCH_RUNS`` on a
-    fresh engine: qwen3-14b (the paper's model) and qwen3-moe-30b-a3b (48
-    layers of 128 experts, top 8, capacity 1.25) at full width and depth
-    serve the serve burst on the dense engine (greedy, then mixed with
+    fresh engine, at full width and the depths of ``ARCH_RUNS``: qwen3-14b
+    (the paper's model) and qwen3-moe-30b-a3b (128 experts, top 8,
+    capacity 1.25) serve the serve burst on the dense engine (greedy, then mixed with
     seeded sampling) and the serve_paged waves on the paged engine with
-    the prefix cache (it must hit and preempt); gemma2-9b at full width and
-    depth and mixtral-8x7b at full width and 4 layers, max_len 16384
+    the prefix cache (it must hit and preempt); gemma2-9b and
+    mixtral-8x7b, max_len 16384
     (prompts truncated to 8192, local rings of 4096), max_batch 4, serve 4
     prompts of 4500-8000 tokens on the dense engine (bf16, then int8
     caches), gemma2 also on the paged one (full layers pooled and
     preempting, local rings dense): every prompt chunks through the
     dense-ring route of chunk_attention and decode wraps the rings;
-    granite-8b and chatglm3-6b at full width and 4 layers and
-    musicgen-large (layer norm: no rmsnorm launch) at full width and depth
-    serve the serve burst; llava-next-mistral-7b (text only) at full width
-    and depth the serve burst and the paged waves; mamba2-370m (no
+    granite-8b, chatglm3-6b and musicgen-large (layer norm: no rmsnorm
+    launch) serve the serve burst; llava-next-mistral-7b (text only) the
+    serve burst and the paged waves; mamba2-370m (no
     attention: the norms are its kernels) the serve burst greedy and
     sampled; recurrentgemma-9b the serve burst, the long burst into its
     2048-slot rings, the reuse burst (``_reuse_burst``) and the paged waves
@@ -4145,8 +4171,9 @@ REPLAY_ARGS = ("--duration", "30", "--cluster", "--prefix-cache",
                "--kill-replica", "decode0", "--handoff-failures", "3")
 # qwen3-14b's depth in the replay phase's full-width cluster run (the dense
 # burst runs all 40): at 40 layers its two runs took 49-69 s and the phase
-# 69-97 s, which left the default run 790 s of its 800 on a slow host
-REPLAY_CLUSTER_LAYERS = 20
+# 69-97 s, which left the default run 790 s of its 800 on a slow host; at
+# 20, 38.8-48.7 s, in a default run that reached 1285 s of its 1200
+REPLAY_CLUSTER_LAYERS = 10
 
 
 def _check_cluster_run(path, cl, rep, base, failures):
@@ -4356,6 +4383,12 @@ def phase_replay(res):
 # -- phase 17: train ---------------------------------------------------------------
 
 TRAIN_QWEN2 = (4, 2048, 10)          # batch, sequence, AdamW steps
+TRAIN_MESH = (4, 2048, 3)            # batch, sequence, steps per run
+# the dry-run's records: (arch, strategy), each traced on fake CUDA and
+# fake CPU tensors
+DRYRUN_RUNS = (("qwen2-1.5b", "tp"), ("qwen2-1.5b", "fsdp"),
+               ("mixtral-8x7b", "tp"))
+DRYRUN_TIMEOUT_S = 900
 TRAIN_GEMMA2 = (4, 1, 5120, 3)       # layers, batch, sequence, steps
 TRAIN_ARCH_S = 96                    # past the smoke window of 64
 TRAIN_ARCH_OPT = dict(lr=1e-2, warmup_steps=0)   # first update ~1e-2
@@ -4848,6 +4881,237 @@ def phase_mesh(res):
         shutdown()
 
 
+def _state_leaves(state):
+    """p, m and v of a train state as plain local tensors."""
+    from repro_torch.training.pytree import leaves
+    return [x.to_local() if hasattr(x, "to_local") else x
+            for t in (state["params"], state["opt"]["m"], state["opt"]["v"])
+            for x in leaves(t)]
+
+
+def phase_train_mesh(res):
+    """Sharded training at (1,1) against mesh=None, bit for bit (see phase
+    19 in the module docstring)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import (init_single_rank, make_debug_mesh,
+                                         shutdown)
+    from repro_torch.launch.specs import (InputShape, build_train,
+                                          microbatches_for)
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+    B, S, steps = TRAIN_MESH
+    cfg = get_config("qwen2-1.5b")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                     device="cuda", dtype=torch.int32)}
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    shape = InputShape("train_mesh", "train", S, B)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state0 = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                              cfg)
+    init_single_rank("cuda")
+    base = None
+    out = {}
+    try:
+        mesh = make_debug_mesh(1, 1, device="cuda")
+        mb = microbatches_for(cfg, shape, mesh)
+        for run in ("none", "tp", "fsdp"):
+            if run == "none":
+                step, st, b = make_train_step(cfg, opt, mb), state0, batch
+            else:
+                built = build_train(cfg, shape, mesh, strategy=run,
+                                    state=state0, batch=batch, opt_cfg=opt)
+                if built["meta"]["microbatches"] != mb:
+                    raise AssertionError(f"train_mesh {run}: "
+                                         f"{built['meta']} microbatches")
+                step, (st, b) = built["fn"], built["args"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            ms, losses, gnorms = [], [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                st, m = step(st, b)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(m["loss"].item())
+                gnorms.append(m["grad_norm"].item())
+            counts = _launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            final = [x.cpu() for x in _state_leaves(st)]
+            del st, b, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            got = {"losses": losses, "grad_norms": gnorms, "step_ms": ms,
+                   "peak_gib": peak, "launches": counts}
+            log(f"[train_mesh] {run}: {cfg.name} {B}x{S}, {mb} "
+                f"microbatches: losses {losses}, grad norms {gnorms}; step ms "
+                f"{[round(x, 1) for x in ms]}; peak {peak:.2f} GiB on "
+                f"{res['card']}; launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            if base is None:
+                base = (losses, gnorms, counts, final)
+                _check_launched("train_mesh", counts,
+                                ("flash_attention/lse", "flash_attention_bwd",
+                                 "rmsnorm", "add_rmsnorm", "rmsnorm_bwd",
+                                 "rmsnorm_bwd/ds"))
+            else:
+                for what, a, b_ in (("losses", losses, base[0]),
+                                    ("grad norms", gnorms, base[1]),
+                                    ("launches", counts, base[2])):
+                    if a != b_:
+                        raise AssertionError(
+                            f"train_mesh {run}: {what} {a} != mesh=None's "
+                            f"{b_}")
+                for i, (a, b_) in enumerate(zip(final, base[3])):
+                    if a.dtype != b_.dtype or not torch.equal(a, b_):
+                        raise AssertionError(
+                            f"train_mesh {run}: state leaf {i} (p, m, v in "
+                            "order) differs from mesh=None's")
+            del final
+            out[run] = got
+    finally:
+        shutdown()
+    del state0, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train_mesh] (1,1) tp and fsdp == mesh=None bit for bit: losses, "
+        f"grad norms, every p / m / v leaf and every launch count; median "
+        f"step ms none {statistics.median(out['none']['step_ms']):.1f}, tp "
+        f"{statistics.median(out['tp']['step_ms']):.1f}, fsdp "
+        f"{statistics.median(out['fsdp']['step_ms']):.1f}")
+    res["train_mesh"] = {**out, "launches": out["tp"]["launches"],
+                         "microbatches": mb}
+
+
+def _dryrun_one(spec):
+    """One dry-run record, in its own process (``--dryrun-one
+    arch:strategy:device:outdir``): ``launch.dryrun.run_one`` on the fake
+    16x16 mesh, then one JSON line with the record's path and, for a CUDA
+    trace, ``torch.cuda.max_memory_allocated()`` before and after it."""
+    import torch
+    from repro_torch.launch.dryrun import run_one
+    arch, strategy, device, outdir = spec.split(":", 3)
+    torch.set_num_threads(1)
+    mem = where = None
+    if device == "cuda":
+        # a fake CUDA tensor's first creation in a process initializes the
+        # CUDA context with one real 1-element tensor (torch's
+        # fake_tensor.init_gpu_context, once per device), before the
+        # baseline: the trace itself must allocate nothing
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            torch.empty(1, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        mem = [torch.cuda.max_memory_allocated()]
+        # where any allocation comes from, should one happen
+        torch.cuda.memory._record_memory_history(max_entries=1000)
+    t0 = time.perf_counter()
+    run_one(arch, "train_4k", False, outdir, strategy=strategy,
+            device=device, tag=strategy)
+    wall = time.perf_counter() - t0
+    if device == "cuda":
+        mem.append(torch.cuda.max_memory_allocated())
+        where = [[f"{f['filename']}:{f['line']} {f['name']}"
+                  for f in e.get("frames", [])[:25]]
+                 for t in torch.cuda.memory._snapshot()["device_traces"]
+                 for e in t if e["action"] == "alloc"][:4]
+    print(json.dumps({"dryrun_one": spec, "wall_s": wall, "cuda_mem": mem,
+                      "cuda_allocs": where,
+                      "path": str(Path(outdir) / f"{arch}__train_4k__"
+                                  f"{strategy}.json")}), flush=True)
+    return 0
+
+
+def start_dryrun(res):
+    """Start the dry-run's six traces (DRYRUN_RUNS on fake CUDA and fake
+    CPU tensors), one single-threaded process each, in parallel.  Returns
+    [(spec, log path, log file, process)]."""
+    import os
+    out_dir = ROOT / "build" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(Path(res["src"])),
+               OMP_NUM_THREADS="1")
+    procs = []
+    for arch, strategy in DRYRUN_RUNS:
+        for device in ("cuda", "cpu"):
+            spec = f"{arch}:{strategy}:{device}:{out_dir / device}"
+            log_path = out_dir / f"{arch}__{strategy}__{device}.log"
+            log_path.parent.mkdir(parents=True, exist_ok=True)
+            f = open(log_path, "w")
+            procs.append((spec, log_path, f, subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--dryrun-one", spec, "--src", res["src"]],
+                stdout=f, stderr=subprocess.STDOUT, env=env,
+                cwd=str(ROOT))))
+    res["dryrun_started"] = time.perf_counter()
+    return procs
+
+
+def stop_dryrun(procs):
+    for _, _, f, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        f.close()
+
+
+def phase_dryrun(res):
+    """The train dry-run on fake CUDA tensors against fake CPU tensors
+    (see phase 20 in the module docstring)."""
+    procs = start_dryrun(res)
+    out_dir = ROOT / "build" / "dryrun"
+    recs = {}
+    try:
+        for spec, log_path, f, p in procs:
+            rc = p.wait(timeout=DRYRUN_TIMEOUT_S)
+            f.close()
+            text = log_path.read_text()
+            if rc != 0:
+                raise AssertionError(f"dryrun {spec}: rc {rc}\n{text[-3000:]}")
+            line = [x for x in text.splitlines()
+                    if x.startswith('{"dryrun_one"')][-1]
+            info = json.loads(line)
+            for x in text.splitlines():
+                if x.startswith("[dryrun]"):
+                    log(f"{x} ({spec.split(':')[2]}, {spec.split(':')[1]}, "
+                        f"traced in {info['wall_s']:.1f}s)")
+            recs[spec] = (json.loads(Path(info["path"]).read_text()), info)
+    finally:
+        stop_dryrun(procs)
+    waited = time.perf_counter() - res["dryrun_started"]
+    out = {}
+    for arch, strategy in DRYRUN_RUNS:
+        cu, cu_info = recs[f"{arch}:{strategy}:cuda:{out_dir / 'cuda'}"]
+        cp, cp_info = recs[f"{arch}:{strategy}:cpu:{out_dir / 'cpu'}"]
+        before, after = cu_info["cuda_mem"]
+        if after != before:
+            raise AssertionError(f"dryrun {arch} {strategy}: the CUDA trace "
+                                 f"allocated device memory ({before} -> "
+                                 f"{after} bytes at peak) at "
+                                 f"{cu_info['cuda_allocs']}")
+        for key in cu:
+            if key in ("lower_s", "compile_s"):
+                continue
+            if cu[key] != cp[key]:
+                raise AssertionError(
+                    f"dryrun {arch} {strategy}: {key} on fake CUDA tensors "
+                    f"{cu[key]} != on fake CPU tensors {cp[key]}")
+        out[f"{arch}__{strategy}"] = {
+            "record": cu, "trace_s": {"cuda": cu_info["wall_s"],
+                                      "cpu": cp_info["wall_s"]},
+            "cuda_max_memory_allocated": [before, after]}
+        log(f"[dryrun] {arch} {strategy}: the fake CUDA record == the fake "
+            f"CPU record in every field but the times; max_memory_allocated "
+            f"{before} -> {after}; traced in {cu_info['wall_s']:.1f}s (cuda) "
+            f"and {cp_info['wall_s']:.1f}s (cpu) in parallel")
+    log(f"[dryrun] the six traces, in parallel, collected {waited:.1f}s "
+        "after they started (each trace's own time above)")
+    res["dryrun"] = {**out, "traces_wall_s": waited}
+
+
 def gpu_name_and_limit():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4894,6 +5158,10 @@ def main(argv=None):
                          "cases against that version's kernels)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the controller phase's telemetry")
+    ap.add_argument("--dryrun-one", default="",
+                    help="arch:strategy:device:outdir: trace one dry-run "
+                         "record in this process (the dryrun phase's "
+                         "workers) and exit")
     args = ap.parse_args(argv)
     global SEED
     SEED = args.seed
@@ -4916,6 +5184,8 @@ def main(argv=None):
               "the GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    if args.dryrun_one:
+        return _dryrun_one(args.dryrun_one)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_name_and_limit()
@@ -4932,7 +5202,8 @@ def main(argv=None):
            "legacy": phase_legacy, "prefill": phase_prefill,
            "mixed_dtype": phase_mixed_dtype, "controller": phase_controller,
            "replay": phase_replay, "train": phase_train,
-           "mesh": phase_mesh, "profile": phase_profile}
+           "mesh": phase_mesh, "train_mesh": phase_train_mesh,
+           "dryrun": phase_dryrun, "profile": phase_profile}
     for p in phases:
         t0 = time.perf_counter()
         fns[p](res)

@@ -160,3 +160,44 @@ def raise_on_error(name: str, err: int) -> None:
 
 def stream_handle() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+# -- the dry-run's shape-only route -------------------------------------------------
+
+# the work a kernel wrapper was asked to do on fake tensors (the dry-run's
+# trace, which has no data to compute on): operations and bytes, counted as
+# the kernels' bounds count them (each input read once, each output written
+# once), and the calls by kernel
+fake_work = {"flops": 0.0, "bytes": 0.0, "calls": {}}
+
+_FAKE = []
+
+
+def is_fake(t) -> bool:
+    """Is ``t`` a ``FakeTensor`` (shapes and dtypes, no data)?  Only such a
+    tensor takes a wrapper's shape-only route; a real tensor on any device
+    never does."""
+    if not _FAKE:
+        from torch._subclasses.fake_tensor import FakeTensor
+        _FAKE.append(FakeTensor)
+    return isinstance(t, _FAKE[0])
+
+
+def count_fake(name: str, flops: float, nbytes: float) -> None:
+    """Add one shape-only call of kernel ``name`` to ``fake_work``."""
+    fake_work["flops"] += flops
+    fake_work["bytes"] += nbytes
+    fake_work["calls"][name] = fake_work["calls"].get(name, 0) + 1
+
+
+def causal_pairs(Sq: int, Sk: int, window: int = 0) -> int:
+    """(query, key) pairs a causal attention visits, query i of Sq seeing
+    keys up to its own position (the queries end at key Sk - 1) and back
+    ``window`` of them (0: all)."""
+    a, b = Sk - Sq + 1, Sk          # keys seen by the first and last query
+    if not window or window >= b:
+        return (a + b) * Sq // 2
+    if window < a:
+        return Sq * window
+    c = window - a + 1              # queries that see fewer than window
+    return (a + window) * c // 2 + (Sq - c) * window

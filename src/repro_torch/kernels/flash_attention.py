@@ -10,7 +10,10 @@ in the layout of its bshd wrapper
 kernel, Sq and Sk need not be multiples of the tile: the last tile may be
 ragged (the serve path's largest prefill bucket is max_len // 2, e.g. 96).
 On CPU tensors the wrappers compute the plain versions; on CUDA tensors
-they launch the kernels or raise.
+they launch the kernels or raise.  A fake tensor (the dry-run's trace:
+shapes, no data) takes the shape-only route first, whatever its device:
+empty outputs of the kernel's shapes, its work added to
+``_build.fake_work``.
 
 The JAX package has no gradient kernel: it trains by differentiating its
 XLA attention (``src/repro/models/attention.py:52``).  The backward here
@@ -97,6 +100,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     with ``return_lse`` (out, lse (B,Hq,Sq) float32, natural log), the
     route counted in ``lse_launches``."""
     global launches, lse_launches
+    if _build.is_fake(q):
+        B, Sq, Hq, hd = q.shape
+        Sk, KH = k.shape[1], k.shape[2]
+        _build.count_fake(
+            "flash_attention", 4 * B * Hq * hd * _build.causal_pairs(
+                Sq, Sk, window) if causal else 4 * B * Hq * hd * Sq * Sk,
+            q.element_size() * (2 * B * Sq * Hq * hd + 2 * B * Sk * KH * hd)
+            + (4 * B * Hq * Sq if return_lse else 0))
+        out = torch.empty_like(q)
+        if return_lse:
+            return out, torch.empty((B, Hq, Sq), dtype=torch.float32,
+                                    device=q.device)
+        return out
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale,
@@ -157,6 +173,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     reduce launch sums in head order.  No atomics: the result is the same
     bits on every launch and for a batch row alone or in a batch."""
     global bwd_launches
+    if _build.is_fake(q):
+        B, Sq, Hq, hd = q.shape
+        Sk, KH = k.shape[1], k.shape[2]
+        pairs = _build.causal_pairs(Sq, Sk, window) if causal else Sq * Sk
+        _build.count_fake(
+            "flash_attention_bwd", 2.5 * 4 * B * Hq * hd * pairs,
+            q.element_size() * (4 * B * Sq * Hq * hd + 4 * B * Sk * KH * hd)
+            + 4 * B * Hq * Sq)
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, window=window,

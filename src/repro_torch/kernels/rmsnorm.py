@@ -6,7 +6,10 @@ autograd Functions of the model's train mode.
 Replaces ``src/repro/kernels/rmsnorm.py::rmsnorm`` (Pallas); the backward
 is the gradient the JAX package takes of ``src/repro/models/layers.py:22``
 (it has no gradient kernel).  On CPU tensors the wrappers compute the plain
-versions; on CUDA tensors they launch the kernels or raise.
+versions; on CUDA tensors they launch the kernels or raise.  A fake tensor
+(the dry-run's trace: shapes, no data) takes the shape-only route first,
+whatever its device: empty outputs of the kernel's shapes, its work added
+to ``_build.fake_work``.
 """
 from __future__ import annotations
 
@@ -109,6 +112,11 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     """x (..., d) float32 or bfloat16, contiguous, rows 16-byte aligned;
     w (d,) float32 -> like x."""
     global launches
+    if _build.is_fake(x):
+        rows, d = x.numel() // max(x.shape[-1], 1), x.shape[-1]
+        _build.count_fake("rmsnorm", 4 * rows * d,
+                          2 * rows * d * x.element_size() + 4 * d)
+        return torch.empty_like(x)
     if x.device.type == "cpu":
         return rmsnorm_plain(x, w, eps)
     code, rows, d = _check("rmsnorm", w, x)
@@ -131,7 +139,7 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, w: torch.Tensor,
     into x in place and returned (the model's residual stream, whose old
     value nothing reads again: no allocation, no operator); h =
     rmsnorm(s, w, eps) (bitwise what ``rmsnorm`` gives on s)."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not _build.is_fake(x):
         return add_rmsnorm_plain(x, delta, w, eps)
     return _add_rmsnorm_into(x, x, delta, w, eps)
 
@@ -140,6 +148,11 @@ def _add_rmsnorm_into(s, x, delta, w, eps):
     """``add_rmsnorm``'s launch with the sum written into ``s`` (x itself,
     or a new tensor like x) -> (s, h)."""
     global add_launches
+    if _build.is_fake(x):
+        rows, d = x.numel() // max(x.shape[-1], 1), x.shape[-1]
+        _build.count_fake("add_rmsnorm", 5 * rows * d,
+                          4 * rows * d * x.element_size() + 4 * d)
+        return s, torch.empty_like(x)
     code, rows, d = _check("add_rmsnorm", w, x, delta)
     out = torch.empty_like(x)
     if rows == 0 or d == 0:
@@ -163,6 +176,13 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     fixed blocks of rows, one float32 row a CTA), then dw's sum over the
     partial rows in a fixed order, written whole; no atomics."""
     global bwd_launches, bwd_ds_launches
+    if _build.is_fake(x):
+        rows, d = x.numel() // max(x.shape[-1], 1), x.shape[-1]
+        _build.count_fake("rmsnorm_bwd", 8 * rows * d,
+                          (3 if ds is None else 4) * rows * d
+                          * x.element_size() + 8 * d)
+        return torch.empty_like(x), torch.empty((d,), dtype=torch.float32,
+                                                device=x.device)
     if x.device.type == "cpu":
         return rmsnorm_bwd_plain(x, w, dy, eps, ds)
     code, rows, d = _check("rmsnorm_bwd", w, x, dy,
@@ -219,7 +239,7 @@ class AddRMSNormFn(torch.autograd.Function):
     def forward(ctx, x, delta, w, eps=1e-6):
         ctx.set_materialize_grads(False)
         x, delta = x.contiguous(), delta.contiguous()
-        if x.device.type == "cpu":
+        if x.device.type == "cpu" and not _build.is_fake(x):
             s = x + delta
             h = rmsnorm_plain(s, w, eps)
         else:

@@ -11,8 +11,10 @@ the (1,1) mesh, ``init_single_rank`` in the calling process.  The backend
 follows the tensors: gloo for CPU ones, NCCL for CUDA ones.
 
 Functions, not module-level constants, so importing this module touches no
-process group.  ``make_production_mesh`` (the dry-run's 16x16 / 2x16x16
-grid) comes with the port's dry-run (ROADMAP A14, second slice).
+process group.  ``make_production_mesh`` is the dry-run's 16x16 (or
+2x16x16) grid: the dry-run builds it over a fake process group of 256 (or
+512) ranks in one process (``launch.dryrun.fake_world``), whose
+collectives move nothing.
 """
 from __future__ import annotations
 
@@ -81,25 +83,26 @@ def shutdown() -> None:
         _single["dir"] = None
 
 
-def _mk_mesh(shape, device):
-    """A ("data", "model") ``DeviceMesh`` over every rank of the default
-    group, row-major (rank r sits at (r // model, r % model)), built once
-    per shape and device type and group: a mesh's sub-groups are made by
-    every rank together, so a rebuild per engine would be a collective."""
+def _mk_mesh(shape, device, names=("data", "model")):
+    """A ``DeviceMesh`` with dims ``names`` over every rank of the default
+    group, row-major (on ("data", "model") rank r sits at (r // model,
+    r % model)), built once per shape, names, device type and group: a
+    mesh's sub-groups are made by every rank together, so a rebuild per
+    engine would be a collective.  The default group's backend must be the
+    device's (or the dry-run's fake one)."""
     from torch.distributed.device_mesh import init_device_mesh
     kind = torch.device(device).type
     backend = backend_for(kind)
-    if backend not in dist.get_backend():
+    if backend not in dist.get_backend() and dist.get_backend() != "fake":
         raise RuntimeError(
             f"a mesh over {kind} tensors needs a {backend} process group, "
             f"the default group is {dist.get_backend()}")
-    key = (tuple(shape), kind)
+    key = (tuple(shape), tuple(names), kind)
     group = dist.group.WORLD
     hit = _meshes.get(key)
     if hit is not None and hit[0] is group:
         return hit[1]
-    mesh = init_device_mesh(kind, tuple(shape),
-                            mesh_dim_names=("data", "model"))
+    mesh = init_device_mesh(kind, tuple(shape), mesh_dim_names=tuple(names))
     _meshes[key] = (group, mesh)
     return mesh
 
@@ -107,6 +110,23 @@ def _mk_mesh(shape, device):
 def _world() -> int:
     return dist.get_world_size() if dist.is_available() \
         and dist.is_initialized() else 0
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """16x16 = 256 ranks ("data", "model"), or 2x16x16 = 512 ("pod",
+    "data", "model"), over the default group, which must hold exactly
+    that many ranks: for the dry-run, a fake group in this process."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for v in shape:
+        n *= v
+    if _world() != n:
+        raise RuntimeError(
+            f"the production mesh needs {n} ranks in the default process "
+            f"group, have {_world()}; the dry-run makes a fake group of "
+            f"{n} (launch.dryrun.fake_world)")
+    return _mk_mesh(shape, device, names)
 
 
 def make_debug_mesh(model: int = 1, data: int = 1, device="cuda"):

@@ -1,80 +1,49 @@
-"""Sharding rules for the serving mesh: parameters, caches and per-slot
-state (port of the serving half of ``src/repro/launch/shardings.py``).
+"""Sharding rules for params, optimizer state, caches and the serving
+data plane (port of ``src/repro/launch/shardings.py``).
 
 All proposed specs go through ``sanitize`` which drops any mesh axis that
 does not evenly divide the corresponding array dimension — this is what lets
 one rule set cover kv_heads ∈ {1,2,4,8,32}, 12-head models, 50280-row vocabs,
 etc. without per-arch special cases.
 
-A spec is the reference's: a ``P`` holding one entry per tensor dim, each
-None, a mesh axis name, or a tuple of axis names sharded together (major
-first).  ``placements`` maps it to DTensor placements, the one place the
-two vocabularies meet.  ``place`` stores a tensor as a DTensor that holds
-this rank's shard; ``gather_replicated`` turns a tree of them back into
-plain full tensors for one kernel entry, and ``keep_shards`` copies this
-rank's region of what the kernel wrote back into its shard.  The gather is
-data movement only: the shards of every sharded leaf travel in one packed
+A spec is the reference's: a ``P`` (``models.sharding``) holding one entry
+per tensor dim, each None, a mesh axis name, or a tuple of axis names
+sharded together (major first).  ``placements`` maps it to DTensor
+placements, the one place the two vocabularies meet, and ``named`` maps a
+spec tree.
+
+Training: ``model_param_specs`` (tensor parallel, ``param_specs``),
+``fsdp_param_specs``, ``zero1_specs`` / ``opt_state_specs`` (ZeRO-1's
+extra 'data' split of m, v and the float32 gradient accumulators),
+``batch_axes_for`` and ``make_shard_ctx``; ``launch.specs.build_train``
+places a train state and batch by them.  ``cache_specs`` gives the
+tensor-parallel forwards' cache layout (specs only: nothing is placed with
+them until those forwards are ported, ROADMAP A14's third slice).
+
+Serving: ``place`` stores a tensor as a DTensor that holds this rank's
+shard; ``gather_replicated`` turns a tree of them back into plain full
+tensors for one kernel entry, and ``keep_shards`` copies this rank's
+region of what the kernel wrote back into its shard.  The gather is data
+movement only: the shards of every sharded leaf travel in one packed
 all-gather over the mesh's ranks and are put back in place, never summed.
 A leaf that no axis shards is held whole by every rank, and neither step
 copies it: at (1,1) every leaf is such a leaf, so the (1,1) path is the
 single-device path.  No kernel wrapper ever sees a DTensor.
-
-``cache_specs`` / ``batch_axes_for`` / ``zero1_specs`` / ``opt_state_specs``
-serve the dry-run and sharded training, and come with them (ROADMAP A14,
-second slice).
 """
 from __future__ import annotations
 
-import dataclasses
 import itertools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.models import ModelConfig, init_params
+from repro_torch.models import ModelConfig, stages_of
 from repro_torch.models import kvcache as KV
+from repro_torch.models.config import FULL_ATTN, LOCAL_ATTN, RGLRU, SSM
+from repro_torch.models.sharding import (P, ShardCtx, axis_size, mesh_shape,
+                                         placements, sanitize_spec)
+from repro_torch.models.transformer import param_shapes, param_specs
 from repro_torch.training import pytree
-
-
-class P(tuple):
-    """A partition spec: ``P("model", None)`` shards dim 0 over 'model' and
-    keeps dim 1 whole (the reference's ``jax.sharding.PartitionSpec``)."""
-
-    def __new__(cls, *entries):
-        return super().__new__(cls, entries)
-
-    def __repr__(self) -> str:
-        return "P" + super().__repr__()
-
-
-def _mesh_shape(mesh) -> Dict[str, int]:
-    """{axis name: size} of a ``DeviceMesh`` (or of any object whose
-    ``shape`` is already that dict, as the reference's tests' fake mesh)."""
-    names = getattr(mesh, "mesh_dim_names", None)
-    if names is not None:
-        return dict(zip(names, mesh.shape))
-    return dict(mesh.shape)
-
-
-def _axis_size(mesh, entry) -> int:
-    if entry is None:
-        return 1
-    shape = _mesh_shape(mesh)
-    axes = entry if isinstance(entry, tuple) else (entry,)
-    n = 1
-    for a in axes:
-        n *= shape[a]
-    return n
-
-
-def sanitize_spec(spec: P, shape: Tuple[int, ...], mesh) -> P:
-    out = []
-    for i, entry in enumerate(spec):
-        if i >= len(shape):
-            break
-        size = _axis_size(mesh, entry)
-        out.append(entry if size > 1 and shape[i] % size == 0 else None)
-    return P(*out)
 
 
 def _map(fn, tree, *rest, path=()):
@@ -95,24 +64,32 @@ def sanitize_tree(specs, shapes, mesh):
                 specs, shapes)
 
 
+def batch_axes_for(mesh, batch: int) -> Tuple[str, ...]:
+    """Largest prefix of (pod, data) that divides the global batch."""
+    sizes = mesh_shape(mesh)
+    if "pod" in sizes and "data" in sizes:
+        if batch % (sizes["pod"] * sizes["data"]) == 0:
+            return ("pod", "data")
+    if "data" in sizes and batch % sizes["data"] == 0:
+        return ("data",)
+    return ()
+
+
+def make_shard_ctx(mesh, batch: int) -> ShardCtx:
+    """The train step's context under tensor parallelism: the batch over
+    ``batch_axes_for``, heads, hidden units, experts and the vocabulary
+    over 'model'."""
+    return ShardCtx(mesh=mesh, batch_axes=batch_axes_for(mesh, batch),
+                    model_axis="model")
+
+
 # -- params -------------------------------------------------------------------------
-
-def param_shapes(cfg: ModelConfig):
-    """The param tree of ``cfg`` as meta tensors (shapes and dtypes, no
-    storage): ``init_params`` traced under a fake-tensor mode, the port's
-    ``jax.eval_shape``."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    with FakeTensorMode():
-        fake = init_params(torch.Generator(), cfg)
-    return _map(lambda _, x: torch.empty(x.shape, dtype=x.dtype,
-                                         device="meta"), fake)
-
 
 def fsdp_param_specs(cfg: ModelConfig, mesh):
     """Fully-sharded params (ZeRO-3 / FSDP): every tensor sharded over the
     flattened ('data','model') axes on its largest divisible dim."""
     shapes = param_shapes(cfg)
-    sizes = _mesh_shape(mesh)
+    sizes = mesh_shape(mesh)
     full = sizes.get("data", 1) * sizes.get("model", 1)
 
     def spec_for(_, sh) -> P:
@@ -133,6 +110,37 @@ def fsdp_param_specs(cfg: ModelConfig, mesh):
     return _map(spec_for, shapes), shapes
 
 
+def model_param_specs(cfg: ModelConfig, mesh):
+    """(specs, shapes): ``param_specs`` (tensor parallel over 'model'),
+    sanitized against the param shapes."""
+    shapes = param_shapes(cfg)
+    specs = param_specs(cfg, ShardCtx(mesh=mesh))
+    return sanitize_tree(specs, shapes, mesh), shapes
+
+
+def zero1_specs(specs, shapes, mesh):
+    """Additionally shard optimizer-state (and grad-accum) over 'data'."""
+    dsize = mesh_shape(mesh).get("data", 1)
+
+    def add_data(_, spec: P, shape) -> P:
+        entries = list(spec) + [None] * (len(shape.shape) - len(spec))
+        if dsize <= 1:
+            return P(*entries)
+        for i, e in enumerate(entries):
+            if e is None and shape.shape[i] % dsize == 0 \
+                    and shape.shape[i] >= dsize:
+                entries[i] = "data"
+                break
+        return P(*entries)
+
+    return _map(add_data, specs, shapes)
+
+
+def opt_state_specs(pspecs, shapes, mesh):
+    z = zero1_specs(pspecs, shapes, mesh)
+    return {"m": z, "v": z, "step": P()}
+
+
 def serving_param_specs(cfg: ModelConfig, mesh):
     """(specs, shapes) for serving parameter *storage*: fsdp-style largest-
     divisible-dim sharding over the flattened ('data','model') axes, except
@@ -142,7 +150,7 @@ def serving_param_specs(cfg: ModelConfig, mesh):
     pure data movement, so sharded serving stays bit-exact while the at-rest
     footprint scales down with the mesh."""
     specs, shapes = fsdp_param_specs(cfg, mesh)
-    msize = _mesh_shape(mesh).get("model", 1)
+    msize = mesh_shape(mesh).get("model", 1)
     if not (cfg.is_moe and msize > 1 and cfg.num_experts % msize == 0):
         return specs, shapes
     from repro_torch.models.moe import is_expert_leaf
@@ -158,6 +166,48 @@ def serving_param_specs(cfg: ModelConfig, mesh):
 
 
 # -- caches --------------------------------------------------------------------------
+
+def cache_specs(cfg: ModelConfig, mesh, batch: int, max_len: int,
+                long_context: bool = False, dtype=torch.bfloat16):
+    """(specs, shapes) trees parallel to ``init_cache``'s dense output (the
+    tensor-parallel forwards' placement; nothing is placed with them yet).
+    K/V shard their heads over 'model' where the heads divide it, else
+    their sequence; without a batch split the sequence takes ('data',
+    'model')."""
+    b_ax = batch_axes_for(mesh, batch)
+    b = b_ax if b_ax else None
+    msize = mesh_shape(mesh).get("model", 1)
+    specs: List[Any] = []
+    shapes: List[Any] = []
+    for kinds, n_rep in stages_of(cfg):
+        group_specs, group_shapes = [], []
+        for kind in kinds:
+            cs = KV.init_block_cache(cfg, kind, batch, max_len, long_context,
+                                     dtype, "meta", lead=(n_rep,))
+            if kind in (FULL_ATTN, LOCAL_ATTN):
+                kv_ok = cfg.num_kv_heads % msize == 0 and msize > 1
+                if b_ax:
+                    seq_ax = None if kv_ok else "model"
+                    kv_ax = "model" if kv_ok else None
+                else:
+                    seq_ax = ("data", "model")
+                    kv_ax = None
+                sp = {k: P(b, seq_ax, kv_ax, None) for k in cs}
+            elif kind == SSM:
+                sp = {"state": P(b, "model", None, None),
+                      "conv": P(b, None, "model")}
+            elif kind == RGLRU:
+                sp = {"h": P(b, "model"), "conv": P(b, None, "model")}
+            else:
+                raise ValueError(kind)
+            # the leading stack dim
+            sp = {k: P(None, *v) for k, v in sp.items()}
+            group_specs.append(sp)
+            group_shapes.append(cs)
+        specs.append(tuple(group_specs))
+        shapes.append(tuple(group_shapes))
+    return sanitize_tree(specs, shapes, mesh), shapes
+
 
 def serving_cache_specs(caches, mesh):
     """Specs paralleling a serving cache tree (``init_cache`` output, paged
@@ -183,19 +233,6 @@ def shard_serving_caches(caches, mesh):
 
 # -- the serving data plane ----------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
-class ShardCtx:
-    """How the serving engine lays out its batch on a mesh: per-slot rows
-    along ``batch_axes``.  No activation is split at all (the reference's
-    ``model_axis=None``): every rank computes on replicated tensors."""
-    mesh: Any
-    batch_axes: Tuple[str, ...]
-
-    def row_spec(self, ndim: int) -> P:
-        """The spec of a per-slot tensor (leading dim max_batch)."""
-        return P(*self.batch_axes, *([None] * (ndim - 1)))
-
-
 def make_serving_shard_ctx(mesh) -> ShardCtx:
     """ShardCtx for the sharded serving engine: per-slot state shards along
     ``data`` only.  Every rank computes the whole
@@ -205,34 +242,7 @@ def make_serving_shard_ctx(mesh) -> ShardCtx:
     twin, the mesh-serving equivalence bar.  ``batch_axes`` is fixed because slot
     vectors, cache rows, and the page table all carry ``max_batch`` rows
     and ``EngineConfig`` validates divisibility up front."""
-    return ShardCtx(mesh=mesh, batch_axes=("data",))
-
-
-def placements(spec: P, mesh) -> List:
-    """DTensor placements, one per mesh dim, of a sanitized ``spec``:
-    ``Shard(i)`` on each mesh dim that shards tensor dim i, ``Replicate()``
-    elsewhere and on every size-1 mesh dim.  A tuple entry shards its
-    dim by its axes major first, which is DTensor's order only when the
-    tuple follows the mesh's dim order."""
-    from torch.distributed.tensor import Replicate, Shard
-    sizes = _mesh_shape(mesh)
-    names = list(sizes)
-    out = []
-    for name in names:
-        dims = [i for i, e in enumerate(spec)
-                if e == name or (isinstance(e, tuple) and name in e)]
-        if len(dims) > 1:
-            raise ValueError(f"axis {name!r} shards two dims in {spec}")
-        if not dims or sizes[name] == 1:
-            out.append(Replicate())
-            continue
-        entry = spec[dims[0]]
-        if isinstance(entry, tuple) and \
-                [a for a in names if a in entry] != list(entry):
-            raise ValueError(f"{spec}: axes must follow the mesh order "
-                             f"{tuple(names)}")
-        out.append(Shard(dims[0]))
-    return out
+    return ShardCtx(mesh=mesh, batch_axes=("data",), model_axis=None)
 
 
 def _sharded(x) -> bool:
@@ -352,3 +362,11 @@ def local_row(dt, row: int) -> Optional[int]:
     reg = _region(dt.shape, dt.placements, dt.device_mesh.get_coordinate(),
                   dt.device_mesh.shape)[0]
     return row - reg.start if reg.start <= row < reg.stop else None
+
+
+# -- step inputs ------------------------------------------------------------------------
+
+def named(mesh, tree):
+    """A spec tree as DTensor placements on ``mesh`` (the reference's
+    ``NamedSharding`` tree)."""
+    return _map(lambda _, s: placements(s, mesh), tree)

@@ -1,13 +1,21 @@
-"""Training launcher of the port: real steps of an architecture's smoke
-variant (port of ``src/repro/launch/train.py``'s default mode).
+"""Training launcher of the port (port of ``src/repro/launch/train.py``).
+
+Two modes:
+  * ``--dry-run``: trace the full config's sharded train step against the
+    production mesh on fake tensors (``launch.dryrun.run_one``, the same
+    path as ``python -m repro_torch.launch.dryrun``): the record goes to
+    ``results/dryrun/manual/<arch>__train_4k.json`` under the working
+    directory; nothing is allocated on the device.
+  * default: real steps of the arch's *smoke* variant on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --dry-run [--multi-pod] [--strategy fsdp]
 
 ``--multi-pod`` and ``--strategy`` (default ``tp``) only shape the
 dry-run, so the default mode accepts and ignores them, as the reference's
-does.  ``--dry-run`` (lowering the full config's step against the
-production mesh) is refused until the port's dry-run (ROADMAP A14).
+does.  ``--device`` is the device of the steps, or of the dry-run's fake
+tensors.
 """
 import argparse
 
@@ -32,8 +40,11 @@ def main(argv=None):
                          "their plain versions)")
     args = ap.parse_args(argv)
     if args.dry_run:
-        raise SystemExit("--dry-run: the dry-run is not ported to "
-                         "repro_torch yet (ROADMAP A14)")
+        from repro_torch.launch.dryrun import run_one
+        run_one(args.arch, "train_4k", args.multi_pod,
+                outdir="results/dryrun/manual", strategy=args.strategy,
+                device=args.device)
+        return
 
     cfg = get_config(args.arch).smoke()
     gen = torch.Generator(device=args.device).manual_seed(0)

@@ -15,6 +15,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import rmsnorm as _rmsnorm_kernel
 from .config import ModelConfig
+from .sharding import (is_dtensor, local_call, partial_over, replicated,
+                       rows_of)
 
 
 def dense_init(gen: torch.Generator, shape, fan_in: int, dtype):
@@ -43,7 +45,24 @@ def rmsnorm(x, scale, eps=1e-6):
 
 def rmsnorm_train(x, scale, eps=1e-6):
     """``rmsnorm`` through ``RMSNormFn``, which has the backward kernel."""
-    return _rmsnorm_kernel.RMSNormFn.apply(x, scale, eps)
+    return on_rows(lambda x_, w_: _rmsnorm_kernel.RMSNormFn.apply(
+        x_, w_, eps), [x], [scale])
+
+
+def on_rows(fn, xs, ws, n_out: int = 1):
+    """A row function (a norm over the last dim): ``fn(*xs, *ws)``; on
+    DTensors on each rank's rows of ``xs`` (placed as ``xs[0]`` is, with a
+    partial sum reduced and a split last dim gathered first), the weights
+    ``ws`` whole, and each weight's gradient is its rows' share, a partial
+    sum over every mesh dim that splits the rows."""
+    if not is_dtensor(xs[0]):
+        return fn(*xs, *ws)
+    mesh = xs[0].device_mesh
+    pls = rows_of(xs[0])
+    ins = [pls] * len(xs) + [replicated(mesh)] * len(ws)
+    grads = [pls] * len(xs) + [partial_over(pls)] * len(ws)
+    return local_call(fn, mesh, [*xs, *ws], ins,
+                      pls if n_out == 1 else (pls,) * n_out, grads)
 
 
 def layernorm(x, scale, bias, eps=1e-5):
@@ -73,20 +92,30 @@ def apply_norm(cfg: ModelConfig, p, x):
 
 
 def apply_norm_train(cfg: ModelConfig, p, x):
-    """``apply_norm`` with RMSNorm through ``RMSNormFn``."""
+    """``apply_norm`` with RMSNorm through ``RMSNormFn``; on DTensors each
+    rank normalises its own rows (``on_rows``)."""
     if cfg.norm == "rms":
         return rmsnorm_train(x, p["scale"], cfg.norm_eps)
-    return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return on_rows(lambda x_, s_, b_: layernorm(x_, s_, b_, cfg.norm_eps),
+                   [x], [p["scale"], p["bias"]])
 
 
 def apply_add_norm_train(cfg: ModelConfig, p, x, delta):
     """``apply_add_norm`` for training: the sum written out of place
-    (autograd may have saved x), RMSNorm through ``AddRMSNormFn``."""
+    (autograd may have saved x), RMSNorm through ``AddRMSNormFn``; on
+    DTensors each rank adds and normalises its own rows, after the partial
+    sums in ``delta`` (a row-parallel product's) are reduced."""
+    return on_rows(lambda x_, d_, *w: _add_norm_train(cfg, w, x_, d_),
+                   [x, delta], [p["scale"]] if cfg.norm == "rms"
+                   else [p["scale"], p["bias"]], n_out=2)
+
+
+def _add_norm_train(cfg: ModelConfig, w, x, delta):
     if cfg.norm == "rms":
-        return _rmsnorm_kernel.AddRMSNormFn.apply(x, delta, p["scale"],
+        return _rmsnorm_kernel.AddRMSNormFn.apply(x, delta, w[0],
                                                   cfg.norm_eps)
     x = x + delta
-    return x, layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return x, layernorm(x, w[0], w[1], cfg.norm_eps)
 
 
 def apply_add_norm(cfg: ModelConfig, p, x, delta):
@@ -102,10 +131,23 @@ def apply_add_norm(cfg: ModelConfig, p, x, delta):
 
 # -- RoPE -------------------------------------------------------------------------
 
+def _table(cached, *args):
+    """``cached(*args)``, a float32 table computed once per device; while
+    a fake-tensor mode is active (the dry-run's trace) the same function
+    uncached, so a fake table never outlives its mode in the cache.  The
+    function copies its host table to the device on every device, the
+    host too, so a trace counts the same work on fake CPU and fake CUDA
+    tensors."""
+    fake = torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE)
+    if fake is None:
+        return cached(*args)
+    return cached.__wrapped__(*args)
+
+
 def rope_freqs(cfg: ModelConfig, device):
     rot = int(cfg.head_dim * cfg.rotary_frac)
     rot -= rot % 2
-    return _inv_freq(cfg.rope_theta, rot, str(device)), rot
+    return _table(_inv_freq, cfg.rope_theta, rot, str(device)), rot
 
 
 @functools.lru_cache(maxsize=16)
@@ -113,7 +155,8 @@ def _inv_freq(theta: float, rot: int, device: str) -> torch.Tensor:
     # computed once per (config, device): the numpy arithmetic of the
     # reference, and no host-to-device copy inside a decode step
     inv = 1.0 / (theta ** (np.arange(0, rot, 2, dtype=np.float32) / rot))
-    return torch.from_numpy(np.asarray(inv, np.float32)).to(device)
+    return torch.from_numpy(np.asarray(inv, np.float32)).to(device,
+                                                            copy=True)
 
 
 def apply_rope(x, positions, inv_freq, rot):
@@ -132,8 +175,8 @@ def sincos_embedding(positions, dim):
     """Sinusoidal absolute positions (musicgen), float32 (B,S,dim) from
     (B,S) positions, with the reference's numpy float32 frequencies."""
     half = dim // 2
-    ang = positions[..., None].float() * _sincos_freq(half,
-                                                      str(positions.device))
+    ang = positions[..., None].float() * _table(
+        _sincos_freq, half, str(positions.device))
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
@@ -141,7 +184,8 @@ def sincos_embedding(positions, dim):
 def _sincos_freq(half: int, device: str) -> torch.Tensor:
     freq = np.exp(-math.log(10_000.0) * np.arange(half, dtype=np.float32)
                   / half)
-    return torch.from_numpy(np.asarray(freq, np.float32)).to(device)
+    return torch.from_numpy(np.asarray(freq, np.float32)).to(device,
+                                                             copy=True)
 
 
 # -- depthwise causal conv (SSM and RG-LRU blocks) ---------------------------------

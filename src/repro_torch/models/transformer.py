@@ -61,6 +61,7 @@ The serve entry points above call the wrappers as before, in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -80,6 +81,8 @@ from . import layers as L
 from . import moe
 from .config import ModelConfig, FULL_ATTN, LOCAL_ATTN, SSM, RGLRU
 from .rglru import init_rglru, rglru_decode_step, rglru_forward
+from .sharding import (NOSHARD, P, ShardCtx, is_dtensor, local_call,
+                       mesh_shape, partial_over, placements, replicated)
 from .ssm import init_ssm, ssm_decode_step, ssm_forward
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -162,6 +165,117 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     return params
 
 
+@functools.lru_cache(maxsize=32)
+def param_shapes(cfg: ModelConfig):
+    """The param tree of ``cfg`` as meta tensors (shapes and dtypes, no
+    storage): ``init_params`` traced under a fake-tensor mode, the port's
+    ``jax.eval_shape``; one tree per config (callers do not change it)."""
+    from torch._subclasses.fake_tensor import (FakeTensorMode,
+                                               unset_fake_temporarily)
+    with FakeTensorMode():
+        fake = init_params(torch.Generator(), cfg)
+    with unset_fake_temporarily():      # plain meta tensors, in any mode
+        return _tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                               device="meta"), fake)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def param_specs(cfg: ModelConfig, shd: ShardCtx) -> Dict:
+    """PartitionSpecs for the param tree (tensor-parallel over the model
+    axis), leaf for leaf the reference's ``param_specs``; unsanitized
+    (``launch.shardings.model_param_specs`` drops the axes that do not
+    divide)."""
+    m = shd.model_axis
+    msize = mesh_shape(shd.mesh)[m] if shd.mesh is not None else 1
+
+    def attn_spec():
+        kv = m if cfg.num_kv_heads * cfg.head_dim % max(msize, 1) == 0 \
+            and cfg.num_kv_heads % msize == 0 else None
+        s = {"q": P(None, None, m), "k": P(None, None, kv),
+             "v": P(None, None, kv), "o": P(None, m, None)}
+        if cfg.qkv_bias:
+            s.update({"q_b": P(None, m), "k_b": P(None, kv),
+                      "v_b": P(None, kv)})
+        if cfg.qk_norm:
+            s.update({"q_norm": P(None, None), "k_norm": P(None, None)})
+        return s
+
+    def mlp_spec():
+        s = {"down": P(None, m, None)}
+        if cfg.glu:
+            s.update({"gate": P(None, None, m), "up": P(None, None, m)})
+        else:
+            s.update({"up": P(None, None, m), "up_b": P(None, m),
+                      "down_b": P(None, None)})
+        return s
+
+    def moe_spec():
+        e = m if cfg.num_experts % max(msize, 1) == 0 else None
+        ffm = None if e == m else m
+        s = {"router": P(None, None, None), "down": P(None, e, ffm, None)}
+        if cfg.glu:
+            s.update({"gate": P(None, e, None, ffm),
+                      "up": P(None, e, None, ffm)})
+        else:
+            s.update({"up": P(None, e, None, ffm)})
+        return s
+
+    def norm_spec(p):
+        return {k: P(None, None) for k in p}
+
+    def ssm_spec():
+        return {"in_proj": P(None, None, m), "conv_w": P(None, None, None),
+                "conv_b": P(None, None), "A_log": P(None, None),
+                "D": P(None, None), "dt_bias": P(None, None),
+                "norm": P(None, m), "out_proj": P(None, m, None)}
+
+    def rglru_spec():
+        return {"in_x": P(None, None, m), "in_gate": P(None, None, m),
+                "conv_w": P(None, None, m), "conv_b": P(None, m),
+                "lam": P(None, m), "rg_w": P(None, m), "ig_w": P(None, m),
+                "out": P(None, m, None)}
+
+    def block_spec(kind, bp):
+        s: Dict[str, Any] = {"norm": norm_spec(bp["norm"])}
+        if kind in (FULL_ATTN, LOCAL_ATTN):
+            s["attn"] = attn_spec()
+        elif kind == SSM:
+            s["ssm"] = ssm_spec()
+        elif kind == RGLRU:
+            s["rglru"] = rglru_spec()
+        if "post_norm" in bp:
+            s["post_norm"] = norm_spec(bp["post_norm"])
+        if "mlp_norm" in bp:
+            s["mlp_norm"] = norm_spec(bp["mlp_norm"])
+            if cfg.is_moe:
+                s["moe"] = moe_spec()
+            else:
+                s["mlp"] = mlp_spec()
+            if "post_mlp_norm" in bp:
+                s["post_mlp_norm"] = norm_spec(bp["post_mlp_norm"])
+        return s
+
+    shapes = param_shapes(cfg)
+    embed_s = {"embedding": P(m, None)}
+    if "lm_head" in shapes["embed"]:
+        embed_s["lm_head"] = P(None, m)
+    if "prefix_proj" in shapes["embed"]:
+        embed_s["prefix_proj"] = P(None, None)
+    specs = {"embed": embed_s, "final_norm": norm_spec(shapes["final_norm"]),
+             "stages": []}
+    for (kinds, _), sp in zip(stages_of(cfg), shapes["stages"]):
+        specs["stages"].append({"blocks": tuple(
+            block_spec(k, b) for k, b in zip(kinds, sp["blocks"]))})
+    return specs
+
+
 # leaves the reference makes float32 whatever the model's dtype (``norm``
 # is the SSM mixer's gated-norm array; a block's norm is a dict of scale
 # and bias)
@@ -229,7 +343,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
                 cache, pos, slot=None, k_pos_memo=None, length=None,
-                page_table=None):
+                page_table=None, shd: ShardCtx = NOSHARD):
+    if shd.mesh is not None and mode != "train":
+        raise NotImplementedError(
+            "tensor-parallel serving forwards come with ROADMAP A14's "
+            "third slice; a mesh runs the train mode only")
     B, S, _ = x.shape
     a = p["attn"]
     q = x @ a["q"]
@@ -237,18 +355,13 @@ def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
     v = x @ a["v"]
     if cfg.qkv_bias:
         q, k, v = q + a["q_b"], k + a["k_b"], v + a["v_b"]
+    if mode == "train":
+        return _attn_train(cfg, a, q, k, v, kind, rope, shd)
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.qk_norm:
-        # the rmsnorm kernel over rows of head_dim
-        norm = L.rmsnorm_train if mode == "train" else L.rmsnorm
-        q = norm(q, a["q_norm"], cfg.norm_eps)
-        k = norm(k, a["k_norm"], cfg.norm_eps)
-    if cfg.pos_embedding == "rope":
-        inv, rot = rope
-        q = L.apply_rope(q, positions, inv, rot)
-        k = L.apply_rope(k, positions, inv, rot)
+    q, k = _qk_prep(cfg, q, k, [a.get("q_norm"), a.get("k_norm")],
+                    positions, rope, L.rmsnorm)
 
     # the reference's window rule: LOCAL layers attend within cfg.window;
     # a dense buffer shorter than max_seq on a FULL layer (a long-context
@@ -325,13 +438,126 @@ def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
                 window = buf_len
         out = flash_attention(q, k, v, causal=True, window=window,
                               softcap=cap, scale=cfg.attn_scale)
-    elif mode == "train":
-        # the whole sequence, no cache: the reference's window rule alone
-        out = FlashAttentionFn.apply(q, k, v, True, window, cap,
-                                     cfg.attn_scale)
     else:
         raise ValueError(mode)
     return out.reshape(B, S, cfg.q_dim) @ a["o"]
+
+
+def _qk_prep(cfg: ModelConfig, q, k, norms, positions, rope, norm):
+    """QK norm (``norm``, the rmsnorm kernel over rows of head_dim, with
+    the scales ``norms``) and RoPE on q and k (B,S,H,hd)."""
+    if cfg.qk_norm:
+        q = norm(q, norms[0], cfg.norm_eps)
+        k = norm(k, norms[1], cfg.norm_eps)
+    if cfg.pos_embedding == "rope":
+        inv, rot = rope
+        q = L.apply_rope(q, positions, inv, rot)
+        k = L.apply_rope(k, positions, inv, rot)
+    return q, k
+
+
+def _kv_heads_of(cfg: ModelConfig, q_sharded: bool, kv_sharded: bool,
+                 shd: ShardCtx):
+    """(first, count) of the KV heads this rank's query heads read, when
+    the query heads are split over the model axis and the KV heads are
+    not; None when the rank reads the KV heads it holds.  Raises
+    ValueError when the rank's query heads do not cover whole groups or
+    lie within one (the kernel maps local head h to KV head h // G)."""
+    if not q_sharded or kv_sharded:
+        return None
+    r, msize = shd.model_slot()
+    hq, G = cfg.num_heads // msize, cfg.num_heads // cfg.num_kv_heads
+    if hq % G == 0:
+        return r * hq // G, hq // G
+    if G % hq == 0:
+        return r * hq // G, 1
+    raise ValueError(f"{cfg.num_heads}:{cfg.num_kv_heads} heads over a "
+                     f"{msize}-way model axis split a KV group unevenly")
+
+
+def _split_heads(x, n: int, hd: int):
+    """(B, S, n*hd) -> (B, S, n, hd); a DTensor's split of the last dim
+    over mesh ranks that do not divide the n heads (qwen2's 12 heads on 16
+    model ranks, whose q columns divide) is gathered first."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        pls = [Replicate() if p.is_shard(2) and n % size else p
+               for p, size in zip(x.placements, x.device_mesh.shape)]
+        if pls != list(x.placements):
+            x = x.redistribute(x.device_mesh, pls)
+    B, S, _ = x.shape
+    return x.reshape(B, S, n, hd)
+
+
+def _attn_layout(cfg: ModelConfig, q, wo, n_norms: int, shd: ShardCtx):
+    """Where the train attention's kernel entry runs on a mesh: q placed
+    by the reference's constraint P(b, None, m, None).  When q's heads are
+    split and K/V's are not (GQA with fewer KV heads than model ranks),
+    each rank hands the kernel the KV heads its own query heads read, and
+    their gradients are partial sums over the model axis; heads that do
+    not split over 'model' are gathered with o's rows.  Returns (the KV
+    heads to slice or None, ``local_call``'s placements, o as used)."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = shd.mesh
+    qpl = placements(shd.sanitized(q.shape, "b", None, "m", None), mesh)
+    names = list(mesh_shape(mesh))
+    mi = names.index(shd.model_axis) if shd.model_axis in names else None
+    q_sharded = mi is not None and qpl[mi].is_shard()
+    kv_sharded = q_sharded and cfg.num_kv_heads % mesh_shape(mesh)[
+        shd.model_axis] == 0
+    try:
+        heads = _kv_heads_of(cfg, q_sharded, kv_sharded, shd)
+    except ValueError:
+        # the rank's heads would straddle groups: heads stay whole
+        qpl[mi], q_sharded, heads = Replicate(), False, None
+    kvpl = list(qpl)
+    kv_grad = list(qpl)
+    if mi is not None and not kv_sharded:
+        kvpl[mi] = Replicate()
+        kv_grad[mi] = Partial() if heads is not None else Replicate()
+    rep = replicated(mesh)
+    norm_grads = [partial_over(qpl), partial_over(
+        kvpl if heads is None else qpl)][:n_norms]
+    pls = {"in_pls": [qpl, kvpl, kvpl] + [rep] * n_norms, "out_pls": qpl,
+           "grad_pls": [qpl, kv_grad, kv_grad] + norm_grads}
+    if mi is not None and not q_sharded and wo.placements[mi].is_shard():
+        # or the gradient of out would come back split inside a head
+        wo = wo.redistribute(mesh, [Replicate() if i == mi else p
+                                    for i, p in enumerate(wo.placements)])
+    return heads, pls, wo
+
+
+def _attn_train(cfg: ModelConfig, a, q, k, v, kind, rope, shd: ShardCtx):
+    """Train-mode attention after the projections: QK norm, RoPE and
+    ``FlashAttentionFn`` over the whole sequence (the reference's window
+    rule alone), then the o projection.  On a mesh the projections are
+    DTensor products (column-parallel q, k, v; row-parallel o, its partial
+    sums left to the next residual add), and the kernel entry runs on
+    this rank's batch rows and heads through ``local_call``, placed by
+    ``_attn_layout``."""
+    B, S, _ = q.shape
+    q = shd.cs(_split_heads(q, cfg.num_heads, cfg.head_dim),
+               "b", None, "m", None)
+    k = _split_heads(k, cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(v, cfg.num_kv_heads, cfg.head_dim)
+    norms = [a["q_norm"], a["k_norm"]] if cfg.qk_norm else []
+    heads, pls, wo = None, {}, a["o"]
+    if shd.mesh is not None:
+        heads, pls, wo = _attn_layout(cfg, q, wo, len(norms), shd)
+    window = cfg.window if kind == LOCAL_ATTN else 0
+
+    def core(q_, k_, v_, *norms_):
+        if heads is not None:
+            k_ = k_[:, :, heads[0]:heads[0] + heads[1]]
+            v_ = v_[:, :, heads[0]:heads[0] + heads[1]]
+        q_, k_ = _qk_prep(cfg, q_, k_, norms_, _positions(q_), rope,
+                          L.rmsnorm_train)
+        return FlashAttentionFn.apply(q_, k_, v_, True, window,
+                                      cfg.attn_softcap, cfg.attn_scale)
+
+    out = local_call(core, shd.mesh, [q, k, v, *norms], **pls)
+    out = shd.cs(out, "b", None, "m", None)
+    return out.reshape(B, S, cfg.q_dim) @ wo
 
 
 def _past_for(q, k, v, page_table=None):
@@ -368,8 +594,31 @@ def _freeze_inactive(cache: Dict, new: Dict, active) -> None:
         leaf.copy_(v)
 
 
+def _recurrent_train(cfg: ModelConfig, kind: str, p, x, shd: ShardCtx):
+    """The SSM or RG-LRU mixer in train mode, from zeros, keeping no
+    state.  On DTensors the scans have no DTensor sharding rule, so the
+    mixer's weights are gathered whole (their channels are split over
+    'model' at rest) and each rank runs the mixer on its own batch rows;
+    each weight's gradient is its rows' partial sum, and reduce-scatters
+    back to its shard."""
+    bp = p["ssm"] if kind == SSM else p["rglru"]
+    keys = sorted(bp)
+    ws = [bp[k] for k in keys]
+    if shd.mesh is not None:
+        ws = [w.redistribute(shd.mesh, replicated(shd.mesh)) for w in ws]
+
+    def mixer(x_, *w):
+        local = dict(zip(keys, w))
+        if kind == SSM:
+            return ssm_forward(cfg, local, x_, norm=L.rmsnorm_train)
+        return rglru_forward(cfg, local, x_)
+
+    return L.on_rows(mixer, [x], ws)
+
+
 def _apply_recurrent(cfg: ModelConfig, kind: str, p, x, *, mode, cache,
-                     pos, slot=None, length=None, active=None, **_):
+                     pos, slot=None, length=None, active=None,
+                     shd: ShardCtx = NOSHARD, **_):
     """The SSM or RG-LRU mixer over its row state: decode advances the
     active rows; prefill writes row ``slot`` (every row when ``slot`` is
     None) from a zero state; a chunk
@@ -377,9 +626,7 @@ def _apply_recurrent(cfg: ModelConfig, kind: str, p, x, *, mode, cache,
     (``pos`` == 0: the row may hold an earlier stream's state); train mode
     runs the sequence from zeros and keeps no state."""
     if mode == "train":
-        if kind == SSM:
-            return ssm_forward(cfg, p["ssm"], x, norm=L.rmsnorm_train)
-        return rglru_forward(cfg, p["rglru"], x)
+        return _recurrent_train(cfg, kind, p, x, shd)
     if kind == SSM:
         fwd, step, bp = ssm_forward, ssm_decode_step, p["ssm"]
     else:
@@ -412,10 +659,12 @@ def _apply_block(cfg: ModelConfig, kind: str, p, x, delta, active=None,
         norm, add_norm = L.apply_norm_train, L.apply_add_norm_train
     else:
         norm, add_norm = L.apply_norm, L.apply_add_norm
+    shd = kw.get("shd", NOSHARD)
     if delta is None:
         h = norm(cfg, p["norm"], x)
     else:
         x, h = add_norm(cfg, p["norm"], x, delta)
+        x = shd.cs(x, "b", None, None)
     if kind in (SSM, RGLRU):
         mix = _apply_recurrent(cfg, kind, p, h, active=active, **kw)
     else:
@@ -425,11 +674,12 @@ def _apply_block(cfg: ModelConfig, kind: str, p, x, delta, active=None,
     if not _has_mlp(cfg, kind):
         return x, mix, None
     x, h = add_norm(cfg, p["mlp_norm"], x, mix)
+    x = shd.cs(x, "b", None, None)
     aux = None
     if cfg.is_moe:
         length = kw.get("length")
         m, aux = moe.apply_moe(cfg, p["moe"], h, None if length is None
-                               else [length] * h.shape[0])
+                               else [length] * h.shape[0], shd=shd)
     else:
         m = L.apply_mlp(cfg, p["mlp"], h)
     if cfg.post_block_norm:
@@ -442,6 +692,32 @@ def _layer(tree, r: int):
     if isinstance(tree, dict):
         return {k: _layer(v, r) for k, v in tree.items()}
     return tree[r]
+
+
+class _Unstack(torch.autograd.Function):
+    """A stacked leaf's layers (views along its leading axis); the
+    backward stacks the layers' gradients once, for any depth (a layer
+    without one gives zeros)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.set_materialize_grads(False)
+        return tuple(x.unbind(0))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        like = next(g for g in grads if g is not None)
+        return torch.stack([torch.zeros_like(like) if g is None else g
+                            for g in grads])
+
+
+def _unbind(tree, n: int) -> List:
+    """The ``n`` layers of a stacked tree, each leaf split along its
+    leading axis once (``_Unstack``)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    return list(_Unstack.apply(tree))
 
 
 def _run_stages(cfg: ModelConfig, params, x, *, caches, **kw):
@@ -460,36 +736,57 @@ def _run_stages(cfg: ModelConfig, params, x, *, caches, **kw):
     return x, delta
 
 
-def _train_group(cfg: ModelConfig, kinds, blocks, x, delta, positions, rope):
+def _train_group(cfg: ModelConfig, kinds, blocks, x, delta, rope,
+                 shd: ShardCtx = NOSHARD):
     """One group (a repeat of the block pattern) in train mode: (stream,
-    last output, the group's aux loss summed in block order)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    last output, the group's aux loss summed in block order).  Under FSDP
+    the group's weights are gathered here, inside the remat boundary, so
+    one group's are whole at a time, in the forward and in its recompute."""
+    blocks = shd.use(blocks)
+    aux = _zero_aux(x)
     for kind, p in zip(kinds, blocks):
         x, delta, a = _apply_block(cfg, kind, p, x, delta, mode="train",
-                                   positions=positions, rope=rope,
-                                   cache=None, pos=None)
+                                   positions=None, rope=rope,
+                                   cache=None, pos=None, shd=shd)
         if a is not None:
             aux = aux + a
     return x, delta, aux
 
 
-def _run_stages_train(cfg: ModelConfig, params, x, *, positions, remat):
-    """Train mode over every stage, no caches: (stream, last output, aux
-    loss summed over the groups in order).  With ``remat`` each group runs
+def _zero_aux(x):
+    """A float32 zero on ``x``'s device (replicated on its mesh)."""
+    z = torch.zeros((), dtype=torch.float32, device=x.device)
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(z, x.device_mesh,
+                                  replicated(x.device_mesh), run_check=False)
+    return z
+
+
+def _run_stages_train(cfg: ModelConfig, params, x, *, remat,
+                      shd: ShardCtx = NOSHARD):
+    """Train mode over every stage, no caches, each row's positions 0..
+    (made where they are used, on each rank's rows): (stream, last
+    output, aux loss summed over the groups in order).  With ``remat`` each group runs
     under a non-reentrant ``torch.utils.checkpoint``: only its inputs are
-    kept, and its forward runs again in the backward."""
+    kept, and its forward runs again in the backward.  A stage's stacked
+    leaves are split into their layers once (``_unbind``), so each leaf's
+    gradient is stacked once from its layers' (a slice per layer would
+    give each layer's gradient as a zero-filled whole stack, summed into
+    the leaf: bytes quadratic in the depth)."""
     rope = L.rope_freqs(cfg, x.device)
-    delta, aux = None, torch.zeros((), dtype=torch.float32, device=x.device)
+    delta, aux = None, _zero_aux(x)
     for (kinds, n_rep), sp in zip(stages_of(cfg), params["stages"]):
+        layers = [_unbind(b, n_rep) for b in sp["blocks"]]
         for r in range(n_rep):
-            blocks = [_layer(b, r) for b in sp["blocks"]]
+            blocks = [lay[r] for lay in layers]
             if remat:
                 x, delta, a = torch.utils.checkpoint.checkpoint(
-                    _train_group, cfg, kinds, blocks, x, delta, positions,
-                    rope, use_reentrant=False)
+                    _train_group, cfg, kinds, blocks, x, delta, rope, shd,
+                    use_reentrant=False)
             else:
                 x, delta, a = _train_group(cfg, kinds, blocks, x, delta,
-                                           positions, rope)
+                                           rope, shd)
             aux = aux + a
     return x, delta, aux
 
@@ -512,21 +809,84 @@ def _add_positions(cfg: ModelConfig, x, positions):
     return x
 
 
+def _positions(x, start_pos: int = 0):
+    """Positions ``start_pos ..`` (B, S) int32 of x's (B, S, ...) rows."""
+    B, S = x.shape[:2]
+    return start_pos + torch.arange(S, dtype=torch.int32,
+                                    device=x.device)[None].expand(B, S)
+
+
 def _embed_inputs(cfg: ModelConfig, params, tokens, prefix_embeds=None,
-                  start_pos: int = 0):
+                  start_pos: int = 0, shd: ShardCtx = NOSHARD):
     """(embeddings (B, P+S, d), positions (B, P+S)): ``prefix_embeds`` (B,
     P, d) projected by ``prefix_proj`` (llava's image patches, musicgen's
     conditioning frames) in front of the token embeddings, positions
     ``start_pos ..`` over the concatenation, sincos positions added after
-    it."""
-    x = L.embed_tokens(cfg, params["embed"], tokens)
+    it.  On a mesh (``shd``, the train mode) the arguments are DTensors:
+    each rank looks up its batch rows in its vocabulary shard (rows outside
+    it read zeros, a partial sum over 'model' that the constraint after it
+    reduces), the prefix is projected by a DTensor product, and the sincos
+    positions are added on each rank's rows."""
+    emb = shd.use(params["embed"])
+    table = emb["embedding"]
+    split = _vocab_split(shd, table, 0)
+
+    def lookup(tab, tok):
+        if split is None:
+            return L.embed_tokens(cfg, {"embedding": tab}, tok)
+        t = tok - split[0]
+        hit = (t >= 0) & (t < split[1])
+        e = L.embed_tokens(cfg, {"embedding": tab},
+                           t.clamp(0, split[1] - 1))
+        return torch.where(hit[..., None], e, torch.zeros_like(e))
+
+    pls = {}
+    if shd.mesh is not None:
+        from torch.distributed.tensor import Partial
+        tpl = _batch_pls(shd, tokens)
+        out_pl = list(tpl)
+        if split is not None:
+            out_pl[split[2]] = Partial()
+        pls = {"in_pls": [table.placements, tpl], "out_pls": out_pl,
+               "grad_pls": [[partial_over(tpl)[i] if p.is_replicate() else p
+                             for i, p in enumerate(table.placements)], None]}
+    x = shd.cs(local_call(lookup, shd.mesh, [table, tokens], **pls),
+               "b", None, None)
     if prefix_embeds is not None:
-        pe = prefix_embeds.to(x.dtype) @ params["embed"]["prefix_proj"]
-        x = torch.cat([pe, x], dim=1)
-    B, S, _ = x.shape
-    positions = start_pos + torch.arange(S, dtype=torch.int32,
-                                         device=x.device)[None].expand(B, S)
-    return _add_positions(cfg, x, positions), positions
+        pe = prefix_embeds.to(x.dtype) @ emb["prefix_proj"]
+        x = torch.cat([shd.cs(pe, "b", None, None), x], dim=1)
+    if cfg.pos_embedding == "sincos":
+        pls = _batch_pls(shd, x)
+        x = local_call(lambda x_: _add_positions(
+            cfg, x_, _positions(x_, start_pos)), shd.mesh, [x], [pls], pls)
+    return shd.cs(x, "b", None, None), _positions(x, start_pos)
+
+
+def _vocab_split(shd: ShardCtx, table, dim: int):
+    """(first row, rows, the model mesh dim) of this rank's vocabulary
+    shard when ``table`` splits its vocabulary (dim ``dim``) over the
+    model axis; None when it holds the whole vocabulary (or no mesh)."""
+    if shd.mesh is None:
+        return None
+    from torch.distributed.tensor import Shard
+    names = list(mesh_shape(shd.mesh))
+    if shd.model_axis not in names:
+        return None
+    mi = names.index(shd.model_axis)
+    if table.placements[mi] != Shard(dim):
+        return None
+    r, _ = shd.model_slot()
+    n = table.shape[dim] // shd.mesh.shape[mi]
+    return r * n, n, mi
+
+
+def _batch_pls(shd: ShardCtx, x):
+    """Placements of ``x`` split by batch alone (dim 0 over the batch
+    axes, sanitized); None without a mesh."""
+    if shd.mesh is None:
+        return None
+    return placements(shd.sanitized(x.shape, "b", *[None] * (x.ndim - 1)),
+                      shd.mesh)
 
 
 # -- public API ------------------------------------------------------------------------
@@ -608,20 +968,25 @@ def prefill_chunk_into_slot(params, cfg: ModelConfig, tokens, start: int,
 
 
 def forward_train(params, cfg: ModelConfig, tokens, prefix_embeds=None,
-                  remat: bool = True):
+                  remat: bool = True, shd: ShardCtx = NOSHARD):
     """tokens (B,S) [, prefix_embeds (B,P,d)] -> (logits (B,P+S,vocab),
-    aux_loss), with autograd through the kernels' Functions."""
-    h, aux = _hidden_train(params, cfg, tokens, prefix_embeds, remat)
-    return L.unembed(cfg, params["embed"], h), aux
+    aux_loss), with autograd through the kernels' Functions.  On a mesh
+    (``shd``) the arguments are DTensors and so are the results, the
+    logits split over the vocabulary as the reference's constraint
+    P(b, None, m) puts them."""
+    h, aux = _hidden_train(params, cfg, tokens, prefix_embeds, remat, shd)
+    logits = L.unembed(cfg, shd.use(params["embed"]), h)
+    return shd.cs(logits, "b", None, "m"), aux
 
 
-def _hidden_train(params, cfg: ModelConfig, tokens, prefix_embeds, remat):
+def _hidden_train(params, cfg: ModelConfig, tokens, prefix_embeds, remat,
+                  shd: ShardCtx = NOSHARD):
     """(final-normed hidden states (B,P+S,d), aux loss): the last residual
     add shares its launch with the final norm."""
-    x, positions = _embed_inputs(cfg, params, tokens, prefix_embeds)
-    x, delta, aux = _run_stages_train(cfg, params, x, positions=positions,
-                                      remat=remat)
-    _, h = L.apply_add_norm_train(cfg, params["final_norm"], x, delta)
+    x, _ = _embed_inputs(cfg, params, tokens, prefix_embeds, shd=shd)
+    x, delta, aux = _run_stages_train(cfg, params, x, remat=remat, shd=shd)
+    _, h = L.apply_add_norm_train(cfg, shd.use(params["final_norm"]), x,
+                                  delta)
     return h, aux
 
 
@@ -638,40 +1003,130 @@ def _ce_block(cfg: ModelConfig, params, h, tgt, valid=None):
     return ce.sum(), lse.numel()
 
 
+def _ce_sum(cfg: ModelConfig, params, h, tgt, ce_chunk: int, block):
+    """The cross-entropy summed over h (B,T,d) against tgt (B,T): one
+    ``block`` when T <= ce_chunk, else chunks of ``ce_chunk`` (T padded to
+    a multiple and the pads masked), each under ``torch.utils.checkpoint``,
+    their sums added in order, as the reference's scan."""
+    B, T = tgt.shape
+    if T <= ce_chunk:
+        return block(cfg, params, h, tgt)[0]
+    nc = -(-T // ce_chunk)
+    pad = nc * ce_chunk - T
+    hp = torch.nn.functional.pad(h, (0, 0, 0, pad))
+    tp = torch.nn.functional.pad(tgt, (0, pad))
+    vp = torch.nn.functional.pad(
+        torch.ones((B, T), dtype=torch.float32, device=h.device), (0, pad))
+    ce_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(nc):
+        sl = slice(c * ce_chunk, (c + 1) * ce_chunk)
+        ce_sum = ce_sum + torch.utils.checkpoint.checkpoint(
+            block, cfg, params, hp[:, sl], tp[:, sl], vp[:, sl],
+            use_reentrant=False)[0]
+    return ce_sum
+
+
+class _VocabShardedCE(torch.autograd.Function):
+    """The cross-entropy of float32 logits split over the vocabulary: this
+    rank's (B,T,V/m) logits, whose rows start at vocabulary id ``lo``; the
+    row maximum, the sum of exponentials and the target's logit are
+    reduced over the model group (``group``: a (mesh, dim) pair), so every
+    rank gets each row's whole cross-entropy (B,T).  The backward needs no
+    collective: this rank's logits' gradient is softmax minus the one-hot
+    target, both of its own columns, from the saved log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, pred, tgt, lo, group):
+        import torch.distributed._functional_collectives as fc
+        n = pred.shape[-1]
+        m = fc.wait_tensor(fc.all_reduce(pred.amax(dim=-1), "max", group))
+        se = fc.wait_tensor(fc.all_reduce(
+            (pred - m[..., None]).exp().sum(dim=-1), "sum", group))
+        lse = m + se.log()
+        t = tgt.long() - lo
+        hit = (t >= 0) & (t < n)
+        t = t.clamp(0, n - 1)
+        g = pred.gather(-1, t[..., None])[..., 0]
+        gold = fc.wait_tensor(fc.all_reduce(
+            torch.where(hit, g, torch.zeros_like(g)), "sum", group))
+        ctx.save_for_backward(pred, lse, t, hit)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, dce):
+        pred, lse, t, hit = ctx.saved_tensors
+        grad = (pred - lse[..., None]).exp() * dce[..., None]
+        grad.scatter_add_(-1, t[..., None],
+                          -(dce * hit.to(dce.dtype))[..., None])
+        return grad, None, None, None
+
+
+def _cross_entropy(cfg: ModelConfig, params, h, tgt, ce_chunk: int,
+                   shd: ShardCtx):
+    """The cross-entropy summed over h (B,T,d) against tgt (B,T)
+    (``_ce_sum``).  On DTensors each rank runs it on its batch rows with
+    its shard of the unembedding, so the logits are only ever this rank's
+    rows and vocabulary columns (the reference's P(b, None, m)); with the
+    vocabulary split, ``_VocabShardedCE`` reduces the log-sum-exp and the
+    target's logit over 'model'.  The sum is then over this rank's rows,
+    a partial sum over the batch axes."""
+    emb = shd.use(params["embed"])
+    name = "embedding" if cfg.tie_embeddings else "lm_head"
+    table = emb[name]
+    split = _vocab_split(shd, table, 0 if cfg.tie_embeddings else 1)
+    if split is not None:
+        group = (shd.mesh, split[2])
+
+    def block(cfg_, p_, h_, t_, v_=None):
+        if split is None:
+            return _ce_block(cfg_, p_, h_, t_, v_)
+        pred = L.unembed(cfg_, p_["embed"], h_).float()
+        ce = _VocabShardedCE.apply(pred, t_, split[0], group)
+        if v_ is not None:
+            ce = ce * v_
+        return ce.sum(), ce.numel()
+
+    def local(h_, t_, tab):
+        return _ce_sum(cfg, {"embed": {name: tab}}, h_, t_, ce_chunk, block)
+
+    pls = {}
+    if shd.mesh is not None:
+        from torch.distributed.tensor import Partial
+        hpl = _batch_pls(shd, h)
+        h_grad = list(hpl)
+        if split is not None:
+            h_grad[split[2]] = Partial()
+        table_grad = [partial_over(hpl)[i] if p.is_replicate() else p
+                      for i, p in enumerate(table.placements)]
+        pls = {"in_pls": [hpl, _batch_pls(shd, tgt), table.placements],
+               "out_pls": partial_over(hpl),
+               "grad_pls": [h_grad, None, table_grad]}
+    return local_call(local, shd.mesh, [h, tgt, table], **pls)
+
+
 def loss_fn(params, cfg: ModelConfig, batch, remat: bool = True,
-            ce_chunk: int = 1024):
+            ce_chunk: int = 1024, shd: ShardCtx = NOSHARD):
     """batch: {tokens (B,S), [prefix_embeds (B,P,d)]} -> (loss, {"ce",
     "aux"}): next-token cross-entropy over the token span plus
     ``cfg.router_aux_loss`` times the MoE aux loss.  Past ``ce_chunk``
     targets the unembed and the cross-entropy run in chunks of
     ``ce_chunk`` (T padded to a multiple and the pads masked), each under
     ``torch.utils.checkpoint``, so the (B, T, vocab) logits are never
-    whole; the chunks' sums are added in order, as the reference's scan."""
+    whole; the chunks' sums are added in order, as the reference's scan.
+    On a mesh (``shd``) params and batch are DTensors, and so are the loss
+    and metrics, replicated."""
     tokens = batch["tokens"]
     h, aux = _hidden_train(params, cfg, tokens, batch.get("prefix_embeds"),
-                           remat)
+                           remat, shd)
     Pn = h.shape[1] - tokens.shape[1]
     h = h[:, Pn:-1]
     tgt = tokens[:, 1:]
     B, T = tgt.shape
-    if T <= ce_chunk:
-        ce_sum, n = _ce_block(cfg, params, h, tgt)
-        ce = ce_sum / n
-    else:
-        nc = -(-T // ce_chunk)
-        pad = nc * ce_chunk - T
-        hp = torch.nn.functional.pad(h, (0, 0, 0, pad))
-        tp = torch.nn.functional.pad(tgt, (0, pad))
-        vp = torch.nn.functional.pad(
-            torch.ones((B, T), dtype=torch.float32, device=h.device),
-            (0, pad))
-        ce_sum = torch.zeros((), dtype=torch.float32, device=h.device)
-        for c in range(nc):
-            sl = slice(c * ce_chunk, (c + 1) * ce_chunk)
-            ce_sum = ce_sum + torch.utils.checkpoint.checkpoint(
-                _ce_block, cfg, params, hp[:, sl], tp[:, sl], vp[:, sl],
-                use_reentrant=False)[0]
-        ce = ce_sum / (T * B)
+    ce_sum = _cross_entropy(cfg, params, h, tgt, ce_chunk, shd)
+    if shd.mesh is not None:
+        ce_sum = ce_sum.redistribute(shd.mesh, replicated(shd.mesh))
+        aux = aux.redistribute(shd.mesh, replicated(shd.mesh))
+    ce = ce_sum / (T * B)
     return ce + cfg.router_aux_loss * aux, {"ce": ce, "aux": aux}
 
 

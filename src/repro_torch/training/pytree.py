@@ -1,5 +1,6 @@
 """The parameter trees' leaves in JAX's flatten order, and back: dicts by
-sorted key, lists and tuples in order, anything else a leaf.  The
+sorted key, lists and tuples in order, anything else a leaf (a tuple
+subclass too: a partition spec ``P`` is a leaf of a spec tree).  The
 optimizer updates and the checkpoint stores leaves in this order, as the
 reference does with ``jax.tree.flatten``."""
 from __future__ import annotations
@@ -15,7 +16,7 @@ def _walk(tree) -> Iterator[Any]:
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _walk(tree[k])
-    elif isinstance(tree, (list, tuple)):
+    elif type(tree) in (list, tuple):
         for v in tree:
             yield from _walk(v)
     else:
@@ -30,7 +31,7 @@ def unflatten(like, flat) -> Any:
         if isinstance(t, dict):
             out = {k: build(t[k]) for k in sorted(t)}
             return {k: out[k] for k in t}      # keep like's key order
-        if isinstance(t, (list, tuple)):
+        if type(t) in (list, tuple):
             return type(t)(build(v) for v in t)
         return next(it)
 

@@ -42,7 +42,9 @@ def test_no_forbidden_import_in_the_port_sources():
             PKG / "training/optimizer.py", PKG / "training/train_loop.py",
             PKG / "training/checkpoint.py", PKG / "launch/train.py",
             PKG / "examples/train_small.py", PKG / "launch/mesh.py",
-            PKG / "launch/shardings.py"} <= set(files)
+            PKG / "launch/shardings.py", PKG / "launch/specs.py",
+            PKG / "launch/dryrun.py", PKG / "models/sharding.py"} \
+        <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -70,7 +72,9 @@ def test_importing_the_port_loads_no_jax_or_reference():
             "'repro_torch.training.optimizer', "
             "'repro_torch.training.train_loop', "
             "'repro_torch.training.checkpoint', 'repro_torch.launch.train', "
-            "'repro_torch.examples.train_small'} <= set(sys.modules)\n")
+            "'repro_torch.examples.train_small', "
+            "'repro_torch.launch.specs', 'repro_torch.launch.dryrun', "
+            "'repro_torch.models.sharding'} <= set(sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)

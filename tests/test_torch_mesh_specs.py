@@ -190,7 +190,7 @@ def _check_spec_case(seed: int):
         for i, entry in enumerate(spec):
             if entry is None:
                 continue
-            assert dims[i] % SH._axis_size(mesh, entry) == 0, \
+            assert dims[i] % SH.axis_size(mesh, entry) == 0, \
                 (seed, path, spec, dims)
         # (3) expert leaves: expert axis on 'model', nothing else sharded
         if is_expert_leaf(cfg, path, dims):

@@ -324,7 +324,8 @@ def test_serving_builds_no_graph_and_adds_in_place(monkeypatch):
     assert inplace and all(inplace)
 
 
-def test_launch_train_runs_on_cpu(capsys):
+def test_launch_train_runs_on_cpu(capsys, monkeypatch):
+    from repro_torch.launch import dryrun
     from repro_torch.launch.train import main
     main(["--arch", "qwen2-1.5b", "--device", "cpu", "--steps", "2",
           "--batch", "2", "--seq", "16"])
@@ -337,8 +338,16 @@ def test_launch_train_runs_on_cpu(capsys):
               "--batch", "2", "--seq", "16", *flag])
         again = capsys.readouterr().out
         assert again == out, flag
-    with pytest.raises(SystemExit, match="A14"):
-        main(["--arch", "qwen2-1.5b", "--device", "cpu", "--dry-run"])
+    # --dry-run traces the full config's train_4k step as the reference's
+    # does (tests/test_torch_dryrun.py runs it whole)
+    calls = []
+    monkeypatch.setattr(dryrun, "run_one",
+                        lambda *a, **kw: calls.append((a, kw)))
+    main(["--arch", "qwen2-1.5b", "--device", "cpu", "--dry-run",
+          "--multi-pod", "--strategy", "fsdp"])
+    assert calls == [(("qwen2-1.5b", "train_4k", True),
+                      {"outdir": "results/dryrun/manual",
+                       "strategy": "fsdp", "device": "cpu"})]
 
 
 def test_train_small_example_checkpoint_loads_in_reference(tmp_path, capsys):

@@ -19,6 +19,7 @@
     python3 chip_smoke.py --phases build,kernels,train
     python3 chip_smoke.py --phases build,mesh
     python3 chip_smoke.py --phases build,train_mesh,dryrun
+    python3 chip_smoke.py --phases build,kernels,forward_mesh,dryrun
 
 Phases (each raises on failure; nothing is caught):
 
@@ -53,6 +54,14 @@ Phases (each raises on failure; nothing is caught):
    CTAs in fixed spans, so its determinism is checked bit for bit: two
    launches on the same inputs, and the same context in a 1024-slot view
    and in the whole 2048-slot buffer (bf16, float32 and int8 kernels).
+   The sequence-sharded decode's routes (``_split_cases``): at B 8, Sk
+   2048, 12:2, hd 128, bf16 q over bf16 and int8 K/V, the keys cut into
+   2, 4 and 16 ranges of whole spans, each range's span partials (the
+   partial route), stacked in range order and folded by the combine
+   route, equal the whole-cache kernel bit for bit; 32 ranges of half a
+   span agree with the plain version within one bf16 rounding; one
+   range's partial and the combine of the stacked ranges are timed
+   beside the whole-cache kernel.
    Times (CUDA events, median of 21 samples of 20 launches each, or of 7
    samples of fewer launches for a call over 2 ms, after a warm-up,
    inputs rotated through > 100 MB so L2 is cold as in the model)
@@ -140,8 +149,8 @@ Phases (each raises on failure; nothing is caught):
    capacity 1.25): moe_einsum against moe_scatter within 1e-5 in float32,
    the keep mask against the CPU's, and both timed in bf16 (that group
    and an 8-row decode step) beside the layer's bound (every expert's
-   weights read once).  Then the unpadded ``prefill`` at full width, 4
-   layers, float32, CUDA against CPU (next_pos P + S, last logits at
+   weights read once).  Then the unpadded ``prefill`` at full width, one
+   period of layers (2; recurrentgemma 3), float32, CUDA against CPU (next_pos P + S, last logits at
    1e-3): gemma2-9b with a 5000-token prompt into its 4096-slot rings,
    llava-next-mistral-7b with 2880 seeded prefix embeddings and 256
    tokens, musicgen-large with 64 conditioning frames and 256 tokens,
@@ -189,11 +198,11 @@ Phases (each raises on failure; nothing is caught):
    ``observability``, its launches counted).
 10. arch: the attention-only architectures served on the card, one model
    at a time, each at full width (depths in ``ARCH_RUNS``): qwen3-14b (the
-   paper's model) and qwen3-moe-30b-a3b (128 experts, top 8) at 8 of
+   paper's model) and qwen3-moe-30b-a3b (128 experts, top 8) at 4 of
    their 40 / 48 layers, the serve burst
    on the dense engine, greedy and with every odd request seeded nucleus
    sampling, and the serve_paged waves on the paged engine with the
-   prefix cache (hits and a preemption); gemma2-9b at 8 of its 42
+   prefix cache (hits and a preemption); gemma2-9b at 4 of its 42
    layers, max_len 16384, max_batch 4, 4 prompts of 4500-8000 tokens (past
    the 4096 window: chunked through chunk_attention's dense-ring route;
    decode wraps the rings; softcaps everywhere) on the dense engine with
@@ -203,11 +212,11 @@ Phases (each raises on failure; nothing is caught):
    full width and 4 layers, the same long burst dense with bf16 and int8
    caches; granite-8b and chatglm3-6b at full width and 4 layers,
    musicgen-large (layer norm, sincos, MHA at hd 64: no rmsnorm launch)
-   at full depth, the serve burst; llava-next-mistral-7b (text only) at 8
-   of its 32 layers, the serve burst and the paged waves; mamba2-370m (12
-   of its 48 SSM blocks: the norms are its only kernels), the serve burst
-   greedy and sampled; recurrentgemma-9b at 9 of its 38 layers (6 RG-LRU
-   blocks, 3 local MQA layers) the
+   at 24 of its 48 layers, the serve burst; llava-next-mistral-7b (text
+   only) at 4 of its 32 layers, the serve burst and the paged waves;
+   mamba2-370m (6 of its 48 SSM blocks: the norms are its only kernels),
+   the serve burst greedy and sampled; recurrentgemma-9b at 6 of its 38
+   layers (4 RG-LRU blocks, 2 local MQA layers) the
    serve burst, the long burst (chunks into its 2048-slot rings, decode
    wraps them; ``arch_rgemma_long``), the reuse burst in float32 (a stream
    chunked into a slot an earlier stream left gives the tokens it gives
@@ -275,7 +284,7 @@ Phases (each raises on failure; nothing is caught):
    float32 model over bf16 pages, cold and warm, tokens equal to the
    CPU's on the same weights); then the example's dense burst and
    ``run_cluster`` with qwen3-14b at full width in bf16, the burst at full
-   depth and the cluster at 10 of its 40 layers (``replay_qwen3_dense``,
+   depth and the cluster at 5 of its 40 layers (``replay_qwen3_dense``,
    ``replay_qwen3_cluster``).  Launches counted as in phase 5.
 17. train: training through the backward kernels (``phase_train``):
    ``train_qwen2``, qwen2-1.5b at full width and depth in bf16, B 4 x S
@@ -316,18 +325,35 @@ Phases (each raises on failure; nothing is caught):
    ``mesh=None``'s, bit for bit (at (1,1) every spec sanitizes to
    replicated); step ms of each beside ``mesh=None``'s, and peak GiB.
    Launches counted as in phase 5 (path ``train_mesh``, the tp run).
-20. dryrun: the train dry-run (``launch.dryrun.run_one``) on the fake
+20. forward_mesh: the tensor-parallel forwards (``prefill`` and
+   ``decode_step`` with a ``ShardCtx``) on the (1,1) mesh of a
+   world-size-1 NCCL group (``phase_forward_mesh``): qwen2-1.5b at full
+   width and depth in bf16, a prefill of B 4 x S 2048 seeded tokens, then
+   32 greedy decode steps, dense and with int8 K/V (kv_quant), under
+   ``mesh=None``, on the mesh's head-split path (what ``build_decode``
+   runs at (1,1)), and on the sequence-sharded decode forced on at one
+   rank (``kv_seq_sharded``: span partials over the rank's whole range,
+   then the combine): every step's logits and tokens bit for bit
+   ``mesh=None``'s; tokens/s of the decode steps and peak GiB of each.
+   Then ``launch.specs.build_serving_decode``'s step at (1,1) against the
+   paged decode step the engine runs (``decode_step`` through the page
+   table) on the same params, pool, page table and slot vectors: next
+   tokens and every cache leaf bit for bit.  Launches counted as in
+   phase 5 (path ``forward_mesh``: the mesh runs).
+21. dryrun: the dry-run (``launch.dryrun.run_one``) on the fake
    16x16 mesh of 256 ranks: qwen2-1.5b ``train_4k`` under ``tp`` and
-   ``fsdp`` and mixtral-8x7b ``train_4k`` under ``tp``, each traced on fake
-   CUDA tensors and on fake CPU tensors, the six traces in processes of
-   their own (``--dryrun-one``), in parallel on every host core, after
-   the device phases (so no timed phase shares the host with them): the
-   reference's ``[dryrun]`` line of each;
+   ``fsdp``, mixtral-8x7b ``train_4k`` under ``tp``, qwen2-1.5b
+   ``prefill_32k``, ``decode_32k`` and ``long_500k`` and mixtral-8x7b
+   ``decode_32k`` with ``--kv-quant``, each traced on fake
+   CUDA tensors and on fake CPU tensors, the fourteen traces in processes
+   of their own (``--dryrun-one``), at most one a host core, the train
+   traces first, after the device phases (so no timed phase shares the
+   host with them): the reference's ``[dryrun]`` line of each;
    each CUDA record equal to its CPU twin in every field but the times;
    and ``torch.cuda.max_memory_allocated()`` of each CUDA trace's process
    unmoved by it (after torch's fake-tensor machinery has made the one
    1-element tensor that initializes the CUDA context).
-21. profile (opt-in, not in the default run): the serve, serve_paged and
+22. profile (opt-in, not in the default run): the serve, serve_paged and
    both serve_q8 bursts, then qwen3-moe-30b-a3b's and recurrentgemma-9b's
    serve bursts at full depth, again under ``torch.profiler`` after a
    warm-up run, printing
@@ -367,7 +393,8 @@ BF16_ROUNDING = (1e-3, 1e-2)     # atol, rtol: one bf16 rounding apart
 PHASES = ("build", "kernels", "equivalence", "serve", "serve_paged",
           "serve_q8", "paged_vs_dense", "sampling", "observability", "arch",
           "cluster", "legacy", "prefill", "mixed_dtype", "controller",
-          "replay", "train", "mesh", "train_mesh", "dryrun")
+          "replay", "train", "mesh", "train_mesh", "forward_mesh",
+          "dryrun")
 # the paths whose launches count
 SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "sampling", "sampling_paged", "observability", "arch_qwen3",
@@ -385,7 +412,8 @@ SERVE_PATHS = ("serve", "serve_paged", "serve_q8", "serve_q8_paged",
                "mixed_dtype_gemma2_dense", "mixed_dtype_gemma2_paged",
                "replay_example", "replay_c3", "replay_qwen3_dense",
                "replay_qwen3_cluster", "train_qwen2", "train_gemma2",
-               "train_arch", "mesh_dense", "mesh_paged", "train_mesh")
+               "train_arch", "mesh_dense", "mesh_paged", "train_mesh",
+               "forward_mesh")
 
 
 def log(*a):
@@ -1641,6 +1669,98 @@ def _decode_bitwise(res):
     log(f"[kernels] bitwise: {len(checks)} checks passed: {checks}")
 
 
+# the sequence-sharded decode's routes at the main decode case (B, Hq, KH,
+# Sk, hd): the keys cut into ranges of whole spans (bitwise the whole-cache
+# kernel) and into ranges of half a span (within one bf16 rounding)
+SPLIT_CASE = (8, 12, 2, 2048, 128)
+SPLIT_RANGES = (2, 4, 16)
+SPLIT_HALF = 32
+
+
+def _split_decode(partial, q, kv, kp, qp, R):
+    """The sequence-sharded decode of R equal key ranges on one card: the
+    span partials of each range (a rank's launch), stacked in range order
+    (what the ranks' all-gather gives), then the combine route."""
+    import torch
+    from repro_torch.kernels import decode_attention as D
+    B, _, Hq, hd = q.shape
+    KH = kv[0].shape[2]
+    n = kp.shape[1] // R
+    parts = [partial(q, *(t[:, r * n:(r + 1) * n] for t in kv),
+                     kp[:, r * n:(r + 1) * n], qp) for r in range(R)]
+    return D.decode_combine(torch.stack(parts), B, KH, Hq // KH, hd, q.dtype)
+
+
+def _split_cases(res):
+    """The span-partial and combine routes of decode_attention and
+    decode_attention_q8 at SPLIT_CASE, bf16 q: R ranges of whole spans
+    give the whole-cache kernel's output bit for bit, ranges of half a
+    span agree with the plain version within one bf16 rounding; one
+    rank's partial (its Sk / R keys) and the combine of the R gathered
+    partials timed beside the whole-cache kernel.  Returns {kernel:
+    {R: times}}."""
+    import torch
+    from repro_torch.kernels import decode_attention as D
+    from repro_torch.kernels import decode_attention_q8 as Q
+    B, Hq, KH, Sk, hd = SPLIT_CASE
+    G = Hq // KH
+    g = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for name, make, whole, partial, plain in (
+            ("decode_attention",
+             lambda: _decode_inputs(g, B, Sk, KH, Hq, hd, torch.bfloat16, Sk),
+             D.decode_attention, D.decode_attention_partials,
+             D.decode_attention_plain),
+            ("decode_attention_q8",
+             lambda: _q8_inputs(g, B, Sk, KH, Hq, hd, torch.bfloat16, Sk),
+             Q.decode_attention_q8, Q.decode_attention_q8_partials,
+             Q.decode_attention_q8_plain)):
+        a = make()
+        q, kv, kp, qp = a[0], a[1:-2], a[-2], a[-1]
+        want = whole(*a)
+        for R in SPLIT_RANGES:
+            got = _split_decode(partial, q, kv, kp, qp, R)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{name}: {R} ranges of {Sk // R} keys, partials + "
+                    f"combine differ from the whole-cache kernel by "
+                    f"{max_err(got, want):.3g} (must be bitwise equal)")
+        err, share = check_close(
+            f"{name} split into {SPLIT_HALF} ranges of {Sk // SPLIT_HALF} keys",
+            _split_decode(partial, q, kv, kp, qp, SPLIT_HALF), plain(*a),
+            2e-2)
+        sets = [make() for _ in range(8)]
+        times = {"whole_ms": time_ms(whole, sets)}
+        for R in SPLIT_RANGES:
+            n = Sk // R
+            rank = [(s[0], *(t[:, :n] for t in s[1:-2]), s[-2][:, :n],
+                     s[-1]) for s in sets]
+            parts = [torch.stack([partial(*r) for _ in range(R)])
+                     for r in rank]
+            times[R] = {
+                "partial_ms": time_ms(partial, rank),
+                "combine_ms": time_ms(lambda p_: D.decode_combine(
+                    p_, B, KH, G, hd, torch.bfloat16), [(p_,) for p_ in parts]),
+                "gathered_bytes": parts[0].numel() * 4}
+            times[R]["ms"] = times[R]["partial_ms"] + times[R]["combine_ms"]
+        out[name] = {**times, "half_span_max_abs_err": err,
+                     "half_span_bf16_share": share}
+        res["cases"].append({"kernel": name, "shape": [B, Sk, KH, Hq, hd],
+                             "split_ranges": list(SPLIT_RANGES),
+                             "bitwise": True, "max_abs_err": err,
+                             "bf16_share": share})
+        log(f"[kernels] {name} split: {list(SPLIT_RANGES)} ranges of whole "
+            f"spans == the whole-cache kernel bit for bit; {SPLIT_HALF} "
+            f"ranges of {Sk // SPLIT_HALF} keys max abs err {err:.3g}; ms "
+            f"whole {times['whole_ms']:.5f}, "
+            + ", ".join(f"R {R}: partial {times[R]['partial_ms']:.5f} + "
+                        f"combine {times[R]['combine_ms']:.5f} = "
+                        f"{times[R]['ms']:.5f} ({times[R]['gathered_bytes']} "
+                        "gathered bytes)" for R in SPLIT_RANGES)
+            + f" on {res['card']}")
+    return out
+
+
 def _q8_inputs(g, B, Sk, KH, Hq, hd, dt, buf, pos=None):
     """q and int8 K/V with their scales, quantized from normal values, as
     [:, :Sk] views of (B, buf, KH, hd) caches; k_pos with -1 holes and
@@ -1844,6 +1964,11 @@ def phase_kernels(res):
     q8, paged_q8 = _q8_cases(res)
     res["main_case"]["decode_attention_q8"] = q8
     res["main_case"]["paged_decode_attention"]["q8_route"] = paged_q8
+    split = _split_cases(res)
+    res["main_case"]["decode_attention"]["split_route"] = \
+        split["decode_attention"]
+    res["main_case"]["decode_attention_q8"]["split_route"] = \
+        split["decode_attention_q8"]
     _geometry_cases(res)
     _decode_bitwise(res)
     res["main_case"]["flash_attention_bwd"] = _flash_bwd_cases(
@@ -1904,6 +2029,7 @@ def phase_equivalence(res):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
+    t0 = time.perf_counter()
     base = get_config("qwen2-1.5b").replace(num_layers=4, dtype="float32")
     params = init_params(torch.Generator().manual_seed(0), base)
     gparams = _to(params, "cuda")
@@ -1950,17 +2076,21 @@ def phase_equivalence(res):
             raise AssertionError(f"paged equivalence run {tag} missed a "
                                  f"route: {gpu} {counts}")
         res["equivalence"][tag]["paged"] = {**gpu, "launches": counts}
-    _mixed_dtype_equivalence(res)
-    _arch_equivalence(res)
-    _prefill_equivalence(res)
+        log(f"[equivalence] qwen2 {tag} checks done at "
+            f"{time.perf_counter() - t0:.1f}s")
+    for check in (_mixed_dtype_equivalence, _arch_equivalence,
+                  _prefill_equivalence):
+        check(res)
+        log(f"[equivalence] {check.__name__} done at "
+            f"{time.perf_counter() - t0:.1f}s")
 
 
-# the archs of the equivalence phase beyond qwen2: the dense family (params
-# drawn on the CPU), then the MoE models and the layer-norm / prefix family
-# (drawn on the card, which is quicker for mixtral's 11 GB of float32
-# experts, and copied to the CPU)
-EQUIV_ARCHS = (("qwen3-14b", "cpu"), ("granite-8b", "cpu"),
-               ("chatglm3-6b", "cpu"), ("gemma2-9b", "cpu"),
+# the archs of the equivalence phase beyond qwen2: the dense family, then
+# the MoE models and the layer-norm / prefix family, each one's params
+# drawn on the card (quicker than the CPU's generator: 18.2 s for
+# qwen3-14b drawn on the CPU) and copied to the CPU
+EQUIV_ARCHS = (("qwen3-14b", "cuda"), ("granite-8b", "cuda"),
+               ("chatglm3-6b", "cuda"), ("gemma2-9b", "cuda"),
                ("qwen3-moe-30b-a3b", "cuda"), ("mixtral-8x7b", "cuda"),
                ("musicgen-large", "cuda"), ("llava-next-mistral-7b", "cuda"))
 TIE_GAP = 1e-5      # a routing difference at a wider top-k boundary fails
@@ -2183,16 +2313,16 @@ def _mixed_dtype_equivalence(res):
 # embeddings): gemma2 past its 4096-slot rings, llava's 2880 image patches,
 # musicgen's 64 conditioning frames, recurrentgemma's recurrent rows and
 # qwen3-moe's routing over every row's tokens
-PREFILL_EQUIV = (("gemma2-9b", 4, 1, 5000, 0),
-                 ("llava-next-mistral-7b", 4, 1, 256, 2880),
-                 ("musicgen-large", 4, 1, 256, 64),
-                 ("recurrentgemma-9b", 4, 2, 512, 0),
-                 ("qwen3-moe-30b-a3b", 4, 2, 512, 0))
+PREFILL_EQUIV = (("gemma2-9b", 2, 1, 5000, 0),
+                 ("llava-next-mistral-7b", 2, 1, 256, 2880),
+                 ("musicgen-large", 2, 1, 256, 64),
+                 ("recurrentgemma-9b", 3, 2, 512, 0),
+                 ("qwen3-moe-30b-a3b", 2, 2, 512, 0))
 
 
 def _prefill_equivalence(res):
-    """The unpadded ``prefill`` CUDA against CPU at full width, cut to 4
-    layers, in float32 from the same params (drawn on the card): B prompts
+    """The unpadded ``prefill`` CUDA against CPU at full width, cut to one
+    period of the block pattern (2 layers; recurrentgemma 3), in float32 from the same params (drawn on the card): B prompts
     after seeded prefix embeddings where the model takes them, into fresh
     caches; ``next_pos`` must be P + S and the last logits allclose at
     1e-3 (the arch checks' float32 bar).  For qwen3-moe every routing
@@ -2604,6 +2734,12 @@ def _counters():
             "chunk_attention/dense_f32_past": (chunk_attention,
                                                "dense_f32_past_launches"),
             "decode_attention_q8": (decode_attention_q8, "launches"),
+            "decode_attention/partials": (decode_attention,
+                                          "partial_launches"),
+            "decode_attention/combine": (decode_attention,
+                                         "combine_launches"),
+            "decode_attention_q8/partials": (decode_attention_q8,
+                                             "partial_launches"),
             "flash_attention/lse": (flash_attention, "lse_launches"),
             "flash_attention_bwd": (flash_attention, "bwd_launches"),
             "rmsnorm_bwd": (rmsnorm, "bwd_launches"),
@@ -3091,30 +3227,30 @@ def phase_observability(res):
 # which must hit and preempt), "long" / "long_q8" / "long_paged" (4
 # prompts of 4500-8000 tokens past a 4096 window at max_len 16384: dense
 # with bf16 and int8 caches, and paged, which must preempt).  Every model
-# at full width; at full depth musicgen-large (48 layers); at 8 layers
-# qwen3-14b, gemma2-9b (4 local + full pairs), qwen3-moe-30b-a3b and
-# llava-next-mistral-7b (at full depth the phase took 224-318 s of a
-# default run that reached 1285 s of its 1200 on a slow host);
-# granite-8b, chatglm3-6b and mixtral-8x7b (93 GB of bf16 weights at its
-# 32 layers) at 4 layers.  The recurrent models: mamba2-370m (12 of its 48
-# SSM blocks, no attention) the serve burst greedy and sampled;
-# recurrentgemma-9b (9 of its 38 layers: 6 RG-LRU, 3 local MQA 16:1 at hd
-# 256, window 2048) the serve burst, the
+# at full width; at 4 layers qwen3-14b, gemma2-9b (2 local + full pairs),
+# qwen3-moe-30b-a3b, llava-next-mistral-7b, granite-8b, chatglm3-6b and
+# mixtral-8x7b; musicgen-large at 24 of its 48 (the default run reached
+# 1285 s of its 1200 on a slow host at full depth, and 1188 s at 8 layers
+# once the forward_mesh phase and the forward dry-runs were added).  The
+# recurrent models:
+# mamba2-370m (6 of its 48 SSM blocks, no attention) the serve burst
+# greedy and sampled; recurrentgemma-9b (6 of its 38 layers: 4 RG-LRU, 2
+# local MQA 16:1 at hd 256, window 2048) the serve burst, the
 # long burst on the dense engine ("long": its 2048-slot rings; the path is
 # ``arch_rgemma_long`` beside the serve burst's ``arch_rgemma``), "reuse"
 # (a stream chunked into a slot an earlier stream left, float32) and the
 # paged waves (its local layers pooled at max_len 2048; never a prefix hit)
 ARCH_RUNS = (
-    ("qwen3-14b", 8, "qwen3", ("serve", "sampled", "waves")),
-    ("gemma2-9b", 8, "gemma2", ("long", "long_q8", "long_paged")),
+    ("qwen3-14b", 4, "qwen3", ("serve", "sampled", "waves")),
+    ("gemma2-9b", 4, "gemma2", ("long", "long_q8", "long_paged")),
     ("granite-8b", 4, "granite", ("serve",)),
     ("chatglm3-6b", 4, "chatglm3", ("serve",)),
-    ("qwen3-moe-30b-a3b", 8, "qwen3moe", ("serve", "sampled", "waves")),
+    ("qwen3-moe-30b-a3b", 4, "qwen3moe", ("serve", "sampled", "waves")),
     ("mixtral-8x7b", 4, "mixtral", ("long", "long_q8")),
-    ("musicgen-large", None, "musicgen", ("serve",)),
-    ("llava-next-mistral-7b", 8, "llava", ("serve", "waves")),
-    ("mamba2-370m", 12, "mamba2", ("serve", "sampled")),
-    ("recurrentgemma-9b", 9, "rgemma", ("serve", "long", "reuse",
+    ("musicgen-large", 24, "musicgen", ("serve",)),
+    ("llava-next-mistral-7b", 4, "llava", ("serve", "waves")),
+    ("mamba2-370m", 6, "mamba2", ("serve", "sampled")),
+    ("recurrentgemma-9b", 6, "rgemma", ("serve", "long", "reuse",
                                         "waves")))
 # the archs ``--archs`` keeps (None: every one)
 ONLY_ARCHS = None
@@ -4172,8 +4308,10 @@ REPLAY_ARGS = ("--duration", "30", "--cluster", "--prefix-cache",
 # qwen3-14b's depth in the replay phase's full-width cluster run (the dense
 # burst runs all 40): at 40 layers its two runs took 49-69 s and the phase
 # 69-97 s, which left the default run 790 s of its 800 on a slow host; at
-# 20, 38.8-48.7 s, in a default run that reached 1285 s of its 1200
-REPLAY_CLUSTER_LAYERS = 10
+# 20, 38.8-48.7 s, in a default run that reached 1285 s of its 1200; at
+# 10, 21.7 s of a run that reached 1188 s once the forward_mesh phase and
+# the forward dry-runs were added
+REPLAY_CLUSTER_LAYERS = 5
 
 
 def _check_cluster_run(path, cl, rep, base, failures):
@@ -4386,8 +4524,16 @@ TRAIN_QWEN2 = (4, 2048, 10)          # batch, sequence, AdamW steps
 TRAIN_MESH = (4, 2048, 3)            # batch, sequence, steps per run
 # the dry-run's records: (arch, strategy), each traced on fake CUDA and
 # fake CPU tensors
-DRYRUN_RUNS = (("qwen2-1.5b", "tp"), ("qwen2-1.5b", "fsdp"),
-               ("mixtral-8x7b", "tp"))
+# (arch, shape, variant): tp / fsdp (the train strategy), q8 (kv_quant);
+# the train traces first, the longest
+DRYRUN_RUNS = (("qwen2-1.5b", "train_4k", "tp"),
+               ("qwen2-1.5b", "train_4k", "fsdp"),
+               ("mixtral-8x7b", "train_4k", "tp"),
+               ("qwen2-1.5b", "prefill_32k", "tp"),
+               ("qwen2-1.5b", "decode_32k", "tp"),
+               ("qwen2-1.5b", "long_500k", "tp"),
+               ("mixtral-8x7b", "decode_32k", "q8"))
+FWD_MESH = (4, 2048, 32)              # batch, prompt tokens, decode steps
 DRYRUN_TIMEOUT_S = 900
 TRAIN_GEMMA2 = (4, 1, 5120, 3)       # layers, batch, sequence, steps
 TRAIN_ARCH_S = 96                    # past the smoke window of 64
@@ -4987,14 +5133,202 @@ def phase_train_mesh(res):
                          "microbatches": mb}
 
 
+def _fwd_run(cfg, params, tok, shd=None, mesh=None):
+    """A prefill of ``tok`` (B, S) into fresh bf16 caches of S + steps
+    slots, then FWD_MESH's steps of greedy decode, each fed its own
+    argmax; on ``mesh`` (``shd`` its context) the caches are placed by
+    ``cache_specs`` and ``params`` are placed already.  Returns (every
+    step's logits, whole; the tokens; prefill s; decode tokens/s; peak
+    GiB; launch counts)."""
+    import torch
+    from repro_torch.models import decode_step, init_cache, prefill
+    B, S = tok.shape
+    steps = FWD_MESH[2]
+    caches = init_cache(cfg, B, S + steps, dtype=torch.bfloat16,
+                        device="cuda")
+    if mesh is not None:
+        from repro_torch.launch import shardings as SH
+        from repro_torch.launch import specs as SP
+        caches = SP._place_tree(
+            caches, SH.cache_specs(cfg, mesh, B, S + steps)[0], mesh)
+    kw = {} if shd is None else {"shd": shd}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    lg, caches, _ = prefill(params, cfg, tok, caches, **kw)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    logits, toks = [], []
+    t0 = time.perf_counter()
+    for i in range(steps + 1):
+        lg = lg.full_tensor() if hasattr(lg, "full_tensor") else lg
+        logits.append(lg)
+        nxt = lg.argmax(dim=-1).to(torch.int32)[:, None]
+        toks.append(nxt[:, 0])
+        if i < steps:
+            lg, caches = decode_step(params, cfg, nxt, caches, S + i, **kw)
+    torch.cuda.synchronize()
+    tps = B * steps / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = _launch_counts()
+    del caches
+    return logits, torch.stack(toks).cpu(), t_pre, tps, peak, counts
+
+
+def _serving_decode_check(res, cfg, params, mesh):
+    """``build_serving_decode``'s step at (1,1) against ``decode_step``
+    through the page table (the engine's paged decode step) on copies of
+    the same pool, page table and slot vectors: next tokens and every
+    cache leaf bit for bit."""
+    import torch
+    from repro_torch.launch.specs import build_serving_decode
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.training.pytree import leaves, unflatten
+    B, max_len, ps = 8, 256, 16
+    n = max_len // ps
+    g = torch.Generator(device="cuda").manual_seed(17)
+    caches = init_cache(cfg, B, max_len, dtype=torch.bfloat16,
+                        device="cuda", paged_pool=(B * n + 1, ps))
+    for leaf in leaves(caches):
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda")
+                   .to(leaf.dtype))
+    # rows own pages 1.. in order (page 0 is the scratch page); row 5 free
+    table = (1 + torch.arange(B * n, device="cuda", dtype=torch.int32)
+             ).view(B, n)
+    batch = {"tok": torch.randint(0, cfg.vocab_size, (B,), generator=g,
+                                  device="cuda", dtype=torch.int32),
+             "pos": torch.randint(40, max_len - 1, (B,), generator=g,
+                                  device="cuda", dtype=torch.int32),
+             "active": torch.arange(B, device="cuda") != 5,
+             "page_table": table}
+    ref = [x.clone() for x in leaves(caches)]
+    ref_tree = unflatten(caches, ref)
+    lg, _ = decode_step(params, cfg, batch["tok"][:, None], ref_tree,
+                        batch["pos"], page_table=table,
+                        active=batch["active"])
+    want = lg.argmax(dim=-1).to(torch.int32)
+    built = build_serving_decode(cfg, mesh, max_batch=B, max_len=max_len,
+                                 page_size=ps, params=params, caches=caches,
+                                 batch=batch)
+    _reset_counts()
+    nxt, stored = built["fn"](*built["args"])
+    counts = _launch_counts()
+    got = nxt.full_tensor()
+    if not torch.equal(got, want):
+        raise AssertionError(f"serving decode (1,1): tokens {got.tolist()} "
+                             f"!= the unsharded step's {want.tolist()}")
+    for i, (a, b) in enumerate(zip(leaves(stored), ref)):
+        a = a.full_tensor() if hasattr(a, "full_tensor") else a
+        if not torch.equal(a, b):
+            raise AssertionError(f"serving decode (1,1): cache leaf {i} "
+                                 "differs from the unsharded step's")
+    _check_launched("forward_mesh serving decode", counts,
+                    ("paged_decode_attention",))
+    log(f"[forward_mesh] build_serving_decode at (1,1) == the unsharded "
+        f"paged decode step bit for bit (tokens, {len(ref)} cache leaves); "
+        f"meta {built['meta']}")
+    return {"meta": built["meta"], "tokens": got.tolist(),
+            "launches": counts}
+
+
+def phase_forward_mesh(res):
+    """The tensor-parallel forwards at (1,1) against mesh=None, bit for
+    bit (see phase 20 in the module docstring)."""
+    import dataclasses as dc
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import (init_single_rank, make_debug_mesh,
+                                         shutdown)
+    from repro_torch.models import init_params
+    B, S, steps = FWD_MESH
+    base_cfg = get_config("qwen2-1.5b")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0),
+                         base_cfg)
+    tok = torch.randint(0, base_cfg.vocab_size, (B, S), device="cuda",
+                        dtype=torch.int32,
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(19))
+    init_single_rank("cuda")
+    out = {}
+    try:
+        mesh = make_debug_mesh(1, 1, device="cuda")
+        placed = SP._place_tree(params, SH.model_param_specs(
+            base_cfg, mesh)[0], mesh)
+        for q8 in (False, True):
+            cfg = base_cfg.replace(kv_quant=q8)
+            head = dc.replace(SH.make_shard_ctx(mesh, B),
+                              kv_seq_sharded=SP.forward_specs(
+                                  cfg, SP.InputShape("d", "decode", S, B),
+                                  mesh)["kv_seq_sharded"])
+            runs = {"none": _fwd_run(cfg, params, tok),
+                    "head": _fwd_run(cfg, placed, tok, head, mesh),
+                    "seq": _fwd_run(cfg, placed, tok,
+                                    dc.replace(head, kv_seq_sharded=True),
+                                    mesh)}
+            base = runs["none"]
+            dec = "decode_attention_q8" if q8 else "decode_attention"
+            _check_launched(f"forward_mesh {dec}", base[5],
+                            ("flash_attention", "rmsnorm", "add_rmsnorm",
+                             dec))
+            for name in ("head", "seq"):
+                lg, toks = runs[name][:2]
+                for i, (a, b) in enumerate(zip(lg, base[0])):
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"forward_mesh {name} q8={q8}: step {i}'s logits "
+                            f"differ from mesh=None's by {max_err(a, b):.3g}")
+                if not torch.equal(toks, base[1]):
+                    raise AssertionError(f"forward_mesh {name} q8={q8}: "
+                                         "tokens differ from mesh=None's")
+            _check_launched(f"forward_mesh seq q8={q8}", runs["seq"][5],
+                            (f"{dec}/partials", "decode_attention/combine"))
+            if runs["seq"][5][dec] or runs["head"][5] != base[5]:
+                raise AssertionError(f"forward_mesh q8={q8}: launches head "
+                                     f"{runs['head'][5]}, seq "
+                                     f"{runs['seq'][5]}, none {base[5]}")
+            key = "q8" if q8 else "dense"
+            out[key] = {name: {"prefill_s": r[2], "decode_tokens_per_s": r[3],
+                               "peak_gib": r[4], "launches": r[5]}
+                        for name, r in runs.items()}
+            log(f"[forward_mesh] qwen2-1.5b {key}: prefill {B}x{S} + {steps} "
+                f"decode steps, (1,1) head-split and sequence-sharded == "
+                f"mesh=None bit for bit (every step's logits, tokens); "
+                + "; ".join(f"{name} prefill {r[2]:.3f} s, decode "
+                            f"{r[3]:.1f} tokens/s, peak {r[4]:.2f} GiB"
+                            for name, r in runs.items())
+                + f" on {res['card']}")
+            del runs, base
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["serving_decode"] = _serving_decode_check(res, base_cfg, params,
+                                                      mesh)
+    finally:
+        shutdown()
+    launches = {}
+    for counts in [out[key][name]["launches"] for key in ("dense", "q8")
+                   for name in ("head", "seq")] \
+            + [out["serving_decode"]["launches"]]:
+        for r, n in counts.items():
+            launches[r] = launches.get(r, 0) + n
+    res["forward_mesh"] = {**out, "launches": launches}
+    del params, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _dryrun_one(spec):
     """One dry-run record, in its own process (``--dryrun-one
-    arch:strategy:device:outdir``): ``launch.dryrun.run_one`` on the fake
-    16x16 mesh, then one JSON line with the record's path and, for a CUDA
-    trace, ``torch.cuda.max_memory_allocated()`` before and after it."""
+    arch:shape:variant:device:outdir``): ``launch.dryrun.run_one`` on the
+    fake 16x16 mesh (variant tp or fsdp: the strategy; q8: kv_quant),
+    then one JSON line with the record's path and, for a CUDA trace,
+    ``torch.cuda.max_memory_allocated()`` before and after it."""
     import torch
     from repro_torch.launch.dryrun import run_one
-    arch, strategy, device, outdir = spec.split(":", 3)
+    arch, shape, variant, device, outdir = spec.split(":", 4)
     torch.set_num_threads(1)
     mem = where = None
     if device == "cuda":
@@ -5010,8 +5344,9 @@ def _dryrun_one(spec):
         # where any allocation comes from, should one happen
         torch.cuda.memory._record_memory_history(max_entries=1000)
     t0 = time.perf_counter()
-    run_one(arch, "train_4k", False, outdir, strategy=strategy,
-            device=device, tag=strategy)
+    run_one(arch, shape, False, outdir, kv_quant=variant == "q8",
+            strategy="fsdp" if variant == "fsdp" else "tp", device=device,
+            tag=variant)
     wall = time.perf_counter() - t0
     if device == "cuda":
         mem.append(torch.cuda.max_memory_allocated())
@@ -5021,94 +5356,101 @@ def _dryrun_one(spec):
                  for e in t if e["action"] == "alloc"][:4]
     print(json.dumps({"dryrun_one": spec, "wall_s": wall, "cuda_mem": mem,
                       "cuda_allocs": where,
-                      "path": str(Path(outdir) / f"{arch}__train_4k__"
-                                  f"{strategy}.json")}), flush=True)
+                      "path": str(Path(outdir) / f"{arch}__{shape}__"
+                                  f"{variant}.json")}), flush=True)
     return 0
 
 
-def start_dryrun(res):
-    """Start the dry-run's six traces (DRYRUN_RUNS on fake CUDA and fake
-    CPU tensors), one single-threaded process each, in parallel.  Returns
-    [(spec, log path, log file, process)]."""
-    import os
+def _dryrun_specs(res):
     out_dir = ROOT / "build" / "dryrun"
-    env = dict(os.environ, PYTHONPATH=str(Path(res["src"])),
-               OMP_NUM_THREADS="1")
-    procs = []
-    for arch, strategy in DRYRUN_RUNS:
-        for device in ("cuda", "cpu"):
-            spec = f"{arch}:{strategy}:{device}:{out_dir / device}"
-            log_path = out_dir / f"{arch}__{strategy}__{device}.log"
-            log_path.parent.mkdir(parents=True, exist_ok=True)
-            f = open(log_path, "w")
-            procs.append((spec, log_path, f, subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()),
-                 "--dryrun-one", spec, "--src", res["src"]],
-                stdout=f, stderr=subprocess.STDOUT, env=env,
-                cwd=str(ROOT))))
-    res["dryrun_started"] = time.perf_counter()
-    return procs
-
-
-def stop_dryrun(procs):
-    for _, _, f, p in procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
-        f.close()
+    return [(f"{arch}:{shape}:{variant}:{device}:{out_dir / device}",
+             out_dir / f"{arch}__{shape}__{variant}__{device}.log")
+            for arch, shape, variant in DRYRUN_RUNS
+            for device in ("cuda", "cpu")]
 
 
 def phase_dryrun(res):
-    """The train dry-run on fake CUDA tensors against fake CPU tensors
-    (see phase 20 in the module docstring)."""
-    procs = start_dryrun(res)
-    out_dir = ROOT / "build" / "dryrun"
-    recs = {}
+    """The dry-run on fake CUDA tensors against fake CPU tensors (see
+    phase 21 in the module docstring): the traces in processes of their
+    own, at most one a host core, in DRYRUN_RUNS' order."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(Path(res["src"])),
+               OMP_NUM_THREADS="1")
+    todo = _dryrun_specs(res)
+    slots = max(1, os.cpu_count() or 1)
+    started = time.perf_counter()
+    running, recs = [], {}
+
+    def finish(spec, log_path, f, p):
+        f.close()
+        text = log_path.read_text()
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun {spec}: rc {p.returncode}\n"
+                                 f"{text[-3000:]}")
+        line = [x for x in text.splitlines()
+                if x.startswith('{"dryrun_one"')][-1]
+        info = json.loads(line)
+        for x in text.splitlines():
+            if x.startswith("[dryrun]"):
+                log(f"{x} ({spec.split(':')[3]}, {spec.split(':')[2]}, "
+                    f"traced in {info['wall_s']:.1f}s)")
+        recs[spec] = (json.loads(Path(info["path"]).read_text()), info)
+
     try:
-        for spec, log_path, f, p in procs:
-            rc = p.wait(timeout=DRYRUN_TIMEOUT_S)
-            f.close()
-            text = log_path.read_text()
-            if rc != 0:
-                raise AssertionError(f"dryrun {spec}: rc {rc}\n{text[-3000:]}")
-            line = [x for x in text.splitlines()
-                    if x.startswith('{"dryrun_one"')][-1]
-            info = json.loads(line)
-            for x in text.splitlines():
-                if x.startswith("[dryrun]"):
-                    log(f"{x} ({spec.split(':')[2]}, {spec.split(':')[1]}, "
-                        f"traced in {info['wall_s']:.1f}s)")
-            recs[spec] = (json.loads(Path(info["path"]).read_text()), info)
+        while todo or running:
+            while todo and len(running) < slots:
+                spec, log_path = todo.pop(0)
+                log_path.parent.mkdir(parents=True, exist_ok=True)
+                f = open(log_path, "w")
+                running.append((spec, log_path, f, subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--dryrun-one", spec, "--src", res["src"]],
+                    stdout=f, stderr=subprocess.STDOUT, env=env,
+                    cwd=str(ROOT))))
+            time.sleep(0.5)
+            for r in [r for r in running if r[3].poll() is not None]:
+                running.remove(r)
+                finish(*r)
+            if time.perf_counter() - started > DRYRUN_TIMEOUT_S:
+                raise AssertionError(f"dryrun: not done in "
+                                     f"{DRYRUN_TIMEOUT_S} s: "
+                                     f"{[r[0] for r in running]}")
     finally:
-        stop_dryrun(procs)
-    waited = time.perf_counter() - res["dryrun_started"]
+        for _, _, f, p in running:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    waited = time.perf_counter() - started
+    out_dir = ROOT / "build" / "dryrun"
     out = {}
-    for arch, strategy in DRYRUN_RUNS:
-        cu, cu_info = recs[f"{arch}:{strategy}:cuda:{out_dir / 'cuda'}"]
-        cp, cp_info = recs[f"{arch}:{strategy}:cpu:{out_dir / 'cpu'}"]
+    for arch, shape, variant in DRYRUN_RUNS:
+        name = f"{arch}:{shape}:{variant}"
+        cu, cu_info = recs[f"{name}:cuda:{out_dir / 'cuda'}"]
+        cp, cp_info = recs[f"{name}:cpu:{out_dir / 'cpu'}"]
         before, after = cu_info["cuda_mem"]
         if after != before:
-            raise AssertionError(f"dryrun {arch} {strategy}: the CUDA trace "
-                                 f"allocated device memory ({before} -> "
-                                 f"{after} bytes at peak) at "
+            raise AssertionError(f"dryrun {name}: the CUDA trace allocated "
+                                 f"device memory ({before} -> {after} "
+                                 f"bytes at peak) at "
                                  f"{cu_info['cuda_allocs']}")
         for key in cu:
             if key in ("lower_s", "compile_s"):
                 continue
             if cu[key] != cp[key]:
                 raise AssertionError(
-                    f"dryrun {arch} {strategy}: {key} on fake CUDA tensors "
+                    f"dryrun {name}: {key} on fake CUDA tensors "
                     f"{cu[key]} != on fake CPU tensors {cp[key]}")
-        out[f"{arch}__{strategy}"] = {
+        out[f"{arch}__{shape}__{variant}"] = {
             "record": cu, "trace_s": {"cuda": cu_info["wall_s"],
                                       "cpu": cp_info["wall_s"]},
             "cuda_max_memory_allocated": [before, after]}
-        log(f"[dryrun] {arch} {strategy}: the fake CUDA record == the fake "
-            f"CPU record in every field but the times; max_memory_allocated "
+        log(f"[dryrun] {name}: the fake CUDA record == the fake CPU record "
+            f"in every field but the times; max_memory_allocated "
             f"{before} -> {after}; traced in {cu_info['wall_s']:.1f}s (cuda) "
-            f"and {cp_info['wall_s']:.1f}s (cpu) in parallel")
-    log(f"[dryrun] the six traces, in parallel, collected {waited:.1f}s "
-        "after they started (each trace's own time above)")
+            f"and {cp_info['wall_s']:.1f}s (cpu)")
+    log(f"[dryrun] the {2 * len(DRYRUN_RUNS)} traces, at most {slots} at a "
+        f"time, done {waited:.1f}s after the first started")
     res["dryrun"] = {**out, "traces_wall_s": waited}
 
 
@@ -5135,6 +5477,10 @@ def _line_entry(k):
     routes = {r: k[r]["ms"] for r in ("q8_route", "f32_past_route",
                                       "f32_past_dense_route", "lse_route",
                                       "ds_route") if k.get(r)}
+    if k.get("split_route"):
+        # one rank's span partials + the combine of the gathered ranges
+        routes.update({f"split_route_r{R}": k["split_route"][R]["ms"]
+                       for R in SPLIT_RANGES})
     return {**{key: k[key] for key in LINE_KEYS},
             "launches_by_route": by_route, "routes_ms": routes}
 
@@ -5203,6 +5549,7 @@ def main(argv=None):
            "mixed_dtype": phase_mixed_dtype, "controller": phase_controller,
            "replay": phase_replay, "train": phase_train,
            "mesh": phase_mesh, "train_mesh": phase_train_mesh,
+           "forward_mesh": phase_forward_mesh,
            "dryrun": phase_dryrun, "profile": phase_profile}
     for p in phases:
         t0 = time.perf_counter()
@@ -5235,6 +5582,7 @@ def main(argv=None):
             "f32_past_route": c.get("f32_past_route"),
             "f32_past_dense_route": c.get("f32_past_dense_route"),
             "lse_route": c.get("lse_route"), "ds_route": c.get("ds_route"),
+            "split_route": c.get("split_route"),
             "span_ms": c.get("span_ms"),
             "library": c.get("library")})
     out_dir = ROOT / args.out

@@ -34,7 +34,9 @@ int run(const void* q, const void* k, const void* v, const void* k_pos,
 
 // q: (B, Hq, hd) with strides (q_sb, q_sh, 1); k, v: (B, Sk, KH, hd) with
 // strides (*_sb, *_ss, *_sh, 1); k_pos: (B, Sk) int32 with strides (kp_sb, 1);
-// q_pos: (B,) int32 contiguous; out: (B, Hq, hd) contiguous; part: float32
+// q_pos: (B,) int32 contiguous; out: (B, Hq, hd) contiguous, or nullptr for
+// the span-partial route (the partials are left in part: acc
+// [B][KH][spans][G][hd], then (m, l) [B][KH][spans][G][2]); part: float32
 // scratch of B*KH*spans*G*(hd+2) elements, spans = decode::n_spans(Sk).
 // Strides are in elements; softcap 0 leaves the logits uncapped.  Requires
 // G = Hq/KH <= 16, hd in {64, 128, 256}
@@ -58,4 +60,25 @@ extern "C" int decode_attention_launch(
     return run<float>(q, k, v, k_pos, q_pos, out, part, spans, B, Sk, KH, G,
                       hd, st, window, scale, softcap, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The combine alone: partials of R key ranges of `spans` spans each (the
+// span-partial route's scratches, gathered in range order), folded in
+// range then span order into out (B, Hq, hd) contiguous, of type dtype.
+// acc and ml are float32 with the strides (in floats) of range, batch row,
+// kv head and span (acc's query head stride is hd, ml's 2; see
+// decode::PartStrides).  Requires hd in {64, 128, 256}.  Returns the CUDA
+// error code.
+extern "C" int decode_combine_launch(
+    const void* acc, const void* ml, void* out, int B, int KH, int G, int hd,
+    int R, int spans, long long a_sr, long long a_sb, long long a_sh,
+    long long a_ss, long long m_sr, long long m_sb, long long m_sh,
+    long long m_ss, int dtype, void* stream) {
+  if (G < 1 || G > decode::kMaxG || R < 1 || spans < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return decode::combine_hd(hd, dtype, static_cast<const float*>(acc),
+                            static_cast<const float*>(ml), out, B, KH, G, R,
+                            spans, {a_sr, a_sb, a_sh, a_ss},
+                            {m_sr, m_sb, m_sh, m_ss},
+                            static_cast<cudaStream_t>(stream));
 }

@@ -43,6 +43,15 @@
 //   2, ..., skipping empty ones, normalises and casts to T.  No sum uses
 //   atomics, every sum has a fixed order, and results are the same on
 //   every run.
+// - Span partials alone.  A launch with no output (out == nullptr) runs the
+//   span kernel only and leaves the partials in the scratch: the
+//   sequence-sharded decode, where each rank holds one range of a cache's
+//   keys, runs it on its range (spans count from the range's first key),
+//   the ranks gather their scratches in rank order, and the combine kernel
+//   folds the gathered partials through strides (R ranges of `spans`
+//   spans each, range-major: global span order).  A rank range of whole
+//   spans gives exactly the partials the one-device launch gives for those
+//   keys, so the result is that launch's, bit for bit.
 //
 // Because spans are fixed key indices, a row's result depends only on its
 // own keys and q_pos: the same context gives the same bits in a ctx bucket
@@ -214,9 +223,11 @@ struct Cache {
 };
 
 // Scratch of one launch, float32: acc [B][KH][spans][G][HD], then (m, l)
-// [B][KH][spans][G][2].
-__device__ __forceinline__ float* partial_ml(float* part, int B, int KH,
-                                            int spans, int G, int HD) {
+// [B][KH][spans][G][2].  (Host code calls it too: a __device__-only
+// function called from the host compiles to a process exit there.)
+__host__ __device__ __forceinline__ float* partial_ml(float* part, int B,
+                                                     int KH, int spans, int G,
+                                                     int HD) {
   return part + (long long)B * KH * spans * G * HD;
 }
 
@@ -465,30 +476,61 @@ decode_kernel(const T* __restrict__ q, const int* __restrict__ q_pos,
   if (t < G) { ml[2 * t] = m_s[t]; ml[2 * t + 1] = l_s[t]; }
 }
 
-// One thread per (row, query head, dim): the row's partials folded in span
-// order, normalised, cast to T.  out: (B, Hq, hd) contiguous.
-template <typename T, int HD>
-__global__ void __launch_bounds__(HD)
-combine_kernel(const float* __restrict__ part, T* __restrict__ out, int KH,
-               int G, int spans) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int kh = h / G, g = h % G;
-  const float* ml = partial_ml(const_cast<float*>(part), gridDim.y, KH, spans, G, HD);
-  float m = kNegInf, l = 0.f, acc = 0.f;
-  for (int s = 0; s < spans; ++s) {
-    const long long r = (((long long)b * KH + kh) * spans + s) * G + g;
-    const float ls = ml[2 * r + 1];
-    if (ls == 0.f) continue;   // no valid key in this span
-    const float ms = ml[2 * r];
-    const float mn = fmaxf(m, ms);
-    const float ca = expf(m - mn), cb = expf(ms - mn);
-    l = l * ca + ls * cb;
-    acc = acc * ca + part[r * HD + d] * cb;
-    m = mn;
-  }
-  out[((long long)b * KH * G + h) * HD + d] = from_f32<T>(l > 0.f ? acc / l : 0.f);
+// Where partials lie, in floats: acc at r*r + b*b + kh*h + s*s + g*HD + d,
+// (m, l) at r*r + b*b + kh*h + s*s + 2*g (+ 1), for range r of R, batch row
+// b, kv head kh, span s of a range and query head g of the group.
+struct PartStrides {
+  long long r, b, h, s;
+};
+
+// The strides of one launch's scratch (R = 1): acc [B][KH][spans][G][HD],
+// then (m, l) [B][KH][spans][G][2].
+inline PartStrides scratch_strides(int KH, int spans, int G, int width) {
+  const long long s = (long long)G * width;
+  return {0, KH * spans * s, spans * s, s};
 }
 
+// One thread per (row, query head, dim): the row's partials folded in span
+// order (range by range), normalised, cast to T.  out: (B, Hq, hd)
+// contiguous.
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD)
+combine_kernel(const float* __restrict__ acc, const float* __restrict__ ml,
+               T* __restrict__ out, int KH, int G, int R, int spans,
+               long long a_r, long long a_b, long long a_h, long long a_s,
+               long long m_r, long long m_b, long long m_h, long long m_s) {
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int kh = h / G, g = h % G;
+  float m = kNegInf, l = 0.f, o = 0.f;
+  for (int r = 0; r < R; ++r) {
+    const float* mr = ml + r * m_r + b * m_b + kh * m_h + 2 * g;
+    const float* ar = acc + r * a_r + b * a_b + kh * a_h + g * HD + d;
+    for (int s = 0; s < spans; ++s, mr += m_s, ar += a_s) {
+      const float ls = mr[1];
+      if (ls == 0.f) continue;   // no valid key in this span
+      const float msp = mr[0];
+      const float mn = fmaxf(m, msp);
+      const float ca = expf(m - mn), cb = expf(msp - mn);
+      l = l * ca + ls * cb;
+      o = o * ca + *ar * cb;
+      m = mn;
+    }
+  }
+  out[((long long)b * KH * G + h) * HD + d] = from_f32<T>(l > 0.f ? o / l : 0.f);
+}
+
+template <typename T, int HD>
+int launch_combine(const float* acc, const float* ml, void* out, int B,
+                   int KH, int G, int R, int spans, const PartStrides& as,
+                   const PartStrides& ms, cudaStream_t s) {
+  combine_kernel<T, HD><<<dim3(KH * G, B), HD, 0, s>>>(
+      acc, ml, static_cast<T*>(out), KH, G, R, spans, as.r, as.b, as.h, as.s,
+      ms.r, ms.b, ms.h, ms.s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The span kernel, then (unless out is nullptr: the span-partial route) the
+// combine over its scratch.
 template <typename T, int HD, class Keys>
 int launch(const void* q, const void* q_pos, void* out, float* part,
            int spans, int B, int KH, int G, long long q_sb, long long q_sh,
@@ -503,14 +545,16 @@ int launch(const void* q, const void* q_pos, void* out, float* part,
       static_cast<const T*>(q), static_cast<const int*>(q_pos), part, KH, G,
       q_sb, q_sh, scale, softcap, keys);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  combine_kernel<T, HD><<<dim3(KH * G, B), HD, 0, s>>>(
-      part, static_cast<T*>(out), KH, G, spans);
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess || out == nullptr) return static_cast<int>(err);
+  return launch_combine<T, HD>(part, partial_ml(part, B, KH, spans, G, HD),
+                               out, B, KH, G, 1, spans,
+                               scratch_strides(KH, spans, G, HD),
+                               scratch_strides(KH, spans, G, 2), s);
 }
 
 // Instantiate `launch` for the head dim.  `part` holds the scratch of
-// `spans` = n_spans(walk) spans (the caller checks the count).
+// `spans` = n_spans(walk) spans (the caller checks the count); `out`
+// nullptr stops after the span kernel.
 template <typename T, class Keys>
 int dispatch_hd(int hd, const void* q, const void* q_pos, void* out,
                 void* part, int spans, int B, int KH, int G, long long q_sb,
@@ -527,6 +571,26 @@ int dispatch_hd(int hd, const void* q, const void* q_pos, void* out,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Instantiate `launch_combine` for the head dim and the output type.
+inline int combine_hd(int hd, int dtype, const float* acc, const float* ml,
+                      void* out, int B, int KH, int G, int R, int spans,
+                      const PartStrides& as, const PartStrides& ms,
+                      cudaStream_t s) {
+#define RT_COMBINE(T, HD) \
+  return launch_combine<T, HD>(acc, ml, out, B, KH, G, R, spans, as, ms, s)
+  if (dtype == kBF16) {
+    if (hd == 64) RT_COMBINE(__nv_bfloat16, 64);
+    if (hd == 128) RT_COMBINE(__nv_bfloat16, 128);
+    if (hd == 256) RT_COMBINE(__nv_bfloat16, 256);
+  } else if (dtype == kF32) {
+    if (hd == 64) RT_COMBINE(float, 64);
+    if (hd == 128) RT_COMBINE(float, 128);
+    if (hd == 256) RT_COMBINE(float, 256);
+  }
+#undef RT_COMBINE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace decode

@@ -26,8 +26,10 @@ using namespace rt;
 // with strides (*_sb, *_ss, *_sh, 1); k_scale, v_scale: float32
 // (B, Sk, KH, 1) with strides (*_sb, *_ss, *_sh, 1); k_pos: (B, Sk) int32
 // with strides (kp_sb, 1); q_pos: (B,) int32 contiguous; out: (B, Hq, hd)
-// contiguous, q's dtype; part: float32 scratch of B*KH*spans*G*(hd+2)
-// elements, spans = decode::n_spans(Sk).  Strides are in elements; softcap
+// contiguous, q's dtype, or nullptr for the span-partial route (the partials
+// are left in part, as decode_attention_launch leaves them; its
+// decode_combine_launch folds them); part: float32 scratch of
+// B*KH*spans*G*(hd+2) elements, spans = decode::n_spans(Sk).  Strides are in elements; softcap
 // 0 leaves the logits uncapped.
 // Requires G = Hq/KH <= 16, hd in {64, 128, 256} and 16-byte aligned K/V
 // rows.  Returns the CUDA error code.

@@ -8,7 +8,7 @@ ctx-bucket column slice of the engine's table is fine: it is read with its
 row stride) and q_pos (B,) int32.  Key j of a row has position j; it is
 valid when j <= q_pos and inside the window.  On CPU tensors the wrapper
 computes the plain version; on CUDA tensors it launches the kernel or
-raises.
+raises; on fake tensors it takes the shape-only route (``_build.count_fake``).
 
 Float pools have q's dtype, or are float32 under a bfloat16 q (a bf16
 model with float32 caches): the kernel then rounds each row it loads to
@@ -32,7 +32,7 @@ import ctypes
 import torch
 
 from . import _build
-from .decode_attention import scratch
+from .decode_attention import count_fake_decode, scratch
 from .ref import paged_decode_attention_ref
 
 # kernel launches by ``paged_decode_attention`` over pools of q's dtype,
@@ -77,6 +77,16 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, q_pos, *,
     page_table (B,n_pages) int32; q_pos (B,) int32 -> (B,1,Hq,hd).
     ``softcap`` > 0 caps the logits."""
     global launches, f32_past_launches, q8_launches
+    if _build.is_fake(q):
+        # the walk of every row is the table's n_pages * ps keys
+        B, _, Hq, hd = q.shape
+        P, ps, KH, _ = k_pool.shape
+        q8 = k_scale is not None
+        count_fake_decode(
+            "paged_decode_attention/q8" if q8 else "paged_decode_attention",
+            B, page_table.shape[1] * ps, KH, Hq, hd, q.element_size(),
+            key_bytes=2 * hd + 8 if q8 else 2 * hd * k_pool.element_size())
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pool, v_pool, page_table, q_pos, window=window,

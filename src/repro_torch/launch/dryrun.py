@@ -1,7 +1,8 @@
-"""The multi-pod dry-run (port of ``src/repro/launch/dryrun.py``, for the
-train shapes): one sharded train step of an arch's full config traced
-against the production mesh, recording memory, cost and collectives per
-device, without allocating device memory.
+"""The multi-pod dry-run (port of ``src/repro/launch/dryrun.py``): one
+sharded step of an arch's full config (a train step, the tensor-parallel
+prefill, or one decode step, by the shape's kind) traced against the
+production mesh, recording memory, cost and collectives per device,
+without allocating device memory.
 
 The reference compiles the step for a 16x16 (or 2x16x16) forced device
 mesh and reads XLA's analyses.  The port runs the step itself, in one
@@ -27,12 +28,16 @@ p and 2p) with one microbatch, extrapolated linearly in the groups of
 layers; since the port counts every operator that runs, it equals a
 full-depth trace's count with one microbatch.
 
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k --device cpu
-Outputs JSON to results/dryrun/<mesh>/<arch>__<shape>.json
+A forward step writes its caches in place, as the reference's donated
+caches alias its outputs: the record's ``alias_bytes`` are the caches'
+local bytes, counted in the arguments and in the outputs, and its peak is
+arguments + outputs + temporaries - aliased, as the reference's.
+``--kv-quant``, ``--moe-impl`` and ``--moe-group`` change the config as
+the reference's flags do and are kept in ``variant``.
 
-The forward shapes (prefill_32k, decode_32k, long_500k) come with ROADMAP
-A14's third slice and raise here.
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape decode_32k --device cpu
+Outputs JSON to results/dryrun/<mesh>/<arch>__<shape>.json
 """
 from __future__ import annotations
 
@@ -134,7 +139,9 @@ class _Counter:
                     self.coll[op]["bytes"] += sum(_nbytes(t) for t in outs)
                     break
             return
-        if name in _NO_WORK or func.is_view:
+        if name in _NO_WORK or func.is_view or (outs and all(
+                t.device.type == "meta" for t in outs)):
+            # no data moved, or shapes' stand-ins made (cache_specs')
             return
         fn = self._flops.get(func._overloadpacket)
         if fn is not None:
@@ -218,6 +225,36 @@ def trace_train(cfg, shape, mesh, strategy: str = "tp",
     return built, counter, arg_bytes, out_bytes
 
 
+def trace_forward(cfg, shape, mesh):
+    """One forward step (``shape.kind`` prefill or decode) of ``cfg`` on
+    ``mesh`` traced on fake tensors of the mesh's device type: (built,
+    counter, argument bytes, output bytes, aliased bytes: the caches')."""
+    from repro_torch.kernels import _build
+    counter = _Counter()
+    work0 = dict(_build.fake_work, calls=dict(_build.fake_work["calls"]))
+    with _counting_mode(counter):
+        built = build_step(cfg, shape, mesh)
+        params, caches, batch = built["args"]
+        arg_bytes = _local_bytes((params, caches, batch))
+        out, new_caches = built["fn"](params, caches, batch)
+        out_bytes = _local_bytes((out, new_caches))
+        alias = _local_bytes(new_caches)
+    counter.flops += _build.fake_work["flops"] - work0["flops"]
+    counter.bytes += _build.fake_work["bytes"] - work0["bytes"]
+    counter.kernel_calls = {k: v - work0["calls"].get(k, 0)
+                            for k, v in _build.fake_work["calls"].items()}
+    return built, counter, arg_bytes, out_bytes, alias
+
+
+def _trace(cfg, shape, mesh, strategy="tp", num_microbatches=None):
+    """``trace_train`` or ``trace_forward`` by the shape's kind: (built,
+    counter, argument bytes, output bytes, aliased bytes)."""
+    if shape.kind == "train":
+        return (*trace_train(cfg, shape, mesh, strategy, num_microbatches),
+                0)
+    return trace_forward(cfg, shape, mesh)
+
+
 def _cost_of(counter):
     return {"flops": counter.flops, "bytes": counter.bytes,
             "coll_bytes": sum(v["bytes"] for v in counter.coll.values())}
@@ -232,10 +269,10 @@ def extrapolate_costs(cfg, shape, mesh, strategy="tp"):
     ZeRO-1 all-gathers of its params), so its bytes are off the line that
     every depth from 2p on lies on."""
     p = len(cfg.block_pattern)
-    a = _cost_of(trace_train(cfg.replace(num_layers=2 * p), shape, mesh,
-                             strategy, 1)[1])
-    b = _cost_of(trace_train(cfg.replace(num_layers=3 * p), shape, mesh,
-                             strategy, 1)[1])
+    a = _cost_of(_trace(cfg.replace(num_layers=2 * p), shape, mesh,
+                        strategy, 1)[1])
+    b = _cost_of(_trace(cfg.replace(num_layers=3 * p), shape, mesh,
+                        strategy, 1)[1])
     n_groups = cfg.num_layers / p
     out = {}
     for k in a:
@@ -248,45 +285,54 @@ def extrapolate_costs(cfg, shape, mesh, strategy="tp"):
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool, outdir: str,
-            verbose: bool = True, strategy: str = "tp", tag: str = "",
-            extrapolate: bool = True, device="cuda"):
+            moe_impl: str = None, verbose: bool = True,
+            kv_quant: bool = False, strategy: str = "tp", tag: str = "",
+            extrapolate: bool = True, moe_group: int = None,
+            device="cuda"):
     """Trace ``arch``'s ``shape_name`` step on the production mesh of fake
     ``device`` tensors and write its record to
-    ``<outdir>/<arch>__<shape>[__tag].json``; returns the record.  The
-    reference's ``kv_quant``, ``moe_impl`` and ``moe_group`` variants act
-    on the forward shapes only (A14's third slice); the record's
-    ``variant`` keeps their keys at the config's values."""
+    ``<outdir>/<arch>__<shape>[__tag].json``; returns the record.
+    ``moe_impl`` / ``moe_group`` (MoE configs) and ``kv_quant`` change the
+    config as the reference's do."""
     from repro_torch.launch.mesh import make_production_mesh
     cfg = get_config(arch)
+    if moe_impl and cfg.is_moe:
+        cfg = cfg.replace(moe_impl=moe_impl)
+    if moe_group and cfg.is_moe:
+        cfg = cfg.replace(moe_group=moe_group)
+    if kv_quant:
+        cfg = cfg.replace(kv_quant=True)
     shape = SHAPES[shape_name]
     n_chips = 512 if multi_pod else 256
     with fake_world(n_chips):
         mesh = make_production_mesh(multi_pod=multi_pod, device=device)
         t0 = time.time()
-        built, counter, arg_bytes, out_bytes = trace_train(
+        built, counter, arg_bytes, out_bytes, alias = _trace(
             cfg, shape, mesh, strategy)
         t_trace = time.time() - t0
         extrap = extrapolate_costs(cfg, shape, mesh, strategy=strategy) \
             if extrapolate else {}
     coll = {**counter.coll,
             "total_bytes": sum(v["bytes"] for v in counter.coll.values())}
-    temp = counter.peak - arg_bytes - out_bytes
+    # the peak of live storage counts the caches once: it is arguments +
+    # new outputs + temporaries
+    temp = counter.peak - arg_bytes - (out_bytes - alias)
     result = {
         "arch": arch, "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16",
         "n_chips": n_chips,
         "kind": shape.kind,
         "meta": built["meta"],
-        "variant": {"kv_quant": False, "strategy": strategy,
-                    "moe_impl": None, "tag": tag},
+        "variant": {"kv_quant": kv_quant, "strategy": strategy,
+                    "moe_impl": moe_impl, "tag": tag},
         "moe_impl": cfg.moe_impl if cfg.is_moe else None,
         "lower_s": 0.0, "compile_s": round(t_trace, 1),
         "memory": {
             "argument_bytes": arg_bytes,
             "output_bytes": out_bytes,
             "temp_bytes": temp,
-            "alias_bytes": 0,
-            "peak_bytes_per_device": arg_bytes + out_bytes + temp,
+            "alias_bytes": alias,
+            "peak_bytes_per_device": arg_bytes + out_bytes + temp - alias,
         },
         "cost": {
             "flops_per_device": float(counter.flops),
@@ -319,6 +365,10 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True, choices=list(SHAPES))
     ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--moe-impl", default=None,
+                    choices=[None, "einsum", "scatter"])
+    ap.add_argument("--kv-quant", action="store_true")
+    ap.add_argument("--moe-group", type=int, default=None)
     ap.add_argument("--strategy", default="tp", choices=["tp", "fsdp"])
     ap.add_argument("--tag", default="", help="suffix for perf-variant outputs")
     ap.add_argument("--no-extrapolate", action="store_true",
@@ -332,8 +382,10 @@ def main(argv=None):
         "results", "dryrun", "2x16x16" if args.multi_pod else "16x16")
     try:
         run_one(args.arch, args.shape, args.multi_pod, outdir,
+                args.moe_impl, kv_quant=args.kv_quant,
                 strategy=args.strategy, tag=args.tag,
-                extrapolate=not args.no_extrapolate, device=args.device)
+                extrapolate=not args.no_extrapolate,
+                moe_group=args.moe_group, device=args.device)
     except Exception:
         traceback.print_exc()
         sys.exit(1)

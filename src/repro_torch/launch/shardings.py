@@ -17,8 +17,9 @@ Training: ``model_param_specs`` (tensor parallel, ``param_specs``),
 extra 'data' split of m, v and the float32 gradient accumulators),
 ``batch_axes_for`` and ``make_shard_ctx``; ``launch.specs.build_train``
 places a train state and batch by them.  ``cache_specs`` gives the
-tensor-parallel forwards' cache layout (specs only: nothing is placed with
-them until those forwards are ported, ROADMAP A14's third slice).
+tensor-parallel forwards' cache layout, by which ``launch.specs.
+build_prefill`` / ``build_decode`` place the caches (``specs.placed``: a
+full tensor's shard, or a meta tensor's for the dry-run).
 
 Serving: ``place`` stores a tensor as a DTensor that holds this rank's
 shard; ``gather_replicated`` turns a tree of them back into plain full
@@ -170,7 +171,7 @@ def serving_param_specs(cfg: ModelConfig, mesh):
 def cache_specs(cfg: ModelConfig, mesh, batch: int, max_len: int,
                 long_context: bool = False, dtype=torch.bfloat16):
     """(specs, shapes) trees parallel to ``init_cache``'s dense output (the
-    tensor-parallel forwards' placement; nothing is placed with them yet).
+    tensor-parallel forwards' placement).
     K/V shard their heads over 'model' where the heads divide it, else
     their sequence; without a batch split the sequence takes ('data',
     'model')."""

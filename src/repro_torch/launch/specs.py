@@ -1,20 +1,21 @@
-"""Assigned input shapes and ``build_train``, the train step on a mesh,
-for the dry-run and for sharded training (port of
-``src/repro/launch/specs.py``, its train half).
+"""Assigned input shapes and the step constructors, for the dry-run and for
+the port's sharded steps (port of ``src/repro/launch/specs.py``).
 
 ``input_specs(cfg, shape)`` gives meta tensors standing in for every model
 input (shapes and dtypes, no storage); ``build_train`` returns the train
-step of a mesh with its state and batch placed on it as DTensors.  The
-forward shapes (``prefill_32k``, ``decode_32k``, ``long_500k``) need the
-tensor-parallel serving forwards and the sequence-sharded decode, which
-come with ROADMAP A14's third slice: ``build_step`` refuses them.
+step of a mesh, ``build_prefill`` and ``build_decode`` the tensor-parallel
+forwards (the decode sequence-sharded where the kv heads do not divide
+'model'), ``build_serving_decode`` one paged decode step of the serving
+engine's mesh placement, each with its arguments placed on the mesh as
+DTensors; ``build_step`` picks one by the shape's kind.  The specs alone,
+which need no process group, come from ``forward_specs``.
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import specs
-    built = specs.build_train(get_config("qwen2-1.5b"),
-                              specs.SHAPES["train_4k"], mesh)
-    state, metrics = built["fn"](*built["args"])
+    built = specs.build_step(get_config("qwen2-1.5b"),
+                             specs.SHAPES["decode_32k"], mesh)
+    next_tok, caches = built["fn"](*built["args"])
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.models import ModelConfig
-from repro_torch.models.sharding import P, ShardCtx, placements
+from repro_torch.models import ModelConfig, decode_step, prefill
+from repro_torch.models.sharding import P, ShardCtx, local_call, placements
 from repro_torch.training import AdamWConfig, make_train_step
 from repro_torch.training import pytree
 from . import shardings as SH
@@ -189,10 +190,179 @@ def build_train(cfg: ModelConfig, shape: InputShape, mesh,
                 shd=shd, meta={"microbatches": mb})
 
 
+def forward_specs(cfg: ModelConfig, shape: InputShape, mesh) -> Dict:
+    """The specs of a forward step (``shape.kind`` prefill or decode) on a
+    mesh, the reference's ``build_prefill`` / ``build_decode``'s: params
+    (``model_param_specs``), caches (``cache_specs`` over seq_len slots,
+    ``long_500k``'s ring where ``needs_ring_override``), the batch, and
+    the outputs (the logits P(b, model) of a prefill, the next token P(b,
+    None) of a decode, then the caches); ``kv_seq_sharded`` when the model
+    attends and its kv heads do not divide 'model'; ``meta`` the record's.
+    ``mesh`` is a ``DeviceMesh`` or anything ``mesh_shape`` reads."""
+    B = shape.global_batch
+    b_ax = SH.batch_axes_for(mesh, B)
+    decode = shape.kind == "decode"
+    long_ctx = decode and shape.name == "long_500k" \
+        and needs_ring_override(cfg)
+    msize = SH.mesh_shape(mesh).get("model", 1)
+    pspecs, pshapes = SH.model_param_specs(cfg, mesh)
+    cspecs, cshapes = SH.cache_specs(cfg, mesh, B, shape.seq_len,
+                                     long_context=long_ctx)
+    batch = input_specs(cfg, shape)
+    batch_specs = {k: SH.sanitize_spec(v, batch[k].shape, mesh)
+                   for k, v in batch_input_shardings(cfg, shape,
+                                                     mesh).items()}
+    if decode:
+        out = P(b_ax if b_ax else None, None)
+    else:
+        out = SH.sanitize_spec(P(b_ax if b_ax else None, "model"),
+                               (B, cfg.vocab_size), mesh)
+    return dict(params=(pspecs, pshapes), caches=(cspecs, cshapes),
+                batch=(batch_specs, batch), out=(out, cspecs),
+                kv_seq_sharded=decode and cfg.has_attention
+                and cfg.num_kv_heads % msize != 0,
+                meta={"long_context": long_ctx} if decode else {})
+
+
+def _forward(cfg: ModelConfig, shape: InputShape, mesh, params, caches,
+             batch):
+    """Place a forward step's arguments (full tensors, or meta tensors
+    for shapes alone) by ``forward_specs``."""
+    fs = forward_specs(cfg, shape, mesh)
+    (pspecs, pshapes), (cspecs, cshapes) = fs["params"], fs["caches"]
+    batch_specs, batch_shapes = fs["batch"]
+    shd = dataclasses.replace(SH.make_shard_ctx(mesh, shape.global_batch),
+                              kv_seq_sharded=fs["kv_seq_sharded"])
+    args = (_place_tree(pshapes if params is None else params, pspecs, mesh),
+            _place_tree(cshapes if caches is None else caches, cspecs, mesh),
+            {k: placed(v, batch_specs[k], mesh) for k, v in
+             (batch_shapes if batch is None else batch).items()})
+    return fs, shd, args
+
+
+def build_prefill(cfg: ModelConfig, shape: InputShape, mesh, params=None,
+                  caches=None, batch=None):
+    """The tensor-parallel prefill of ``shape`` on ``mesh``: fn(params,
+    caches, inputs) -> (logits (B, vocab) split P(b, model), caches
+    written in place).  ``params`` / ``caches`` (``init_cache(cfg, B,
+    seq_len)``) / ``batch`` are full tensors to place, None for shapes
+    alone (the dry-run).  Returns dict(fn, args, specs=(param, cache and
+    batch specs), out_specs, shd, meta={})."""
+    fs, shd, args = _forward(cfg, shape, mesh, params, caches, batch)
+
+    def prefill_step(params, caches, inputs):
+        logits, caches, _ = prefill(params, cfg, inputs["tokens"], caches,
+                                    inputs.get("prefix_embeds"), shd=shd)
+        return logits, caches
+
+    return dict(fn=prefill_step, args=args,
+                specs=(fs["params"][0], fs["caches"][0], fs["batch"][0]),
+                out_specs=fs["out"], shd=shd, meta=fs["meta"])
+
+
+def build_decode(cfg: ModelConfig, shape: InputShape, mesh, params=None,
+                 caches=None, batch=None):
+    """One tensor-parallel greedy decode step of ``shape`` on ``mesh`` at
+    position seq_len - 1 (a full cache): fn(params, caches, inputs) ->
+    (next tokens (B, 1) int32, caches written in place).  Under
+    ``kv_seq_sharded`` the caches split their slots over 'model' and the
+    attention is the sequence-sharded decode.  Arguments and return as
+    ``build_prefill``'s; meta {"long_context": ...}."""
+    fs, shd, args = _forward(cfg, shape, mesh, params, caches, batch)
+    pos = shape.seq_len - 1
+    tok_pls = placements(fs["out"][0], mesh)
+
+    def serve_step(params, caches, inputs):
+        logits, caches = decode_step(params, cfg, inputs["tokens"], caches,
+                                     pos, shd=shd)
+        # each rank's rows, their logits gathered over the vocabulary
+        return local_call(lambda lg: lg.argmax(dim=-1).to(torch.int32)[:, None],
+                          mesh, [logits], [tok_pls], tok_pls), caches
+
+    return dict(fn=serve_step, args=args,
+                specs=(fs["params"][0], fs["caches"][0], fs["batch"][0]),
+                out_specs=fs["out"], shd=shd, meta=fs["meta"])
+
+
+def serving_decode_specs(cfg: ModelConfig, mesh, *, max_batch: int = 8,
+                         max_len: int = 256, page_size: int = 16,
+                         num_pages: int = 0) -> Dict:
+    """The specs of ``build_serving_decode`` (the reference's): params by
+    ``serving_param_specs``, the paged caches by ``serving_cache_specs``,
+    the slot vectors and page table split along 'data'; ``meta`` the
+    pool's pages and the stacked capacity axis."""
+    from repro_torch.models import init_cache
+    from repro_torch.models.kvcache import STACKED_CAPACITY_AXIS
+    B = max_batch
+    n_pages_per = -(-max_len // page_size)
+    pool = num_pages or (B * n_pages_per + 1)
+    pspecs, pshapes = SH.serving_param_specs(cfg, mesh)
+    cshapes = init_cache(cfg, B, max_len, dtype=torch.bfloat16,
+                         device="meta", paged_pool=(pool, page_size))
+    cspecs = SH.serving_cache_specs(cshapes, mesh)
+    row = SH.sanitize_spec(P("data"), (B,), mesh)
+    pt_spec = SH.sanitize_spec(P("data", None), (B, n_pages_per), mesh)
+    batch = {"tok": torch.empty((B,), dtype=torch.int32, device="meta"),
+             "pos": torch.empty((B,), dtype=torch.int32, device="meta"),
+             "active": torch.empty((B,), dtype=torch.bool, device="meta"),
+             "page_table": torch.empty((B, n_pages_per), dtype=torch.int32,
+                                       device="meta")}
+    batch_specs = {"tok": row, "pos": row, "active": row,
+                   "page_table": pt_spec}
+    return dict(params=(pspecs, pshapes), caches=(cspecs, cshapes),
+                batch=(batch_specs, batch), out=(row, cspecs),
+                meta={"pool_pages": pool,
+                      "capacity_axis": STACKED_CAPACITY_AXIS})
+
+
+def build_serving_decode(cfg: ModelConfig, mesh, *, max_batch: int = 8,
+                         max_len: int = 256, page_size: int = 16,
+                         num_pages: int = 0, params=None, caches=None,
+                         batch=None):
+    """One paged decode step of the serving engine's mesh placement (the
+    reference's ``build_serving_decode``): params stored by
+    ``serving_param_specs``, the paged pool, page table and slot vectors
+    along 'data'.  As the engine does on a mesh, the step gathers what the
+    kernels read whole (``gather_replicated``), runs the unsharded decode
+    of the whole batch on every rank, and keeps each rank's shard of the
+    written caches (``keep_shards``), so it is the single-device step bit
+    for bit.  fn(params, caches, inputs{tok, pos, active, page_table}) ->
+    (next tokens (B,) int32 split along 'data', caches).  Arguments as
+    ``build_prefill``'s (``caches`` an ``init_cache(..., paged_pool=)``
+    tree); meta {"pool_pages", "capacity_axis"}."""
+    fs = serving_decode_specs(cfg, mesh, max_batch=max_batch,
+                              max_len=max_len, page_size=page_size,
+                              num_pages=num_pages)
+    (pspecs, pshapes), (cspecs, cshapes) = fs["params"], fs["caches"]
+    batch_specs, batch_shapes = fs["batch"]
+    row = fs["out"][0]
+    shd = SH.make_serving_shard_ctx(mesh)
+    args = (_place_tree(pshapes if params is None else params, pspecs, mesh),
+            _place_tree(cshapes if caches is None else caches, cspecs, mesh),
+            {k: placed(v, batch_specs[k], mesh) for k, v in
+             (batch_shapes if batch is None else batch).items()})
+
+    def serving_step(params, caches, inputs):
+        p = SH.gather_replicated(params, mesh)
+        c = SH.gather_replicated(caches, mesh)
+        x = SH.gather_replicated(inputs, mesh)
+        logits, _ = decode_step(p, cfg, x["tok"][:, None], c, x["pos"],
+                                page_table=x["page_table"],
+                                active=x["active"])
+        SH.keep_shards(caches, c, mesh)
+        nxt = logits.argmax(dim=-1).to(torch.int32)
+        return SH.place(nxt, row, mesh), caches
+
+    return dict(fn=serving_step, args=args,
+                specs=(pspecs, cspecs, batch_specs), out_specs=fs["out"],
+                shd=shd, meta=fs["meta"])
+
+
 def build_step(cfg: ModelConfig, shape: InputShape, mesh, **kw):
+    """The step of ``shape`` on ``mesh``: ``build_train`` for a train
+    shape (``kw`` its options), ``build_prefill`` or ``build_decode``."""
     if shape.kind == "train":
         return build_train(cfg, shape, mesh, **kw)
-    raise NotImplementedError(
-        f"{shape.name} ({shape.kind}): the dry-run's forward shapes need the "
-        "tensor-parallel serving forwards and the sequence-sharded decode, "
-        "ROADMAP A14's third slice")
+    if shape.kind == "prefill":
+        return build_prefill(cfg, shape, mesh, **kw)
+    return build_decode(cfg, shape, mesh, **kw)

@@ -119,16 +119,19 @@ def state_write_slot(batch_cache: Dict, one_cache: Dict, slot) -> Dict:
     return batch_cache
 
 
-def ring_slot_positions(buf_len: int, pos):
+def ring_slot_positions(buf_len: int, pos, lo: int = 0, n=None):
     """Absolute position stored in each slot of a ring buffer of length
     ``buf_len`` when the *next* token to be written has position ``pos``
     (entries written so far are positions 0..pos-1, the last ``buf_len`` of
     them resident).  Unfilled slots get -1 (masked).
 
     ``pos`` is a 0-d tensor (returns (buf_len,)) or a (B,) vector of
-    per-slot stream positions (returns (B, buf_len))."""
+    per-slot stream positions (returns (B, buf_len)).  ``lo`` and ``n``
+    give slots lo..lo+n-1 alone (a rank's range of a sequence-sharded
+    buffer)."""
     pos = torch.as_tensor(pos, dtype=torch.int32)
-    j = torch.arange(buf_len, dtype=torch.int32, device=pos.device)
+    j = torch.arange(lo, lo + (buf_len if n is None else n),
+                     dtype=torch.int32, device=pos.device)
     last = pos[..., None] - 1
     p = last - torch.remainder(last - j, buf_len)
     return torch.where(p < 0, -1, p).to(torch.int32)
@@ -249,6 +252,64 @@ def cache_key_positions(cache: Dict, pos, batch: int):
     if p.ndim == 2:
         return p
     return p[None, :].expand(batch, buf_len)
+
+
+# -- a rank's shard of a placed cache ---------------------------------------------
+# On a mesh (``launch.shardings.cache_specs``) a rank holds its batch rows
+# of a dense cache, and either its kv heads or its range of ring slots
+# lo..lo+n-1 of a buf_len-slot buffer (``ShardCtx.key_range``).  These
+# writes take the rank's local tensors, whose rows and heads are those of
+# the K/V they are given, and write the positions whose ring slots the
+# rank holds; the other ranks hold the rest.  Their index shapes do not
+# depend on the data (the dry-run traces them on fake tensors).
+
+
+def shard_write_decode(cache: Dict, k_new, v_new, pos, lo: int,
+                       buf_len: int) -> Dict:
+    """``cache_write_decode`` on slots lo..lo+n-1 of a buf_len-slot
+    buffer (n the shard's length): a row whose slot ``pos % buf_len`` lies
+    outside writes its old values back."""
+    B = k_new.shape[0]
+    n = cache["k"].shape[1]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=k_new.device)
+    local = torch.remainder(pos.expand(B), buf_len) - lo
+    inside = (local >= 0) & (local < n)
+    slots = torch.where(inside, local, 0).long()
+    rows = torch.arange(B, device=k_new.device)
+    for name, val in _writes(cache, k_new, v_new):
+        leaf = cache[name]
+        new = val[:, 0].to(leaf.dtype)
+        leaf[rows, slots] = torch.where(
+            inside.view((B,) + (1,) * (new.ndim - 1)), new, leaf[rows, slots])
+    return cache
+
+
+def shard_write_prefill(cache: Dict, k_seq, v_seq, lo: int,
+                        buf_len: int) -> Dict:
+    """``cache_write_prefill`` on slots lo..lo+n-1 of a buf_len-slot
+    buffer: each slot takes the last prompt position that lands on it (p %
+    buf_len == slot, p >= S - buf_len), a slot no position reaches keeps
+    its values."""
+    S = k_seq.shape[1]
+    n = cache["k"].shape[1]
+    g = torch.arange(lo, lo + n, device=k_seq.device)
+    p = g + buf_len * torch.div(S - 1 - g, buf_len, rounding_mode="floor")
+    hit = p >= max(0, S - buf_len)
+    src = torch.where(hit, p, 0)
+    for name, val in _writes(cache, k_seq, v_seq):
+        leaf = cache[name]
+        new = val.index_select(1, src).to(leaf.dtype)
+        leaf.copy_(torch.where(hit.view((1, n) + (1,) * (new.ndim - 2)), new,
+                               leaf))
+    return cache
+
+
+def shard_key_positions(buf_len: int, pos, batch: int, lo: int, n: int):
+    """``cache_key_positions`` of slots lo..lo+n-1: (B, n)."""
+    p = ring_slot_positions(buf_len, torch.as_tensor(pos) + 1, lo, n)
+    if p.ndim == 2:
+        return p
+    return p[None, :].expand(batch, n)
 
 
 # -- paged pools ---------------------------------------------------------------------

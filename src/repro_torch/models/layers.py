@@ -85,7 +85,17 @@ def init_norm(cfg: ModelConfig, device, lead=()):
     return p
 
 
+def _norm_weights(cfg: ModelConfig, p):
+    return [p["scale"]] if cfg.norm == "rms" else [p["scale"], p["bias"]]
+
+
 def apply_norm(cfg: ModelConfig, p, x):
+    """The block's norm of x; on DTensors (the serving forwards on a mesh)
+    each rank normalises its own rows (``on_rows``)."""
+    if is_dtensor(x):
+        return on_rows(lambda x_, *w: apply_norm(
+            cfg, dict(zip(("scale", "bias"), w)), x_), [x],
+            _norm_weights(cfg, p))
     if cfg.norm == "rms":
         return rmsnorm(x, p["scale"], cfg.norm_eps)
     return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
@@ -121,7 +131,13 @@ def _add_norm_train(cfg: ModelConfig, w, x, delta):
 def apply_add_norm(cfg: ModelConfig, p, x, delta):
     """The residual add and the norm of its sum: x becomes x + delta in
     place; returns (x, norm(x)).  RMSNorm takes one launch on CUDA tensors
-    (``add_rmsnorm``); layer norm is a plain add, then the norm."""
+    (``add_rmsnorm``); layer norm is a plain add, then the norm.  On
+    DTensors each rank adds and normalises its own rows, after the partial
+    sums in ``delta`` are reduced."""
+    if is_dtensor(x):
+        return on_rows(lambda x_, d_, *w: apply_add_norm(
+            cfg, dict(zip(("scale", "bias"), w)), x_, d_), [x, delta],
+            _norm_weights(cfg, p), n_out=2)
     if cfg.norm == "rms":
         return _rmsnorm_kernel.add_rmsnorm(x, delta, p["scale"],
                                            cfg.norm_eps)

@@ -223,6 +223,19 @@ class ShardCtx:
             return tree.redistribute(self.mesh, replicated(self.mesh))
         return tree
 
+    def key_range(self, cache_leaf) -> Tuple[int, int, Tuple[int, ...]]:
+        """(first slot, slots, mesh dims) of this rank's range of a decode
+        cache's keys: ``cache_leaf`` is one layer's K (or V) DTensor (B,
+        buf_len, KH, hd), placed by ``cache_specs``.  Under
+        ``kv_seq_sharded`` its slots are split over 'model' (or ('data',
+        'model') when the batch is not split: ``long_500k``), and the mesh
+        dims are those that split them, in mesh order; the ranks of those
+        dims hold the ranges in that order (``gather_ranges``).  A cache
+        whose slots no axis splits (or no mesh) gives (0, buf_len, ())."""
+        if self.mesh is None or not is_dtensor(cache_leaf):
+            return 0, cache_leaf.shape[1], ()
+        return shard_range(cache_leaf, 1)
+
     def model_slot(self) -> Tuple[int, int]:
         """(this rank's index along the model axis, the axis size); (0, 1)
         without one."""
@@ -233,3 +246,47 @@ class ShardCtx:
 
 
 NOSHARD = ShardCtx()
+
+
+def shard_range(x, dim: int) -> Tuple[int, int, Tuple[int, ...]]:
+    """(first index, count, mesh dims) of this rank's shard of DTensor
+    ``x`` along ``dim``: the mesh dims that shard it, in mesh order, each
+    cutting the previous one's chunk evenly (DTensor's left-to-right
+    sharding; the specs are sanitized, so every split is even)."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    lo, n, dims = 0, x.shape[dim], []
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            n //= mesh.shape[i]
+            lo += coord[i] * n
+            dims.append(i)
+    return lo, n, tuple(dims)
+
+
+def layer_view(stacked, r: int):
+    """Layer ``r`` of a stacked leaf (n_rep, ...) on a mesh: a DTensor
+    whose local tensor is a view of the stored shard's layer, so a write
+    into its local tensor lands in the stored leaf.  The leading axis is
+    never split."""
+    from torch.distributed.tensor import DTensor, Shard
+    pls = [Shard(p.dim - 1) if p.is_shard() else p
+           for p in stacked.placements]
+    return DTensor.from_local(stacked.to_local()[r], stacked.device_mesh,
+                              pls, run_check=False,
+                              shape=stacked.shape[1:],
+                              stride=stacked.stride()[1:])
+
+
+def gather_ranges(part, mesh, dims: Sequence[int]):
+    """This rank's tensor ``part`` (n,) and those of the ranks that share
+    its coordinates outside mesh dims ``dims``, gathered in range order:
+    (R, n), row i the partials of the i-th range, R the product of the
+    dims' sizes.  One all-gather per dim, the innermost first, so ranges
+    come out major-first as ``shard_range`` numbers them; data movement
+    only."""
+    import torch.distributed._functional_collectives as fc
+    out = part.reshape(1, -1)
+    for d in reversed(tuple(dims)):
+        out = fc.wait_tensor(fc.all_gather_tensor(out, 0, (mesh, d)))
+    return out

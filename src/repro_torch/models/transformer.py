@@ -71,8 +71,11 @@ import torch.utils.checkpoint
 from repro_torch.core.prng import gumbel
 from repro_torch.kernels._build import ROUNDED_PAST
 from repro_torch.kernels.chunk_attention import chunk_attention
-from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.decode_attention_q8 import decode_attention_q8
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_partials,
+                                                  decode_combine)
+from repro_torch.kernels.decode_attention_q8 import (
+    decode_attention_q8, decode_attention_q8_partials)
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention)
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
@@ -81,8 +84,9 @@ from . import layers as L
 from . import moe
 from .config import ModelConfig, FULL_ATTN, LOCAL_ATTN, SSM, RGLRU
 from .rglru import init_rglru, rglru_decode_step, rglru_forward
-from .sharding import (NOSHARD, P, ShardCtx, is_dtensor, local_call,
-                       mesh_shape, partial_over, placements, replicated)
+from .sharding import (NOSHARD, P, ShardCtx, gather_ranges, is_dtensor,
+                       layer_view, local_call, mesh_shape, partial_over,
+                       placements, replicated)
 from .ssm import init_ssm, ssm_decode_step, ssm_forward
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -344,10 +348,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
                 cache, pos, slot=None, k_pos_memo=None, length=None,
                 page_table=None, shd: ShardCtx = NOSHARD):
-    if shd.mesh is not None and mode != "train":
-        raise NotImplementedError(
-            "tensor-parallel serving forwards come with ROADMAP A14's "
-            "third slice; a mesh runs the train mode only")
     B, S, _ = x.shape
     a = p["attn"]
     q = x @ a["q"]
@@ -357,6 +357,13 @@ def _apply_attn(cfg: ModelConfig, p, x, kind, *, mode, positions, rope,
         q, k, v = q + a["q_b"], k + a["k_b"], v + a["v_b"]
     if mode == "train":
         return _attn_train(cfg, a, q, k, v, kind, rope, shd)
+    if shd.mesh is not None:
+        if slot is not None or page_table is not None:
+            raise ValueError("on a mesh the model runs the unpadded prefill "
+                             "and the dense decode; slots and page tables "
+                             "go through the serving engine")
+        return _attn_mesh(cfg, a, q, k, v, kind, mode=mode, cache=cache,
+                          pos=pos, rope=rope, shd=shd)
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
@@ -560,6 +567,130 @@ def _attn_train(cfg: ModelConfig, a, q, k, v, kind, rope, shd: ShardCtx):
     return out.reshape(B, S, cfg.q_dim) @ wo
 
 
+# calls of the sequence-sharded decode (``_attn_mesh``'s span-partial
+# route), one per attention layer and step, on CPU and CUDA tensors alike
+seq_sharded_calls = 0
+
+
+def _attn_mesh(cfg: ModelConfig, a, q, k, v, kind, *, mode, cache, pos,
+               rope, shd: ShardCtx):
+    """Prefill or decode attention on a mesh, after the column-parallel
+    projections, with the layer's cache placed by ``cache_specs`` (DTensor
+    views, ``layer_view``).  The kernel entry is one ``local_call``: each
+    rank takes the QK norm and RoPE of its rows, writes the positions of
+    its shard of the cache (its rows, and its kv heads or its range of
+    ring slots: ``kvcache.shard_write_*``) and runs the kernel on them.
+
+    Prefill, and decode of a cache split by kv heads, run the train
+    path's layout (``_attn_layout``: q heads over 'model', each rank the
+    KV heads its query heads read).  A decode whose cache splits its
+    slots (``kv_seq_sharded``) keeps q whole over heads, as the reference
+    does, and runs the sequence-sharded decode: each rank the span-partial
+    route over its key range (``ShardCtx.key_range``), the ranks' partials
+    gathered in range order (``gather_ranges``), then the combine route;
+    GQA is never expanded.  Returns the o projection's (partial) sums."""
+    global seq_sharded_calls
+    B, S, _ = q.shape
+    Hq, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _split_heads(q, Hq, hd)
+    k = _split_heads(k, KH, hd)
+    v = _split_heads(v, KH, hd)
+    ck = cache["k"]
+    buf_len = ck.shape[1]
+    lo, n, seq_dims = shd.key_range(ck)
+    norms = [a["q_norm"], a["k_norm"]] if cfg.qk_norm else []
+    seq_split = mode == "decode" and (shd.kv_seq_sharded or bool(seq_dims))
+    wo = a["o"]
+    if seq_split:
+        heads, qpl, kvpl = None, _batch_pls(shd, q), _batch_pls(shd, k)
+    else:
+        q = shd.cs(q, "b", None, "m", None)
+        heads, pls, wo = _attn_layout(cfg, q, wo, len(norms), shd)
+        qpl, kvpl = pls["in_pls"][0], list(pls["in_pls"][1])
+        names = list(mesh_shape(shd.mesh))
+        mi = names.index(shd.model_axis) if shd.model_axis in names else None
+        if mi is not None and kvpl[mi].is_shard() \
+                and not ck.placements[mi].is_shard(2):
+            # the rank's q heads read its own kv heads, but the cache
+            # holds every kv head (its slots or rows split instead): K/V
+            # whole over heads for the write, sliced for the kernel
+            kvpl[mi] = replicated(shd.mesh)[mi]
+            heads = _kv_heads_of(cfg, True, False, shd)
+    dev = ck.to_local().device
+    if mode == "decode":
+        if not is_dtensor(pos):
+            pos = _on_mesh(_row_positions(pos, B, dev), shd)
+    else:
+        pos = _on_mesh(torch.zeros(B, dtype=torch.int32, device=dev), shd)
+    pls = {"in_pls": [qpl, kvpl, kvpl, pos.placements]
+           + [replicated(shd.mesh)] * len(norms), "out_pls": qpl}
+    local = {name: leaf.to_local() for name, leaf in cache.items()}
+    window = cfg.window if kind == LOCAL_ATTN else 0
+    cap = cfg.attn_softcap
+
+    def core(q_, k_, v_, pos_, *norms_):
+        nonlocal window
+        if mode == "prefill":
+            q_, k_ = _qk_prep(cfg, q_, k_, norms_, _positions(q_), rope,
+                              L.rmsnorm)
+            KV.shard_write_prefill(local, k_, v_, lo, buf_len)
+            if window == 0 and buf_len < S:
+                window = buf_len
+            if heads is not None:
+                k_ = k_[:, :, heads[0]:heads[0] + heads[1]]
+                v_ = v_[:, :, heads[0]:heads[0] + heads[1]]
+            return flash_attention(q_, k_, v_, causal=True, window=window,
+                                   softcap=cap, scale=cfg.attn_scale)
+        q_, k_ = _qk_prep(cfg, q_, k_, norms_, pos_[:, None], rope,
+                          L.rmsnorm)
+        KV.shard_write_decode(local, k_, v_, pos_, lo, buf_len)
+        k_pos = KV.shard_key_positions(buf_len, pos_, q_.shape[0], lo, n)
+        if window == 0 and buf_len < cfg.max_seq:
+            window = buf_len
+        kw = dict(window=window, softcap=cap, scale=cfg.attn_scale)
+        sl = slice(None) if heads is None else \
+            slice(heads[0], heads[0] + heads[1])
+        kc, vc = local["k"][:, :, sl], local["v"][:, :, sl]
+        q8 = "k_s" in local
+        if q8:
+            args = (kc, local["k_s"][:, :, sl], vc, local["v_s"][:, :, sl])
+        else:
+            args = (kc.to(q_.dtype), vc.to(q_.dtype))
+        if not seq_split:
+            if q8:
+                return decode_attention_q8(q_, *args, k_pos, pos_, **kw)
+            return decode_attention(q_, *args, k_pos, pos_, **kw)
+        part = (decode_attention_q8_partials if q8 else
+                decode_attention_partials)(q_, *args, k_pos, pos_, **kw)
+        part = gather_ranges(part, shd.mesh, seq_dims)
+        return decode_combine(part, q_.shape[0], KH, Hq // KH, hd, q_.dtype)
+
+    if seq_split:
+        seq_sharded_calls += 1
+    out = local_call(core, shd.mesh, [q, k, v, pos, *norms], **pls)
+    out = shd.cs(out, "b", None, None if seq_split else "m", None)
+    return out.reshape(B, S, cfg.q_dim) @ wo
+
+
+def _row_positions(pos, B: int, device):
+    """Per-row decode positions (B,) int32 on ``device`` from a host int or
+    a tensor (scalar or (B,)); a host int is filled in, not copied from the
+    host (under a fake mode a tensor made from host data is a real one)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int32).expand(B).contiguous()
+    return torch.full((B,), int(pos), dtype=torch.int32, device=device)
+
+
+def _on_mesh(x, shd: ShardCtx):
+    """A full tensor every rank holds alike (a batch's positions) as a
+    DTensor split by rows over the batch axes (each rank keeps its rows;
+    no communication)."""
+    from torch.distributed.tensor import DTensor
+    full = DTensor.from_local(x, shd.mesh, replicated(shd.mesh),
+                              run_check=False)
+    return full.redistribute(shd.mesh, _batch_pls(shd, x))
+
+
 def _past_for(q, k, v, page_table=None):
     """A K/V past (pool, or dense row) as the attention kernels take it
     under ``q``: as it is when its dtype is q's, int8 (dequantized in the
@@ -616,6 +747,47 @@ def _recurrent_train(cfg: ModelConfig, kind: str, p, x, shd: ShardCtx):
     return L.on_rows(mixer, [x], ws)
 
 
+def _recurrent_mesh(cfg: ModelConfig, kind: str, p, x, mode, cache, slot,
+                    active, shd: ShardCtx):
+    """Prefill (every row from zeros) or decode of the SSM or RG-LRU mixer
+    on a mesh, its state placed by ``cache_specs`` (the SSM's heads and
+    the conv windows' channels over 'model', rows over the batch axes).
+    As in train mode the weights are gathered whole and each rank runs the
+    mixer on its own rows, so each rank first gathers its rows' state whole
+    over 'model'; it then keeps its own shard of the new state."""
+    if slot is not None or active is not None:
+        raise ValueError("on a mesh the recurrent mixers run the unpadded "
+                         "prefill and the decode of every row")
+    bp = p["ssm"] if kind == SSM else p["rglru"]
+    keys = sorted(bp)
+    ws = [bp[k].redistribute(shd.mesh, replicated(shd.mesh)) for k in keys]
+    names = sorted(cache)
+    rows = [cache[n].redistribute(shd.mesh, _batch_pls(shd, cache[n]))
+            for n in names]
+    xpl = _batch_pls(shd, x)
+
+    def mixer(x_, *rest):
+        w = dict(zip(keys, rest[:len(keys)]))
+        state = dict(zip(names, rest[len(keys):]))
+        if mode == "decode":
+            step = ssm_decode_step if kind == SSM else rglru_decode_step
+            mix, new = step(cfg, w, x_, state)
+        else:
+            fwd = ssm_forward if kind == SSM else rglru_forward
+            mix, new = fwd(cfg, w, x_, return_state=True, cache=None,
+                           length=None)
+        return (mix, *(new[n].to(state[n].dtype) for n in names))
+
+    outs = local_call(mixer, shd.mesh, [x, *ws, *rows],
+                      [xpl] + [replicated(shd.mesh)] * len(ws)
+                      + [r.placements for r in rows],
+                      (xpl, *(r.placements for r in rows)))
+    for n, new in zip(names, outs[1:]):
+        cache[n].to_local().copy_(
+            new.redistribute(shd.mesh, cache[n].placements).to_local())
+    return outs[0]
+
+
 def _apply_recurrent(cfg: ModelConfig, kind: str, p, x, *, mode, cache,
                      pos, slot=None, length=None, active=None,
                      shd: ShardCtx = NOSHARD, **_):
@@ -627,6 +799,9 @@ def _apply_recurrent(cfg: ModelConfig, kind: str, p, x, *, mode, cache,
     runs the sequence from zeros and keeps no state."""
     if mode == "train":
         return _recurrent_train(cfg, kind, p, x, shd)
+    if shd.mesh is not None:
+        return _recurrent_mesh(cfg, kind, p, x, mode, cache, slot, active,
+                               shd)
     if kind == SSM:
         fwd, step, bp = ssm_forward, ssm_decode_step, p["ssm"]
     else:
@@ -725,14 +900,16 @@ def _run_stages(cfg: ModelConfig, params, x, *, caches, **kw):
     the caller, which fuses it with the final norm when that norm takes the
     whole stream (decode)."""
     delta = None
+    on_mesh = kw.get("shd", NOSHARD).mesh is not None
     for (kinds, n_rep), sp, sc in zip(stages_of(cfg), params["stages"],
                                       caches):
         for r in range(n_rep):
             for j, kind in enumerate(kinds):
+                cache = {k: layer_view(v, r) for k, v in sc[j].items()} \
+                    if on_mesh else _layer(sc[j], r)
                 x, delta, _ = _apply_block(cfg, kind,
                                            _layer(sp["blocks"][j], r), x,
-                                           delta, cache=_layer(sc[j], r),
-                                           **kw)
+                                           delta, cache=cache, **kw)
     return x, delta
 
 
@@ -828,7 +1005,22 @@ def _embed_inputs(cfg: ModelConfig, params, tokens, prefix_embeds=None,
     reduces), the prefix is projected by a DTensor product, and the sincos
     positions are added on each rank's rows."""
     emb = shd.use(params["embed"])
-    table = emb["embedding"]
+    x = _lookup(cfg, emb["embedding"], tokens, shd)
+    if prefix_embeds is not None:
+        pe = prefix_embeds.to(x.dtype) @ emb["prefix_proj"]
+        x = torch.cat([shd.cs(pe, "b", None, None), x], dim=1)
+    if cfg.pos_embedding == "sincos":
+        pls = _batch_pls(shd, x)
+        x = local_call(lambda x_: _add_positions(
+            cfg, x_, _positions(x_, start_pos)), shd.mesh, [x], [pls], pls)
+    return shd.cs(x, "b", None, None), _positions(x, start_pos)
+
+
+def _lookup(cfg: ModelConfig, table, tokens, shd: ShardCtx = NOSHARD):
+    """The token embeddings (B, S, d) of ``tokens`` in ``table``; on a mesh
+    each rank looks up its batch rows in its vocabulary shard (rows outside
+    it read zeros, a partial sum over 'model' that the constraint after it
+    reduces), the reference's one-hot product in values."""
     split = _vocab_split(shd, table, 0)
 
     def lookup(tab, tok):
@@ -850,16 +1042,8 @@ def _embed_inputs(cfg: ModelConfig, params, tokens, prefix_embeds=None,
         pls = {"in_pls": [table.placements, tpl], "out_pls": out_pl,
                "grad_pls": [[partial_over(tpl)[i] if p.is_replicate() else p
                              for i, p in enumerate(table.placements)], None]}
-    x = shd.cs(local_call(lookup, shd.mesh, [table, tokens], **pls),
-               "b", None, None)
-    if prefix_embeds is not None:
-        pe = prefix_embeds.to(x.dtype) @ emb["prefix_proj"]
-        x = torch.cat([shd.cs(pe, "b", None, None), x], dim=1)
-    if cfg.pos_embedding == "sincos":
-        pls = _batch_pls(shd, x)
-        x = local_call(lambda x_: _add_positions(
-            cfg, x_, _positions(x_, start_pos)), shd.mesh, [x], [pls], pls)
-    return shd.cs(x, "b", None, None), _positions(x, start_pos)
+    return shd.cs(local_call(lookup, shd.mesh, [table, tokens], **pls),
+                  "b", None, None)
 
 
 def _vocab_split(shd: ShardCtx, table, dim: int):
@@ -891,7 +1075,8 @@ def _batch_pls(shd: ShardCtx, x):
 
 # -- public API ------------------------------------------------------------------------
 
-def prefill(params, cfg: ModelConfig, tokens, caches, prefix_embeds=None):
+def prefill(params, cfg: ModelConfig, tokens, caches, prefix_embeds=None,
+            shd: ShardCtx = NOSHARD):
     """The unpadded prefill: B prompts of one length, ``tokens`` (B, S),
     after ``prefix_embeds`` (B, P, d) when given, into fresh batch caches
     (``init_cache(cfg, B, ...)``, dense: no page pool), every row from
@@ -899,8 +1084,27 @@ def prefill(params, cfg: ModelConfig, tokens, caches, prefix_embeds=None):
     shorter than that keeps the last positions), recurrent rows start from
     zeros, and an MoE FFN routes all B*(P+S) tokens.
 
+    On a mesh (``shd``) params and caches (placed by ``cache_specs``) are
+    DTensors, tokens and prefix DTensors or full tensors: the
+    tensor-parallel forward (``_attn_mesh``,
+    ``_recurrent_mesh``, the MoE FFN's mesh path), the logits split over
+    the vocabulary as the reference's constraint P(b, m) puts them.
+
     Returns (last_logits (B, vocab), caches, next_pos == P + S).
     """
+    if shd.mesh is not None:
+        tokens, prefix_embeds = (x if x is None or is_dtensor(x) else
+                                 _on_mesh(x, shd)
+                                 for x in (tokens, prefix_embeds))
+        x, _ = _embed_inputs(cfg, params, tokens, prefix_embeds, shd=shd)
+        S = x.shape[1]
+        x, delta = _run_stages(cfg, params, x, caches=caches, mode="prefill",
+                               positions=None,
+                               rope=L.rope_freqs(cfg, x.device), pos=None,
+                               shd=shd)
+        last = _last_row_norm(cfg, params, x, delta, S)
+        logits = _unembed_mesh(cfg, params["embed"], last, shd)[:, 0]
+        return shd.cs(logits, "b", "m"), caches, S
     x, positions = _embed_inputs(cfg, params, tokens, prefix_embeds)
     S = x.shape[1]
     x, delta = _run_stages(cfg, params, x, caches=caches, mode="prefill",
@@ -1196,7 +1400,7 @@ def sampling_filter(lg, temps, top_k, top_p):
 
 
 def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
-                page_table=None, active=None):
+                page_table=None, active=None, shd: ShardCtx = NOSHARD):
     """tokens (B,1) -> (logits (B,vocab), caches).
 
     ``pos`` is a (B,) int32 vector of per-slot positions (each row attends
@@ -1206,7 +1410,15 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
     hold paged pools.  ``active`` ((B,) bool) freezes the inactive rows'
     recurrent (SSM / RG-LRU) states, which no position mask hides (their
     K/V writes are hidden by position masking); None advances every row.
+
+    On a mesh (``shd``) params and caches (placed by ``cache_specs``) are
+    DTensors, tokens a DTensor or a full tensor, and the step is the
+    tensor-parallel decode (``_attn_mesh``: head-split, or the
+    sequence-sharded decode under ``shd.kv_seq_sharded``), dense caches
+    only; the logits come split over the vocabulary (P(b, m)).
     """
+    if shd.mesh is not None:
+        return _decode_mesh(params, cfg, tokens, caches, pos, shd)
     B = tokens.shape[0]
     x = L.embed_tokens(cfg, params["embed"], tokens)
     pos = torch.as_tensor(pos, dtype=torch.int32,
@@ -1221,3 +1433,42 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
     _, x = L.apply_add_norm(cfg, params["final_norm"], x, delta)
     logits = L.unembed(cfg, params["embed"], x)[:, 0]
     return logits, caches
+
+
+def _decode_mesh(params, cfg: ModelConfig, tokens, caches, pos,
+                 shd: ShardCtx):
+    """``decode_step`` on a mesh: the embedding by ``_lookup`` on each
+    rank's vocabulary shard, per-row positions split with the rows."""
+    B = tokens.shape[0]
+    if not is_dtensor(tokens):
+        tokens = _on_mesh(tokens, shd)
+    x = _lookup(cfg, params["embed"]["embedding"], tokens, shd)
+    dev = x.to_local().device
+    pos = _on_mesh(_row_positions(pos, B, dev), shd)
+    if cfg.pos_embedding == "sincos":
+        pls = _batch_pls(shd, x)
+        x = local_call(lambda x_, p_: _add_positions(cfg, x_, p_[:, None]),
+                       shd.mesh, [x, pos], [pls, pos.placements], pls)
+    x, delta = _run_stages(cfg, params, x, caches=caches, mode="decode",
+                           positions=None, rope=L.rope_freqs(cfg, dev),
+                           pos=pos, shd=shd)
+    _, x = L.apply_add_norm(cfg, params["final_norm"], x, delta)
+    logits = _unembed_mesh(cfg, params["embed"], x, shd)[:, 0]
+    return shd.cs(logits, "b", "m"), caches
+
+
+def _unembed_mesh(cfg: ModelConfig, emb, x, shd: ShardCtx):
+    """The logits of x (B, S, d) on a mesh: each rank those of its rows
+    and of its vocabulary shard of the unembedding (no table moves), split
+    over 'model' with it."""
+    from torch.distributed.tensor import Shard
+    name = "embedding" if cfg.tie_embeddings else "lm_head"
+    table = emb[name]
+    split = _vocab_split(shd, table, 0 if cfg.tie_embeddings else 1)
+    xpl = _batch_pls(shd, x)
+    out_pl = list(xpl)
+    if split is not None:
+        out_pl[split[2]] = Shard(x.ndim - 1)
+    return local_call(lambda x_, t_: L.unembed(cfg, {name: t_}, x_),
+                      shd.mesh, [x, table], [xpl, table.placements], out_pl)
+

@@ -4,8 +4,9 @@ config ``train_4k`` on the fake 16x16 production mesh through
 ``python -m repro_torch.launch.train --dry-run``, its record laid out as
 the reference's (``src/repro/launch/dryrun.py``'s ``result``), its model
 size and microbatches the reference's, its extrapolated costs equal to a
-full-depth trace's; the forward shapes refused; and the kernels'
-shape-only route taken by fake tensors alone."""
+full-depth trace's; and the kernels' shape-only route taken by fake
+tensors alone (the forward shapes' records:
+``tests/test_torch_forward_dryrun.py``)."""
 import json
 import os
 import subprocess
@@ -123,18 +124,6 @@ def test_smoke_step_traces_on_a_fake_mesh(arch, strategy):
     assert built["meta"] == {"microbatches": 1}
     assert built["shd"].model_axis == (None if strategy == "fsdp"
                                        else "model")
-
-
-@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
-def test_forward_shapes_are_refused(shape, tmp_path):
-    """The forward shapes come with ROADMAP A14's third slice: the dry-run
-    raises and writes nothing, and no process group is left behind."""
-    import torch.distributed as dist
-    with pytest.raises(NotImplementedError, match="third slice"):
-        D.run_one("qwen2-1.5b", shape, False, str(tmp_path), device="cpu",
-                  verbose=False)
-    assert not os.listdir(tmp_path)
-    assert not dist.is_initialized()
 
 
 def test_real_tensors_never_take_the_shape_only_route():

@@ -1,4 +1,5 @@
-"""Sharded training on gloo CPU ranks against the unsharded step: the
+"""Sharded training, and the tensor-parallel forwards, on gloo CPU ranks
+against the unsharded model: the
 smoke configs of qwen2-1.5b, gemma2-9b (FSDP, as the reference's lowering
 test), mixtral-8x7b (experts over 'model'; with 2 experts, its hidden
 units; with the scatter dispatch, experts gathered) and mamba2-370m (the SSM's channels over 'model'), float32, from the reference's init through the
@@ -11,7 +12,16 @@ same mesh run twice is bitwise; and at (1,1) every spec sanitizes to
 replicated, so the step is the unsharded one, bit for bit.  One set of 8
 rank processes (``tests/torch_train_mesh_runner.py``) runs the three
 8-rank meshes in turn; (1,1) runs in this process on a world-size-1 gloo
-group."""
+group.
+
+The forwards (``prefill`` then greedy ``decode_step``s with the mesh's
+``ShardCtx``, params and caches placed by ``model_param_specs`` and
+``cache_specs``) run in the same spawn: qwen2-1.5b (at (2,4) its 2 kv
+heads do not divide 'model', so its decode is the sequence-sharded one;
+at (4,2) the head split), gemma2-9b (local and full layers), mixtral-8x7b
+(experts), mamba2-370m (the SSM state split over 'model') and qwen2-1.5b
+with int8 K/V.  Their logits equal the unsharded model's within
+``FWD_TOL`` with the same greedy tokens; at (1,1) bit for bit."""
 import json
 import os
 
@@ -31,6 +41,13 @@ CASES = [("qwen2-1.5b", "tp"), ("qwen2-1.5b", "fsdp"), ("gemma2-9b", "fsdp"),
 MORE = [("mixtral-8x7b-e2", "tp"), ("mixtral-8x7b-scatter", "tp")]
 ARCHS = sorted({a for a, _ in CASES + MORE})
 MESHES = [(8, 1), (2, 4), (4, 2)]
+FWD_ARCHS = ["qwen2-1.5b", "gemma2-9b", "mixtral-8x7b", "mamba2-370m",
+             "qwen2-1.5b-q8"]
+# the logits' bar: the params bar of tests/test_training.py.  With int8
+# K/V a value that a partition's rounding moves across the quantizer's
+# rounding boundary moves by a whole int8 step (amax / 127); at (4,2) that
+# moved qwen2's logits by 1.2e-4, so the int8 caches' bar is 1e-3
+FWD_TOL = {"qwen2-1.5b-q8": 1e-3}
 
 
 def _cases(mesh):
@@ -76,10 +93,14 @@ def runs(tmp_path_factory):
     inputs = {a: str(tmp / f"{a}.npz") for a in ARCHS}
     for a, path in inputs.items():
         _write_inputs(a, path)
+    inputs["qwen2-1.5b-q8"] = inputs["qwen2-1.5b"]   # the same params
     # the 8 ranks run while this process runs mesh=None and (1,1)
     ranks = R.spawn([dict(arch=a, mesh=list(mesh), strategy=s,
                           inputs=inputs[a], repeat=(a, s) == CASES[0])
-                     for mesh in MESHES for a, s in _cases(mesh)],
+                     for mesh in MESHES for a, s in _cases(mesh)]
+                    + [dict(kind="forward", arch=a, mesh=list(mesh),
+                            inputs=inputs[a])
+                       for mesh in MESHES for a in FWD_ARCHS],
                     str(tmp), 8)
     out = {}
     try:
@@ -87,6 +108,9 @@ def runs(tmp_path_factory):
             m, w, _ = R.run_case(a, None, "tp", inputs[a])
             out[None, a, None] = (m, {k: [x.numpy() for x in v]
                                       for k, v in w.items()}, True, -1)
+        for a in FWD_ARCHS:
+            out["fwd", None, a] = _numpy_fwd(R.run_forward(a, None,
+                                                           inputs[a]))
         from repro_torch.launch.mesh import init_single_rank, shutdown
         init_single_rank("cpu")
         try:
@@ -94,6 +118,9 @@ def runs(tmp_path_factory):
                 m, w, kept = R.run_case(a, (1, 1), s, inputs[a])
                 out[(1, 1), a, s] = (m, {k: [x.numpy() for x in v]
                                          for k, v in w.items()}, kept, -1)
+            for a in FWD_ARCHS:
+                out["fwd", (1, 1), a] = _numpy_fwd(
+                    R.run_forward(a, (1, 1), inputs[a]))
         finally:
             shutdown()
     finally:
@@ -102,7 +129,16 @@ def runs(tmp_path_factory):
         for a, s in _cases(mesh):
             out[mesh, a, s] = _load(str(tmp / (R.case_name(a, mesh, s)
                                                + ".npz")))
+        for a in FWD_ARCHS:
+            out["fwd", mesh, a] = R.load_forward(
+                str(tmp / (R.forward_name(a, mesh) + ".npz")))
     return out
+
+
+def _numpy_fwd(run):
+    logits, toks, calls, kept = run
+    return ([x.numpy() for x in logits], [x.numpy() for x in toks], calls,
+            kept)
 
 
 @pytest.mark.parametrize("mesh,arch,strategy",
@@ -153,3 +189,52 @@ def test_one_by_one_mesh_is_unsharded_bitwise(runs, arch, strategy):
     for part in base_w:
         for b, g in zip(base_w[part], got_w[part]):
             assert np.array_equal(b, g), part
+
+
+@pytest.mark.parametrize("mesh,arch", [(m, a) for m in MESHES
+                                       for a in FWD_ARCHS],
+                         ids=lambda v: f"{v[0]}x{v[1]}"
+                         if isinstance(v, tuple) else v)
+def test_sharded_forward_matches_unsharded(runs, mesh, arch):
+    """The prefill's and every decode step's logits within ``FWD_TOL``
+    (2e-5) of the unsharded model's, the same greedy tokens, and every
+    cache leaf still placed by ``cache_specs``."""
+    base_lg, base_tok, _, _ = runs["fwd", None, arch]
+    lg, tok, _, kept = runs["fwd", mesh, arch]
+    assert kept
+    tol = FWD_TOL.get(arch, 2e-5)
+    assert len(lg) == len(base_lg) == R.FWD_STEPS + 1
+    for i, (a, b) in enumerate(zip(lg, base_lg)):
+        np.testing.assert_allclose(a, b, atol=tol, rtol=1e-5,
+                                   err_msg=f"step {i}")
+    for a, b in zip(tok, base_tok):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", FWD_ARCHS)
+def test_forward_one_by_one_mesh_is_unsharded_bitwise(runs, arch):
+    """(1,1): every spec sanitizes to replicated, so the forwards are the
+    unsharded model's bit for bit, logits and tokens."""
+    base_lg, base_tok, _, _ = runs["fwd", None, arch]
+    lg, tok, calls, kept = runs["fwd", (1, 1), arch]
+    assert kept and calls == 0
+    for a, b in zip(lg + tok, base_lg + base_tok):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_sequence_sharded_decode_route(runs, mesh):
+    """The decode runs the sequence-sharded route, once per attention
+    layer and step, where the kv heads do not divide 'model': qwen2's 2
+    at (2,4), dense and int8; nowhere else (the head split at (4,2), no
+    model axis at (8,1), 4 kv heads on 4 ranks, no attention)."""
+    from repro_torch.configs import get_config
+    for arch in FWD_ARCHS:
+        calls = runs["fwd", mesh, arch][2]
+        cfg = R.smoke_cfg(arch, get_config)
+        want = R.FWD_STEPS * cfg.num_layers if cfg.has_attention and \
+            cfg.num_kv_heads % mesh[1] else 0
+        assert calls == want, (arch, calls, want)
+    if mesh == (2, 4):
+        assert runs["fwd", mesh, "qwen2-1.5b"][2] > 0
+

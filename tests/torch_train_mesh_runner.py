@@ -45,7 +45,8 @@ def case_name(arch, mesh, strategy):
 # with the scatter dispatch (its experts gathered whole on each rank)
 VARIANTS = {"mixtral-8x7b-e2": ("mixtral-8x7b", dict(num_experts=2)),
             "mixtral-8x7b-scatter": ("mixtral-8x7b",
-                                     dict(moe_impl="scatter"))}
+                                     dict(moe_impl="scatter")),
+            "qwen2-1.5b-q8": ("qwen2-1.5b", dict(kv_quant=True))}
 
 
 def smoke_cfg(arch, get_config=None):
@@ -116,6 +117,94 @@ def run_case(arch, mesh, strategy, inputs):
     return metrics, whole, kept
 
 
+# the forwards: a prefill of FWD_B prompts of FWD_S tokens, then FWD_STEPS
+# greedy decode steps, into caches of FWD_S + FWD_STEPS slots
+FWD_B, FWD_S, FWD_STEPS = 8, 16, 4
+
+
+def forward_tokens(cfg):
+    """The forwards' prompts (FWD_B, FWD_S), seeded."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(11)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (FWD_B, FWD_S))
+                            .astype(np.int32))
+
+
+def run_forward(arch, mesh, inputs):
+    """Prefill, then FWD_STEPS greedy decode steps, each fed its own
+    argmax; ``mesh`` None: the unsharded model, else params and caches
+    placed by ``model_param_specs`` / ``cache_specs`` and the steps run
+    with the mesh's ``ShardCtx`` (``kv_seq_sharded`` where the kv heads do
+    not divide 'model', as ``build_decode`` sets it).  Returns (the
+    logits of each step, whole; the tokens; the calls of the
+    sequence-sharded decode; whether every cache leaf kept its
+    placement)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import NOSHARD, P, placements
+    from repro_torch.training import pytree
+    cfg = smoke_cfg(arch)
+    params, _ = load_inputs(inputs, cfg)
+    tok = forward_tokens(cfg)
+    L = FWD_S + FWD_STEPS
+    caches = init_cache(cfg, FWD_B, L, dtype=torch.float32, device="cpu")
+    shd, kept = NOSHARD, True
+    if mesh is not None:
+        from repro_torch.launch import shardings as SH
+        from repro_torch.launch import specs as SP
+        from repro_torch.launch.mesh import make_debug_mesh
+        dm = make_debug_mesh(model=mesh[1], data=mesh[0], device="cpu")
+        shd = dataclasses.replace(
+            SH.make_shard_ctx(dm, FWD_B), kv_seq_sharded=cfg.has_attention
+            and cfg.num_kv_heads % mesh[1] != 0)
+        cspecs, _ = SH.cache_specs(cfg, dm, FWD_B, L)
+        params = SP._place_tree(params, SH.model_param_specs(cfg, dm)[0], dm)
+        caches = SP._place_tree(caches, cspecs, dm)
+        b = SH.batch_axes_for(dm, FWD_B)
+        tok = SP.placed(tok, SH.sanitize_spec(P(b if b else None, None),
+                                              tok.shape, dm), dm)
+    T.seq_sharded_calls = 0
+    logits, toks = [], []
+    lg, caches, _ = prefill(params, cfg, tok, caches, shd=shd)
+    for i in range(FWD_STEPS + 1):
+        lg = lg.full_tensor() if hasattr(lg, "full_tensor") else lg
+        logits.append(lg.detach().clone())
+        nxt = lg.argmax(dim=-1).to(torch.int32)[:, None]
+        toks.append(nxt[:, 0].clone())
+        if i < FWD_STEPS:
+            lg, caches = decode_step(params, cfg, nxt, caches, FWD_S + i,
+                                     shd=shd)
+    if mesh is not None:
+        for x, s in zip(pytree.leaves(caches), pytree.leaves(cspecs)):
+            kept &= tuple(x.placements) == tuple(placements(s, dm))
+    return logits, toks, T.seq_sharded_calls, kept
+
+
+def forward_name(arch, mesh):
+    return "fwd__" + case_name(arch, mesh, "tp")
+
+
+def save_forward(path, logits, toks, calls, kept):
+    import numpy as np
+    np.savez(path, calls=calls, kept=kept,
+             **{f"logits{i}": x.numpy() for i, x in enumerate(logits)},
+             **{f"toks{i}": x.numpy() for i, x in enumerate(toks)})
+
+
+def load_forward(path):
+    """(logits, tokens, seq-sharded calls, kept) as ``save_forward`` wrote
+    them."""
+    import numpy as np
+    d = np.load(path)
+    n = sum(k.startswith("logits") for k in d.files)
+    return ([d[f"logits{i}"] for i in range(n)],
+            [d[f"toks{i}"] for i in range(n)], int(d["calls"]),
+            bool(d["kept"]))
+
+
 def save_case(path, metrics, whole, kept, bitwise):
     import numpy as np
     arrs = {f"{part}{i}": x.detach().numpy()
@@ -132,6 +221,14 @@ def run_cases(cases, out):
     rank = dist.get_rank() if dist.is_initialized() else 0
     for c in cases:
         mesh = None if c["mesh"] is None else tuple(c["mesh"])
+        if c.get("kind") == "forward":
+            logits, toks, calls, kept = run_forward(c["arch"], mesh,
+                                                    c["inputs"])
+            if rank == 0:
+                save_forward(os.path.join(out, forward_name(c["arch"], mesh)
+                                          + ".npz"), logits, toks, calls,
+                             kept)
+            continue
         m1, w1, kept = run_case(c["arch"], mesh, c["strategy"], c["inputs"])
         bitwise = -1                    # not repeated
         if c.get("repeat"):

@@ -93,8 +93,14 @@ Phases (each raises on failure; nothing is caught):
    ring included), at gemma2, qwen3 and chatglm3 shapes and at the gemma2
    path's own chunks (4096 queries at 0, 3904 of 4096 at 4096, on the
    4096-slot ring and on a 16384-slot row), on every route, bitwise
-   across repeated launches and between a dense row and a page chain
-   holding the same context.  Then recurrentgemma's shapes (MQA 16:1 at
+   across repeated launches, between a dense row and a page chain
+   holding the same context and between its fold and split routes (each
+   forced through the wrapper's ``route``); its bf16 kernel's ptxas
+   registers and spills and its HGMMA / UTMALDG count in the machine code
+   (``cuobjdump -sass``), and the kernels one timed call launches (one
+   where the fold route runs; the first such case of each head dim), on
+   "[kernels]" lines.  Then
+   recurrentgemma's shapes (MQA 16:1 at
    hd 256, window 2048): rmsnorm at its 2048-token chunk and at mamba2's
    widths (d_model 1024, the SSD's gated norm over rows of 2048); flash
    at the 1024 bucket and past the window; decode on the wrapped
@@ -104,7 +110,8 @@ Phases (each raises on failure; nothing is caught):
    page chain.  Every case of every kernel sits in one
    table per kernel (NORM_SHAPES, DECODE_CASES, FLASH_CASES, PAGED_CASES,
    CHUNK_CASES, Q8_CASES); a named row is timed in bf16 and gets a
-   "[summary]" line (chunk_attention's with its float32 scratch bytes);
+   "[summary]" line (chunk_attention's with its route's float32 scratch
+   bytes);
    with a softcap no PyTorch call computes the function, so library_ms is
    none.  Then the training kernels: flash's LSE route (its output bit
    for bit the serve route's, its lse within 1e-4 of the plain one) and
@@ -1446,6 +1453,7 @@ def _chunk_cases(res):
     from repro_torch.models.attention import attention
     g = torch.Generator(device="cuda").manual_seed(7)
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    _chunk_build_report(res)
     main = q8_main = None
     f32_main = {}
     bitwise = []
@@ -1488,7 +1496,17 @@ def _chunk_cases(res):
                     past=_past_by_position(c, args, kw), perm_seed=100 + ci)
                 other = C.chunk_attention(*(args[:3] + args2[3:]), **ckw,
                                           **kw2)
-                for what, b in (("repeated", again), ("another chain", other)):
+                checks = [("repeated", again), ("another chain", other)]
+                if dt == torch.bfloat16 and hasattr(C, "geometry"):
+                    # the other route, forced: the same partials folded in
+                    # the same order, so the same bits
+                    route = C.geometry(c.start, c.length, c.S, c.KH,
+                                       c.Hq // c.KH, c.hd)[0]
+                    forced = "fold" if route == "split" else "split"
+                    checks.append((f"the {forced} route (default {route})",
+                                   C.chunk_attention(*args, **ckw, **kw,
+                                                     route=forced)))
+                for what, b in checks:
                     if not torch.equal(out, b):
                         raise AssertionError(f"{name}: {what} differs by "
                                              f"{max_err(out, b):.3g} (must be "
@@ -1519,6 +1537,71 @@ def _chunk_cases(res):
     main["f32_past_route"] = f32_main["paged"]
     main["f32_past_dense_route"] = f32_main["dense"]
     return main
+
+
+def _chunk_build_report(res):
+    """The bf16 chunk kernels' registers and spills as ptxas reports them
+    (``-Xptxas -v``, with its warnings) and the Hopper instructions in the
+    machine code of their bf16-past instantiations (``cuobjdump -sass``:
+    HGMMA is wgmma, UTMALDG a TMA load; STL / LDL local-memory stores and
+    loads), on "[kernels]" lines."""
+    from repro_torch.kernels import _build
+    log_text = _build.build_logs().get("chunk_attention", "")
+    fn, rep = None, {}
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[-1].strip()
+        elif "spill" in line and fn:
+            rep.setdefault(fn, {})["spills"] = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            rep.setdefault(fn, {})["regs"] = line.split("Used")[-1].strip()
+    for fn, r in rep.items():
+        if "chunk_kernel" in fn or "chunk_merge" in fn:
+            log(f"[kernels] chunk_attention ptxas {_demangle(fn)}: "
+                f"{r.get('regs')}; {r.get('spills')}")
+    for line in log_text.splitlines():
+        if "arning" in line or "Performance" in line:
+            log(f"[kernels] chunk_attention ptxas: {line.strip()}")
+    lib = _build.build_all().get("chunk_attention")
+    sass = {}
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    text = (subprocess.run([str(cuobjdump), "-sass", lib._name],
+                           capture_output=True, text=True,
+                           timeout=300).stdout
+            if lib is not None and cuobjdump.exists() else "")
+    n = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[-1].strip()
+            # the bf16-past instantiations stand for the others
+            n = ({"HGMMA": 0, "UTMALDG": 0, "STL": 0, "LDL": 0,
+                  "instructions": 0}
+                 if "2wg12chunk_kernel" in fn and "E13__nv_bfloat16EEv" in fn
+                 else None)
+            if n is not None:
+                sass[_demangle(fn)] = n
+        elif n is not None and "/*" in line and ";" in line:
+            n["instructions"] += 1
+            for op in ("HGMMA", "UTMALDG", "STL", "LDL"):
+                n[op] += f" {op}." in line or f" {op} " in line
+    for kern, n in sass.items():
+        log(f"[kernels] chunk_attention sass {kern}: {n}")
+    res["chunk_sass"] = sass
+    res["chunk_ptxas"] = rep
+
+
+def _kernels_of(call):
+    """{kernel name: launches} of one call (after a warm-up one) under
+    torch.profiler; empty where the profiler sees no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0.0) > 0}
 
 
 def _time_chunk(res, g, c, past_dt, case):
@@ -1559,8 +1642,26 @@ def _time_chunk(res, g, c, past_dt, case):
              for a, kw in made])
     name = c.summary + (f", {past_dt} past" if past_dt else "")
     _timed(res, name, case, kern, plain, sets, nbytes, flops, library)
-    case["scratch_bytes"] = 4 * C.split_geometry(
-        c.start, c.length, c.S, c.KH, c.Hq // c.KH, c.hd)[1]
+    G = c.Hq // c.KH
+    if hasattr(C, "geometry"):
+        route, _, scratch = C.geometry(c.start, c.length, c.S, c.KH, G, c.hd)
+    else:                     # a source tree from before the fold route
+        route, scratch = "split", C.split_geometry(c.start, c.length, c.S,
+                                                   c.KH, G, c.hd)[1]
+    case["route"], case["scratch_bytes"] = route, 4 * scratch
+    # the launches of one call of the fold route (bf16 past, the first
+    # case of each head dim): one kernel
+    seen = res.setdefault("fold_launches_checked", set())
+    case["kernels"] = {}
+    if past_dt is None and route == "fold" and c.hd not in seen:
+        seen.add(c.hd)
+        case["kernels"] = _kernels_of(lambda: kern(*sets[0]))
+    log(f"[kernels] chunk_attention {name}: route {route}, scratch_bytes "
+        f"{4 * scratch}, kernels of one call {case['kernels']}")
+    if route == "fold" and case["kernels"] and (
+            sum(case["kernels"].values()) != 1):
+        raise AssertionError(f"{name}: the fold route launched "
+                             f"{case['kernels']}, not one kernel")
     if c is CHUNK_CASES[0] and past_dt is None:
         case["span"], case["span_ms"] = C.SPAN, {}
         try:
@@ -1959,7 +2060,9 @@ def phase_kernels(res):
                         "flash_attention": _flash_cases(res)}
     paged = _paged_cases(res)
     res["main_case"]["paged_decode_attention"] = paged
+    t0 = time.perf_counter()
     chunk = _chunk_cases(res)
+    log(f"[kernels] chunk_attention cases in {time.perf_counter() - t0:.1f}s")
     res["main_case"]["chunk_attention"] = chunk
     q8, paged_q8 = _q8_cases(res)
     res["main_case"]["decode_attention_q8"] = q8

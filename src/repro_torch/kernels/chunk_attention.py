@@ -17,6 +17,13 @@ q (a bf16 model with float32 caches) is rounded to bf16 row by row as the
 kernel loads it, the bits of the reference's cast, without a copy.  On CPU
 tensors the wrapper computes the plain version; on CUDA tensors it
 launches the kernel or raises.
+
+A bfloat16 q runs one of two routes, chosen from the chunk's shape alone
+(``geometry``): where the CTAs of the row tiles fill the card, one launch
+folds each row's key spans in registers; where they do not (the serve
+burst), the spans are split over CTAs through a float32 scratch and a merge
+launch.  Both fold the same span partials in the same order with the same
+operations, so a row's bits do not depend on the route.
 """
 from __future__ import annotations
 
@@ -37,19 +44,37 @@ dense_f32_past_launches = 0
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = ((_P,) * 10 + (_I,) * 10 + (_L,) * 12 + (_F, _F, _I, _I, _I, _I,
-                                                       _P))
+                                                       _I, _P))
 HEAD_DIMS = (64, 128, 256)
-# key positions per CTA of the bfloat16 route, counted from position 0 (a
+# key positions of a span of the bfloat16 route, counted from position 0 (a
 # positive multiple of 64); a row's bits depend on it, so it is a constant
 SPAN = 256
+# packed rows (query x head of a kv head) per CTA of the bfloat16 route: two
+# consumer warp groups of 64 rows, or at hd 256 both on the same 64 rows
+ROW_TILE = {64: 128, 128: 128, 256: 64}
+# row-tile CTAs that fill the card (the H100's 132 SMs, one CTA each): with
+# fewer, the bf16 route splits the key spans over CTAs.  A constant, never
+# a query of the device, so the route follows the chunk's shape alone.
+FILL_CTAS = 132
+ROUTES = ("fold", "split")
 
 
-def split_geometry(start: int, length: int, S: int, KH: int, G: int, hd: int):
-    """(spans, float32 scratch elements) of one bf16 launch: ceil((start +
-    length) / SPAN) spans over the key positions the chunk can see, and per
-    (kv head, span, row) an unnormalised acc[hd] and its (m, l)."""
+def geometry(start: int, length: int, S: int, KH: int, G: int, hd: int,
+             route=None):
+    """(route, spans, float32 scratch elements) of one bf16 launch: ceil((start
+    + length) / SPAN) spans over the key positions the chunk can see; the
+    route "split" where the row-tile CTAs (ceil(S*G / ROW_TILE) * KH) do not
+    fill the card, "fold" where they do (``route`` forces one), and for
+    "split" per (kv head, span, row) an unnormalised acc[hd] and its (m, l)
+    in the scratch, for "fold" none."""
     spans = -(-(start + length) // SPAN)
-    return spans, KH * spans * S * G * (hd + 2)
+    if route is None:
+        ctas = -(-(S * G) // ROW_TILE[hd]) * KH
+        route = "split" if ctas < FILL_CTAS and spans > 1 else "fold"
+    if route not in ROUTES:
+        raise ValueError(f"chunk_attention: route {route!r} not in {ROUTES}")
+    return route, spans, (KH * spans * S * G * (hd + 2)
+                          if route == "split" else 0)
 
 
 def chunk_attention_plain(q, k, v, k_past, v_past, page_table, start: int,
@@ -93,7 +118,7 @@ def chunk_attention_plain(q, k, v, k_past, v_past, page_table, start: int,
 
 def chunk_attention(q, k, v, k_past, v_past, page_table, start: int,
                     length: int, *, window: int = 0, softcap: float = 0.0,
-                    scale=None, k_scale=None, v_scale=None):
+                    scale=None, k_scale=None, v_scale=None, route=None):
     """One stream's prompt chunk: q (1,S,Hq,hd) at positions start..; the
     raw chunk k, v (1,S,KH,hd) in q's dtype, the first ``length`` real.
     The past: with ``page_table`` (1,n_pages) int32 covering positions
@@ -101,8 +126,10 @@ def chunk_attention(q, k, v, k_past, v_past, page_table, start: int,
     None, the stream's dense rows k_past, v_past (buf_len,KH,hd), position
     p at slot p % buf_len.  Either in q's dtype (or float32 under a bf16
     q), or int8 with k_scale, v_scale (...,KH,1) float32.  ``window`` > 0 bounds each query's
-    lookback, ``softcap`` > 0 caps the logits -> (1,S,Hq,hd).  bf16 splits
-    the keys in spans of ``SPAN``."""
+    lookback, ``softcap`` > 0 caps the logits -> (1,S,Hq,hd).  bf16 cuts
+    the keys in spans of ``SPAN``, folded by the route ``geometry`` picks;
+    ``route`` ("fold" or "split") forces one, for the check that both
+    give the same bits."""
     global launches, dense_launches, f32_past_launches, \
         dense_f32_past_launches
     start, length = int(start), int(length)
@@ -155,11 +182,12 @@ def chunk_attention(q, k, v, k_past, v_past, page_table, start: int,
         raise ValueError(f"chunk_attention: 1 <= length <= S and window >= "
                          f"0, got length {length}, S {S}, window {window}")
     if dense:
-        buf_len, n_pages, ps = lead[0], 0, 0
+        buf_len, n_pages, ps, pool_pages = lead[0], 0, 0, 0
         p_st = (0,) + k_past.stride()[:2]
         s_st = (0,) + k_scale.stride()[:2] if q8 else (0, 0, 0)
     else:
         buf_len, ps, n_pages = 0, lead[1], page_table.shape[1]
+        pool_pages = lead[0]
         p_st = k_past.stride()[:3]
         s_st = k_scale.stride()[:3] if q8 else (0, 0, 0)
         if page_table.dtype != torch.int32 or page_table.stride(-1) != 1 \
@@ -175,7 +203,7 @@ def chunk_attention(q, k, v, k_past, v_past, page_table, start: int,
     span, spans, n = 0, 1, 0            # float32: one span, no scratch
     if q.dtype == torch.bfloat16:
         span = SPAN
-        spans, n = split_geometry(start, length, S, KH, G, hd)
+        _, spans, n = geometry(start, length, S, KH, G, hd, route)
     part = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     out = torch.empty((1, S, Hq, hd), dtype=q.dtype, device=q.device)
     scale = hd ** -0.5 if scale is None else scale
@@ -189,7 +217,8 @@ def chunk_attention(q, k, v, k_past, v_past, page_table, start: int,
              KH, G, hd, span, spans, q.stride(1), q.stride(2), k.stride(1),
              k.stride(2), v.stride(1), v.stride(2), *p_st, *s_st,
              float(scale), float(softcap), int(window), buf_len, code,
-             _build.PAST_CODES[k_past.dtype], _build.stream_handle())
+             _build.PAST_CODES[k_past.dtype], pool_pages,
+             _build.stream_handle())
     _build.raise_on_error("chunk_attention", err)
     if dense and rounded:
         dense_f32_past_launches += 1

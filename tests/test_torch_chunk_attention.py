@@ -13,14 +13,17 @@ CUDA kernel does not run here, so three things are shown:
   pools (under bf16 and float32 q), start on and off a page boundary, a
   partial last page, pads, chain tails on scratch page 0, rows over several
   64-row tiles, 12:2, 8:8 and 16:1 heads, hd 64, 128 and 256;
-* a plain mirror of the bf16 kernel's arithmetic (64-key tiles counted from
-  position 0, 32 at hd 256, split between two warp groups, key spans folded
-  in span order, P as bf16 hi + lo) stays within the bf16 tolerance of the
-  reference and within one bf16 rounding of the plain version, at the
-  wrapper's span and at the others the chip check times, and its bits do
-  not depend on the chain;
-* the wrapper sizes its launch from the chunk alone, through a recorder in
-  place of the CUDA entry point.
+* a plain mirror of the bf16 kernel's arithmetic (rows packed into CTAs of
+  ``ROW_TILE`` rows, 64-key tiles counted from position 0, 32 at hd 256,
+  each key span an online softmax from a fresh state, folded in span order
+  in registers or through the split route's partials, P as bf16 hi + lo)
+  stays within the bf16 tolerance of the reference and within one bf16
+  rounding of the plain version, at the wrapper's span and at others; its
+  bits do not depend on the chain, on the route or on where the prompt was
+  cut into chunks;
+* the wrapper sizes its launch from the chunk alone (the route, the spans,
+  the scratch: none where the row tiles fill the card), through a recorder
+  in place of the CUDA entry point.
 
 Tolerances: float32 2e-5, bfloat16 2e-2 (as ``tests/test_kernels.py``).
 """
@@ -144,80 +147,114 @@ def _dense_past(args, kw):
     return gather(kp).to(q.dtype), gather(vp).to(q.dtype)
 
 
-def chunk_bf16_mirror(q, k, v, pk, pv, start, length, *, span, scale=None):
+def _key_tile(hd):
+    """Keys per k tile of the bf16 kernel (csrc/chunk_attention.cu,
+    ``wg::Cfg::BK``): 64, 32 at hd 256."""
+    return 32 if hd == 256 else 64
+
+
+def chunk_bf16_mirror(q, k, v, pk, pv, start, length, *, span, scale=None,
+                      route="fold"):
     """The bf16 kernel's arithmetic in float32: q (1, S, Hq, hd), the raw
     chunk k, v (1, S, KH, hd) and the past pk, pv (1, >= start, KH, hd)
     in bf16.  Key positions 0 .. start-1 are the past, start + j the chunk's
-    key j; row i sees positions <= start + min(i, length - 1).  Within each
-    span of ``span`` positions from 0 (a multiple of 64) the 64-key tiles
-    (32 at hd 256), counted from position 0, alternate between two warp
-    groups (one at hd 256), each an online softmax in the log2 domain with
-    P as bf16 hi + lo; the groups merge, then the spans fold in order,
-    skipping spans with no visible key."""
+    key j; row i sees positions <= start + min(i, length - 1).  Rows are
+    packed per kv head (row R: query R // G, head kh * G + R % G) into CTAs
+    of ``C.ROW_TILE`` rows, each taking the keys between its rows' lowest
+    and highest bounds.  Every span of ``span`` positions from 0 is an
+    online softmax from a fresh state over its k tiles (counted from
+    position 0, ``_key_tile`` keys each), in the log2 domain, with P as
+    bf16 hi + lo (each 16-key step's hi product, then its lo one).
+    ``route`` "fold": a CTA folds its spans in span order into the running
+    state, skipping spans where a row sees no key; "split": every span's
+    partial is kept, then each row folds the spans of its own bounds in
+    order, skipping empty ones.  Each row's arithmetic depends on its own
+    values only (products summed per row, never through a matrix product
+    whose blocking follows the batch)."""
     S, Hq, hd = q.shape[1], q.shape[2], q.shape[3]
     KH = k.shape[2]
     G = Hq // KH
-    bk, groups = (32, 1) if hd == 256 else (64, 2)
+    bk, rt = _key_tile(hd), C.ROW_TILE[hd]
     scale = hd ** -0.5 if scale is None else scale
-    keys_k = torch.cat([pk[0, :start], k[0, :length]]).float()   # position p
-    keys_v = torch.cat([pv[0, :start], v[0, :length]]).float()
-    kf = keys_k.repeat_interleave(G, 1).transpose(0, 1)     # (Hq, K, hd)
-    vf = keys_v.repeat_interleave(G, 1).transpose(0, 1)
-    qf = q[0].float().transpose(0, 1)                       # (Hq, S, hd)
-    bounds = start + torch.clamp(torch.arange(S), max=length - 1)   # (S,)
     n_keys = start + length
     spans = -(-n_keys // span)
-    m = torch.full((Hq, S), NEG)
-    l = torch.zeros(Hq, S)
-    acc = torch.zeros(Hq, S, hd)
-    for s in range(spans):
-        lo, hi = s * span, min((s + 1) * span, n_keys)
-        parts = []
-        for g in range(groups):
-            parts.append(_group(qf, kf, vf, range(lo + g * bk, hi,
-                                                  groups * bk), hi, bk,
-                                bounds, scale))
-        ms, ls, accs = parts[0]
-        for m1, l1, acc1 in parts[1:]:
-            mn = torch.maximum(ms, m1)
-            base = torch.where(mn == NEG, 0.0, mn)
-            c0, c1 = torch.exp2(ms - base), torch.exp2(m1 - base)
-            ls = ls * c0 + l1 * c1
-            accs = accs * c0[..., None] + acc1 * c1[..., None]
-            ms = mn
-        live = ls != 0
-        mn = torch.maximum(m, ms)
-        ca, cb = torch.exp2(m - mn), torch.exp2(ms - mn)
-        l = torch.where(live, l * ca + ls * cb, l)
-        acc = torch.where(live[..., None], acc * ca[..., None]
-                          + accs * cb[..., None], acc)
-        m = torch.where(live, mn, m)
-    out = torch.where(l[..., None] > 0, acc / l[..., None].clamp_min(1e-38),
-                      0.0)
-    return out.transpose(0, 1)[None].to(q.dtype)
+    pad = spans * span + bk - n_keys          # zeros past the last key
+    keys_k = torch.cat([pk[0, :start].float(), k[0, :length].float(),
+                        torch.zeros(pad, KH, hd)])
+    keys_v = torch.cat([pv[0, :start].float(), v[0, :length].float(),
+                        torch.zeros(pad, KH, hd)])
+    out = torch.zeros(S, Hq, hd)
+    SG = S * G
+    qi = torch.arange(SG) // G
+    bounds = start + torch.clamp(qi, max=length - 1)          # (SG,)
+    for kh in range(KH):
+        heads = kh * G + torch.arange(SG) % G
+        rows_q = q[0].float()[qi, heads]                        # (SG, hd)
+        run = (torch.full((SG,), NEG), torch.zeros(SG), torch.zeros(SG, hd))
+        parts = {}
+        for r0 in range(0, SG, rt):
+            sel = slice(r0, min(r0 + rt, SG))
+            k_hi = int(bounds[sel].max()) + 1
+            for s in range(0, (k_hi - 1) // span + 1):
+                lo, hi = s * span, min(k_hi, s * span + span)
+                part = _span(rows_q[sel], keys_k[:, kh], keys_v[:, kh],
+                             bounds[sel], range(lo // bk * bk, hi, bk), bk,
+                             scale)
+                if route == "fold":
+                    _fold(run, sel, part, torch.ones(part[1].shape, dtype=torch.bool))
+                else:
+                    parts[r0, s] = part
+        if route == "split":
+            for r0 in range(0, SG, rt):
+                sel = slice(r0, min(r0 + rt, SG))
+                s1 = torch.clamp(bounds[sel] // span, max=spans - 1)
+                for s in range(spans):
+                    if (r0, s) in parts:
+                        _fold(run, sel, parts[r0, s], s <= s1)
+        _, l, acc = run
+        o = torch.where(l[:, None] > 0, acc / l[:, None].clamp_min(1e-38), 0.0)
+        out[qi, heads] = o
+    return out[None].to(q.dtype)
 
 
-def _group(qf, kf, vf, starts, hi, bk, bounds, scale):
-    """One warp group's online softmax over the k tiles at ``starts``
-    (positions below ``hi``): its (m, l, unnormalised acc)."""
-    Hq, S, hd = qf.shape
-    m = torch.full((Hq, S), NEG)
-    l = torch.zeros(Hq, S)
-    acc = torch.zeros(Hq, S, hd)
-    for c0 in starts:
-        cols = torch.arange(c0, min(c0 + bk, hi))
-        x = torch.einsum("hqd,hkd->hqk", qf, kf[:, cols]) * (scale * LOG2E)
+def _fold(run, sel, part, take):
+    """Span partial (ms, ls, xs) of rows ``sel`` into the running (m, l,
+    acc) where ``take`` and ls != 0: the kernel's fold_weights and fold."""
+    m, l, acc = run
+    ms, ls, xs = part
+    live = take & (ls != 0)
+    mn = torch.maximum(m[sel], ms)
+    ca, cb = torch.exp2(m[sel] - mn), torch.exp2(ms - mn)
+    l[sel] = torch.where(live, l[sel] * ca + ls * cb, l[sel])
+    acc[sel] = torch.where(live[:, None], acc[sel] * ca[:, None]
+                           + xs * cb[:, None], acc[sel])
+    m[sel] = torch.where(live, mn, m[sel])
+
+
+def _span(rows_q, kf, vf, bounds, tiles, bk, scale):
+    """One span's online softmax from a fresh state over the k tiles
+    starting at ``tiles``: the (m, l, unnormalised acc) of each row."""
+    n, hd = rows_q.shape
+    m = torch.full((n,), NEG)
+    l = torch.zeros(n)
+    acc = torch.zeros(n, hd)
+    for c0 in tiles:
+        cols = torch.arange(c0, c0 + bk)
+        kt, vt = kf[cols], vf[cols]
+        x = (rows_q[:, None, :] * kt[None]).sum(-1) * (scale * LOG2E)
         x = torch.where(cols[None] <= bounds[:, None], x, NEG)
         m_new = torch.maximum(m, x.amax(-1))
         base = torch.where(m_new == NEG, 0.0, m_new)
         corr = torch.exp2(m - base)
-        p = torch.exp2(x - base[..., None])
+        p = torch.exp2(x - base[:, None])
         p_hi = p.bfloat16().float()
         p_lo = (p - p_hi).bfloat16().float()
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None]
-        for part in (p_hi, p_lo):
-            acc = acc + torch.einsum("hqk,hkd->hqd", part, vf[:, cols])
+        acc = acc * corr[:, None]
+        for kk in range(0, bk, 16):
+            for part in (p_hi, p_lo):
+                acc = acc + (part[:, kk:kk + 16, None]
+                             * vt[None, kk:kk + 16]).sum(1)
         m = m_new
     return m, l, acc
 
@@ -245,6 +282,37 @@ def test_bf16_mirror_fits_reference_and_one_rounding(case, route):
         _close(out.float(), want, 2e-2)
         share = ((out.float() - plain).abs() / (1e-3 + 1e-2 * plain.abs())).max()
         assert share <= 1, (span, float(share))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_bf16_mirror_routes_and_cuts_give_the_same_bits(case):
+    """The fold route and the split route give the same bits, at the
+    wrapper's span and at 64; and a row's bits do not depend on where the
+    prompt was cut: the same positions chunked at two starts three apart
+    (the past holding the same K/V) give the same output for every
+    position real in both chunks."""
+    S, start, length, Hq, KH, hd = case[:6]
+    rng = np.random.default_rng(sum(case) + 5)
+    total = start + 3 + S
+
+    def bf(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                ).bfloat16()
+    qa, ka, va = bf(1, total, Hq, hd), bf(1, total, KH, hd), bf(1, total, KH, hd)
+
+    def chunk(at, n, span, route):
+        return chunk_bf16_mirror(qa[:, at:at + S], ka[:, at:at + S],
+                                 va[:, at:at + S], ka, va, at, n, span=span,
+                                 route=route)
+    for span in (C.SPAN, 64):
+        fold = chunk(start, length, span, "fold")
+        assert torch.equal(fold, chunk(start, length, span, "split")), span
+    if length <= 3:
+        return
+    one = chunk(start, length, C.SPAN, "fold")
+    two = chunk(start + 3, length - 3, C.SPAN, "fold")
+    # positions start + 3 .. start + length - 1, real in both chunks
+    assert torch.equal(one[:, 3:length], two[:, :length - 3])
 
 
 @pytest.mark.parametrize("route", BF16_ROUTES)
@@ -292,7 +360,7 @@ def record_launches(monkeypatch):
 
     def fake_function(lib, name, argtypes):
         assert (lib, name) == ("chunk_attention", "chunk_attention_launch")
-        assert len(argtypes) == 39
+        assert len(argtypes) == 40
 
         def fn(*args):
             seen.append(args)
@@ -311,14 +379,18 @@ def _meta(*shape, dt=torch.bfloat16):
 
 def test_launch_geometry_follows_the_chunk_only(record_launches,
                                                monkeypatch):
-    """bf16: ceil((start + length) / SPAN) spans and KH*spans*S*G*(hd+2)
-    float32 scratch, whatever the pool or its dtype; float32: one span, no
-    scratch; another span only where SPAN is set to it; bad inputs
-    refused."""
+    """bf16: ceil((start + length) / SPAN) spans; the split route, with
+    KH*spans*S*G*(hd+2) float32 scratch, where the row-tile CTAs do not
+    fill the card and there is more than one span, else the fold route with
+    no scratch, whatever the pool or its dtype; a forced route; float32:
+    one span, no scratch; another span only where SPAN is set to it; bad
+    inputs refused."""
     i32, i8, f32 = torch.int32, torch.int8, torch.float32
     assert C.SPAN % 64 == 0
+    routes = set()
     for start, length, S in ((512, 200, 256), (0, 64, 64), (37, 90, 96),
-                             (1000, 33, 40)):
+                             (1000, 33, 40), (0, 4096, 4096),
+                             (4096, 3904, 4096)):
         n = -(-(start + S) // 16)
         for dt, i8pool in ((torch.bfloat16, False), (torch.bfloat16, True),
                            (f32, False), (f32, True)):
@@ -337,13 +409,37 @@ def test_launch_geometry_follows_the_chunk_only(record_launches,
             spans = -(-(start + length) // span) if span else 1
             assert args[10:20] == (S, start, length, n, 16, 2, 6, 128, span,
                                    spans)
-            assert args[-3] == (1 if dt == torch.bfloat16 else 0)
-            # the past's own code: float32 0, bfloat16 1, int8 2
-            assert args[-2] == (2 if i8pool else args[-3])
-            assert (args[9] is None) == (span == 0)
-            assert C.split_geometry(start, length, S, 2, 6, 128) == (
-                -(-(start + length) // C.SPAN),
-                2 * -(-(start + length) // C.SPAN) * S * 6 * 130)
+            assert args[-4] == (1 if dt == torch.bfloat16 else 0)
+            # the past's own code: float32 0, bfloat16 1, int8 2; the pool's
+            # pages
+            assert args[-3] == (2 if i8pool else args[-4])
+            assert args[-2] == 9
+            ctas = -(-(S * 6) // 128) * 2
+            route = ("split" if span and ctas < C.FILL_CTAS and spans > 1
+                     else "fold")
+            routes.add(route)
+            assert (args[9] is None) == (route == "fold")
+            if span:
+                assert C.geometry(start, length, S, 2, 6, 128) == (
+                    route, spans,
+                    2 * spans * S * 6 * 130 if route == "split" else 0)
+    assert routes == {"fold", "split"}
+    # the big chunks fill the card: gemma2's 4096 queries (16:8, hd 256),
+    # recurrentgemma's 2048 (16:1, hd 256), no scratch
+    assert C.geometry(0, 4096, 4096, 8, 2, 256)[::2] == ("fold", 0)
+    assert C.geometry(4096, 3904, 4096, 8, 2, 256)[::2] == ("fold", 0)
+    assert C.geometry(0, 2048, 2048, 1, 16, 256)[::2] == ("fold", 0)
+    assert C.geometry(4096, 1500, 2048, 1, 16, 256)[::2] == ("fold", 0)
+    # a forced route
+    big = (_meta(1, 4096, 12, 128), _meta(1, 4096, 2, 128),
+           _meta(1, 4096, 2, 128), _meta(9, 16, 2, 128), _meta(9, 16, 2, 128),
+           _meta(1, 512, dt=i32))
+    C.chunk_attention(*big, 4096, 4096, route="split")
+    assert record_launches[-1][9] is not None
+    C.chunk_attention(*big, 512, 200)
+    assert record_launches[-1][9] is None
+    with pytest.raises(ValueError):
+        C.chunk_attention(*big, 512, 200, route="both")
     span = C.SPAN
     monkeypatch.setattr(C, "SPAN", 64)
     C.chunk_attention(_meta(1, 64, 12, 128), _meta(1, 64, 2, 128),
@@ -505,9 +601,9 @@ def test_dense_route_launch_arguments(record_launches):
                                -(-333 // C.SPAN))
         assert args[26:29] == (0, 256, 128)           # row strides
         assert args[29:32] == ((0, 2, 1) if i8row else (0, 0, 0))
-        # scale, softcap, window, buf_len, dtype, the past's code
-        assert args[32:38] == (128 ** -0.5, 50.0, 96, 96, 1,
-                               2 if i8row else 1)
+        # scale, softcap, window, buf_len, dtype, the past's code, no pool
+        assert args[32:39] == (128 ** -0.5, 50.0, 96, 96, 1,
+                               2 if i8row else 1, 0)
     with pytest.raises(ValueError):                   # a row is 3-d
         C.chunk_attention(_meta(1, 40, 12, 128), _meta(1, 40, 2, 128),
                           _meta(1, 40, 2, 128), cache, cache, None, 300, 33)

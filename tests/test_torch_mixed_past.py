@@ -109,7 +109,8 @@ def test_chunk_launches_on_a_float32_past(record, monkeypatch, dense):
                             _meta(1, 40, 2, 128), past, past, table, 100, 33)
     assert out.shape == (1, 40, 12, 128) and out.dtype == BF16
     _, args = record["launch"][-1]
-    assert args[-3:-1] == (1, 0)
+    # q's code, the past's, the pool's pages (none for a dense row)
+    assert args[-4:-1] == (1, 0, 0 if dense else 9)
     assert args[18:20] == (C.SPAN, -(-133 // C.SPAN))     # the bf16 split
     assert tuple(past.shape) not in record["cast"]
     want = {n: 0 for n in names}

@@ -1,0 +1,2 @@
+"""Share of the traced slice with the device idle, % (open-loop cells)."""
+from chipbench.harness.readers import idle_share as read  # noqa: F401

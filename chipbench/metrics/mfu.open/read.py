@@ -1,0 +1,2 @@
+"""Model FLOPs over device-busy time at peak bf16, % (open-loop cells)."""
+from chipbench.harness.readers import mfu as read  # noqa: F401

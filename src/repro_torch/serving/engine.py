@@ -50,6 +50,17 @@ the points that already run on the host (prefill accounting, the end of a
 decode block, an idle jump); an instrumented run is step-identical to a
 bare one.
 
+Profiler ranges: while a ``torch.profiler`` records, a round opens named
+``record_function`` ranges at its layer boundaries, which the profiler's
+timeline lays over the device's kernels: ``serve.step`` (the whole round)
+holds ``serve.admit`` (with ``serve.prefill`` for each bucketed prompt,
+upload through the first token's host read), ``serve.chunk`` (one chunk
+of a chunked prefill), ``serve.decode`` (a decode block up to its drain,
+one ``serve.decode.step`` per step) and ``serve.account`` (the block's
+host bookkeeping after the drain); ``serve.pages`` holds page growth,
+reclaim and preemption wherever they run.  With no profiler running a
+range costs one flag read (``_range``).
+
 Virtual time and energy come from the numpy plant model, so a run's
 report depends only on the tokens, and identical tokens give a report
 identical to the reference engine's.
@@ -91,12 +102,14 @@ copies: the path is the single-device one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from repro_torch.core import (CounterfactualPricer, DualLoopController,
                               MaxFreqController, Request, RequestState,
@@ -106,7 +119,7 @@ from repro_torch.core import (CounterfactualPricer, DualLoopController,
 from repro_torch.core.hardware import HardwareProfile, A100_SXM4_40G
 from repro_torch.core.prng import fold_in, prng_key
 from repro_torch.core.report import slo_pass_metrics
-from repro_torch.core.telemetry import OccupancyMeter, TBTMeter
+from repro_torch.core.telemetry import TBTMeter
 from repro_torch.launch.shardings import (gather_replicated, keep_shards,
                                           local_row, make_serving_shard_ctx,
                                           place, place_tree,
@@ -124,6 +137,17 @@ from repro_torch.sim import PlantModel
 from repro_torch.sim.profiling import profile_decode_table
 from .pager import PageAllocator
 from .prefix_cache import PrefixCache
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _range(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profiler records,
+    else a shared no-op context: a bare run pays one flag read.  The flag
+    is read through its module on every call, as the profiler rebinds it."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _autograd_profiler.record_function(name)
+    return _NO_RANGE
 
 
 def _slice_caches(caches, ctx: int, max_len: int):
@@ -444,7 +468,6 @@ class ServingEngine:
         self.idle_energy_j = 0.0    # billed when waiting on future arrivals
         self.prefill_tokens = 0
         self.decode_tokens = 0
-        self._occupancy = OccupancyMeter()   # pool-pressure telemetry
         self._order = 0
         self._tbt: Dict[int, List[float]] = {}
         self._completed = 0
@@ -963,21 +986,24 @@ class ServingEngine:
 
     def _admit_slot(self, req: Request, slot: int):
         L = len(req.prompt)
-        padded = self._padded(req.prompt)
         if self.pager is not None:
             ok = self.pager.ensure(slot, L)      # gated by _admit
             assert ok, "admission gate let an unallocatable prompt through"
-        self._set_slot_sampling(slot, req)
-        g = self._replicated(table=self.pager is not None)
-        pt_row = None if self.pager is None else \
-            self._pt_rows(g["table"], slot, padded.shape[1])
-        logits, _, _ = prefill_into_slot(
-            g["params"], self.cfg, padded, L, g["caches"], slot,
-            page_table=pt_row)
-        tok = self._draw_first(g["rows"], slot, logits, L)
-        keep_shards(self.caches, g["caches"], self.mesh)
-        self._put_row(self._tok, slot, tok)
-        self._put_row(self._pos, slot, L)
+        with _range("serve.prefill"):
+            padded = self._padded(req.prompt)
+            self._set_slot_sampling(slot, req)
+            g = self._replicated(table=self.pager is not None)
+            pt_row = None if self.pager is None else \
+                self._pt_rows(g["table"], slot, padded.shape[1])
+            logits, _, _ = prefill_into_slot(
+                g["params"], self.cfg, padded, L, g["caches"], slot,
+                page_table=pt_row)
+            tok = self._draw_first(g["rows"], slot, logits, L)
+            keep_shards(self.caches, g["caches"], self.mesh)
+            self._put_row(self._tok, slot, tok)
+            self._put_row(self._pos, slot, L)
+            # one tiny host read per admission (the first token id)
+            first = int(tok)
         t0 = self.vtime
         self._account_prefill(req)
         if self.tracer is not None:
@@ -985,8 +1011,7 @@ class ServingEngine:
                              tokens=L, bucket=padded.shape[1])
         self._register_prefix(req, slot, L)
         self._publish_metrics()
-        # one tiny host read per admission (the first token id)
-        self._start_stream(req, slot, int(tok), L)
+        self._start_stream(req, slot, first, L)
 
     def _admit_legacy(self, req: Request, slot: int):
         """The reference path: the unpadded prefill of the prompt into a
@@ -996,73 +1021,76 @@ class ServingEngine:
         longer than the largest bucket (a ring shorter than the prompt
         keeps its last positions)."""
         L = len(req.prompt)
-        caches = init_cache(self.cfg, 1, self.ecfg.max_len,
-                            dtype=getattr(torch, self.ecfg.cache_dtype),
-                            device=self.device)
-        self._set_slot_sampling(slot, req)
-        g = self._replicated()
-        logits, caches, _ = prefill(
-            g["params"], self.cfg,
-            self._upload(np.asarray(req.prompt, np.int64)[None]), caches)
-        for stage, one_stage in zip(g["caches"], caches):
-            for d, one in zip(stage, one_stage):
-                for name, leaf in d.items():
-                    leaf[:, slot:slot + 1] = one[name]
-        tok = self._draw_first(g["rows"], slot, logits, L)
-        keep_shards(self.caches, g["caches"], self.mesh)
-        self._put_row(self._tok, slot, tok)
-        self._put_row(self._pos, slot, L)
+        with _range("serve.prefill"):
+            caches = init_cache(self.cfg, 1, self.ecfg.max_len,
+                                dtype=getattr(torch, self.ecfg.cache_dtype),
+                                device=self.device)
+            self._set_slot_sampling(slot, req)
+            g = self._replicated()
+            logits, caches, _ = prefill(
+                g["params"], self.cfg,
+                self._upload(np.asarray(req.prompt, np.int64)[None]), caches)
+            for stage, one_stage in zip(g["caches"], caches):
+                for d, one in zip(stage, one_stage):
+                    for name, leaf in d.items():
+                        leaf[:, slot:slot + 1] = one[name]
+            tok = self._draw_first(g["rows"], slot, logits, L)
+            keep_shards(self.caches, g["caches"], self.mesh)
+            self._put_row(self._tok, slot, tok)
+            self._put_row(self._pos, slot, L)
+            first = int(tok)
         t0 = self.vtime
         self._account_prefill(req)
         if self.tracer is not None:
             self.tracer.span("prefill", req.rid, t0, self.vtime, self.name,
                              tokens=L, legacy=True)
         self._publish_metrics()
-        self._start_stream(req, slot, int(tok), L)
+        self._start_stream(req, slot, first, L)
 
     def _admit(self):
-        while self.pending and self.free_slots:
-            req = self.pending[0]
-            if max(req.arrival, req.not_before) > self.vtime + 1e-12:
-                break        # FIFO head not arrived yet; the driver jumps
-                #              the clock when fully idle
-            if self.ecfg.shed_past_deadline and req.deadline >= 0 \
-                    and self.vtime > req.deadline + 1e-12:
+        with _range("serve.admit"):
+            while self.pending and self.free_slots:
+                req = self.pending[0]
+                if max(req.arrival, req.not_before) > self.vtime + 1e-12:
+                    break        # FIFO head not arrived yet; the driver jumps
+                    #              the clock when fully idle
+                if self.ecfg.shed_past_deadline and req.deadline >= 0 \
+                        and self.vtime > req.deadline + 1e-12:
+                    self.pending.pop(0)
+                    self._mark_shed(req)
+                    continue
+                resume = bool(req.tokens)        # preempted stream: recompute
+                ctx_toks = req.prompt if not resume else np.concatenate(
+                    [req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+                need = min(len(ctx_toks), self.chunk_len)
+                if self.pager is not None and not self.pager.can_admit(need):
+                    # cached prefixes go before the FIFO head stalls
+                    if not (self._reclaim_cached()
+                            and self.pager.can_admit(need)):
+                        break                    # head-of-line: wait for pages
                 self.pending.pop(0)
-                self._mark_shed(req)
-                continue
-            resume = bool(req.tokens)        # preempted stream: recompute
-            ctx_toks = req.prompt if not resume else np.concatenate(
-                [req.prompt, np.asarray(req.tokens[:-1], np.int32)])
-            need = min(len(ctx_toks), self.chunk_len)
-            if self.pager is not None and not self.pager.can_admit(need):
-                # cached prefixes go before the FIFO head stalls
-                if not (self._reclaim_cached()
-                        and self.pager.can_admit(need)):
-                    break                    # head-of-line: wait for pages
-            self.pending.pop(0)
-            slot = self.free_slots.pop(0)
-            # longest cached prefix (after the admission gates: a lookup
-            # that cannot admit must not skew the hit/miss counters)
-            hit_pages: List[int] = []
-            hit_tok = 0
-            if self._cacheable:
-                hit_pages, hit_tok = self.prefix_cache.lookup(ctx_toks)
-            if self.tracer is not None:
-                self.tracer.span("queue", req.rid,
-                                 max(req.arrival, req.not_before),
-                                 self.vtime, self.name, slot=slot,
-                                 resume=resume)
-            if not self.ecfg.slot_native:
-                self._admit_legacy(req, slot)
-            elif hit_tok or resume or len(ctx_toks) > self.buckets[-1]:
-                if self._chunked:
-                    self._start_chunked(req, slot, ctx_toks, resume,
-                                        hit_pages, hit_tok)
-                else:
+                slot = self.free_slots.pop(0)
+                # longest cached prefix (after the admission gates: a lookup
+                # that cannot admit must not skew the hit/miss counters)
+                hit_pages: List[int] = []
+                hit_tok = 0
+                if self._cacheable:
+                    hit_pages, hit_tok = self.prefix_cache.lookup(ctx_toks)
+                if self.tracer is not None:
+                    self.tracer.span("queue", req.rid,
+                                     max(req.arrival, req.not_before),
+                                     self.vtime, self.name, slot=slot,
+                                     resume=resume)
+                if not self.ecfg.slot_native:
                     self._admit_legacy(req, slot)
-            else:
-                self._admit_slot(req, slot)
+                elif hit_tok or resume or len(ctx_toks) > self.buckets[-1]:
+                    if self._chunked:
+                        self._start_chunked(req, slot, ctx_toks, resume,
+                                            hit_pages, hit_tok)
+                    else:
+                        self._admit_legacy(req, slot)
+                else:
+                    self._admit_slot(req, slot)
 
     # -- chunked prefill, prefix sharing, preemption ---------------------------
     def _start_chunked(self, req: Request, slot: int, ctx_toks: np.ndarray,
@@ -1140,26 +1168,30 @@ class ServingEngine:
                 continue        # preempted by a later stream's growth
             chunk = cs.tokens[cs.start: cs.start + self.chunk_len]
             if self.pager is not None:
-                ok = self.pager.ensure(slot, cs.start + len(chunk))
-                while not ok and (self._reclaim_cached()
-                                  or self._preempt_for_pages(exclude=slot)):
+                with _range("serve.pages"):
                     ok = self.pager.ensure(slot, cs.start + len(chunk))
+                    while not ok and (
+                            self._reclaim_cached()
+                            or self._preempt_for_pages(exclude=slot)):
+                        ok = self.pager.ensure(slot, cs.start + len(chunk))
                 if not ok:
                     continue             # stall this chunk; retry next round
-            padded = self._padded(chunk)
-            g = self._replicated(table=self.pager is not None)
-            pt_row = None if self.pager is None else \
-                self._pt_rows(g["table"], slot, cs.start + padded.shape[1])
-            logits, _ = prefill_chunk_into_slot(
-                g["params"], self.cfg, padded, cs.start, len(chunk),
-                g["caches"], slot, page_table=pt_row)
-            # every chunk draws at its end position; only the final chunk's
-            # token survives to seed decoding (the draws touch no lane state)
-            end = cs.start + len(chunk)
-            cs.last_tok = self._draw_first(g["rows"], slot, logits, end)
-            keep_shards(self.caches, g["caches"], self.mesh)
-            self._put_row(self._tok, slot, cs.last_tok)
-            self._put_row(self._pos, slot, end)
+            with _range("serve.chunk"):
+                padded = self._padded(chunk)
+                g = self._replicated(table=self.pager is not None)
+                pt_row = None if self.pager is None else self._pt_rows(
+                    g["table"], slot, cs.start + padded.shape[1])
+                logits, _ = prefill_chunk_into_slot(
+                    g["params"], self.cfg, padded, cs.start, len(chunk),
+                    g["caches"], slot, page_table=pt_row)
+                # every chunk draws at its end position; only the final
+                # chunk's token survives to seed decoding (the draws touch
+                # no lane state)
+                end = cs.start + len(chunk)
+                cs.last_tok = self._draw_first(g["rows"], slot, logits, end)
+                keep_shards(self.caches, g["caches"], self.mesh)
+                self._put_row(self._tok, slot, cs.last_tok)
+                self._put_row(self._pos, slot, end)
             # resumed streams keep their original prefill_start/first_token
             t0 = self.vtime
             self._account_prefill_tokens(
@@ -1457,22 +1489,24 @@ class ServingEngine:
         (the in-block writes must stay inside allocated pages).  A dry pool
         reclaims cached prefixes, then shrinks ``k``, then preempts the
         youngest stream."""
-        while True:
-            ordered = sorted(self.active.items(),
-                             key=lambda kv: kv[1].order)   # oldest first
-            if all(self.pager.ensure(s, st.pos + k) for s, st in ordered):
-                return k
-            if self._reclaim_cached():
-                continue
-            if k > 1:
-                k = max(k // 2, 1)
-                continue
-            if len(self.active) + len(self.prefilling) > 1:
-                self._preempt_for_pages()
-                continue
-            raise RuntimeError(
-                "page pool exhausted: a lone stream cannot grow by one page "
-                f"({self.pager.pages_used}/{self.pager.num_pages - 1} used)")
+        with _range("serve.pages"):
+            while True:
+                ordered = sorted(self.active.items(),
+                                 key=lambda kv: kv[1].order)   # oldest first
+                if all(self.pager.ensure(s, st.pos + k) for s, st in ordered):
+                    return k
+                if self._reclaim_cached():
+                    continue
+                if k > 1:
+                    k = max(k // 2, 1)
+                    continue
+                if len(self.active) + len(self.prefilling) > 1:
+                    self._preempt_for_pages()
+                    continue
+                raise RuntimeError(
+                    "page pool exhausted: a lone stream cannot grow by one "
+                    f"page ({self.pager.pages_used}/"
+                    f"{self.pager.num_pages - 1} used)")
 
     def _run_block(self, ctx: int, kb: int, sampled: bool) -> torch.Tensor:
         """``kb`` decode steps over the caches cut to ``ctx`` positions (the
@@ -1491,13 +1525,14 @@ class ServingEngine:
         tok, pos, active = rows["tok"], rows["pos"], rows["active"]
         out = []
         for _ in range(kb):
-            logits, _ = decode_step(g["params"], self.cfg, tok[:, None],
-                                    caches, pos, page_table=pt,
-                                    active=active)
-            nxt = _sample_rows(sampled, logits, pos + 1, rows["keys"],
-                               rows["temps"], rows["topk"], rows["topp"])
-            tok = torch.where(active, nxt, tok)
-            pos = pos + active.to(torch.int32)
+            with _range("serve.decode.step"):
+                logits, _ = decode_step(g["params"], self.cfg, tok[:, None],
+                                        caches, pos, page_table=pt,
+                                        active=active)
+                nxt = _sample_rows(sampled, logits, pos + 1, rows["keys"],
+                                   rows["temps"], rows["topk"], rows["topp"])
+                tok = torch.where(active, nxt, tok)
+                pos = pos + active.to(torch.int32)
             out.append(tok)
         keep_shards(self.caches, g["caches"], self.mesh)
         self._tok, self._pos = self._row_pin(tok), self._row_pin(pos)
@@ -1509,101 +1544,105 @@ class ServingEngine:
         batch composition is fixed for the block (the caller sizes ``k`` to
         the next leave event), so the virtual-time accounting needs no
         device data."""
-        if self.pager is not None and self.active:
-            k = self._grow_for_block(k)
-        snapshot = list(self.active.items())
-        batch = len(snapshot)
-        if batch == 0:
-            return 0
-        max_pos = max(st.pos for st in self.active.values())
-        if self.prefilling:
-            # mid-prefill rows are inactive but still receive the held-pos
-            # write each step: the ctx bucket must cover their positions
-            max_pos = max(max_pos,
-                          max(cs.start for cs in self.prefilling.values()))
-        wall = self.ecfg.use_wall_clock
-        # does any *decoding* row sample?  From host metadata, no device
-        # read; a sampled stream still mid-prefill (inactive) does not count
-        sampled = bool(self._sampled_host[self._active_host].any())
-        toks_dev = []
-        durs: List[Optional[float]] = []   # per-step; None -> plant model
-        left = k
-        while left > 0:
-            # fill the current ctx bucket before stepping up to the next one
-            ctx = next((c for c in self.ctx_buckets if c > max_pos),
-                       self.ecfg.max_len)
-            room = max(ctx - max_pos, 1)
-            kb = next((b for b in self._k_blocks if b <= min(left, room)), 1)
-            t0 = time.perf_counter() if wall else 0.0
-            tk = self._run_block(ctx, kb, sampled)
-            toks_dev.append(tk)
-            if wall:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                seen = (ctx, kb) in self._warmed
-                self._warmed.add((ctx, kb))
-                dt = self._agree((time.perf_counter() - t0) / kb)
-                durs.extend([dt if seen else None] * kb)
-            else:
-                durs.extend([None] * kb)
-            max_pos += kb
-            left -= kb
-        # single drain per block: (k, B) int32
-        self._host_drains += 1
-        toks = torch.cat(toks_dev).cpu().numpy()
-        t_block = self.vtime
-        done: List[int] = []
-        block_toks: Dict[int, List[int]] = {slot: [] for slot, _ in snapshot}
-        for i in range(k):
-            ctx = float(np.mean([st.pos for st in self.active.values()
-                                 if st.slot not in done]))
-            alive = batch - len(done)
-            rids = None if self.ledger is None else \
-                [st.req.rid for slot, st in snapshot if slot not in done]
-            dur = self._account_decode_step(alive, ctx, durs[i], rids)
-            if self._m is not None:
-                # one bucketed observation per step, weighted by its rows
-                self._m["tbt"].observe(dur, alive)
-                self._obs_tbt.record_tbt(self.vtime, dur)
-            for slot, st in snapshot:
-                if slot in done:
-                    continue
-                tok = int(toks[i, slot])
-                st.req.tokens.append(tok)
-                block_toks[slot].append(tok)
-                st.pos += 1
-                st.req.tokens_emitted += 1
-                self._tbt.setdefault(st.req.rid, []).append(dur)
-                if self._finish_check(st):
-                    done.append(slot)
-                    self._obs_finish(st.req)
-                    if self.tracer is not None:
-                        self.tracer.instant(
-                            "finish", st.req.rid, self.vtime, self.name,
-                            tokens=st.req.tokens_emitted)
-        for slot, st in snapshot:       # one TokenEvent per stream per block
-            if block_toks[slot]:
-                self._emit(TokenEvent(
-                    st.req.rid, self.vtime, tuple(block_toks[slot]),
-                    len(block_toks[slot])))
-        by_slot = dict(snapshot)        # FINISHED strictly after the tokens
-        for slot in done:
-            self._emit(StateEvent(by_slot[slot].req.rid, self.vtime,
-                                  RequestState.FINISHED))
-        self._retire(done)
-        if self.pager is not None:
-            # live occupancy (cache-only pages excluded) biases the
-            # controller toward higher clocks before the pool forces
-            # preemption
-            occ = self.pager.occupancy()["occupancy_live"]
-            self._occupancy.record(self.vtime, occ)
-            self.controller.record_occupancy(self.vtime, occ)
-        if self.tracer is not None:
-            self.tracer.span("decode_block", -1, t_block, self.vtime,
-                             self.name, steps=k, batch=batch,
-                             freq_mhz=self.controller.freq)
-        self._publish_metrics()
-        return k
+        with _range("serve.decode"):
+            if self.pager is not None and self.active:
+                k = self._grow_for_block(k)
+            snapshot = list(self.active.items())
+            batch = len(snapshot)
+            if batch == 0:
+                return 0
+            max_pos = max(st.pos for st in self.active.values())
+            if self.prefilling:
+                # mid-prefill rows are inactive but still receive the held-pos
+                # write each step: the ctx bucket must cover their positions
+                max_pos = max(max_pos,
+                              max(cs.start for cs in self.prefilling.values()))
+            wall = self.ecfg.use_wall_clock
+            # does any *decoding* row sample?  From host metadata, no device
+            # read; a sampled stream still mid-prefill (inactive) does not
+            # count
+            sampled = bool(self._sampled_host[self._active_host].any())
+            toks_dev = []
+            durs: List[Optional[float]] = []   # per-step; None -> plant model
+            left = k
+            while left > 0:
+                # fill this ctx bucket before stepping up to the next one
+                ctx = next((c for c in self.ctx_buckets if c > max_pos),
+                           self.ecfg.max_len)
+                room = max(ctx - max_pos, 1)
+                kb = next((b for b in self._k_blocks
+                           if b <= min(left, room)), 1)
+                t0 = time.perf_counter() if wall else 0.0
+                tk = self._run_block(ctx, kb, sampled)
+                toks_dev.append(tk)
+                if wall:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    seen = (ctx, kb) in self._warmed
+                    self._warmed.add((ctx, kb))
+                    dt = self._agree((time.perf_counter() - t0) / kb)
+                    durs.extend([dt if seen else None] * kb)
+                else:
+                    durs.extend([None] * kb)
+                max_pos += kb
+                left -= kb
+            # single drain per block: (k, B) int32
+            self._host_drains += 1
+            toks = torch.cat(toks_dev).cpu().numpy()
+        with _range("serve.account"):
+            t_block = self.vtime
+            done: List[int] = []
+            block_toks: Dict[int, List[int]] = {
+                slot: [] for slot, _ in snapshot}
+            for i in range(k):
+                ctx = float(np.mean([st.pos for st in self.active.values()
+                                     if st.slot not in done]))
+                alive = batch - len(done)
+                rids = None if self.ledger is None else \
+                    [st.req.rid for slot, st in snapshot if slot not in done]
+                dur = self._account_decode_step(alive, ctx, durs[i], rids)
+                if self._m is not None:
+                    # one bucketed observation per step, weighted by its rows
+                    self._m["tbt"].observe(dur, alive)
+                    self._obs_tbt.record_tbt(self.vtime, dur)
+                for slot, st in snapshot:
+                    if slot in done:
+                        continue
+                    tok = int(toks[i, slot])
+                    st.req.tokens.append(tok)
+                    block_toks[slot].append(tok)
+                    st.pos += 1
+                    st.req.tokens_emitted += 1
+                    self._tbt.setdefault(st.req.rid, []).append(dur)
+                    if self._finish_check(st):
+                        done.append(slot)
+                        self._obs_finish(st.req)
+                        if self.tracer is not None:
+                            self.tracer.instant(
+                                "finish", st.req.rid, self.vtime, self.name,
+                                tokens=st.req.tokens_emitted)
+            for slot, st in snapshot:   # one TokenEvent per stream per block
+                if block_toks[slot]:
+                    self._emit(TokenEvent(
+                        st.req.rid, self.vtime, tuple(block_toks[slot]),
+                        len(block_toks[slot])))
+            by_slot = dict(snapshot)    # FINISHED strictly after the tokens
+            for slot in done:
+                self._emit(StateEvent(by_slot[slot].req.rid, self.vtime,
+                                      RequestState.FINISHED))
+            self._retire(done)
+            if self.pager is not None:
+                # live occupancy (cache-only pages excluded) biases the
+                # controller toward higher clocks before the pool forces
+                # preemption
+                occ = self.pager.occupancy()["occupancy_live"]
+                self.controller.record_occupancy(self.vtime, occ)
+            if self.tracer is not None:
+                self.tracer.span("decode_block", -1, t_block, self.vtime,
+                                 self.name, steps=k, batch=batch,
+                                 freq_mhz=self.controller.freq)
+            self._publish_metrics()
+            return k
 
     def _step_legacy(self) -> int:
         """One decode step of the legacy plane (the reference's
@@ -1672,23 +1711,24 @@ class ServingEngine:
         prefills, then decode a block of ``k`` steps (default: the horizon
         to the next guaranteed leave).  Returns the number of decode steps
         executed."""
-        self._evict_lapsed()
-        self._admit()
-        progressed = self.ecfg.slot_native and self._advance_chunks()
-        if not self.active:
-            if progressed or self._advance_idle():
+        with _range("serve.step"):
+            self._evict_lapsed()
+            self._admit()
+            progressed = self.ecfg.slot_native and self._advance_chunks()
+            if not self.active:
+                if progressed or self._advance_idle():
+                    return 0
+                if self.prefilling or self.pending:
+                    raise RuntimeError(
+                        "serving stalled: pending/prefilling streams cannot "
+                        "obtain pages or slots and nothing is decoding")
                 return 0
-            if self.prefilling or self.pending:
-                raise RuntimeError(
-                    "serving stalled: pending/prefilling streams cannot "
-                    "obtain pages or slots and nothing is decoding")
-            return 0
-        if not self.ecfg.slot_native:
-            self._step_legacy()
-            return 1
-        horizon = self._horizon()
-        return self._decode_block(max(min(k, horizon) if k is not None
-                                      else horizon, 1))
+            if not self.ecfg.slot_native:
+                self._step_legacy()
+                return 1
+            horizon = self._horizon()
+            return self._decode_block(max(min(k, horizon) if k is not None
+                                          else horizon, 1))
 
     def _horizon(self) -> int:
         """Steps until the next guaranteed stream leave, capped at
